@@ -8,18 +8,28 @@ Run from the root of a checkout on a machine with a CUDA GPU:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 (one ``nvcc`` per source, all at once), sets fp32 matmuls to full
-precision, and runs three phases, each of which raises on failure:
+precision, and runs these phases, each of which raises on failure:
 
 1. every kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (the race bitwise, the float kernels to a
+   shapes of the main paths (the race bitwise, the float kernels to a
    stated tolerance), with its time, the plain version's time, the time of
    one PyTorch call computing the same function where there is one, and
    its bound on an H100;
-2. the main path, ``repro_torch.launch.train`` at the paper's full
+2. the paper's path, ``repro_torch.launch.train`` at the paper's full
    configuration (C = 20, MLP 784-256-10, 512 samples per client, K = 5,
    tau = 10, 2 lazy clients, sigma2 = 0.01, 10240 mining attempts,
-   difficulty 4), with every kernel's launch count read around that run;
-3. the same run on the CPU (plain versions), held against the card's.
+   difficulty 4), with every kernel's launch count read around that run
+   and no host sync inside its rounds;
+2b. the topology path: the same configuration with ``--topology
+   random:0.5 --fused-mix`` (per-round link dropout, the dense mix on the
+   ``mix_rows_flat`` kernel), checked the same way;
+2c. the adversarial paths at K = 2: ``--attack alie --attackers 2
+   --robust median`` and ``--topology snr --fused-mix --attack signflip``;
+3. and 3b. the runs of phases 2 and 2b on the CPU (plain versions), held
+   against the card's; 3c. the same for ``--topology ring``, a
+   non-consensus mix that runs no custom kernel. Per-client params of the
+   non-consensus paths are held to ``CLIENT_SPREAD_LIMIT`` times the
+   tolerance, a limit a planted one-row fault is shown to break.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -48,6 +58,16 @@ K = 5
 MAIN_ARGS = ["--arch", "mlp", "--k", str(K), "--clients", "20", "--lazy", "2",
              "--sigma2", "0.01", "--t-sum", "100", "--alpha", "1",
              "--beta", "10", "--eta", "0.05", "--seed", "0"]
+# the topology path: per-round link dropout mixed by the mix_rows_flat kernel
+TOPOLOGY_ARGS = MAIN_ARGS + ["--topology", "random:0.5", "--fused-mix"]
+# a non-consensus path whose mix runs no custom kernel (phase 3c)
+RING_ARGS = MAIN_ARGS + ["--topology", "ring"]
+# the adversarial paths, at a smaller depth
+K_ADV = 2
+ADVERSARIAL_ARGS = [
+    ["--attack", "alie", "--attackers", "2", "--robust", "median"],
+    ["--topology", "snr", "--fused-mix", "--attack", "signflip"],
+]
 N_CLIENTS = 20
 LEAF_WIDTHS = {"b1": 256, "b2": 10, "w1": 784 * 256, "w2": 256 * 10}
 MINE_ATTEMPTS, MINE_CHUNK = 10240, 1024
@@ -59,6 +79,15 @@ OPS_PER_HASH = 12
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6      # mix and residuals
 LEAF_SUM_REL = 1e-5                       # |d leaf sum| <= this * sum|x|
 CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-4, 1e-5  # a whole run, card vs CPU
+# Per-client params of a path without consensus, card vs CPU: the largest
+# |diff| / (atol + rtol |cpu|) allowed. On an H100 (700 W) the topology
+# path reads 1.98 and the ring path 3.35 (the last bits of cuBLAS's and the
+# CPU's local-training GEMMs, grown along each client's own trajectory);
+# a client that takes 1 % of another's model reads 25-100.
+CLIENT_SPREAD_LIMIT = 10.0
+# the planted fault the limit is held against: client 0 adopts this share
+# of client 1's model
+PLANTED_LEAK = 0.01
 
 REPLACES = {
     "pow_race": "src/repro/kernels/pow_hash/kernel.py:128 pow_race_kernel "
@@ -66,10 +95,18 @@ REPLACES = {
     "fedavg_flat": "src/repro/kernels/fedavg/kernel.py:32 fedavg_flat",
     "digest_div_flat": "src/repro/kernels/fedavg/kernel.py:127 "
                        "digest_div_flat",
+    "mix_rows_flat": "src/repro/kernels/fedavg/kernel.py:73 mix_rows_flat",
 }
 # kernel -> the shared library (kernels/_build.py SOURCES) that holds it
 LIBRARY = {"pow_race": "pow_race", "fedavg_flat": "fedavg",
-           "digest_div_flat": "fedavg"}
+           "digest_div_flat": "fedavg", "mix_rows_flat": "fedavg"}
+# kernel -> the path whose run gives its launch count in the table
+MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
+                "digest_div_flat": "paper", "mix_rows_flat": "topology"}
+# the (R, K) blocks mix_rows_flat is held to its plain version at: the
+# main path's full W, a row block, a column block, the largest it takes
+MIX_BLOCKS = [(N_CLIENTS, N_CLIENTS), (5, N_CLIENTS), (N_CLIENTS, 5),
+              (64, 64)]
 
 
 class SmokeFailure(RuntimeError):
@@ -243,55 +280,123 @@ def phase_kernels(torch, dev):
         bound_ms=1e3 * max((4 * elems + 4 * 4 * (N_CLIENTS + 1))
                            / PEAK_BYTES_S, 4 * elems / PEAK_ALU_OPS_S),
         bound_by="bytes")
+
+    # --- mix_rows_flat at each leaf width and block shape -----------------
+    mix_err = 0.0
+    for name, n in LEAF_WIDTHS.items():
+        for r, k in MIX_BLOCKS:
+            x = torch.randn((k, n), generator=gen).to(dev)
+            w = torch.rand((r, k), generator=gen) + 0.1
+            w = (w / w.sum(dim=1, keepdim=True)).to(dev)
+            got = fedavg_ops.mix_rows_flat(w, x)
+            want = fedavg_ref.mix_rows_flat_ref(w, x)
+            err = (got - want).abs()
+            mix_err = max(mix_err, float(err.max()))
+            require(bool((err <= FLOAT_ATOL + FLOAT_RTOL
+                          * want.abs()).all()),
+                    f"mix_rows_flat off tolerance on leaf {name} at "
+                    f"R={r} K={k}")
+            require(torch.equal(got, want),
+                    f"mix_rows_flat not bitwise equal to its plain version "
+                    f"on leaf {name} at R={r} K={k}")
+    w_full = torch.rand((N_CLIENTS, N_CLIENTS), generator=gen) + 0.1
+    w_full = (w_full / w_full.sum(dim=1, keepdim=True)).to(dev)
+    dense = per_round(lambda x: fedavg_ops.mix_rows_flat(w_full, x))
+    report["mix_rows_flat"] = dict(
+        max_abs_err=mix_err,
+        ms=kernel_ms(torch, dense), call_ms=time_ms(torch, dense),
+        plain_ms=kernel_ms(torch, per_round(
+            lambda x: fedavg_ref.mix_rows_flat_ref(w_full, x))),
+        # one PyTorch call, same function
+        library_ms=kernel_ms(torch, per_round(lambda x: torch.mm(w_full, x))),
+        # each leaf read once and written once, W read once per call
+        bound_ms=1e3 * max((8 * elems + 4 * len(LEAF_WIDTHS) * N_CLIENTS ** 2)
+                           / PEAK_BYTES_S,
+                           2 * N_CLIENTS * elems / PEAK_ALU_OPS_S),
+        bound_by="bytes")
     print(f"phase 1 ok: pow_race bitwise on {len(cases) * len(offsets)} "
           f"budgets; largest deviation fedavg_flat {fed_err:.3g} "
           f"(rtol {FLOAT_RTOL}, atol {FLOAT_ATOL}), digest_div_flat "
           f"{dig_err:.3g} (leaf sum {LEAF_SUM_REL} of sum|x|, residuals "
-          f"rtol {FLOAT_RTOL})", flush=True)
+          f"rtol {FLOAT_RTOL}), mix_rows_flat {mix_err:.3g} at (R, K) in "
+          f"{MIX_BLOCKS} (rtol {FLOAT_RTOL}, atol {FLOAT_ATOL}, and "
+          f"bitwise)", flush=True)
     return report
 
 
-def phase_main_path(torch, dev):
-    """Phase 2: the paper's run on the card, through the kernels."""
+def drive_path(torch, dev, flags, want, what, falling=True):
+    """Run ``launch.train`` with ``flags`` on the card, the launch counts
+    set to 0 just before and read just after; check them against ``want``,
+    the ledger, finite metrics and (``falling``) a falling global loss.
+    Returns (args, result, state, history, launches)."""
     from repro_torch import kernels
     from repro_torch.launch import train
 
-    args = train.build_parser().parse_args(MAIN_ARGS + ["--device", str(dev)])
+    args = train.build_parser().parse_args(flags + ["--device", str(dev)])
     kernels.reset_launch_counts()
     result, state, hist = train.train_mlp(args)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    want = {"pow_race": K, "fedavg_flat": 4 * K, "digest_div_flat": 4 * K}
     require(launches == want,
-            f"launch counts {launches} on the main path, expected {want}")
-    require(result["chain_valid"] and result["blocks"] == K,
-            f"ledger not valid: {result}")
-    require(result["tau"] == 10, f"tau {result['tau']} != 10")
+            f"launch counts {launches} on the {what}, expected {want}")
+    require(result["chain_valid"] and result["blocks"] == args.k,
+            f"ledger not valid on the {what}: {result}")
     for h in hist:
         require(all(math.isfinite(h[k]) for k in
                     ("local_loss_mean", "global_loss", "divergence")),
-                f"non-finite metrics {h}")
-    require(hist[-1]["global_loss"] < hist[0]["global_loss"],
-            "global loss did not fall: "
+                f"non-finite metrics on the {what}: {h}")
+    require(not falling or hist[-1]["global_loss"] < hist[0]["global_loss"],
+            f"global loss did not fall on the {what}: "
             f"{[h['global_loss'] for h in hist]}")
     require(all(math.isfinite(v.float().abs().sum().item())
-                for v in state.params.values()), "non-finite params")
+                for v in state.params.values()),
+            f"non-finite params on the {what}")
+    return args, result, state, hist, launches
+
+
+def phase_main_path(torch, dev, flags, want, what, label):
+    """Phases 2 and 2b: a full-width path on the card, through its
+    kernels, with no host sync inside its rounds."""
+    args, result, state, hist, launches = drive_path(torch, dev, flags, want,
+                                                     what)
+    require(result["tau"] == 10, f"tau {result['tau']} != 10")
     syncs = round_host_syncs(torch, args)
-    require(not syncs, f"{len(syncs)} host syncs inside the rounds: "
-                       f"{syncs[:3]}")
-    print("phase 2 ok: " + json.dumps(
-        {"launches": launches, "global_loss": [h["global_loss"]
-                                               for h in hist],
+    require(not syncs, f"{len(syncs)} host syncs inside the rounds of the "
+                       f"{what}: {syncs[:3]}")
+    print(f"phase {label} ok: " + json.dumps(
+        {"path": what, "launches": launches, "dispatch": result["dispatch"],
+         "global_loss": [h["global_loss"] for h in hist],
          "final_eval_acc": result["final_eval_acc"],
+         "ergodic_gap": result["ergodic_gap"],
          "host_syncs_in_rounds": len(syncs),
          "wall_s_first_run": result["wall_s"]}), flush=True)
     return args, result, state, hist, launches
 
 
+def phase_adversarial(torch, dev):
+    """Phase 2c: the adversarial paths at K = 2, on the card. An attack may
+    keep the loss from falling, so only the ledger, the launch counts and
+    finite metrics are required."""
+    base = MAIN_ARGS + ["--k", str(K_ADV)]   # the last --k wins
+    for extra in ADVERSARIAL_ARGS:
+        fused = "--fused-mix" in extra
+        want = {"pow_race": K_ADV, "fedavg_flat": 0,
+                "mix_rows_flat": 4 * K_ADV if fused else 0,
+                "digest_div_flat": 4 * K_ADV}
+        what = "path " + " ".join(extra)
+        _, result, _, hist, launches = drive_path(torch, dev, base + extra,
+                                                  want, what, falling=False)
+        print("phase 2c ok: " + json.dumps(
+            {"path": what, "launches": launches,
+             "dispatch": result["dispatch"],
+             "global_loss": [h["global_loss"] for h in hist]}), flush=True)
+
+
 def round_host_syncs(torch, args):
-    """Run the main path's K rounds (no end-of-run transfer) with CUDA's
-    sync debug mode on and return the warnings of the host syncs they make.
-    The design makes none: the carry, the metrics and every input of the
+    """Run the K rounds of the path ``args`` selects (no end-of-run
+    transfer) with CUDA's sync debug mode on and return the warnings of the
+    host syncs they make. The design makes none: the carry, the metrics,
+    the mixing matrices (uploaded before the loop) and every input of the
     race stay on the device."""
     import warnings
 
@@ -300,19 +405,21 @@ def round_host_syncs(torch, args):
     from repro_torch.models.mlp import mlp_client_losses
 
     blade, spec, src, params, dev = train.prepare_mlp(args)
+    table = rounds.mix_matrices(spec, blade.K, blade.seed + 2, dev)
     state = rounds.init_state({k: v.to(dev) for k, v in params.items()},
                               spec.n_clients,
                               torch.Generator().manual_seed(blade.seed + 2))
     round_fn = rounds.make_integrated_round(mlp_client_losses, spec,
-                                            n_rounds=blade.K)
+                                            n_rounds=blade.K, device=dev)
     batch = src.static_batch()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for _ in range(blade.K):
-                state, _ = round_fn(state, batch)
+            for k in range(blade.K):
+                matrix = None if table is None else table[k % len(table)]
+                state, _ = round_fn(state, batch, matrix)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -320,11 +427,12 @@ def round_host_syncs(torch, args):
             if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def round_ms(torch, args, profile_dir):
-    """ms per round of a warm run of the main path: the trainer's host-clock
+def round_ms(torch, args, profile_dir, tag):
+    """ms per round of a warm run of a path: the trainer's host-clock
     ``wall_s`` (K rounds ending in the one host transfer, the ledger and
     the final eval) over K. With ``profile_dir``, also profile the K-round
-    loop alone and report the device's busy share of it."""
+    loop alone into ``profile_rounds_<tag>.txt`` and report the device's
+    busy share of it."""
     from repro_torch.core import rounds
     from repro_torch.launch import train
     from repro_torch.models.mlp import mlp_client_losses
@@ -344,50 +452,91 @@ def round_ms(torch, args, profile_dir):
             wall_ms = 1e3 * (time.perf_counter() - t0)
         busy_ms = device_us(torch, p) / 1e3
         os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, "profile_rounds.txt")
+        path = os.path.join(profile_dir, f"profile_rounds_{tag}.txt")
         with open(path, "w") as f:
             for key in ("cuda_time_total", "cpu_time_total"):
                 f.write(p.key_averages().table(sort_by=key, row_limit=40))
                 f.write("\n")
-        print(f"profile: K = {blade.K} rounds in {wall_ms:.3f} ms (host "
+        print(f"profile {tag}: K = {blade.K} rounds in {wall_ms:.3f} ms (host "
               f"clock, under the profiler); device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f} %); tables in "
               f"{path}", flush=True)
     return 1e3 * result["wall_s"] / K
 
 
-def phase_card_vs_cpu(torch, args, state, hist):
-    """Phase 3: the same run on the CPU (plain versions) against the
-    card's."""
+def phase_card_vs_cpu(torch, args, result, state, hist, label,
+                      consensus):
+    """Phases 3, 3b and 3c: the same run on the CPU (plain versions, the
+    same draws of the lazy noise and of W) against the card's: every
+    per-round metric, the aggregate model the trainer evaluates and its
+    eval loss within rtol CARD_CPU_RTOL / atol CARD_CPU_ATOL; every
+    client's final params within that tolerance on a ``consensus`` path,
+    else within CLIENT_SPREAD_LIMIT times it.
+
+    Without consensus (phases 3b and 3c) every client keeps its own
+    trajectory and the last-bit differences of the local-training GEMMs
+    (cuBLAS against the CPU's) grow along it, while the metrics, the
+    aggregate and the eval loss stay inside the tolerance.
+    ``mix_rows_flat`` is held bitwise to its plain version in phase 1, so
+    the kernel adds nothing to that spread. The wider limit still sees a
+    fault in one client's row: the phase checks that the CPU's params with
+    a planted PLANTED_LEAK of client 1's model in client 0 break it."""
+    from repro_torch.core import aggregation
     from repro_torch.launch import train
 
     cpu_args = argparse.Namespace(**{**vars(args), "device": "cpu"})
-    _, cpu_state, cpu_hist = train.train_mlp(cpu_args)
-    worst = 0.0
-    for k, (a, b) in enumerate(zip(hist, cpu_hist)):
-        for key in ("local_loss_mean", "global_loss", "divergence"):
-            dev_ = abs(a[key] - b[key])
-            worst = max(worst, dev_ / (CARD_CPU_ATOL + CARD_CPU_RTOL
-                                       * abs(b[key])))
-            require(dev_ <= CARD_CPU_ATOL + CARD_CPU_RTOL * abs(b[key]),
-                    f"round {k} {key}: card {a[key]} vs cpu {b[key]}")
-    for name, v in state.params.items():
-        a, b = v.cpu(), cpu_state.params[name]
-        excess = ((a - b).abs() / (CARD_CPU_ATOL + CARD_CPU_RTOL * b.abs()))
-        worst = max(worst, float(excess.max()))
-        require(bool((excess <= 1).all()),
-                f"final {name} differs between card and cpu beyond "
-                f"rtol {CARD_CPU_RTOL} atol {CARD_CPU_ATOL}")
-    print(f"phase 3 ok: card vs cpu over {K} rounds within rtol "
-          f"{CARD_CPU_RTOL} atol {CARD_CPU_ATOL}; worst |diff|/tol "
-          f"{worst:.3g}", flush=True)
+    cpu_result, cpu_state, cpu_hist = train.train_mlp(cpu_args)
+
+    def ratio(a, b):   # |a - b| over the tolerance at b; <= 1 passes
+        a = torch.as_tensor(a, dtype=torch.float64).cpu()
+        b = torch.as_tensor(b, dtype=torch.float64)
+        return float(((a - b).abs() / (CARD_CPU_ATOL + CARD_CPU_RTOL
+                                       * b.abs())).max())
+
+    gated = {key: max(ratio(a[key], b[key]) for a, b in zip(hist, cpu_hist))
+             for key in ("local_loss_mean", "global_loss", "divergence")}
+    gated["final_eval_loss"] = ratio(result["final_eval_loss"],
+                                     cpu_result["final_eval_loss"])
+    agg = aggregation.aggregate_once(state.params)
+    cpu_agg = aggregation.aggregate_once(cpu_state.params)
+    for name, v in agg.items():
+        gated[f"aggregate {name}"] = ratio(v, cpu_agg[name])
+    limit = 1.0 if consensus else CLIENT_SPREAD_LIMIT
+    clients = {f"client {name}": ratio(v, cpu_state.params[name])
+               for name, v in state.params.items()}
+    # on a consensus path every client holds the same model, so a leak
+    # between two of them changes nothing: the control is for the others
+    planted = {}
+    for name, v in cpu_state.params.items():
+        faulty = v.clone()
+        faulty[0] = (1 - PLANTED_LEAK) * v[0] + PLANTED_LEAK * v[1]
+        planted[f"client {name}"] = 0.0 if consensus else ratio(faulty, v)
+    print(f"phase {label}: card vs cpu, worst |diff| / (atol + rtol |cpu|): "
+          f"{json.dumps(gated)}; per-client params (limit {limit}): "
+          f"{json.dumps(clients)}; planted fault (limit {limit}): "
+          f"{json.dumps(planted)}", flush=True)
+    bad = sorted(k for k, r in gated.items() if not r <= 1)
+    bad += sorted(k for k, r in clients.items() if not r <= limit)
+    require(not bad, f"{bad} differ between card and cpu beyond rtol "
+                     f"{CARD_CPU_RTOL} atol {CARD_CPU_ATOL} (per-client "
+                     f"params: {limit} times that)")
+    require(consensus or max(planted.values()) > limit,
+            f"a planted {PLANTED_LEAK} leak between two clients stays "
+            f"inside the per-client limit {limit}: {planted}")
+    print(f"phase {label} ok: card vs cpu over {args.k} rounds within rtol "
+          f"{CARD_CPU_RTOL} atol {CARD_CPU_ATOL}, worst |diff|/tol "
+          f"{max(gated.values()):.3g}; per-client params worst "
+          f"{max(clients.values()):.3g} (limit {limit})"
+          + ("" if consensus else ", a planted fault "
+             f"{max(planted.values()):.3g}"), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one warm run of the main path's "
-                         "rounds and write the tables into DIR")
+                    help="also profile one warm run of the rounds of the "
+                         "paper's and the topology path and write the "
+                         "tables into DIR")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -415,17 +564,43 @@ def main(argv=None) -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     report = phase_kernels(torch, dev)
-    args, result, state, hist, launches = phase_main_path(torch, dev)
-    ms_round = round_ms(torch, args, opts.profile)
-    print(f"round time: {ms_round:.3f} ms per round (host clock, warm run "
-          f"of K = {K} at C = {N_CLIENTS})", flush=True)
-    phase_card_vs_cpu(torch, args, state, hist)
+    paper = {"pow_race": K, "fedavg_flat": 4 * K, "mix_rows_flat": 0,
+             "digest_div_flat": 4 * K}
+    args, result, state, hist, launches = phase_main_path(
+        torch, dev, MAIN_ARGS, paper, "paper's path", "2")
+    topo = {"pow_race": K, "fedavg_flat": 0, "mix_rows_flat": 4 * K,
+            "digest_div_flat": 4 * K}
+    targs, tresult, tstate, thist, tlaunches = phase_main_path(
+        torch, dev, TOPOLOGY_ARGS, topo, "topology path", "2b")
+    require(tresult["dispatch"]["mix_mode"] == "exec_gather"
+            and tresult["dispatch"]["pow"] == "kernel",
+            f"topology path dispatch {tresult['dispatch']}")
+    phase_adversarial(torch, dev)
+    for tag, a in (("paper", args), ("topology", targs)):
+        ms_round = round_ms(torch, a, opts.profile, tag)
+        print(f"round time, {tag} path: {ms_round:.3f} ms per round (host "
+              f"clock, warm run of K = {K} at C = {N_CLIENTS})", flush=True)
+    phase_card_vs_cpu(torch, args, result, state, hist, "3", consensus=True)
+    phase_card_vs_cpu(torch, targs, tresult, tstate, thist, "3b",
+                      consensus=False)
+    # the same comparison for a mix with no custom kernel (bitwise equal
+    # rolls on both devices): its per-client spread is the GEMMs' alone
+    rargs, rresult, rstate, rhist, _ = drive_path(
+        torch, dev, RING_ARGS, {"pow_race": K, "fedavg_flat": 0,
+                                "mix_rows_flat": 0, "digest_div_flat": 4 * K},
+        "ring path")
+    phase_card_vs_cpu(torch, rargs, rresult, rstate, rhist, "3c",
+                      consensus=False)
 
+    by_path = {"paper": launches, "topology": tlaunches}
     table = [{"name": name, "route": "cuda",
               "source": os.path.relpath(_build.SOURCES[LIBRARY[name]], ROOT),
-              "replaces": REPLACES[name], "launches": launches[name],
+              "replaces": REPLACES[name],
+              "launches": by_path[MAIN_PATH_OF[name]][name],
+              "launches_by_path": {p: c[name] for p, c in by_path.items()},
               **report[name]} for name in ("pow_race", "fedavg_flat",
-                                           "digest_div_flat")]
+                                           "digest_div_flat",
+                                           "mix_rows_flat")]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

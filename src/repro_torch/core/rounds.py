@@ -8,26 +8,31 @@ One integrated round =
   Step 4  block validation: the winner's block is hash-linked
   Step 5  local updating: every client adopts the aggregate
 
-The round is composed of five stages, each built once per ``RoundSpec`` by
+The round is composed of six stages, each built once per ``RoundSpec`` by
 its ``make_*`` factory, as in the JAX package:
 
   ``local_train``   Step 1: tau GD iterations per client, all clients at
                     once (``bmm`` over the client axis)
   ``perturb``       Step 1 (lazy, eq. 7) + §6 DP noise on the broadcast set
+  ``attack``        the Byzantine clients' broadcasts (``core/attacks.py``)
   ``communicate``   Steps 2+5: digest and divergence in one sweep of the
-                    broadcast set, then the FedAvg mix (FullMesh)
+                    broadcast set, optional lazy detection, then the mix
+                    that ``topology.resolve_mix_plan`` picks
   ``mine``          Steps 3+4: PoW race over the client axis + hash link
   ``finalize``      global-loss eval and the next carry
 
-On a GPU the three hot spots run hand-written CUDA kernels: the race
-(``kernels/pow_hash``), the mix and the digest/divergence sweep
-(``kernels/fedavg``). The digest is in the tolerance tier, like the JAX
-package's ``fused_mix``: its leaf sums are associated differently from
-``mining.digest_tree``, so the ledger forks deterministically from the JAX
-chain while both chains validate. Params and losses do not depend on the
-mining outcome, so they stay comparable to the reference.
+On a GPU the hot spots run hand-written CUDA kernels: the race
+(``kernels/pow_hash``), the FedAvg mix, the dense ``fused_mix`` mix and the
+digest/divergence sweep (``kernels/fedavg``). The port has one diagnostic
+tier, the tolerance one (the JAX package's ``fused_mix`` tier): every path
+takes the digest and divergence from the ``digest_div_flat`` sweep, whose
+leaf sums are associated differently from ``mining.digest_tree``, so the
+ledger forks deterministically from the JAX chain while both chains
+validate. Params and losses do not depend on the mining outcome, so they
+stay comparable to the reference.
 
-``run_blade_fl`` drives K rounds in a Python loop. The carry and every
+``run_blade_fl`` drives K rounds in a Python loop. The mixing matrices the
+run needs are built before the loop and uploaded once; the carry and every
 metric stay on the device; the run makes one host transfer at the end and
 then rebuilds and validates the ledger (``chain.ledger_from_scan``).
 """
@@ -39,8 +44,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, chain, dp as dp_lib, \
-    lazy as lazy_lib, mining
+from repro_torch.core import aggregation, attacks as attacks_lib, chain, \
+    detection, dp as dp_lib, lazy as lazy_lib, mining, \
+    topology as topology_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.pow_hash import ops as pow_ops
@@ -52,8 +58,8 @@ LossFn = Callable[[Tree, Tree], torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class RoundSpec:
-    """Static configuration of one integrated round (the paper-path fields
-    of the JAX package's ``RoundSpec``)."""
+    """Static configuration of one integrated round (the single-device
+    fields of the JAX package's ``RoundSpec``)."""
     n_clients: int
     tau: int                    # local GD iterations (eq. 3)
     eta: float                  # learning rate
@@ -68,6 +74,25 @@ class RoundSpec:
     eval_every: int = 1
     # nonce tile of one CUDA block of the race; results do not depend on it
     mine_chunk: int = 1024
+    # Steps 2+5 communication pattern (core/topology.py); FullMesh is the
+    # paper's and runs the FedAvg kernel
+    topology: topology_lib.Topology = topology_lib.FullMesh()
+    # |D_i| data sizes (length n_clients): W'[i, j] ∝ W[i, j] * w[j]
+    data_weights: Optional[Tuple[float, ...]] = None
+    # flag near-duplicate broadcasts before the mix (core/detection.py);
+    # adds n_suspects to the metrics
+    detect_lazy: bool = False
+    detect_threshold: float = 0.2
+    # dense mixes (EXEC_GATHER) contract through the mix_rows_flat kernel
+    # instead of torch.matmul
+    fused_mix: bool = False
+    # segment mix: None auto (degree * 8 <= C), True forced, False never
+    sparse_mix: Optional[bool] = None
+    # Byzantine attack on the pre-broadcast params (core/attacks.py)
+    attack: Optional[attacks_lib.Attack] = None
+    # robust consensus instead of the linear mix: median | trimmed[:t] |
+    # geomed[:iters] (topology.parse_robust); None / "mean" keep the mix
+    robust_agg: Optional[str] = None
 
 
 class RoundState(NamedTuple):
@@ -134,18 +159,131 @@ def make_perturb(spec: RoundSpec):
     return perturb
 
 
-def make_communicate(spec: RoundSpec):
-    """Steps 2+5 stage factory (FullMesh): ``communicate(params) ->
-    (mixed_params, digest, divergence)``.
+def make_attack(spec: RoundSpec):
+    """Byzantine attack stage factory, composed right after ``perturb``:
+    ``attack(params, generator, noise=None) -> params`` replaces the first
+    ``spec.attack.n_attackers`` broadcasts. ``ScaledNoise`` draws from
+    ``generator`` (the run's, after the round's lazy and DP draws) unless
+    ``noise`` is given. ``spec.attack=None`` (or zero attackers) is the
+    identity."""
+    atk = spec.attack
+    active = atk is not None and atk.active
+    if active:
+        atk._validate(spec.n_clients)
+
+    def attack(params, generator, noise=None):
+        if not active:
+            return params
+        return atk.apply(params, spec.n_clients, generator, noise)
+
+    return attack
+
+
+def mix_matrices(spec: RoundSpec, n_rounds: int, seed: int = 0,
+                 device: DeviceLike = "cuda", topology_matrices=None
+                 ) -> Optional[torch.Tensor]:
+    """The ``[M, C, C]`` mixing matrices a run's communicate stage reads,
+    on ``device``; round ``k`` mixes with ``table[k % M]``. None when the
+    resolved plan needs no matrix.
+
+    The table is ``topology.round_table`` of the run: the phase table of a
+    deterministic topology (M = P for a schedule, 1 otherwise), or
+    ``n_rounds`` draws from the seed's ``topology.topology_generator``.
+    ``topology_matrices`` (``[M, C, C]``: the caller's own table, or the
+    JAX package's ``[K, C, C]`` draws; a stochastic topology needs one
+    matrix per round, M = K) replaces it. Built once before the loop: a
+    per-round upload from pageable memory would be a host sync."""
+    if not topology_lib.resolve_mix_plan(spec).needs_matrix:
+        return None
+    c = spec.n_clients
+    if topology_matrices is not None:
+        table = np.asarray(topology_matrices, np.float32)
+        m = int(n_rounds) if spec.topology.stochastic else "M"
+        if table.ndim != 3 or table.shape[1:] != (c, c) or not len(table) \
+                or m not in ("M", len(table)):
+            raise ValueError(f"topology_matrices of shape {table.shape}, "
+                             f"expected [{m}, {c}, {c}]")
+    else:
+        table = topology_lib.round_table(
+            spec.topology, c, n_rounds,
+            topology_lib.topology_generator(seed))
+    return torch.from_numpy(np.ascontiguousarray(table)).to(
+        resolve_device(device))
+
+
+def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda"):
+    """Steps 2+5 stage factory: ``communicate(params, prev_params,
+    round_idx, matrix=None) -> (mixed_params, digest, divergence, extra)``.
 
     One sweep of each leaf of the broadcast set gives the header digest and
-    the pre-mix client divergence (Def. 1); then every client adopts the
-    client mean (FedAvg). Both run CUDA kernels on GPU tensors."""
+    the pre-mix client divergence (Def. 1). With ``spec.detect_lazy`` the
+    detector compares the broadcasts with ``prev_params`` (the round's
+    starting models) and ``extra`` gets ``n_suspects``. Then the mix runs
+    the executor of the ``MixPlan`` that one ``topology.resolve_mix_plan``
+    call picks; this factory holds no lowering logic of its own, so
+    ``dispatch_plan``'s report and the executed mix cannot drift.
+    ``matrix`` is the round's ``W`` on the device (``mix_matrices``), read
+    only by ``EXEC_GATHER``. The plan's weights and edge lists go to
+    ``device`` once, here."""
+    plan = topology_lib.resolve_mix_plan(spec)
+    mode = plan.mode
+    dev = resolve_device(device)
+    weights = (torch.from_numpy(plan.weights).to(dev)
+               if plan.weights is not None else None)
+    seg_idx = seg_w = None
+    if plan.sparse is not None:
+        seg_idx = torch.from_numpy(plan.sparse.neighbor_idx).to(
+            dev, torch.int64)
+        seg_w = torch.from_numpy(plan.sparse.edge_w).to(dev)
+    # detect_lazy's sketch projection, drawn once per model width
+    projections: Dict[int, torch.Tensor] = {}
 
-    def communicate(params):
+    def projection(params):
+        width = sum(v[0].numel() for v in params.values())
+        if width not in projections:
+            projections[width] = detection.sketch_projection(
+                width, device=dev)
+        return projections[width]
+
+    def communicate(params, prev_params, round_idx, matrix=None):
         digest, divergence = fedavg_ops.digest_divergence_tree(params)
-        return aggregation.fedavg(params), digest, divergence
+        extra = {}
+        if spec.detect_lazy:
+            suspects, _ = detection.detect_lazy_round(
+                params, prev_params, projection(params),
+                threshold_frac=spec.detect_threshold)
+            extra["n_suspects"] = suspects.sum().to(torch.int32)
+        if mode == topology_lib.EXEC_FEDAVG:
+            params = aggregation.mix_all_reduce(params, weights)
+        elif mode == topology_lib.EXEC_SEGMENT:
+            params = aggregation.mix_segment(params, seg_idx, seg_w)
+        elif mode == topology_lib.EXEC_SHIFT_TABLE:
+            params = aggregation.mix_rolls(
+                params, plan.offsets_table[round_idx % plan.period],
+                plan.weight)
+        elif mode == topology_lib.EXEC_CLUSTER:
+            params = aggregation.mix_cluster(params, plan.n_clusters,
+                                             plan.inter_weight)
+        elif mode == topology_lib.EXEC_HALO:
+            params = aggregation.mix_rolls(params, plan.offsets, plan.weight)
+        elif mode == topology_lib.EXEC_MEDIAN:
+            params = aggregation.robust_median(params)
+        elif mode == topology_lib.EXEC_TRIMMED:
+            params = aggregation.robust_trimmed(params, plan.trim)
+        elif mode == topology_lib.EXEC_GEOMED:
+            params = aggregation.robust_geomedian(params, plan.robust_iters)
+        elif mode == topology_lib.EXEC_GATHER:
+            if matrix is None:
+                raise ValueError("the gather mix needs the round's mixing "
+                                 "matrix (rounds.mix_matrices)")
+            params = aggregation.mix_gather(params, matrix, weights,
+                                            use_kernel=plan.use_kernel)
+        else:
+            raise ValueError(f"mix mode {mode!r} has no single-device "
+                             "executor")
+        return params, digest, divergence, extra
 
+    communicate.plan = plan
     return communicate
 
 
@@ -212,28 +350,59 @@ def make_finalize(loss_fn: LossFn, spec: RoundSpec,
 
 
 def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
-                          n_rounds: Optional[int] = None):
-    """Build the round: ``(RoundState, batch) -> (RoundState, metrics)``.
+                          n_rounds: Optional[int] = None,
+                          device: DeviceLike = "cuda"):
+    """Build the round: ``(RoundState, batch, matrix=None) -> (RoundState,
+    metrics)``.
 
-    ``batch`` leaves have a leading client axis [C, local_batch, ...]. The
-    round is the composition of the stage factories above."""
+    ``batch`` leaves have a leading client axis [C, local_batch, ...];
+    ``matrix`` is the round's mixing matrix on the device, for the plans
+    that read one (``mix_matrices``). The round is the composition of the
+    stage factories above; ``device`` is where the communicate stage keeps
+    its constants."""
     local_train = make_local_train(loss_fn, spec)
     perturb = make_perturb(spec)
-    communicate = make_communicate(spec)
+    attack = make_attack(spec)
+    communicate = make_communicate(spec, device)
     mine = make_mine(spec)
     finalize = make_finalize(loss_fn, spec, n_rounds)
 
-    def round_fn(state: RoundState, batch) -> Tuple[RoundState, Tree]:
+    def round_fn(state: RoundState, batch,
+                 matrix: Optional[torch.Tensor] = None
+                 ) -> Tuple[RoundState, Tree]:
         params, local_losses = local_train(state.params, batch)
         params = perturb(params, state.generator)
-        params, digest, divergence = communicate(params)
+        params = attack(params, state.generator)
+        params, digest, divergence, extra = communicate(
+            params, state.params, state.round_idx, matrix)
         mine_metrics, new_hash = mine(state.prev_hash, digest,
                                       state.round_idx)
         metrics = {"local_loss": local_losses, **mine_metrics,
-                   "digest": digest, "divergence": divergence}
+                   "digest": digest, "divergence": divergence, **extra}
         return finalize(state, params, new_hash, batch, metrics)
 
     return round_fn
+
+
+# The last decision run_blade_fl took (driver / pow / mix / mix_mode /
+# reason), as in the JAX package, so a caller can report the path it ran.
+LAST_DISPATCH: Dict[str, str] = {}
+
+
+def dispatch_plan(spec: RoundSpec, device: DeviceLike = "cuda"
+                  ) -> Dict[str, str]:
+    """The paths a run of ``spec`` on ``device`` takes, with the JAX
+    package's keys: ``driver`` is always ``"loop"`` (the port has no scan
+    engine); ``pow`` is ``"kernel"`` when the race runs on the card, else
+    ``"plain"`` (its plain version, on the CPU); ``mix`` and ``mix_mode``
+    are the resolved ``MixPlan``'s tier and executor, from the same
+    ``topology.resolve_mix_plan`` call ``make_communicate`` makes."""
+    on_card = torch.device(device).type == "cuda"
+    plan = topology_lib.resolve_mix_plan(spec)
+    return {"driver": "loop", "reason": "the port drives the rounds in a "
+                                        "Python loop",
+            "pow": "kernel" if on_card else "plain",
+            "mix": plan.mix, "mix_mode": plan.mode}
 
 
 def metrics_to_host(rows: List[Tree]) -> Dict[str, np.ndarray]:
@@ -258,28 +427,38 @@ def metrics_to_host(rows: List[Tree]) -> Dict[str, np.ndarray]:
 def run_blade_fl(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
                  batch: Tree, n_rounds: int, *, seed: int = 0,
                  device: DeviceLike = "cuda",
-                 ledger: Optional[chain.Ledger] = None):
+                 ledger: Optional[chain.Ledger] = None,
+                 topology_matrices=None):
     """Run K integrated rounds; returns (final RoundState, history, ledger).
 
     ``params_single`` (one model) and ``batch`` (``[C, m, ...]``, reused
     every round: full-batch GD) are moved to ``device``, which defaults to
     the GPU and raises when there is none; pass ``device="cpu"`` to run the
     plain versions of the kernels on the CPU. ``seed`` seeds the CPU
-    generator of the lazy / DP draws. Each history entry holds the round's
-    mining fields, ``digest``, ``divergence``, ``local_loss_mean`` and
-    ``global_loss`` as floats, reduced on the host as in the JAX
-    package."""
+    generator of the lazy / DP / attack draws and, salted, the topology
+    stream; ``topology_matrices`` (``[M, C, C]``, round ``k`` mixing with
+    ``[k % M]``) replaces the topology's own matrices (the trainer passes
+    the table it reports on; tests inject the JAX package's draws). Each history entry
+    holds the round's mining fields, ``digest``, ``divergence``,
+    ``local_loss_mean``, ``global_loss`` (and ``n_suspects`` under
+    ``detect_lazy``) as floats, reduced on the host as in the JAX package.
+    The paths taken are recorded in :data:`LAST_DISPATCH`."""
     if int(n_rounds) < 1:
         raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
     dev = resolve_device(device)
+    LAST_DISPATCH.clear()
+    LAST_DISPATCH.update(dispatch_plan(spec, dev))
     params_single = {k: v.to(dev) for k, v in params_single.items()}
     batch = {k: v.to(dev) for k, v in batch.items()}
+    table = mix_matrices(spec, n_rounds, seed, dev, topology_matrices)
     generator = torch.Generator(device="cpu").manual_seed(int(seed))
     state = init_state(params_single, spec.n_clients, generator)
-    round_fn = make_integrated_round(loss_fn, spec, n_rounds=int(n_rounds))
+    round_fn = make_integrated_round(loss_fn, spec, n_rounds=int(n_rounds),
+                                     device=dev)
     rows = []
-    for _ in range(int(n_rounds)):
-        state, metrics = round_fn(state, batch)
+    for k in range(int(n_rounds)):
+        matrix = None if table is None else table[k % table.shape[0]]
+        state, metrics = round_fn(state, batch, matrix)
         rows.append(metrics)
     host = metrics_to_host(rows)   # the one host transfer
     glosses = host.pop("global_loss", None)

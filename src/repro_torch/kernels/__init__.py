@@ -15,6 +15,7 @@ from repro_torch.kernels.pow_hash import ops as pow_ops
 WRAPPERS = {
     "pow_race": pow_ops.pow_race_flat,
     "fedavg_flat": fedavg_ops.fedavg_flat,
+    "mix_rows_flat": fedavg_ops.mix_rows_flat,
     "digest_div_flat": fedavg_ops.digest_div_flat,
 }
 

@@ -26,12 +26,34 @@
 //   block reduces the partials in a fixed order. Every reduction is a fixed
 //   tree (warp shuffles, then one warp), so the result is the same on every
 //   run at the same N.
+//
+// mix_rows_flat replaces the TPU kernel mix_rows_flat (body _mix_rows_kernel)
+// in the same file: out[R, N] = w_rows[R, K] @ x[K, N], fp32, the dense mix
+// of a topology whose W is not the full mesh (R = local clients, K = C).
+//   Bound on the H100: memory. It reads K*N and writes R*N floats and does
+//   2*R*K flops per column (R = K = 20: 5 flops per byte moved, below the
+//   fp32 ridge of 67 Tflop/s over 3.35 TB/s = 20).
+//   Design: w_rows (R, K <= 64, at most 16 KiB) is staged transposed in
+//   shared memory, where all threads of a warp read the same word (a
+//   broadcast). One thread per column, neighbouring threads on neighbouring
+//   columns, so every load of x and store of out coalesces. The thread holds
+//   the accumulators of RB output rows in registers (RB in 8..32, a template
+//   argument picked from R, so R = 20 pads to 24 rows, not 32) and walks k =
+//   0..K-1 in ascending order, issuing kMixLoads loads of its column before
+//   it uses them, so a warp has that many in flight instead of one; for
+//   R > 32 it walks its column again per row chunk (the re-reads hit L1).
+//   Each term is a rounded product added with a rounded sum (__fmul_rn,
+//   __fadd_rn: never contracted into an fma), in the order of the plain
+//   version's loop over k, so the kernel gives the plain version's bits on
+//   every run, and a run mixes the same on the card as on the CPU.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMixMax = 64;   // largest R and K of mix_rows (ops.MIX_MAX)
+constexpr int kMixLoads = 8;  // loads of x a mix_rows thread keeps in flight
 
 // Sum over the block, valid in thread 0. `red` holds 32 floats; the trailing
 // barrier lets the caller reuse it at once.
@@ -117,6 +139,61 @@ digest_div_finish(const float* __restrict__ part_sum,
   }
 }
 
+// RB: output rows whose accumulators a thread holds in registers at once
+// (the launch picks the smallest of 8, 16, 24, 32 that covers R, else 32).
+template <int RB>
+__global__ void __launch_bounds__(kThreads)
+mix_rows_kernel(const float* __restrict__ w, const float* __restrict__ x,
+                float* __restrict__ out, int rows, int depth, long long n) {
+  // w_rows transposed, ws[k * rpad + r], rows zero-padded to a multiple of RB
+  __shared__ float ws[kMixMax * kMixMax];
+  const int rpad = (rows + RB - 1) / RB * RB;
+  for (int i = threadIdx.x; i < depth * rpad; i += blockDim.x) {
+    const int k = i / rpad;
+    const int r = i - k * rpad;
+    ws[i] = r < rows ? w[r * depth + k] : 0.f;
+  }
+  __syncthreads();
+  const long long col = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (col >= n) return;
+  for (int r0 = 0; r0 < rows; r0 += RB) {
+    float acc[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+    for (int k0 = 0; k0 < depth; k0 += kMixLoads) {
+      // issue kMixLoads loads of the column before using any of them
+      float xv[kMixLoads];
+#pragma unroll
+      for (int j = 0; j < kMixLoads; ++j)
+        xv[j] = k0 + j < depth ? x[(k0 + j) * n + col] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kMixLoads; ++j) {
+        if (k0 + j < depth) {
+          const float* wk = ws + (k0 + j) * rpad + r0;
+#pragma unroll
+          for (int r = 0; r < RB; ++r)
+            acc[r] = __fadd_rn(acc[r], __fmul_rn(wk[r], xv[j]));
+        }
+      }
+    }
+    const int nr = min(RB, rows - r0);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < nr) out[(r0 + r) * n + col] = acc[r];
+    }
+  }
+}
+
+template <int RB>
+cudaError_t launch_mix_rows(const void* w, const void* x, void* out, int rows,
+                            int depth, long long n, cudaStream_t stream) {
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  mix_rows_kernel<RB><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const float*>(w), static_cast<const float*>(x),
+      static_cast<float*>(out), rows, depth, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int err) {
@@ -153,4 +230,22 @@ extern "C" int repro_digest_div(const void* x, int n_clients, long long n,
       n_blocks, n_clients, static_cast<float*>(out_sum),
       static_cast<float*>(out_res));
   return static_cast<int>(cudaGetLastError());
+}
+
+// w: f32 [rows, depth]; x: f32 [depth, n]; out: f32 [rows, n]; 1 <= rows,
+// depth <= kMixMax (the wrapper checks).
+extern "C" int repro_mix_rows(const void* w, const void* x, void* out,
+                              int rows, int depth, long long n, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (rows <= 8) {
+    err = launch_mix_rows<8>(w, x, out, rows, depth, n, s);
+  } else if (rows <= 16) {
+    err = launch_mix_rows<16>(w, x, out, rows, depth, n, s);
+  } else if (rows <= 24) {
+    err = launch_mix_rows<24>(w, x, out, rows, depth, n, s);
+  } else {
+    err = launch_mix_rows<32>(w, x, out, rows, depth, n, s);
+  }
+  return static_cast<int>(err);
 }

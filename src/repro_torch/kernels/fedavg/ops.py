@@ -1,12 +1,12 @@
 """Wrappers of the CUDA aggregation kernels (``csrc/fedavg.cu``) and their
 dict-of-leaves forms.
 
-``fedavg_flat`` and ``digest_div_flat`` are the kernels' wrappers: on a
-CUDA tensor they launch the kernel (or raise), on a CPU tensor they run the
-plain version in ``ref.py``. ``fedavg_tree`` and
-``digest_divergence_tree`` flatten every ``[C, ...]`` leaf to ``[C, N]``
-and call them once per leaf, in sorted key order (the JAX package's
-``jax.tree.leaves`` order for dict params).
+``fedavg_flat``, ``mix_rows_flat`` and ``digest_div_flat`` are the kernels'
+wrappers: on a CUDA tensor they launch the kernel (or raise), on a CPU
+tensor they run the plain version in ``ref.py``. ``fedavg_tree``,
+``mix_rows_tree`` and ``digest_divergence_tree`` flatten every ``[C, ...]``
+leaf to ``[C, N]`` and call them once per leaf, in sorted key order (the
+JAX package's ``jax.tree.leaves`` order for dict params).
 """
 from __future__ import annotations
 
@@ -18,16 +18,21 @@ import torch
 from repro_torch.core import mining
 from repro_torch.kernels import _build
 from repro_torch.kernels.fedavg.ref import (digest_div_flat_ref,
-                                            fedavg_flat_ref)
+                                            fedavg_flat_ref,
+                                            mix_rows_flat_ref)
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "repro_fedavg_flat": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
     "repro_digest_div": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                          _P, _P, _P, _P, _P],
+    "repro_mix_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, _P],
 }
 # columns per block of the digest/divergence sweep (its shared-memory tile)
 DIGEST_TILE = 1024
+# largest R and K of mix_rows_flat: w_rows stays whole in shared memory
+MIX_MAX = 64
 
 Tree = Dict[str, torch.Tensor]
 
@@ -86,6 +91,36 @@ def fedavg_flat(x: torch.Tensor, weights: torch.Tensor,
 fedavg_flat.launches = 0
 
 
+def mix_rows_flat(w_rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w_rows: [R, K] f32; x: [K, N] f32 -> [R, N] = w_rows @ x, with R, K
+    <= MIX_MAX. The CUDA path adds the rounded products in ascending k, as
+    ``mix_rows_flat_ref`` does, so the two agree bitwise."""
+    _check_flat(x, "mix_rows_flat")
+    k, n = x.shape
+    if not isinstance(w_rows, torch.Tensor) or w_rows.dtype != torch.float32 \
+            or w_rows.dim() != 2 or w_rows.shape[1] != k \
+            or not w_rows.is_contiguous() or w_rows.device != x.device:
+        raise TypeError("mix_rows_flat: w_rows must be a contiguous float32 "
+                        f"[R, {k}] tensor on {x.device}")
+    r = w_rows.shape[0]
+    if not (1 <= r <= MIX_MAX and k <= MIX_MAX):
+        raise ValueError(f"mix_rows_flat: R={r}, K={k}; the kernel takes "
+                         f"1 <= R, K <= {MIX_MAX}")
+    if x.device.type == "cpu":
+        return mix_rows_flat_ref(w_rows, x)
+    lib = _lib()
+    out = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.repro_mix_rows(w_rows.data_ptr(), x.data_ptr(), out.data_ptr(),
+                             r, k, n, stream)
+    _build.check(lib, err, "mix_rows_flat")
+    mix_rows_flat.launches += 1
+    return out
+
+
+mix_rows_flat.launches = 0
+
+
 def digest_div_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sweep of x [C, N] f32 for both diagnostics of the communicate
     stage: (leaf sum, 0-d f32; per-client sum_n (x[c, n] - colmean[n])^2,
@@ -135,6 +170,19 @@ def fedavg_tree(params: Tree, weights: Optional[torch.Tensor] = None,
         nz = None if noise_tree is None else _flat(noise_tree[k], c)
         agg = fedavg_flat(_flat(leaf, c), w, nz)
         out[k] = agg.reshape(leaf.shape).to(leaf.dtype)
+    return out
+
+
+def mix_rows_tree(params: Tree, w_rows: torch.Tensor) -> Tree:
+    """params: dict of ``[C, ...]`` leaves; w_rows: ``[R, C]`` (already
+    reweighted). Each leaf comes back as ``[R, ...]``: row i is
+    ``sum_c w_rows[i, c] * leaf[c]``."""
+    out = {}
+    for k in sorted(params):
+        leaf = params[k]
+        mixed = mix_rows_flat(w_rows, _flat(leaf, leaf.shape[0]))
+        out[k] = mixed.reshape((w_rows.shape[0],) + leaf.shape[1:]) \
+            .to(leaf.dtype)
     return out
 
 

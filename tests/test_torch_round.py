@@ -208,8 +208,15 @@ def test_train_entry_point_on_cpu_prints_the_reference_keys(capsys):
          "--lazy", "1", "--sigma2", "0.01", "--device", "cpu"]))
     printed = json.loads(capsys.readouterr().out)
     assert printed == result
+    # the reference's run_mlp keys, less fast_allreduce (one device)
     assert set(result) == {"K", "tau", "final_eval_loss", "final_eval_acc",
                            "final_global_loss", "chain_valid", "blocks",
-                           "devices", "dispatch", "wall_s"}
+                           "devices", "dispatch", "wall_s",
+                           "spectral_gap_mean", "spectral_gap_min",
+                           "ergodic_gap", "predicted_consensus_rate"}
+    assert result["dispatch"] == {
+        "driver": "loop", "pow": "plain", "mix": "jnp",
+        "mix_mode": "exec_fedavg", "reason": result["dispatch"]["reason"]}
+    assert result["spectral_gap_min"] == pytest.approx(1.0)
     assert result["chain_valid"] and result["blocks"] == 2
     assert result["tau"] == 2 and np.isfinite(result["final_global_loss"])
