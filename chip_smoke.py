@@ -4,17 +4,23 @@
 Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 chip_smoke.py                  # build, check, run, compare
-    python3 chip_smoke.py --profile DIR    # also profile the rounds into DIR
+    python3 chip_smoke.py --profile DIR    # also profile rounds and a prefill
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 (one ``nvcc`` per source, all at once), sets fp32 matmuls to full
-precision, and runs these phases, each of which raises on failure:
+precision, and runs these phases, each of which raises on failure and
+prints its seconds:
 
-1. every kernel against its plain PyTorch version on the card, at the
+1. every FL kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (the race bitwise, the float kernels to a
    stated tolerance), with its time, the plain version's time, the time of
    one PyTorch call computing the same function where there is one, and
    its bound on an H100;
+1b. the same for the serve path's kernels, ``flash_attention`` (at the
+   path's attention shape, the reference's test shapes, ragged S, head
+   dims 36 / 112 / 256, a window, a bidirectional mask, GQA, bf16) and
+   ``ssm_scan`` (the path's Mamba shape, the reference's test shapes,
+   ragged T and d_in);
 2. the paper's path, ``repro_torch.launch.train`` at the paper's full
    configuration (C = 20, MLP 784-256-10, 512 samples per client, K = 5,
    tau = 10, 2 lazy clients, sigma2 = 0.01, 10240 mining attempts,
@@ -29,7 +35,16 @@ precision, and runs these phases, each of which raises on failure:
    against the card's; 3c. the same for ``--topology ring``, a
    non-consensus mix that runs no custom kernel. Per-client params of the
    non-consensus paths are held to ``CLIENT_SPREAD_LIMIT`` times the
-   tolerance, a limit a planted one-row fault is shown to break.
+   tolerance, a limit a planted one-row fault is shown to break;
+4. the serve path, ``repro_torch.launch.serve --arch jamba-1.5-large-398b
+   --size one-h100 --batch 4 --prompt-len 2048 --gen 32`` (Jamba at its
+   published widths, 8 layers, dense MLPs: 9.0 G parameters): one prefill
+   launches ``flash_attention`` once and ``ssm_scan`` 7 times, decode no
+   kernel; then the phi4-mini smoke config (2 flash launches);
+4b. on the same full-width params, prefill + 8 decode steps against one
+   forward over 2056 tokens, and 256 decode steps from an empty state
+   against the forward, in max |logit diff| <= ``AGREE_LIMIT``, and no
+   host sync in the decode loop.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -89,6 +104,54 @@ CLIENT_SPREAD_LIMIT = 10.0
 # of client 1's model
 PLANTED_LEAK = 0.01
 
+# the serve path (phase 4): Jamba-1.5-Large at its published widths cut to
+# one H100 (configs/jamba_1_5_large_398b.py ONE_H100), a 2048-token prompt
+SERVE_ARGS = ["--arch", "jamba-1.5-large-398b", "--size", "one-h100",
+              "--batch", "4", "--prompt-len", "2048", "--gen", "32"]
+SERVE_SMOKE_ARGS = ["--arch", "phi4-mini-3.8b", "--size", "smoke"]
+SERVE_LAUNCHES = {"flash_attention": 1, "ssm_scan": 7}   # one prefill
+SERVE_SMOKE_LAUNCHES = {"flash_attention": 2, "ssm_scan": 0}
+# phase 4b: (i) prefill of the first AGREE_PREFILL prompt tokens and
+# AGREE_STEPS teacher-forced decode steps against one forward over all of
+# them; (ii) AGREE_DECODE_LEN tokens decoded one by one from an empty state
+# against the forward over them. Logits are of unit scale at this init.
+AGREE_PREFILL, AGREE_STEPS, AGREE_DECODE_LEN = 2048, 8, 256
+AGREE_LIMIT = 1e-3
+SYNC_CHECK_STEPS = 4   # greedy decode steps run in CUDA's sync-debug mode
+# the flash kernel at the serve path's attention shape: B, H, Hkv, S, D
+FLASH_PATH = (4, 64, 8, 2048, 128)
+# (B, H, Hkv, S, D, causal, window, bf16): the path shape; the reference's
+# FLASH_CASES (tests/test_kernels.py); ragged S; the zoo's odd head dims
+# (minicpm 36, kimi 112) and the largest (256); a window; a ragged
+# bidirectional mask; GQA throughout; bf16 at a small and the path shape
+FLASH_CASES = [
+    FLASH_PATH + (True, 0, False),
+    (2, 4, 4, 256, 64, True, 0, False), (1, 2, 2, 128, 32, False, 0, False),
+    (2, 2, 2, 256, 64, True, 64, False), (1, 1, 1, 512, 128, True, 0, False),
+    (1, 2, 2, 128, 16, True, 32, False),
+    (1, 8, 2, 1000, 128, True, 0, False), (1, 8, 2, 2056, 128, True, 0, False),
+    (2, 4, 2, 300, 36, True, 0, False), (2, 4, 2, 300, 112, True, 0, False),
+    (1, 4, 1, 300, 256, True, 0, False),
+    (2, 4, 4, 1000, 64, True, 128, False), (2, 4, 2, 777, 64, False, 0, False),
+    (1, 2, 2, 128, 64, True, 0, True), FLASH_PATH + (True, 0, True),
+]
+FLASH_RTOL = FLASH_ATOL = 3e-5   # fp32, as the JAX tests hold the TPU kernel
+# bf16 is held to the fp32 plain result on the same bf16 inputs: the
+# kernel's one bf16 rounding of its fp32 output is at most 2^-9 of |want|
+FLASH_BF16_ATOL, FLASH_BF16_RTOL = 2e-3, 1e-2
+# the scan at the serve path's Mamba shape: B, T, d_in, d_state
+SSM_PATH = (4, 2048, 16384, 16)
+# the path shape; the reference's SSM_CASES; ragged T and d_in; a d_state
+# below the smallest template bucket and the largest taken
+SSM_CASES = [SSM_PATH, (2, 64, 128, 16), (1, 128, 256, 8), (2, 32, 64, 4),
+             (1, 16, 32, 16), (2, 37, 100, 16), (1, 5, 130, 3),
+             (3, 1000, 1000, 64)]
+SSM_ATOL, SSM_RTOL = 2e-5, 1e-5
+# the H100 SXM's special-function rate for exp2 (CUDA C Programming Guide,
+# arithmetic throughput of compute capability 9.0: 16 per clock per SM) at
+# its 1.98 GHz boost clock on 132 SMs
+PEAK_EXP_S = 16 * 132 * 1.98e9
+
 REPLACES = {
     "pow_race": "src/repro/kernels/pow_hash/kernel.py:128 pow_race_kernel "
                 "(and :65 pow_search_kernel, its C = 1 case)",
@@ -96,13 +159,18 @@ REPLACES = {
     "digest_div_flat": "src/repro/kernels/fedavg/kernel.py:127 "
                        "digest_div_flat",
     "mix_rows_flat": "src/repro/kernels/fedavg/kernel.py:73 mix_rows_flat",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:82 "
+                       "flash_attention",
+    "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:49 ssm_scan",
 }
 # kernel -> the shared library (kernels/_build.py SOURCES) that holds it
 LIBRARY = {"pow_race": "pow_race", "fedavg_flat": "fedavg",
-           "digest_div_flat": "fedavg", "mix_rows_flat": "fedavg"}
+           "digest_div_flat": "fedavg", "mix_rows_flat": "fedavg",
+           "flash_attention": "flash_attention", "ssm_scan": "ssm_scan"}
 # kernel -> the path whose run gives its launch count in the table
 MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
-                "digest_div_flat": "paper", "mix_rows_flat": "topology"}
+                "digest_div_flat": "paper", "mix_rows_flat": "topology",
+                "flash_attention": "serve", "ssm_scan": "serve"}
 # the (R, K) blocks mix_rows_flat is held to its plain version at: the
 # main path's full W, a row block, a column block, the largest it takes
 MIX_BLOCKS = [(N_CLIENTS, N_CLIENTS), (5, N_CLIENTS), (N_CLIENTS, 5),
@@ -333,6 +401,7 @@ def drive_path(torch, dev, flags, want, what, falling=True):
     from repro_torch.launch import train
 
     args = train.build_parser().parse_args(flags + ["--device", str(dev)])
+    want = {**{name: 0 for name in kernels.WRAPPERS}, **want}
     kernels.reset_launch_counts()
     result, state, hist = train.train_mlp(args)
     torch.cuda.synchronize()
@@ -392,14 +461,29 @@ def phase_adversarial(torch, dev):
              "global_loss": [h["global_loss"] for h in hist]}), flush=True)
 
 
-def round_host_syncs(torch, args):
-    """Run the K rounds of the path ``args`` selects (no end-of-run
-    transfer) with CUDA's sync debug mode on and return the warnings of the
-    host syncs they make. The design makes none: the carry, the metrics,
-    the mixing matrices (uploaded before the loop) and every input of the
-    race stay on the device."""
+def host_syncs(torch, fn):
+    """Run ``fn()`` with CUDA's sync debug mode on and return the warnings
+    of the host syncs it makes."""
     import warnings
 
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [str(w.message) for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def round_host_syncs(torch, args):
+    """The host syncs of the K rounds of the path ``args`` selects (no
+    end-of-run transfer). The design makes none: the carry, the metrics,
+    the mixing matrices (uploaded before the loop) and every input of the
+    race stay on the device."""
     from repro_torch.core import rounds
     from repro_torch.launch import train
     from repro_torch.models.mlp import mlp_client_losses
@@ -412,19 +496,13 @@ def round_host_syncs(torch, args):
     round_fn = rounds.make_integrated_round(mlp_client_losses, spec,
                                             n_rounds=blade.K, device=dev)
     batch = src.static_batch()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for k in range(blade.K):
-                matrix = None if table is None else table[k % len(table)]
-                state, _ = round_fn(state, batch, matrix)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    return [str(w.message) for w in caught
-            if "called a synchronizing CUDA operation" in str(w.message)]
+
+    def run(state=state):
+        for k in range(blade.K):
+            matrix = None if table is None else table[k % len(table)]
+            state, _ = round_fn(state, batch, matrix)
+
+    return host_syncs(torch, run)
 
 
 def round_ms(torch, args, profile_dir, tag):
@@ -531,12 +609,305 @@ def phase_card_vs_cpu(torch, args, result, state, hist, label,
              f"{max(planted.values()):.3g}"), flush=True)
 
 
+def _flash_work(b, h, hkv, s, d, causal, window):
+    """(bytes, flops, exps) the attention function needs: q, k, v read
+    once and o written once; 4 D flops (QK^T and PV) and one exp per
+    (row, key) pair the masks keep."""
+    pairs = 0
+    for row in range(s):
+        lo = max(0, row - window + 1) if window > 0 else 0
+        hi = row + 1 if causal else s
+        pairs += hi - lo
+    pairs *= b * h
+    return (4 * (2 * b * s * h * d + 2 * b * s * hkv * d), 4 * d * pairs,
+            pairs)
+
+
+def _ssm_work(b, t, d_in, ds):
+    """(bytes, flops, exps) of the scan: u and dt read, y written, B_t,
+    C_t, a and d_skip read, h written once; per (b, t, channel, state) one
+    exp and 5 flops (dt * a, the state's mul-add, the output's mul-add),
+    per (b, t, channel) 3 more (dt * u, u * d_skip, the add)."""
+    n = b * t * d_in
+    return (4 * (3 * n + 2 * b * t * ds + d_in * ds + d_in + b * d_in * ds),
+            5 * n * ds + 3 * n, n * ds)
+
+
+def _bound(bytes_, flops, exps):
+    times = {"bytes": bytes_ / PEAK_BYTES_S,
+             "operations": max(flops / PEAK_ALU_OPS_S, exps / PEAK_EXP_S)}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def phase_lm_kernels(torch, dev):
+    """Phase 1b: the serve path's two kernels against their plain versions
+    on the card, at the path's shapes and the listed cases, and their
+    times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    report = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    flash_err = flash_bf16_err = 0.0
+    for b, h, hkv, s, d, causal, window, bf16 in FLASH_CASES:
+        q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        if bf16:
+            q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        if h == hkv:   # the TPU kernel's [B, H, S, D] layout
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            got = flash_ops.flash_attention(qt, kt, vt, causal=causal,
+                                            window=window)
+            want = flash_ref.attention_ref(qt.float(), kt.float(),
+                                           vt.float(), causal=causal,
+                                           window=window)
+        else:
+            got = flash_ops.mha(q, k, v, causal=causal, window=window)
+            want = flash_ref.mha_ref(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+        err = (got.float() - want).abs()
+        case = (b, h, hkv, s, d, causal, window, "bf16" if bf16 else "fp32")
+        if bf16:
+            flash_bf16_err = max(flash_bf16_err, float(err.max()))
+            ok = bool((err <= FLASH_BF16_ATOL
+                       + FLASH_BF16_RTOL * want.abs()).all())
+        else:
+            flash_err = max(flash_err, float(err.max()))
+            ok = bool((err <= FLASH_ATOL
+                       + FLASH_RTOL * want.abs()).all())
+        require(ok, f"flash_attention off tolerance at {case}: max |diff| "
+                    f"{float(err.max()):.3g}")
+        del q, k, v, got, want, err
+
+    b, h, hkv, s, d = FLASH_PATH
+    q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+
+    def flash():
+        return flash_ops.mha(q, k, v, causal=True)
+
+    def sdpa():   # timed only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    require(float((sdpa().transpose(1, 2) - flash()).abs().max()) < 1e-4,
+            "SDPA and the flash kernel disagree at the path shape")
+    bound, by = _bound(*_flash_work(b, h, hkv, s, d, True, 0))
+    report["flash_attention"] = dict(
+        max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
+        ms=kernel_ms(torch, flash, reps=10),
+        call_ms=time_ms(torch, flash, reps=10, warmup=2),
+        plain_ms=kernel_ms(torch, lambda: flash_ref.mha_ref(
+            q, k, v, causal=True), reps=3),
+        library_ms=kernel_ms(torch, sdpa, reps=10),
+        bound_ms=bound, bound_by=by)
+    del q, k, v
+
+    ssm_err, ssm_ratio = 0.0, 0.0
+    for bsz, t, d_in, ds in SSM_CASES:
+        u, bm, cm = randn(bsz, t, d_in), randn(bsz, t, ds), randn(bsz, t, ds)
+        dt = F.softplus(randn(bsz, t, d_in) - 2)
+        a = -torch.exp(0.3 * randn(d_in, ds))
+        dsk = 0.5 + torch.rand(d_in, generator=gen, device=dev)
+        y, hf = ssm_ops.ssm_scan(u, dt, bm, cm, a, dsk)
+        ry, rh = ssm_ref.ssm_scan_ref(u, dt, bm, cm, a, dsk)
+        for got, want in ((y, ry), (hf, rh)):
+            err = (got - want).abs()
+            ssm_err = max(ssm_err, float(err.max()))
+            ratio = float((err / (SSM_ATOL + SSM_RTOL * want.abs())).max())
+            ssm_ratio = max(ssm_ratio, ratio)
+            require(ratio <= 1, f"ssm_scan off tolerance at B={bsz} T={t} "
+                                f"d_in={d_in} ds={ds}: max |diff| "
+                                f"{float(err.max()):.3g}, {ratio:.3g} of "
+                                f"atol {SSM_ATOL} + rtol {SSM_RTOL} |want|")
+    bsz, t, d_in, ds = SSM_PATH
+    u, bm, cm = randn(bsz, t, d_in), randn(bsz, t, ds), randn(bsz, t, ds)
+    dt = F.softplus(randn(bsz, t, d_in) - 2)
+    a = -torch.exp(0.3 * randn(d_in, ds))
+    dsk = torch.ones(d_in, device=dev)
+
+    def scan():
+        return ssm_ops.ssm_scan(u, dt, bm, cm, a, dsk)
+
+    bound, by = _bound(*_ssm_work(bsz, t, d_in, ds))
+    report["ssm_scan"] = dict(
+        max_abs_err=ssm_err, worst_of_tolerance=ssm_ratio,
+        ms=kernel_ms(torch, scan, reps=10),
+        call_ms=time_ms(torch, scan, reps=10, warmup=2),
+        plain_ms=kernel_ms(torch, lambda: ssm_ref.ssm_scan_ref(
+            u, dt, bm, cm, a, dsk), reps=2),
+        library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases, "
+          f"largest deviation {flash_err:.3g} in fp32 (rtol {FLASH_RTOL}, "
+          f"atol {FLASH_ATOL}) and {flash_bf16_err:.3g} in bf16 (rtol "
+          f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}); ssm_scan at "
+          f"{len(SSM_CASES)} cases, largest deviation {ssm_err:.3g}, "
+          f"{ssm_ratio:.3g} of atol {SSM_ATOL} + "
+          f"rtol {SSM_RTOL} |want|; times " + json.dumps(
+              {n: {key: report[n][key] for key in
+                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+               for n in ("flash_attention", "ssm_scan")}), flush=True)
+    return report
+
+
+def phase_serve(torch, dev, flags, want_lm, label):
+    """Phase 4: ``launch.serve`` on the card, the launch counts set to 0
+    just before and read just after: the prefill's kernels exactly as
+    ``want_lm`` says, every FL kernel 0 (decode runs no kernel), finite
+    logits. Returns (result, launches)."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(flags + ["--device", str(dev)])
+    kernels.reset_launch_counts()
+    result = serve.serve(args)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {**{name: 0 for name in kernels.WRAPPERS}, **want_lm}
+    require(launches == want, f"launch counts {launches} on the serve path "
+                              f"{' '.join(flags)}, expected {want}")
+    require(result["finite"], f"non-finite logits on the serve path: {result}")
+    print(f"phase {label} ok: " + json.dumps(
+        {key: result[key] for key in
+         ("arch", "batch", "prompt_len", "generated_tokens", "prefill_s",
+          "decode_s", "tokens_per_s", "peak_mem_gb", "launches")}),
+        flush=True)
+    return result, launches
+
+
+def phase_serve_agreement(torch, dev, profile_dir):
+    """Phase 4b: on the serve path's full-width params (the same seed),
+    (i) prefill of AGREE_PREFILL tokens and AGREE_STEPS teacher-forced
+    decode steps against one forward over all of them (logits at the
+    prefill's last and each decode position; the forward runs the flash
+    kernel at the ragged S = AGREE_PREFILL + AGREE_STEPS), then the decode
+    loop's host syncs; (ii) AGREE_DECODE_LEN tokens decoded one by one from
+    an empty state (plain torch, no kernel) against the forward's logits at
+    every position. With ``profile_dir``, profile one prefill and report
+    where its device time goes."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import registry, transformer
+
+    args = serve.build_parser().parse_args(SERVE_ARGS + ["--device", str(dev)])
+    cfg = serve.config_of(args)
+    params = registry.init_model(
+        torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    n = AGREE_PREFILL + AGREE_STEPS
+    tokens = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+        ShapeConfig("agree", n, args.batch, "prefill"))["tokens"]
+
+    def full_logits(toks, positions):
+        h, _ = transformer.forward(
+            params, cfg, transformer._embed_inputs(params, cfg,
+                                                   {"tokens": toks}))
+        return transformer._lm_head(params, cfg, h[:, positions])
+
+    want = full_logits(tokens, slice(AGREE_PREFILL - 1, n))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = transformer.prefill(
+        params, cfg, {"tokens": tokens[:, :AGREE_PREFILL]},
+        max_len=n + SYNC_CHECK_STEPS)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    got = [logits]
+    for t in range(AGREE_PREFILL, n):
+        logits, state = transformer.decode_step(params, cfg, state,
+                                                tokens[:, t], t)
+        got.append(logits)
+    err_i = float((torch.stack(got, 1) - want).abs().max())
+    # greedy steps of serve's decode loop, in CUDA's sync debug mode
+    syncs = host_syncs(torch, lambda: serve.decode_loop(
+        params, cfg, state, torch.argmax(logits, -1), n, SYNC_CHECK_STEPS))
+    del state, got, want
+
+    m = AGREE_DECODE_LEN
+    want = full_logits(tokens[:, :m], slice(0, m))
+    state = transformer.init_decode_state(cfg, args.batch, m,
+                                          device=dev)
+    err_ii = 0.0
+    for t in range(m):
+        logits, state = transformer.decode_step(params, cfg, state,
+                                                tokens[:, t], t)
+        err_ii = max(err_ii, float((logits - want[:, t]).abs().max()))
+    scale = float(want.abs().max())
+    del state, want
+    print(f"phase 4b: max |logit diff| (i) prefill + {AGREE_STEPS} decode "
+          f"steps vs forward over {n} tokens: {err_i:.3g}; (ii) {m} decode "
+          f"steps from an empty state vs forward: {err_ii:.3g}; max |logit| "
+          f"{scale:.3g}; limit {AGREE_LIMIT}; host syncs in "
+          f"{SYNC_CHECK_STEPS} decode steps: {len(syncs)}; a second "
+          f"prefill of {AGREE_PREFILL} tokens took {prefill_s:.3f} s",
+          flush=True)
+    require(err_i <= AGREE_LIMIT and err_ii <= AGREE_LIMIT,
+            f"serve path disagrees with the forward: {err_i:.3g}, "
+            f"{err_ii:.3g} > {AGREE_LIMIT}")
+    require(not syncs, f"{len(syncs)} host syncs in the decode loop: "
+                       f"{syncs[:3]}")
+    if profile_dir:
+        prefill_breakdown(torch, params, cfg, tokens[:, :AGREE_PREFILL],
+                          profile_dir)
+    print("phase 4b ok", flush=True)
+
+
+def prefill_breakdown(torch, params, cfg, tokens, profile_dir):
+    """Profile one prefill; print its device time by class of kernel
+    (GEMMs, the flash kernel, the scan kernel, everything else) and write
+    the full table into ``profile_dir``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from repro_torch.models import transformer
+
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        transformer.prefill(params, cfg, {"tokens": tokens},
+                            max_len=tokens.shape[1])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    classes = {"gemm": 0.0, "flash_attention": 0.0, "ssm_scan": 0.0,
+               "other": 0.0}
+    for e in p.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        if "flash_fwd" in name:
+            key = "flash_attention"
+        elif "ssm_scan_kernel" in name:
+            key = "ssm_scan"
+        elif "gemm" in name or "cutlass" in name or "matmul" in name:
+            key = "gemm"
+        else:
+            key = "other"
+        classes[key] += e.time_range.elapsed_us() / 1e3
+    busy = sum(classes.values())
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "profile_prefill.txt")
+    with open(path, "w") as f:
+        f.write(p.key_averages().table(sort_by="cuda_time_total",
+                                       row_limit=40))
+    print("prefill profile: " + json.dumps(
+        {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
+         "device_ms_by_class": classes}) + f"; table in {path}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile one warm run of the rounds of the "
-                         "paper's and the topology path and write the "
-                         "tables into DIR")
+                         "paper's and the topology path and one prefill of "
+                         "the serve path, and write the tables into DIR")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -563,7 +934,18 @@ def main(argv=None) -> int:
                 print(f"ptxas[{name}]: {line.strip()}")
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    clock = [time.perf_counter()]
+
+    def lap(label):   # each phase's seconds
+        now = time.perf_counter()
+        print(f"[{label}: {now - clock[0]:.1f} s]", flush=True)
+        clock[0] = now
+
     report = phase_kernels(torch, dev)
+    lap("phase 1")
+    report.update(phase_lm_kernels(torch, dev))
+    torch.cuda.empty_cache()
+    lap("phase 1b")
     paper = {"pow_race": K, "fedavg_flat": 4 * K, "mix_rows_flat": 0,
              "digest_div_flat": 4 * K}
     args, result, state, hist, launches = phase_main_path(
@@ -591,16 +973,24 @@ def main(argv=None) -> int:
         "ring path")
     phase_card_vs_cpu(torch, rargs, rresult, rstate, rhist, "3c",
                       consensus=False)
+    del state, tstate, rstate
+    torch.cuda.empty_cache()
+    lap("phases 2-3c")
 
-    by_path = {"paper": launches, "topology": tlaunches}
+    _, slaunches = phase_serve(torch, dev, SERVE_ARGS, SERVE_LAUNCHES, "4")
+    lap("phase 4")
+    phase_serve(torch, dev, SERVE_SMOKE_ARGS, SERVE_SMOKE_LAUNCHES,
+                "4 (smoke)")
+    phase_serve_agreement(torch, dev, opts.profile)
+    lap("phase 4b")
+
+    by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches}
     table = [{"name": name, "route": "cuda",
               "source": os.path.relpath(_build.SOURCES[LIBRARY[name]], ROOT),
               "replaces": REPLACES[name],
               "launches": by_path[MAIN_PATH_OF[name]][name],
               "launches_by_path": {p: c[name] for p, c in by_path.items()},
-              **report[name]} for name in ("pow_race", "fedavg_flat",
-                                           "digest_div_flat",
-                                           "mix_rows_flat")]
+              **report[name]} for name in REPLACES]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -9,7 +9,9 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels.fedavg import ops as fedavg_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.pow_hash import ops as pow_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
 # kernel name -> wrapper that launches it
 WRAPPERS = {
@@ -17,6 +19,8 @@ WRAPPERS = {
     "fedavg_flat": fedavg_ops.fedavg_flat,
     "mix_rows_flat": fedavg_ops.mix_rows_flat,
     "digest_div_flat": fedavg_ops.digest_div_flat,
+    "flash_attention": flash_ops.flash_attention,
+    "ssm_scan": ssm_ops.ssm_scan,
 }
 
 

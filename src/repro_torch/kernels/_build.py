@@ -28,6 +28,9 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES: Dict[str, Path] = {
     "pow_race": _KERNELS / "pow_hash" / "csrc" / "pow_race.cu",
     "fedavg": _KERNELS / "fedavg" / "csrc" / "fedavg.cu",
+    "flash_attention": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention.cu",
+    "ssm_scan": _KERNELS / "ssm_scan" / "csrc" / "ssm_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,127 @@
+"""Wrappers of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+
+``flash_attention`` takes the TPU kernel's ``[B, H, S, D]`` layout with kv
+already at H heads; ``mha`` takes the model's ``[B, S, H, D]`` layout with
+kv at ``Hkv`` heads (GQA). On a CUDA tensor both launch the kernel (or
+raise), reading q, k and v through their strides: ``mha`` needs neither a
+transpose nor a repeat of kv. On a CPU tensor they run the plain version
+(``ref.attention_ref``, ``ref.mha_ref``: the JAX package's transposes and
+``repeat`` of kv around it). Both take any S >= 1 and any head dim D <= 256 that is a
+multiple of 4; fp32 or bf16, fp32 inside.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref, mha_ref
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 \
+    + [ctypes.c_float, _I, _I, _P]
+MAX_HEAD_DIM = 256
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.repro_flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURE
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The kernel's limits, held on every device so that a shape behaves
+    the same on the CPU and on the card."""
+    if k.shape != v.shape or q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q/k/v must be 4-D with k.shape == v.shape: "
+                         f"q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)}")
+    d = q.shape[-1]
+    if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernel takes a multiple of 4 "
+                         f"up to {MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one dtype of {_DTYPES}: "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device) \
+            or q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"q/k/v must lie on one cpu or cuda device: "
+                         f"{q.device}, {k.device}, {v.device}")
+
+
+def _d_contiguous(x: torch.Tensor) -> torch.Tensor:
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _launch(q, k, v, out, *, seq_axis: int, head_axis: int, causal: bool,
+            window: int, scale: float) -> torch.Tensor:
+    """Launch the kernel on 4-D q, k, v, out whose axes are (batch,
+    ``seq_axis``, ``head_axis``, dim) with a head_dim stride of 1."""
+    q, k, v = _d_contiguous(q), _d_contiguous(k), _d_contiguous(v)
+    b, s, h, hkv, d = (q.shape[0], q.shape[seq_axis], q.shape[head_axis],
+                       k.shape[head_axis], q.shape[-1])
+    if b * h > 65535:
+        raise ValueError(f"batch * heads = {b * h}: the kernel's grid "
+                         "takes at most 65535")
+
+    def strides(x):
+        return x.stride(0), x.stride(seq_axis), x.stride(head_axis)
+
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, h, hkv, s, d, *strides(q),
+        *strides(k), *strides(v), *strides(out), scale, int(causal),
+        int(window), stream)
+    _build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q, k, v: [B, H, S, D] (kv already expanded to H heads) -> [B, H, S,
+    D]: softmax attention with the causal mask (``causal``) and the window
+    mask cols > rows - window (``window > 0``), scale 1/sqrt(D) unless
+    given."""
+    _check(q, k, v)
+    if k.shape != q.shape:
+        raise ValueError(f"q/k/v shapes must match: q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    return _launch(q, k, v, out, seq_axis=2, head_axis=1, causal=causal,
+                   window=window, scale=scale)
+
+
+flash_attention.launches = 0
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B, S, H, D]; k, v: [B, S, Hkv, D] (GQA, H a multiple of Hkv; head
+    h reads kv head h // (H / Hkv)) -> [B, S, H, D], scale 1/sqrt(D)."""
+    _check(q, k, v)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"mha: q={tuple(q.shape)} and k/v="
+                         f"{tuple(k.shape)} need equal B, S, D and H a "
+                         "multiple of Hkv")
+    if q.device.type == "cpu":
+        return mha_ref(q, k, v, causal=causal, window=window)
+    out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    return _launch(q, k, v, out, seq_axis=1, head_axis=2, causal=causal,
+                   window=window, scale=1.0 / math.sqrt(d))

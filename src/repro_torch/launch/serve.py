@@ -1,0 +1,133 @@
+"""Serving entry point of the port: prefill a batch of prompts, then batched
+greedy decode through the cache (the JAX package's ``launch/serve.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi4-mini-3.8b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --size one-h100 --batch 4 \\
+      --prompt-len 2048 --gen 32
+
+``--size smoke`` runs the architecture's CPU-test config, ``--size
+one-h100`` its published widths cut to one 80 GB H100 (only Jamba has
+one). Weights
+are random, drawn on the device from ``--seed``; the prompts from
+``--seed + 1``. The prefill runs the flash-attention kernel in every
+attention layer and the selective-scan kernel in every Mamba layer; decode
+is plain torch. Times are host-clock seconds between
+``torch.cuda.synchronize()`` calls; the decode loop keeps its tokens on the
+device and makes no host sync until the end. It prints the reference's
+JSON keys plus ``launches`` (kernel launches in this run) and
+``peak_mem_gb`` (``torch.cuda.max_memory_allocated``, None on the CPU).
+Argmax ties go to the first index, as in JAX. fp32 GEMMs run in full fp32
+(TF32 off).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import List, Tuple
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs import (ShapeConfig, get_one_h100_arch,
+                                 get_smoke_arch)
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import registry, transformer
+
+SIZES = ("smoke", "one-h100")
+
+
+def config_of(args) -> ModelConfig:
+    if args.size == "smoke":
+        return get_smoke_arch(args.arch)
+    return get_one_h100_arch(args.arch)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def decode_loop(params, cfg: ModelConfig, state, tok: torch.Tensor,
+                start_pos: int, n_steps: int
+                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``n_steps`` greedy decode steps from ``tok`` at position
+    ``start_pos``. Returns (the new tokens, each [B] on the device; the last
+    step's logits). Makes no host sync."""
+    generated, logits = [], None
+    for i in range(n_steps):
+        logits, state = transformer.decode_step(params, cfg, state, tok,
+                                                start_pos + i)
+        tok = torch.argmax(logits, dim=-1)
+        generated.append(tok)
+    return generated, logits
+
+
+def serve(args) -> dict:
+    dev = resolve_device(args.device)
+    cfg = config_of(args)
+    if not cfg.has_decode:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats(dev)
+    max_len = args.prompt_len + args.gen
+    shape = ShapeConfig("serve", args.prompt_len, args.batch, "prefill")
+    params = registry.init_model(
+        torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    batch = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(args.seed + 1), cfg, shape)
+    before = kernels.launch_counts()
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, state = transformer.prefill(params, cfg, batch, max_len=max_len)
+    tok = torch.argmax(logits, dim=-1)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    rest, last = decode_loop(params, cfg, state, tok, args.prompt_len,
+                             args.gen - 1)
+    _sync(dev)
+    decode_s = time.perf_counter() - t1
+    logits = logits if last is None else last
+    gen = torch.stack([tok] + rest, dim=1).cpu()
+    after = kernels.launch_counts()
+    result = {
+        "arch": cfg.name, "batch": args.batch, "prompt_len": args.prompt_len,
+        "generated_tokens": gen.numel(), "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "tokens_per_s": gen.numel() / max(decode_s, 1e-9),
+        "sample": gen[0, :8].tolist(),
+        "finite": bool(torch.isfinite(logits).all()),
+        "launches": {k: after[k] - before[k] for k in after},
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else None),
+    }
+    print(json.dumps(result, indent=1))
+    return result
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--size", choices=SIZES, default="smoke")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    return ap
+
+
+def main(argv=None):
+    serve(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

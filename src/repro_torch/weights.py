@@ -2,11 +2,12 @@
 compute on the same numbers.
 
 ``params_from_jax`` takes the reference's MLP params (``init_mlp``), or its
-client-stacked ``[C, ...]`` params, as a dict of numpy arrays.
+client-stacked ``[C, ...]`` params, as a dict of numpy arrays;
+``lm_params_from_jax`` takes an LM's nested params (``init_lm``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -40,3 +41,22 @@ def batch_from_numpy(np_batch: Dict[str, np.ndarray],
         out[k] = torch.from_numpy(np.array(v, dtype)).to(dev)
     return out
 
+
+
+def lm_params_from_jax(tree: Any, device: DeviceLike = "cuda") -> Any:
+    """An LM's params as the reference's tree of numpy arrays (nested dicts
+    and lists, e.g. ``jax.tree.map(np.asarray, params)``) -> the same tree
+    of contiguous float32 tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def convert(x):
+        if isinstance(x, dict):
+            return {k: convert(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [convert(v) for v in x]
+        x = np.asarray(x)
+        if not np.issubdtype(x.dtype, np.floating):
+            raise TypeError(f"LM param of dtype {x.dtype}, not float")
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    return convert(tree)
