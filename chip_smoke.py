@@ -13,12 +13,15 @@ prints its seconds:
 
 1. every FL kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (the race bitwise, the float kernels to a
-   stated tolerance), with its time, the plain version's time, the time of
-   one PyTorch call computing the same function where there is one, and
-   its bound on an H100;
+   stated tolerance; ``mix_rows_flat`` bitwise, also at ragged widths and
+   on misaligned views, where its float4 path cannot run), with its time,
+   the plain version's time, the time of one PyTorch call computing the
+   same function where there is one, and its bound on an H100; the race's
+   C = 1 case (one ``ops.mine`` call) is timed too;
 1b. the same for the serve path's kernels, ``flash_attention`` (at the
    path's attention shape, the reference's test shapes, ragged S, head
-   dims 36 / 112 / 256, a window, a bidirectional mask, GQA, bf16) and
+   dims 36 / 112 / 256, a window, a bidirectional mask, GQA, bf16, and
+   fp32 views too misaligned for its cp.async staging) and
    ``ssm_scan`` (the path's Mamba shape, the reference's test shapes,
    ragged T and d_in);
 2. the paper's path, ``repro_torch.launch.train`` at the paper's full
@@ -64,9 +67,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM3 bytes/s; fp32 outside the
 # tensor cores, also used for 32-bit integer ALU work (an upper bound on
-# that rate, so the bound stays a lower bound on time)
+# that rate, so the bound stays a lower bound on time); TF32 on the tensor
+# cores
 PEAK_BYTES_S = 3.35e12
 PEAK_ALU_OPS_S = 67e12
+PEAK_TF32_S = 495e12
+# the flash kernel runs each product as three TF32 passes (3xTF32), the
+# least that holds fp32's tolerance on the tensor cores
+FLASH_TF32_PASSES = 3
 
 # the paper's configuration (launch/train.py flags)
 K = 5
@@ -135,6 +143,14 @@ FLASH_CASES = [
     (2, 4, 4, 1000, 64, True, 128, False), (2, 4, 2, 777, 64, False, 0, False),
     (1, 2, 2, 128, 64, True, 0, True), FLASH_PATH + (True, 0, True),
 ]
+# fp32 cases whose q, k, v the kernel cannot stage with 16-byte cp.async,
+# so it loads them with plain loads: (B, H, Hkv, S, D, causal, window, how)
+# with ``how`` "offset" (each tensor a view starting one float past an
+# aligned address) or "rows" (rows of D + 1 floats, read through a [..., :D]
+# view: no row starts 16-byte aligned)
+FLASH_MISALIGNED = [(1, 8, 2, 300, 128, True, 0, "offset"),
+                    (2, 4, 2, 300, 36, True, 0, "offset"),
+                    (2, 4, 2, 257, 64, True, 64, "rows")]
 FLASH_RTOL = FLASH_ATOL = 3e-5   # fp32, as the JAX tests hold the TPU kernel
 # bf16 is held to the fp32 plain result on the same bf16 inputs: the
 # kernel's one bf16 rounding of its fp32 output is at most 2^-9 of |want|
@@ -175,6 +191,10 @@ MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
 # main path's full W, a row block, a column block, the largest it takes
 MIX_BLOCKS = [(N_CLIENTS, N_CLIENTS), (5, N_CLIENTS), (N_CLIENTS, 5),
               (64, 64)]
+# widths where the kernel's float4 path cannot run: N = 1, 2, 3 (mod 4), the
+# first at the widest leaf's width; each is also held on a contiguous view
+# whose storage starts one float past an aligned address, as is every leaf
+MIX_RAGGED = [784 * 256 + 1, 2050, 7]
 
 
 class SmokeFailure(RuntimeError):
@@ -278,6 +298,20 @@ def phase_kernels(torch, dev):
         return pow_ops.pow_race_flat(prev, payloads, off, MINE_ATTEMPTS,
                                      chunk=MINE_CHUNK)
 
+    # the C = 1 case (the JAX package's pow_search_kernel): the launch one
+    # ops.mine call of MINE_ATTEMPTS makes, on the payload it salts
+    salted = (word(0xCAFE) ^ mining.client_salt(word(3))).reshape(1)
+    salted = salted.contiguous()
+    h1, n1 = pow_ops.mine(word(99), word(0xCAFE), word(3), MINE_ATTEMPTS,
+                          nonce_offset=off)
+    rh1, rn1 = pow_ref.pow_race_ref(prev, off, salted, MINE_ATTEMPTS)
+    require(int(h1) == int(rh1[0]) and int(n1) == int(rn1[0]),
+            "mine at the main path's budget differs from its plain version")
+
+    def race_one():
+        return pow_ops.pow_race_flat(prev, salted, off, MINE_ATTEMPTS,
+                                     chunk=MINE_CHUNK)
+
     report["pow_race"] = dict(
         max_abs_err=0,
         ms=kernel_ms(torch, race), call_ms=time_ms(torch, race),
@@ -286,7 +320,14 @@ def phase_kernels(torch, dev):
         library_ms=None,
         bound_ms=1e3 * max(in_out_bytes / PEAK_BYTES_S,
                            hashes * OPS_PER_HASH / PEAK_ALU_OPS_S),
-        bound_by="operations")
+        bound_by="operations",
+        c1=dict(ms=kernel_ms(torch, race_one),
+                plain_ms=kernel_ms(torch, lambda: pow_ref.pow_race_ref(
+                    prev, off, salted, MINE_ATTEMPTS)),
+                bound_ms=1e3 * max((8 * (1 + 2) + 16) / PEAK_BYTES_S,
+                                   MINE_ATTEMPTS * OPS_PER_HASH
+                                   / PEAK_ALU_OPS_S),
+                bound_by="operations"))
 
     # --- fedavg_flat and digest_div_flat at each leaf width ---------------
     fed_err = dig_err = 0.0
@@ -367,6 +408,28 @@ def phase_kernels(torch, dev):
             require(torch.equal(got, want),
                     f"mix_rows_flat not bitwise equal to its plain version "
                     f"on leaf {name} at R={r} K={k}")
+    # the scalar form of the kernel: ragged widths, and misaligned views
+    dgen = torch.Generator(device=dev).manual_seed(5678)
+    mix_cases = 0
+    for n in list(LEAF_WIDTHS.values()) + MIX_RAGGED:
+        for r, k in MIX_BLOCKS:
+            w = torch.rand((r, k), generator=dgen, device=dev) + 0.1
+            w = w / w.sum(dim=1, keepdim=True)
+            buf = torch.randn(k * n + 1, generator=dgen, device=dev)
+            views = [("offset", buf[1:].view(k, n))]
+            if n in MIX_RAGGED:
+                views.append(("aligned", buf[:-1].view(k, n)))
+            for how, x in views:
+                require(x.is_contiguous() and (how == "aligned")
+                        == (x.data_ptr() % 16 == 0),
+                        f"mix_rows_flat case setup: {how} view at N={n}")
+                got = fedavg_ops.mix_rows_flat(w, x)
+                want = fedavg_ref.mix_rows_flat_ref(w, x)
+                mix_err = max(mix_err, float((got - want).abs().max()))
+                require(torch.equal(got, want),
+                        f"mix_rows_flat not bitwise equal to its plain "
+                        f"version at N={n} ({how}) R={r} K={k}")
+                mix_cases += 1
     w_full = torch.rand((N_CLIENTS, N_CLIENTS), generator=gen) + 0.1
     w_full = (w_full / w_full.sum(dim=1, keepdim=True)).to(dev)
     dense = per_round(lambda x: fedavg_ops.mix_rows_flat(w_full, x))
@@ -388,7 +451,14 @@ def phase_kernels(torch, dev):
           f"{dig_err:.3g} (leaf sum {LEAF_SUM_REL} of sum|x|, residuals "
           f"rtol {FLOAT_RTOL}), mix_rows_flat {mix_err:.3g} at (R, K) in "
           f"{MIX_BLOCKS} (rtol {FLOAT_RTOL}, atol {FLOAT_ATOL}, and "
-          f"bitwise)", flush=True)
+          f"bitwise), and bitwise at {mix_cases} ragged-width and "
+          f"misaligned cases (N in {MIX_RAGGED} and the leaves); times "
+          + json.dumps({n: {key: report[n][key] for key in
+                            ("ms", "plain_ms", "library_ms", "bound_ms")}
+                        for n in ("fedavg_flat", "digest_div_flat",
+                                  "mix_rows_flat")})
+          + "; pow_race C = 1: " + json.dumps(report["pow_race"]["c1"]),
+          flush=True)
     return report
 
 
@@ -633,9 +703,15 @@ def _ssm_work(b, t, d_in, ds):
             5 * n * ds + 3 * n, n * ds)
 
 
-def _bound(bytes_, flops, exps):
+def _bound(bytes_, flops, exps, tf32_passes=0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM's
+    rate and the operations over their peak: fp32 flops outside the tensor
+    cores, or, with ``tf32_passes``, that many TF32 passes of each flop on
+    the tensor cores; exponentials on the SFU."""
+    flop_s = (tf32_passes * flops / PEAK_TF32_S if tf32_passes
+              else flops / PEAK_ALU_OPS_S)
     times = {"bytes": bytes_ / PEAK_BYTES_S,
-             "operations": max(flops / PEAK_ALU_OPS_S, exps / PEAK_EXP_S)}
+             "operations": max(flop_s, exps / PEAK_EXP_S)}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
 
@@ -686,6 +762,24 @@ def phase_lm_kernels(torch, dev):
         require(ok, f"flash_attention off tolerance at {case}: max |diff| "
                     f"{float(err.max()):.3g}")
         del q, k, v, got, want, err
+    for b, h, hkv, s, d, causal, window, how in FLASH_MISALIGNED:
+        def view(heads):
+            if how == "offset":
+                return randn(b * s * heads * d + 1)[1:].view(b, s, heads, d)
+            return randn(b, s, heads, d + 1)[..., :d]
+        q, k, v = view(h), view(hkv), view(hkv)
+        require(all((x.data_ptr() % 16 != 0) if how == "offset"
+                    else any(st % 4 for st in x.stride()[:3])
+                    for x in (q, k, v)),
+                f"flash_attention case setup: {how} view at D={d}")
+        got = flash_ops.mha(q, k, v, causal=causal, window=window)
+        want = flash_ref.mha_ref(q, k, v, causal=causal, window=window)
+        err = (got - want).abs()
+        flash_err = max(flash_err, float(err.max()))
+        require(bool((err <= FLASH_ATOL + FLASH_RTOL * want.abs()).all()),
+                f"flash_attention off tolerance at {(b, h, hkv, s, d)} "
+                f"({how} view): max |diff| {float(err.max()):.3g}")
+        del q, k, v, got, want, err
 
     b, h, hkv, s, d = FLASH_PATH
     q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
@@ -700,7 +794,11 @@ def phase_lm_kernels(torch, dev):
 
     require(float((sdpa().transpose(1, 2) - flash()).abs().max()) < 1e-4,
             "SDPA and the flash kernel disagree at the path shape")
-    bound, by = _bound(*_flash_work(b, h, hkv, s, d, True, 0))
+    work = _flash_work(b, h, hkv, s, d, True, 0)
+    bound, by = _bound(*work, tf32_passes=FLASH_TF32_PASSES)
+    # the same work as one fp32 pass outside the tensor cores, printed on
+    # this phase's line only: the kernel's bound is the 3xTF32 one
+    bound_simt = _bound(*work)[0]
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
         ms=kernel_ms(torch, flash, reps=10),
@@ -745,10 +843,14 @@ def phase_lm_kernels(torch, dev):
         plain_ms=kernel_ms(torch, lambda: ssm_ref.ssm_scan_ref(
             u, dt, bm, cm, a, dsk), reps=2),
         library_ms=None, bound_ms=bound, bound_by=by)
-    print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases, "
-          f"largest deviation {flash_err:.3g} in fp32 (rtol {FLASH_RTOL}, "
+    print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases and "
+          f"{len(FLASH_MISALIGNED)} misaligned fp32 views, largest "
+          f"deviation {flash_err:.3g} in fp32 (rtol {FLASH_RTOL}, "
           f"atol {FLASH_ATOL}) and {flash_bf16_err:.3g} in bf16 (rtol "
-          f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}); ssm_scan at "
+          f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}); its bound "
+          f"{bound_simt:.4g} ms as one fp32 pass outside the tensor cores, "
+          f"{report['flash_attention']['bound_ms']:.4g} ms as "
+          f"{FLASH_TF32_PASSES} TF32 passes (the kernel's); ssm_scan at "
           f"{len(SSM_CASES)} cases, largest deviation {ssm_err:.3g}, "
           f"{ssm_ratio:.3g} of atol {SSM_ATOL} + "
           f"rtol {SSM_RTOL} |want|; times " + json.dumps(
@@ -930,7 +1032,8 @@ def main(argv=None) -> int:
     logs = _build.build_all()
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("Compiling entry function",
+                                           "registers", "spill")):
                 print(f"ptxas[{name}]: {line.strip()}")
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 

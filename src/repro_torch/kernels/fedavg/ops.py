@@ -31,7 +31,8 @@ _SIGNATURES = {
 }
 # columns per block of the digest/divergence sweep (its shared-memory tile)
 DIGEST_TILE = 1024
-# largest R and K of mix_rows_flat: w_rows stays whole in shared memory
+# largest R and K of mix_rows_flat: a block's rows of w_rows (at most 32 of
+# them) stay whole in shared memory
 MIX_MAX = 64
 
 Tree = Dict[str, torch.Tensor]

@@ -7,7 +7,9 @@ raise), reading q, k and v through their strides: ``mha`` needs neither a
 transpose nor a repeat of kv. On a CPU tensor they run the plain version
 (``ref.attention_ref``, ``ref.mha_ref``: the JAX package's transposes and
 ``repeat`` of kv around it). Both take any S >= 1 and any head dim D <= 256 that is a
-multiple of 4; fp32 or bf16, fp32 inside.
+multiple of 4; fp32 or bf16, fp32 inside. The kernel computes both
+products on the tensor cores in 3xTF32, which holds the fp32 tolerance;
+``ref.attention_tf32`` emulates that arithmetic on the CPU for the tests.
 """
 from __future__ import annotations
 

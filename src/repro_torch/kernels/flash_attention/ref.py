@@ -45,3 +45,52 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = attention_ref(q.transpose(1, 2), kt, vt, causal=causal,
                         window=window)
     return out.transpose(1, 2)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to the
+    nearest value with 10 explicit mantissa bits, ties away from zero (the
+    13 low bits of the fp32 word cleared after adding half their unit to
+    the magnitude). For finite inputs."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """``a @ b`` with both operands rounded to TF32 as the flash kernel's
+    tensor-core products see them. ``passes=3`` splits each operand into
+    hi = tf32(x) and lo = tf32(x - hi) and sums lo*hi + hi*lo, then hi*hi
+    (lo*lo dropped); ``passes=1`` is a single TF32 product. Each partial
+    product is exact in fp32 (two 11-bit significands) and summed in
+    fp32."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    if passes != 3:
+        raise ValueError(f"passes must be 1 or 3, not {passes}")
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0,
+                   scale: Optional[float] = None,
+                   passes: int = 3) -> torch.Tensor:
+    """``attention_ref`` with QK^T and PV as the flash kernel computes them
+    on the tensor cores (``tf32_matmul`` with ``passes``): the scale applied
+    to the product, the softmax in fp32. q, k, v: [B, H, S, D]. A test
+    oracle of the kernel's arithmetic; nothing on the main path calls it."""
+    s, d = q.shape[2], q.shape[3]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = tf32_matmul(q, k.transpose(-1, -2), passes) * scale
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (j <= i)
+    if window > 0:
+        ok = ok & (j > i - window)
+    probs = torch.softmax(torch.where(ok, logits, NEG_INF), dim=-1)
+    return tf32_matmul(probs, v, passes).to(q.dtype)

@@ -5,6 +5,10 @@
 Tolerance: rtol/atol 3e-5 in fp32 and atol 3e-2 in bf16, as the JAX tests
 hold the TPU kernel (``tests/test_kernels.py``): fp32 sums in another
 order, and bf16 outputs rounded at other places.
+
+The CUDA kernel runs both products on the tensor cores in 3xTF32; the
+last tests hold a CPU emulation of that arithmetic (``ref.attention_tf32``)
+to the same fp32 tolerance, and show that a single TF32 pass misses it.
 """
 import numpy as np
 import pytest
@@ -17,7 +21,9 @@ from repro.kernels.flash_attention import attention_ref as jattention_ref
 from repro.kernels.flash_attention import flash_attention as jflash_attention
 from repro.kernels.flash_attention import mha as jmha
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_tf32, mha_ref,
+                                                     tf32_round)
 
 RTOL = ATOL = 3e-5
 BF16_ATOL = 3e-2
@@ -132,3 +138,64 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     ops.mha(*_t(*_qkv((1, 16, 2, 32), (1, 16, 1, 32))))
     ops.flash_attention(*_t(*_qkv((1, 2, 16, 32))))
     assert ops.flash_attention.launches == 0
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``cvt.rna.tf32.f32``: 10 explicit mantissa bits, ties away from 0."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp + ulp / 2, -(1 + ulp / 2),
+                      1 + ulp / 4, 1 + 3 * ulp / 4, 3.14159265, 0.0],
+                     dtype=torch.float32)
+    want = [1.0, 1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0, 1 + ulp, 3.140625,
+            0.0]
+    assert tf32_round(x).tolist() == want
+
+
+def _emulated_mha(q, k, v, *, causal, window, passes):
+    """``mha`` with both products in ``passes`` TF32 passes: [B, S, H, D]
+    q and [B, S, Hkv, D] k, v, kv heads repeated as the kernel reads them."""
+    rep = q.shape[2] // k.shape[2]
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    out = attention_tf32(q.transpose(1, 2), kt, vt, causal=causal,
+                         window=window, passes=passes)
+    return out.transpose(1, 2)
+
+
+TF32_MASKS = [(True, 0), (True, 32), (False, 0)]
+
+
+@pytest.mark.parametrize("causal,window", TF32_MASKS,
+                         ids=["causal", "window32", "bidirectional"])
+@pytest.mark.parametrize("d", [36, 64, 128])
+def test_three_pass_tf32_holds_the_fp32_tolerance(d, causal, window):
+    """Both products in 3xTF32 (the kernel's arithmetic) against the port's
+    plain version and the JAX package's Pallas kernel in interpret mode, at
+    rtol/atol 3e-5, with 2 query heads per kv head."""
+    b, s, hq, hkv = 1, 128, 4, 2
+    q, k, v = _qkv((b, s, hq, d), (b, s, hkv, d), seed=d + window)
+    got = _emulated_mha(*_t(q, k, v), causal=causal, window=window, passes=3)
+    want = mha_ref(*_t(q, k, v), causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    rep = hq // hkv
+    jq = jnp.asarray(q).transpose(0, 2, 1, 3)
+    jk, jv = (jnp.repeat(jnp.asarray(x), rep, axis=2).transpose(0, 2, 1, 3)
+              for x in (k, v))
+    pallas = np.asarray(jflash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=64, block_k=64,
+        interpret=True)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=RTOL, atol=ATOL)
+
+
+def test_one_pass_tf32_misses_the_fp32_tolerance():
+    """The gate catches the shortcut: one TF32 pass per product at D 128
+    is off the 3e-5 tolerance, by more than 10x at the worst element."""
+    q, k, v = _qkv((1, 128, 4, 128), (1, 128, 2, 128), seed=128)
+    want = mha_ref(*_t(q, k, v), causal=True).numpy()
+    got = _emulated_mha(*_t(q, k, v), causal=True, window=0,
+                        passes=1).numpy()
+    excess = np.abs(got - want) / (ATOL + RTOL * np.abs(want))
+    assert excess.max() > 10
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
