@@ -14,16 +14,20 @@ prints its seconds:
 1. every FL kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (the race bitwise, the float kernels to a
    stated tolerance; ``mix_rows_flat`` bitwise, also at ragged widths and
-   on misaligned views, where its float4 path cannot run), with its time,
-   the plain version's time, the time of one PyTorch call computing the
-   same function where there is one, and its bound on an H100; the race's
+   on misaligned views, where its float4 path cannot run;
+   ``digest_div_flat`` three calls bitwise equal at every leaf, every leaf
+   as an offset view, and C in DIGEST_CLIENTS x N in DIGEST_WIDTHS), with
+   its time, the plain version's time, the time of one PyTorch call
+   computing the same function where there is one, and its bound on an
+   H100; the race's
    C = 1 case (one ``ops.mine`` call) is timed too;
 1b. the same for the serve path's kernels, ``flash_attention`` (at the
    path's attention shape, the reference's test shapes, ragged S, head
    dims 36 / 112 / 256, a window, a bidirectional mask, GQA, bf16, and
    fp32 views too misaligned for its cp.async staging) and
    ``ssm_scan`` (the path's Mamba shape, the reference's test shapes,
-   ragged T and d_in);
+   ragged T and d_in, ds at its state-bucket edges, T at its chunk edges,
+   d_in off its channel block, offset views);
 2. the paper's path, ``repro_torch.launch.train`` at the paper's full
    configuration (C = 20, MLP 784-256-10, 512 samples per client, K = 5,
    tau = 10, 2 lazy clients, sigma2 = 0.01, 10240 mining attempts,
@@ -98,6 +102,15 @@ MINE_ATTEMPTS, MINE_CHUNK = 10240, 1024
 # nonce add and xor, and the compare/select of the running minimum
 OPS_PER_HASH = 12
 
+# digest_div_flat beyond the leaves: client counts either side of its
+# register form's largest bucket (32; above it the slab form) and widths
+# with ragged float4 tails, each held at every pair
+DIGEST_CLIENTS = [1, 7, 20, 32, 33, 64, 100]
+DIGEST_WIDTHS = [1, 3, 10, 1023, 1025, 784 * 256 + 1]
+# (C, N) with C above the slab form's fit (12 031), which reads x twice
+DIGEST_HUGE_C = [(12100, 1025)]
+DIGEST_CALLS = 3   # calls per case that must give the same bits
+
 # tolerances: float kernels sum in another order than the plain versions
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6      # mix and residuals
 LEAF_SUM_REL = 1e-5                       # |d leaf sum| <= this * sum|x|
@@ -163,6 +176,22 @@ SSM_CASES = [SSM_PATH, (2, 64, 128, 16), (1, 128, 256, 8), (2, 32, 64, 4),
              (1, 16, 32, 16), (2, 37, 100, 16), (1, 5, 130, 3),
              (3, 1000, 1000, 64)]
 SSM_ATOL, SSM_RTOL = 2e-5, 1e-5
+
+
+def ssm_edge_cases(chunk):
+    """(B, T, d_in, ds) at the kernel's edges: ds either side of its state
+    buckets (1, 5, 9, 17, 33), d_in not a multiple of its 64-channel block
+    (130, 200, 16383; 130 and 16383 not of 4 either, which takes its
+    4-byte copies), T of 1, 2049 and either side of its ``chunk``-step
+    stage."""
+    return [(1, 1, 64, 16), (2, chunk - 1, 130, 1), (2, chunk + 1, 16383, 5),
+            (1, 2049, 256, 9), (2, 33, 200, 17), (1, 100, 130, 33),
+            (2, 64, 16383, 16)]
+
+
+# cases whose every input is a view one float past an aligned address, so
+# the kernel stages them with 4-byte copies: (B, T, d_in, ds)
+SSM_MISALIGNED = [(2, 40, 256, 16), (1, 33, 100, 12)]
 # the H100 SXM's special-function rate for exp2 (CUDA C Programming Guide,
 # arithmetic throughput of compute capability 9.0: 16 per clock per SM) at
 # its 1.98 GHz boost clock on 132 SMs
@@ -249,6 +278,31 @@ def kernel_ms(torch, fn, reps=20):
               "events instead", flush=True)
         return time_ms(torch, fn, reps)
     return us / 1e3 / reps
+
+
+def check_digest(torch, x, what):
+    """``digest_div_flat`` on x [C, N]: DIGEST_CALLS calls give the same
+    bits; the leaf sum within LEAF_SUM_REL of sum |x| and the residuals
+    within rtol FLOAT_RTOL of the plain version. Returns the largest
+    deviation."""
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+
+    s, r = fedavg_ops.digest_div_flat(x)
+    for _ in range(DIGEST_CALLS - 1):
+        s2, r2 = fedavg_ops.digest_div_flat(x)
+        require(torch.equal(s, s2) and torch.equal(r, r2),
+                f"digest_div_flat not deterministic on {what}")
+    rs, rr = fedavg_ref.digest_div_flat_ref(x)
+    abs_sum = float(x.abs().sum())
+    require(abs(float(s) - float(rs)) <= LEAF_SUM_REL * abs_sum,
+            f"digest_div_flat leaf sum off on {what}: {float(s)} vs "
+            f"{float(rs)}")
+    rerr = (r - rr).abs()
+    require(bool((rerr <= FLOAT_RTOL * rr.abs()).all()),
+            f"digest_div_flat residuals off tolerance on {what}: max "
+            f"|diff| {float(rerr.max()):.3g}")
+    return max(abs(float(s) - float(rs)), float(rerr.max()))
 
 
 def phase_kernels(torch, dev):
@@ -345,19 +399,23 @@ def phase_kernels(torch, dev):
                 require(bool((err <= FLOAT_ATOL + FLOAT_RTOL
                               * want.abs()).all()),
                         f"fedavg_flat off tolerance on leaf {name}")
-        s, r = fedavg_ops.digest_div_flat(x)
-        s2, r2 = fedavg_ops.digest_div_flat(x)
-        require(torch.equal(s, s2) and torch.equal(r, r2),
-                f"digest_div_flat not deterministic on leaf {name}")
-        rs, rr = fedavg_ref.digest_div_flat_ref(x)
-        abs_sum = float(x.abs().sum())
-        require(abs(float(s) - float(rs)) <= LEAF_SUM_REL * abs_sum,
-                f"digest_div_flat leaf sum off on leaf {name}: "
-                f"{float(s)} vs {float(rs)}")
-        rerr = (r - rr).abs()
-        require(bool((rerr <= FLOAT_RTOL * rr.abs()).all()),
-                f"digest_div_flat residuals off tolerance on leaf {name}")
-        dig_err = max(dig_err, abs(float(s) - float(rs)), float(rerr.max()))
+        dig_err = max(dig_err, check_digest(torch, x, f"leaf {name}"))
+    # every leaf width as a view one float past an aligned address (the
+    # scalar-load form), then the client counts and widths of the domain
+    dgen = torch.Generator(device=dev).manual_seed(2468)
+    digest_cases = 0
+    for name, n in LEAF_WIDTHS.items():
+        buf = torch.randn(N_CLIENTS * n + 1, generator=dgen, device=dev)
+        x = buf[1:].view(N_CLIENTS, n).add_(0.25)
+        require(x.data_ptr() % 16 != 0, f"digest case setup: leaf {name}")
+        dig_err = max(dig_err, check_digest(torch, x, f"leaf {name} "
+                                                       "(offset view)"))
+        digest_cases += 1
+    for c, n in ([(c, n) for c in DIGEST_CLIENTS for n in DIGEST_WIDTHS]
+                 + DIGEST_HUGE_C):
+        x = torch.randn((c, n), generator=dgen, device=dev) + 0.25
+        dig_err = max(dig_err, check_digest(torch, x, f"C={c} N={n}"))
+        digest_cases += 1
 
     leaves = {name: torch.randn((N_CLIENTS, n), generator=gen).to(dev)
               for name, n in LEAF_WIDTHS.items()}
@@ -386,6 +444,10 @@ def phase_kernels(torch, dev):
         ms=kernel_ms(torch, sweep), call_ms=time_ms(torch, sweep),
         plain_ms=kernel_ms(torch, per_round(fedavg_ref.digest_div_flat_ref)),
         library_ms=None,
+        # each leaf's call alone: the narrow ones are one-block launches
+        per_leaf_ms={name: kernel_ms(torch, lambda x=x:
+                                     fedavg_ops.digest_div_flat(x))
+                     for name, x in leaves.items()},
         bound_ms=1e3 * max((4 * elems + 4 * 4 * (N_CLIENTS + 1))
                            / PEAK_BYTES_S, 4 * elems / PEAK_ALU_OPS_S),
         bound_by="bytes")
@@ -449,7 +511,11 @@ def phase_kernels(torch, dev):
           f"budgets; largest deviation fedavg_flat {fed_err:.3g} "
           f"(rtol {FLOAT_RTOL}, atol {FLOAT_ATOL}), digest_div_flat "
           f"{dig_err:.3g} (leaf sum {LEAF_SUM_REL} of sum|x|, residuals "
-          f"rtol {FLOAT_RTOL}), mix_rows_flat {mix_err:.3g} at (R, K) in "
+          f"rtol {FLOAT_RTOL}; {DIGEST_CALLS} calls bitwise equal) at the "
+          f"leaves and {digest_cases} more cases (offset views, C in "
+          f"{DIGEST_CLIENTS} x N in {DIGEST_WIDTHS}, (C, N) in "
+          f"{DIGEST_HUGE_C}), mix_rows_flat "
+          f"{mix_err:.3g} at (R, K) in "
           f"{MIX_BLOCKS} (rtol {FLOAT_RTOL}, atol {FLOAT_ATOL}, and "
           f"bitwise), and bitwise at {mix_cases} ragged-width and "
           f"misaligned cases (N in {MIX_RAGGED} and the leaves); times "
@@ -457,6 +523,8 @@ def phase_kernels(torch, dev):
                             ("ms", "plain_ms", "library_ms", "bound_ms")}
                         for n in ("fedavg_flat", "digest_div_flat",
                                   "mix_rows_flat")})
+          + "; digest_div_flat per leaf: "
+          + json.dumps(report["digest_div_flat"]["per_leaf_ms"])
           + "; pow_race C = 1: " + json.dumps(report["pow_race"]["c1"]),
           flush=True)
     return report
@@ -810,11 +878,23 @@ def phase_lm_kernels(torch, dev):
     del q, k, v
 
     ssm_err, ssm_ratio = 0.0, 0.0
-    for bsz, t, d_in, ds in SSM_CASES:
+    ssm_cases = ([(case, False) for case in SSM_CASES
+                  + ssm_edge_cases(ssm_ref.CHUNK)]
+                 + [(case, True) for case in SSM_MISALIGNED])
+    for (bsz, t, d_in, ds), offset in ssm_cases:
+        def place(x):   # the same values in a view one float past aligned
+            if not offset:
+                return x
+            view = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+            return view.copy_(x)
+
         u, bm, cm = randn(bsz, t, d_in), randn(bsz, t, ds), randn(bsz, t, ds)
         dt = F.softplus(randn(bsz, t, d_in) - 2)
         a = -torch.exp(0.3 * randn(d_in, ds))
         dsk = 0.5 + torch.rand(d_in, generator=gen, device=dev)
+        u, dt, bm, cm = (place(x) for x in (u, dt, bm, cm))
+        require(not offset or all(x.data_ptr() % 16 for x in (u, dt, bm, cm)),
+                f"ssm_scan case setup: offset views at {(bsz, t, d_in, ds)}")
         y, hf = ssm_ops.ssm_scan(u, dt, bm, cm, a, dsk)
         ry, rh = ssm_ref.ssm_scan_ref(u, dt, bm, cm, a, dsk)
         for got, want in ((y, ry), (hf, rh)):
@@ -851,7 +931,8 @@ def phase_lm_kernels(torch, dev):
           f"{bound_simt:.4g} ms as one fp32 pass outside the tensor cores, "
           f"{report['flash_attention']['bound_ms']:.4g} ms as "
           f"{FLASH_TF32_PASSES} TF32 passes (the kernel's); ssm_scan at "
-          f"{len(SSM_CASES)} cases, largest deviation {ssm_err:.3g}, "
+          f"{len(ssm_cases)} cases ({len(SSM_MISALIGNED)} of offset "
+          f"views), largest deviation {ssm_err:.3g}, "
           f"{ssm_ratio:.3g} of atol {SSM_ATOL} + "
           f"rtol {SSM_RTOL} |want|; times " + json.dumps(
               {n: {key: report[n][key] for key in

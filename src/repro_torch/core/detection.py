@@ -19,14 +19,18 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.aggregation import median0
+from repro_torch.device import DeviceLike, resolve_device
 
 Tree = Dict[str, torch.Tensor]
 
 
 def sketch_projection(n_features: int, sketch_dim: int = 256,
-                      seed: int = 0, device="cpu") -> torch.Tensor:
+                      seed: int = 0, device: DeviceLike = "cuda"
+                      ) -> torch.Tensor:
     """The ``[F, sketch_dim]`` projection, N(0, 1 / F) entries, drawn on the
-    CPU from ``seed`` and moved to ``device``."""
+    CPU from ``seed`` and moved to ``device`` (the card unless asked for the
+    CPU; raises without a GPU)."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     proj = torch.randn((n_features, sketch_dim), generator=gen,
                        dtype=torch.float32) * (n_features ** -0.5)

@@ -17,15 +17,34 @@
 // sum (it feeds the model digest) and, per client, sum_n (x[c,n] -
 // colmean[n])^2 (the divergence of Definition 1).
 //   Bound on the H100: memory, one read of C*N floats.
-//   Design: no float atomics. The digest hashes the fp32 bits of the leaf
-//   sum, so a summation order that changed from run to run would change the
-//   ledger from run to run. Pass 1: each block owns a tile of columns, forms
-//   the column means into shared memory while summing the tile, then sweeps
-//   the tile again per client (the second sweep is served by L1/L2) and
-//   writes its partials to scratch [n_blocks] and [n_blocks, C]. Pass 2: one
-//   block reduces the partials in a fixed order. Every reduction is a fixed
-//   tree (warp shuffles, then one warp), so the result is the same on every
-//   run at the same N.
+//   Design: one read of x from device memory and one launch. No float
+//   atomics: the digest hashes the fp32 bits of the leaf sum, so a
+//   summation order that changed from run to run would change the ledger
+//   from run to run; every sum below runs in a fixed order, so the same
+//   shape on the same card gives the same bits on every run.
+//   - C <= kDigestMaxC (the register form, C a template bucket of 4): a
+//     thread holds its four columns' C values in registers (float4 loads
+//     when N % 4 == 0 and x is 16-byte aligned, else scalar loads and a
+//     zero tail), sums each column in ascending c, takes the mean as s / C
+//     (as the plain and JAX versions do), then adds each client's
+//     (x - mean)^2 into one of C registers: never the cancelling
+//     sum x^2 - C m^2. The grid is one wave of the card (the SM count and
+//     the kernel's occupancy read from the device), a grid-stride loop
+//     beyond it; a leaf of a few columns runs one block.
+//   - Larger C (the slab form): a block stages a [C, tile] slab of x in
+//     shared memory (tile sized to 47 KB), forms the column means from it,
+//     and its warps sweep one client each over the slab. Above C = 12 031
+//     not one column fits, and the same form reads x again from L2
+//     instead of the slab.
+//   Each block reduces its C + 1 values at once (the shuffle trees of all
+//   of them side by side, one shared [warps][C + 1] table, one barrier). A
+//   launch of one block (a narrow leaf) writes them out and is done. Else
+//   they go to a row of the partials [blocks, C + 1], and the last block
+//   to finish, found with an integer ticket taken after __threadfence,
+//   reduces the partials in block order, eight outputs a warp at once, and
+//   resets the ticket to 0 for the next launch. That assumes launches that
+//   share a ticket never overlap: the wrapper keeps one ticket per stream,
+//   and a stream runs its kernels one after another.
 //
 // mix_rows_flat replaces the TPU kernel mix_rows_flat (body _mix_rows_kernel)
 // in the same file: out[R, N] = w_rows[R, K] @ x[K, N], fp32, the dense mix
@@ -73,24 +92,14 @@ constexpr int kMixThreads = 64;  // threads per mix_rows block
 // an input with fewer column groups than this many per SM runs mix_rows in
 // 4-row chunks
 constexpr long long kMixWidePerSm = 256;
-
-// Sum over the block, valid in thread 0. `red` holds 32 floats; the trailing
-// barrier lets the caller reuse it at once.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? red[lane] : 0.f;
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  }
-  __syncthreads();
-  return v;
-}
+constexpr int kDigestThreads = 128;  // register form
+constexpr int kDigestMaxC = 32;      // largest C of the register form
+constexpr int kSlabThreads = 256;    // slab form
+constexpr int kSlabMaxTile = 256;    // columns of a slab, at most
+// dynamic shared memory of a slab block: 47 KB, so that with its static
+// shared memory it stays under the 48 KB a launch takes without opt-in
+constexpr int kSlabBytes = 47 * 1024;
+constexpr int kMaxDevices = 64;
 
 __global__ void __launch_bounds__(kThreads)
 fedavg_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -104,57 +113,6 @@ fedavg_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int c = 0; c < n_clients; ++c) out[c * n + col] = acc + noise[c * n + col];
   } else {
     for (int c = 0; c < n_clients; ++c) out[c * n + col] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-digest_div_partial(const float* __restrict__ x, int n_clients, long long n,
-                   int tile, float* __restrict__ part_sum,
-                   float* __restrict__ part_res) {
-  extern __shared__ float colmean[];  // [tile]
-  __shared__ float red[32];
-  const long long start = blockIdx.x * static_cast<long long>(tile);
-  const int cols = static_cast<int>(min(static_cast<long long>(tile), n - start));
-  const float inv_c = 1.f / static_cast<float>(n_clients);
-  float tsum = 0.f;
-  for (int j = threadIdx.x; j < cols; j += blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < n_clients; ++c) s += x[c * n + start + j];
-    colmean[j] = s * inv_c;
-    tsum += s;
-  }
-  tsum = block_sum(tsum, red);  // its barriers also publish colmean
-  if (threadIdx.x == 0) part_sum[blockIdx.x] = tsum;
-  for (int c = 0; c < n_clients; ++c) {
-    const float* row = x + c * n + start;
-    float r = 0.f;
-    for (int j = threadIdx.x; j < cols; j += blockDim.x) {
-      const float d = row[j] - colmean[j];
-      r = fmaf(d, d, r);
-    }
-    r = block_sum(r, red);
-    if (threadIdx.x == 0) part_res[blockIdx.x * n_clients + c] = r;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-digest_div_finish(const float* __restrict__ part_sum,
-                  const float* __restrict__ part_res, int n_blocks,
-                  int n_clients, float* __restrict__ out_sum,
-                  float* __restrict__ out_res) {
-  __shared__ float red[32];
-  for (int q = 0; q <= n_clients; ++q) {
-    float v = 0.f;
-    for (int b = threadIdx.x; b < n_blocks; b += blockDim.x)
-      v += q == 0 ? part_sum[b] : part_res[b * n_clients + (q - 1)];
-    v = block_sum(v, red);
-    if (threadIdx.x == 0) {
-      if (q == 0) {
-        *out_sum = v;
-      } else {
-        out_res[q - 1] = v;
-      }
-    }
   }
 }
 
@@ -184,6 +142,327 @@ __device__ __forceinline__ void mul_add4(float* acc, float w, float4 x) {
   acc[1] = __fadd_rn(acc[1], __fmul_rn(w, x.y));
   acc[2] = __fadd_rn(acc[2], __fmul_rn(w, x.z));
   acc[3] = __fadd_rn(acc[3], __fmul_rn(w, x.w));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// Output q of this block (q = 0: the leaf sum; q = c + 1: client c's
+// residual). A one-block launch writes it straight to the outputs; any other
+// writes its row of part [gridDim.x, nq] and makes the store visible to the
+// block that finishes the launch.
+__device__ __forceinline__ void digest_store(int q, float v, int nq,
+                                             float* part,
+                                             float* __restrict__ out_sum,
+                                             float* __restrict__ out_res) {
+  if (gridDim.x == 1) {
+    if (q == 0) {
+      *out_sum = v;
+    } else {
+      out_res[q - 1] = v;
+    }
+  } else {
+    part[static_cast<long long>(blockIdx.x) * nq + q] = v;
+    __threadfence();
+  }
+}
+
+// The end of a digest_div launch of several blocks, after every block has
+// stored its row (digest_store): the last block to take a ticket sums the
+// rows in block order, each warp eight outputs at a time (lane-strided
+// sums, then shuffle trees), writes out_sum and out_res, and resets the
+// ticket for the next launch.
+__device__ __forceinline__ void digest_finish(const float* part, int nq,
+                                              unsigned* ticket,
+                                              float* __restrict__ out_sum,
+                                              float* __restrict__ out_res) {
+  constexpr int kPerWarp = 8;
+  __shared__ bool last;
+  if (gridDim.x == 1) return;
+  __syncthreads();  // every store of this block's row is fenced
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int blocks = static_cast<int>(gridDim.x);
+  for (int q0 = warp * kPerWarp; q0 < nq; q0 += warps * kPerWarp) {
+    float v[kPerWarp];
+#pragma unroll
+    for (int k = 0; k < kPerWarp; ++k) v[k] = 0.f;
+#pragma unroll 2
+    for (int b = lane; b < blocks; b += 32) {
+      const float* row = part + static_cast<long long>(b) * nq;
+#pragma unroll
+      for (int k = 0; k < kPerWarp; ++k)
+        if (q0 + k < nq) v[k] += __ldcg(row + q0 + k);
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+#pragma unroll
+      for (int k = 0; k < kPerWarp; ++k)
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], s);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kPerWarp; ++k) {
+        const int q = q0 + k;
+        if (q == 0) {
+          *out_sum = v[k];
+        } else if (q < nq) {
+          out_res[q - 1] = v[k];
+        }
+      }
+    }
+  }
+  if (threadIdx.x == 0) atomicExch(ticket, 0u);
+}
+
+// Register form, C <= CB (a multiple of 4 up to kDigestMaxC). VEC: float4
+// loads.
+template <int CB, bool VEC>
+__global__ void __launch_bounds__(kDigestThreads)
+digest_div_reg(const float* __restrict__ x, int n_clients, long long n,
+               float* part, unsigned* ticket, float* __restrict__ out_sum,
+               float* __restrict__ out_res) {
+  __shared__ float red[kDigestThreads / 32][CB + 1];
+  const float fc = static_cast<float>(n_clients);
+  const long long groups = (n + 3) / 4;
+  float tsum = 0.f;
+  float res[CB];
+#pragma unroll
+  for (int c = 0; c < CB; ++c) res[c] = 0.f;
+  for (long long g = blockIdx.x * static_cast<long long>(kDigestThreads) +
+                     threadIdx.x;
+       g < groups; g += static_cast<long long>(gridDim.x) * kDigestThreads) {
+    float4 v[CB];
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+      v[c] = c < n_clients ? load_cols<VEC>(x, c, n, 4 * g) : zero4();
+    float4 s = zero4();
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      if (c < n_clients) {
+        s.x += v[c].x;
+        s.y += v[c].y;
+        s.z += v[c].z;
+        s.w += v[c].w;
+      }
+    }
+    tsum += s.x;
+    tsum += s.y;
+    tsum += s.z;
+    tsum += s.w;
+    const float4 m = make_float4(s.x / fc, s.y / fc, s.z / fc, s.w / fc);
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      if (c < n_clients) {
+        float d = v[c].x - m.x;
+        float r = d * d;
+        d = v[c].y - m.y;
+        r = fmaf(d, d, r);
+        d = v[c].z - m.z;
+        r = fmaf(d, d, r);
+        d = v[c].w - m.w;
+        r = fmaf(d, d, r);
+        res[c] += r;
+      }
+    }
+  }
+  // the block's C + 1 sums at once: the shuffle trees of all of them side
+  // by side (res[c] is 0 past C), one table, one barrier
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    tsum += __shfl_xor_sync(0xffffffffu, tsum, s);
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+      res[c] += __shfl_xor_sync(0xffffffffu, res[c], s);
+  }
+  if (lane == 0) {
+    red[warp][0] = tsum;
+#pragma unroll
+    for (int c = 0; c < CB; ++c) red[warp][c + 1] = res[c];
+  }
+  __syncthreads();
+  const int nq = n_clients + 1;
+  if (threadIdx.x < nq) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDigestThreads / 32; ++w) v += red[w][threadIdx.x];
+    digest_store(threadIdx.x, v, nq, part, out_sum, out_res);
+  }
+  digest_finish(part, nq, ticket, out_sum, out_res);
+}
+
+// Slab form, any C: a block owns columns [blockIdx.x * tile, + tile).
+// STAGED: the block's [C, tile] slab of x sits in shared memory, so x is
+// read from device memory once; else (a slab of even one column would not
+// fit: C > 12 031) the block reads its columns of x twice, the second time
+// from L2.
+template <bool STAGED>
+__global__ void __launch_bounds__(kSlabThreads)
+digest_div_slab(const float* __restrict__ x, int n_clients, long long n,
+                int tile, float* part, unsigned* ticket,
+                float* __restrict__ out_sum, float* __restrict__ out_res) {
+  extern __shared__ float slab[];  // STAGED: [C][tile]; then the means [tile]
+  __shared__ float red[kSlabThreads / 32];
+  float* mean = STAGED ? slab + n_clients * tile : slab;
+  const long long start = blockIdx.x * static_cast<long long>(tile);
+  const int cols =
+      static_cast<int>(min(static_cast<long long>(tile), n - start));
+  const float* xs = x + start;
+  auto at = [&](int c, int j) {
+    return STAGED ? slab[c * tile + j] : xs[c * n + j];
+  };
+  if (STAGED) {
+    for (int i = threadIdx.x; i < n_clients * cols; i += kSlabThreads) {
+      const int c = i / cols;
+      const int j = i - c * cols;
+      slab[c * tile + j] = xs[c * n + j];
+    }
+    __syncthreads();
+  }
+  const float fc = static_cast<float>(n_clients);
+  float tsum = 0.f;
+  for (int j = threadIdx.x; j < cols; j += kSlabThreads) {
+    float s = 0.f;
+    for (int c = 0; c < n_clients; ++c) s += at(c, j);
+    mean[j] = s / fc;
+    tsum += s;
+  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  tsum = warp_sum(tsum);
+  if (lane == 0) red[warp] = tsum;
+  __syncthreads();  // also publishes the means
+  const int nq = n_clients + 1;
+  for (int c = warp; c < n_clients; c += kSlabThreads / 32) {
+    float r = 0.f;
+    for (int j = lane; j < cols; j += 32) {
+      const float d = at(c, j) - mean[j];
+      r = fmaf(d, d, r);
+    }
+    r = warp_sum(r);
+    if (lane == 0) digest_store(c + 1, r, nq, part, out_sum, out_res);
+  }
+  if (threadIdx.x == 0) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSlabThreads / 32; ++w) v += red[w];
+    digest_store(0, v, nq, part, out_sum, out_res);
+  }
+  digest_finish(part, nq, ticket, out_sum, out_res);
+}
+
+// Columns of a staged slab-form block for C clients, so that the slab and
+// the means fit in kSlabBytes; 0 when not even one column fits.
+int slab_tile(int n_clients) {
+  const int fit = kSlabBytes / 4 / (n_clients + 1);
+  return fit < kSlabMaxTile ? fit : kSlabMaxTile;
+}
+
+// The SM count of the current device, read once per device; `dev` set.
+cudaError_t device_sms(int* dev, int* sms) {
+  static std::atomic<int> counts[kMaxDevices];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  *sms = counts[*dev].load(std::memory_order_relaxed);
+  if (*sms == 0) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return err;
+    counts[*dev].store(*sms, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// Blocks of a register-form launch: one per kDigestThreads column groups,
+// at most one wave of the card (its occupancy read once per device).
+template <int CB, bool VEC>
+cudaError_t digest_reg_blocks(long long n, int* blocks) {
+  static std::atomic<int> per_sm[kMaxDevices];
+  int dev = 0, sms = 0;
+  cudaError_t err = device_sms(&dev, &sms);
+  if (err != cudaSuccess) return err;
+  int occ = per_sm[dev].load(std::memory_order_relaxed);
+  if (occ == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, digest_div_reg<CB, VEC>, kDigestThreads, 0);
+    if (err != cudaSuccess) return err;
+    occ = occ < 1 ? 1 : occ;
+    per_sm[dev].store(occ, std::memory_order_relaxed);
+  }
+  const long long need = ((n + 3) / 4 + kDigestThreads - 1) / kDigestThreads;
+  const long long wave = static_cast<long long>(occ) * sms;
+  *blocks = static_cast<int>(need < wave ? need : wave);
+  return cudaSuccess;
+}
+
+// Blocks of a digest_div launch at (C, n, VEC); with `launch`, also launch
+// it (x, part [blocks, C + 1], ticket, outputs).
+template <int CB>
+cudaError_t digest_reg(bool vec, bool launch, const float* x, int n_clients,
+                       long long n, float* part, unsigned* ticket,
+                       float* out_sum, float* out_res, int* blocks,
+                       cudaStream_t s) {
+  cudaError_t err = vec ? digest_reg_blocks<CB, true>(n, blocks)
+                        : digest_reg_blocks<CB, false>(n, blocks);
+  if (err != cudaSuccess || !launch) return err;
+  if (vec) {
+    digest_div_reg<CB, true><<<*blocks, kDigestThreads, 0, s>>>(
+        x, n_clients, n, part, ticket, out_sum, out_res);
+  } else {
+    digest_div_reg<CB, false><<<*blocks, kDigestThreads, 0, s>>>(
+        x, n_clients, n, part, ticket, out_sum, out_res);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t digest_div(bool launch, const float* x, int n_clients,
+                       long long n, float* part, unsigned* ticket,
+                       float* out_sum, float* out_res, int* blocks,
+                       cudaStream_t s) {
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  switch ((n_clients + 3) / 4) {
+    case 1: return digest_reg<4>(vec, launch, x, n_clients, n, part, ticket,
+                                 out_sum, out_res, blocks, s);
+    case 2: return digest_reg<8>(vec, launch, x, n_clients, n, part, ticket,
+                                 out_sum, out_res, blocks, s);
+    case 3: return digest_reg<12>(vec, launch, x, n_clients, n, part,
+                                  ticket, out_sum, out_res, blocks, s);
+    case 4: return digest_reg<16>(vec, launch, x, n_clients, n, part,
+                                  ticket, out_sum, out_res, blocks, s);
+    case 5: return digest_reg<20>(vec, launch, x, n_clients, n, part,
+                                  ticket, out_sum, out_res, blocks, s);
+    case 6: return digest_reg<24>(vec, launch, x, n_clients, n, part,
+                                  ticket, out_sum, out_res, blocks, s);
+    case 7: return digest_reg<28>(vec, launch, x, n_clients, n, part,
+                                  ticket, out_sum, out_res, blocks, s);
+    case 8: return digest_reg<32>(vec, launch, x, n_clients, n, part,
+                                  ticket, out_sum, out_res, blocks, s);
+    default: break;
+  }
+  const int fit = slab_tile(n_clients);
+  const int tile = fit > 0 ? fit : kSlabMaxTile;
+  *blocks = static_cast<int>((n + tile - 1) / tile);
+  if (!launch) return cudaSuccess;
+  if (fit > 0) {
+    const size_t smem = sizeof(float) * (static_cast<size_t>(n_clients) + 1) *
+                        static_cast<size_t>(tile);
+    digest_div_slab<true><<<*blocks, kSlabThreads, smem, s>>>(
+        x, n_clients, n, tile, part, ticket, out_sum, out_res);
+  } else {
+    digest_div_slab<false><<<*blocks, kSlabThreads, sizeof(float) * tile,
+                             s>>>(x, n_clients, n, tile, part, ticket,
+                                  out_sum, out_res);
+  }
+  return cudaGetLastError();
 }
 
 // RB: output rows whose accumulators a thread holds (a multiple of 4, at
@@ -329,24 +608,30 @@ extern "C" int repro_fedavg_flat(const void* x, const void* w, const void* noise
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: f32 [n_clients, n]; part_sum: f32 [n_blocks]; part_res: f32
-// [n_blocks, n_clients] with n_blocks = ceil(n / tile); out_sum: f32 [1];
-// out_res: f32 [n_clients].
+// Rows of the partials a digest_div launch at (n_clients, n) for x needs:
+// its block count (>= 1), or minus a CUDA error.
+extern "C" long long repro_digest_div_blocks(const void* x, int n_clients,
+                                             long long n) {
+  int blocks = 0;
+  const cudaError_t err =
+      digest_div(false, static_cast<const float*>(x), n_clients, n, nullptr,
+                 nullptr, nullptr, nullptr, &blocks, nullptr);
+  return err == cudaSuccess ? blocks : -static_cast<long long>(err);
+}
+
+// x: f32 [n_clients, n]; part: f32 [repro_digest_div_blocks(x, n_clients,
+// n), n_clients + 1]; ticket: one uint32, 0 before the launch and 0 again
+// after it (the launch resets it), used by no launch that may overlap this
+// one; out_sum: f32 [1]; out_res: f32 [n_clients]. One launch.
 extern "C" int repro_digest_div(const void* x, int n_clients, long long n,
-                                int tile, void* part_sum, void* part_res,
-                                void* out_sum, void* out_res, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_blocks = static_cast<int>((n + tile - 1) / tile);
-  digest_div_partial<<<n_blocks, kThreads, sizeof(float) * tile, s>>>(
-      static_cast<const float*>(x), n_clients, n, tile,
-      static_cast<float*>(part_sum), static_cast<float*>(part_res));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  digest_div_finish<<<1, kThreads, 0, s>>>(
-      static_cast<const float*>(part_sum), static_cast<const float*>(part_res),
-      n_blocks, n_clients, static_cast<float*>(out_sum),
-      static_cast<float*>(out_res));
-  return static_cast<int>(cudaGetLastError());
+                                void* part, void* ticket, void* out_sum,
+                                void* out_res, void* stream) {
+  int blocks = 0;
+  return static_cast<int>(digest_div(
+      true, static_cast<const float*>(x), n_clients, n,
+      static_cast<float*>(part), static_cast<unsigned*>(ticket),
+      static_cast<float*>(out_sum), static_cast<float*>(out_res), &blocks,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // w: f32 [rows, depth]; x: f32 [depth, n]; out: f32 [rows, n]; 1 <= rows,
@@ -354,18 +639,9 @@ extern "C" int repro_digest_div(const void* x, int n_clients, long long n,
 // is read on its first call and kept.
 extern "C" int repro_mix_rows(const void* w, const void* x, void* out,
                               int rows, int depth, long long n, void* stream) {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> sm_counts[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int dev = 0, sms = 0;
+  const cudaError_t err = device_sms(&dev, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  int sms = sm_counts[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sm_counts[dev].store(sms, std::memory_order_relaxed);
-  }
   return static_cast<int>(launch_mix_rows_rb(
       mix_rows_block(rows, n, sms), static_cast<const float*>(w),
       static_cast<const float*>(x), static_cast<float*>(out), rows, depth, n,

@@ -24,13 +24,11 @@ from repro_torch.kernels.fedavg.ref import (digest_div_flat_ref,
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "repro_fedavg_flat": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
-    "repro_digest_div": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                         _P, _P, _P, _P, _P],
+    "repro_digest_div": [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P,
+                         _P, _P],
     "repro_mix_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, _P],
 }
-# columns per block of the digest/divergence sweep (its shared-memory tile)
-DIGEST_TILE = 1024
 # largest R and K of mix_rows_flat: a block's rows of w_rows (at most 32 of
 # them) stay whole in shared memory
 MIX_MAX = 64
@@ -45,7 +43,16 @@ def _lib() -> ctypes.CDLL:
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    blocks = lib.repro_digest_div_blocks
+    if blocks.argtypes is None:
+        blocks.argtypes = [_P, ctypes.c_int, ctypes.c_longlong]
+        blocks.restype = ctypes.c_longlong
     return lib
+
+
+# (device index, stream handle) -> the digest/divergence sweep's ticket on
+# that stream: one int32, zeroed when made, reset to 0 by every launch
+_DIGEST_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _check_flat(x: torch.Tensor, what: str) -> None:
@@ -125,22 +132,29 @@ mix_rows_flat.launches = 0
 def digest_div_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sweep of x [C, N] f32 for both diagnostics of the communicate
     stage: (leaf sum, 0-d f32; per-client sum_n (x[c, n] - colmean[n])^2,
-    [C] f32). The CUDA path sums in a fixed order, so it gives the same
-    bits on every run."""
+    [C] f32). The CUDA path is one launch that sums in a fixed order, so
+    it gives the same bits on every run at the same shape on the same
+    card."""
     _check_flat(x, "digest_div_flat")
     if x.device.type == "cpu":
         return digest_div_flat_ref(x)
-    lib = _lib()
     c, n = x.shape
-    n_blocks = -(-n // DIGEST_TILE)
-    part_sum = torch.empty(n_blocks, dtype=torch.float32, device=x.device)
-    part_res = torch.empty((n_blocks, c), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    blocks = lib.repro_digest_div_blocks(x.data_ptr(), c, n)
+    if blocks < 1:
+        _build.check(lib, int(-blocks), "digest_div_flat")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = (x.device.index, stream)
+    ticket = _DIGEST_TICKETS.get(key)
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+        _DIGEST_TICKETS[key] = ticket
+    part = torch.empty((blocks, c + 1), dtype=torch.float32, device=x.device)
     out_sum = torch.empty((), dtype=torch.float32, device=x.device)
     out_res = torch.empty(c, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.repro_digest_div(x.data_ptr(), c, n, DIGEST_TILE,
-                               part_sum.data_ptr(), part_res.data_ptr(),
-                               out_sum.data_ptr(), out_res.data_ptr(), stream)
+    err = lib.repro_digest_div(x.data_ptr(), c, n, part.data_ptr(),
+                               ticket.data_ptr(), out_sum.data_ptr(),
+                               out_res.data_ptr(), stream)
     _build.check(lib, err, "digest_div_flat")
     digest_div_flat.launches += 1
     return out_sum, out_res

@@ -23,9 +23,16 @@ def fedavg_flat_ref(x: torch.Tensor, weights: torch.Tensor,
 def digest_div_flat_ref(x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [C, N] -> (leaf sum, 0-d f32; per-client sum_n (x - colmean)^2,
-    [C] f32)."""
+    [C] f32). The column mean is the kernel's: each column summed in
+    ascending c, then divided by C (as the JAX kernel divides its column
+    sum), so the two agree on it bitwise; a residual of a client near the
+    mean is then not swamped by the last bit of a mean rounded another
+    way."""
     x = x.to(torch.float32)
-    mean = x.mean(dim=0, keepdim=True)
+    colsum = x[0].clone()
+    for row in x[1:]:
+        colsum += row
+    mean = colsum / x.shape[0]
     return x.sum(), ((x - mean) ** 2).sum(dim=1)
 
 

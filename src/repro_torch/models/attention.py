@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 
@@ -48,10 +49,12 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32,
-               device: torch.device = torch.device("cpu")) -> Params:
+               dtype=torch.float32, device: DeviceLike = "cuda") -> Params:
+    """A zeroed kv cache on ``device`` (the card unless asked for the
+    CPU; raises without a GPU)."""
     if cfg.mla is not None:
         raise NotImplementedError(MLA_TODO)
+    device = resolve_device(device)
     hd = cfg.resolved_head_dim
     s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     shape = (batch, s, cfg.n_kv_heads, hd)

@@ -56,8 +56,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def rms_norm_init(dim: int, dtype=torch.float32,
-                  device: torch.device = torch.device("cpu")) -> Params:
+def rms_norm_init(dim: int, dtype: torch.dtype, device: torch.device
+                  ) -> Params:
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
@@ -74,8 +74,7 @@ def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-5
 # ---------------------------------------------------------------------------
 
 
-def rope_frequencies(head_dim: int, theta: float,
-                     device: torch.device = torch.device("cpu")
+def rope_frequencies(head_dim: int, theta: float, device: torch.device
                      ) -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import layers
 
@@ -84,8 +85,11 @@ def ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
-               device: torch.device = torch.device("cpu")) -> Params:
+               device: DeviceLike = "cuda") -> Params:
+    """A zeroed conv and scan state on ``device`` (the card unless asked
+    for the CPU; raises without a GPU)."""
     s, d_in, _ = _dims(cfg)
+    device = resolve_device(device)
     return {
         "conv": torch.zeros((batch, s.d_conv - 1, d_in), dtype=dtype,
                             device=device),

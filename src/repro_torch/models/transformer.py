@@ -31,6 +31,7 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention, layers, ssm as ssm_lib
 
 Params = Dict[str, Any]
@@ -232,8 +233,11 @@ def _cache_struct(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.float32,
-                      device: torch.device = torch.device("cpu")) -> Params:
+                      device: DeviceLike = "cuda") -> Params:
+    """Zeroed caches for decode, on ``device`` (the card unless asked
+    for the CPU; raises without a GPU)."""
     check_supported(cfg)
+    device = resolve_device(device)
     n_per = _n_periods(cfg)
     state: Params = {}
     if cfg.n_dense_prefix:

@@ -59,16 +59,34 @@ def test_fedavg_flat_matches_pallas_kernel(n, with_noise, uniform):
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
+# client counts of the sweep: 6, and either side of the CUDA kernel's
+# register-form buckets and of its largest (32; above it the slab form)
+DIGEST_CLIENTS = [1, 6, 7, 20, 33, 64]
+
+
+@pytest.mark.parametrize("c", DIGEST_CLIENTS)
 @pytest.mark.parametrize("n", WIDTHS)
-def test_digest_div_flat_matches_pallas_kernel(n):
-    c = 6
-    x = _x(c, n, 10 + n) + 0.25
+def test_digest_div_flat_matches_pallas_kernel(n, c):
+    x = _x(c, n, 10 + n + c) + 0.25
     js, jr = jdigest_div_flat(jnp.asarray(x), interpret=True)
     s, r = fedavg_ops.digest_div_flat(torch.from_numpy(x))
     assert s.shape == () and r.shape == (c,)
     np.testing.assert_allclose(float(s), float(js), rtol=0,
                                atol=1e-6 * np.abs(x).sum())
     np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=RTOL)
+
+
+
+def test_digest_div_flat_ref_takes_the_kernels_column_mean():
+    """The plain version's column mean is the CUDA kernel's: the column
+    summed in ascending c, then divided by C. At N = 1 each residual is one
+    rounded square, so it is exactly (x - that mean)^2."""
+    x = torch.from_numpy(_x(64, 1, 3) + 0.25)
+    colsum = torch.zeros(1)
+    for c in range(64):
+        colsum = colsum + x[c]
+    _, r = digest_div_flat_ref(x)
+    assert torch.equal(r, ((x - colsum / 64) ** 2)[:, 0])
 
 
 def _tree(c, seed, hidden=32):

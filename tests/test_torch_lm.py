@@ -29,7 +29,9 @@ from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
 from repro_torch import configs
 from repro_torch.launch import serve
-from repro_torch.models import attention, layers, registry, transformer
+from repro_torch.core import detection
+from repro_torch.models import (attention, layers, registry, ssm,
+                                 transformer)
 from repro_torch.weights import lm_params_from_jax
 
 RTOL = ATOL = 1e-5
@@ -158,7 +160,7 @@ def test_gqa_forward_and_ring_decode_match_reference(window):
     _close(out, jout)
     _close(kv["k"], jkv["k"])
     jcache = jattention.init_cache(jcfg, b, s)
-    cache = attention.init_cache(cfg, b, s)
+    cache = attention.init_cache(cfg, b, s, device="cpu")
     assert cache["k"].shape == tuple(jcache["k"].shape)
     for t in range(s):
         jo, jcache = jattention.gqa_decode(jp, jcfg, jnp.asarray(x[:, t]),
@@ -227,7 +229,7 @@ def test_decode_from_empty_state_matches_forward(arch):
         params, cfg, transformer._embed_inputs(params, cfg, batch))
     assert caches is None
     full = transformer._lm_head(params, cfg, h)
-    state = transformer.init_decode_state(cfg, b, s)
+    state = transformer.init_decode_state(cfg, b, s, device="cpu")
     for t in range(s):
         logits, state = transformer.decode_step(params, cfg, state,
                                                 batch["tokens"][:, t], t)
@@ -281,6 +283,43 @@ def test_entry_points_default_to_the_gpu():
         lm_params_from_jax({"w": np.zeros(2, np.float32)})
 
 
+
+def _allocators():
+    """The public state allocators of the serve and FL paths, each a
+    function of ``**device`` returning its tensors."""
+    cfg = configs.get_smoke_arch("jamba-1.5-large-398b")
+    hybrid = dataclasses.replace(cfg, moe=None)
+    return {
+        "init_decode_state": lambda **d: jax.tree.leaves(
+            transformer.init_decode_state(hybrid, 2, 8, **d)),
+        "init_cache": lambda **d: list(
+            attention.init_cache(cfg, 2, 8, **d).values()),
+        "init_state": lambda **d: list(ssm.init_state(cfg, 2, **d).values()),
+        "sketch_projection": lambda **d: [
+            detection.sketch_projection(40, 8, **d)],
+    }
+
+
+ALLOCATORS = ["init_decode_state", "init_cache", "init_state",
+              "sketch_projection"]
+
+
+@pytest.mark.parametrize("name", ALLOCATORS)
+def test_state_allocators_give_cpu_tensors_when_asked(name):
+    tensors = _allocators()[name](device="cpu")
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+@pytest.mark.parametrize("name", ALLOCATORS)
+def test_state_allocators_default_to_the_gpu(name):
+    """No device given means the card: without one it raises rather than
+    handing back CPU tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device does not raise")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _allocators()[name]()
+
+
 @pytest.mark.parametrize("arch,changes", [
     ("jamba-1.5-large-398b", {}),                  # MoE
     ("deepseek-v2-236b", {"moe": None}),           # MLA
@@ -293,4 +332,4 @@ def test_unported_parts_raise_not_implemented(arch, changes):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         transformer.init_lm(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_decode_state(cfg, 1, 4)
+        transformer.init_decode_state(cfg, 1, 4, device="cpu")

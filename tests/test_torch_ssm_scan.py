@@ -23,7 +23,8 @@ from repro.kernels.ssm_scan import ssm_scan_ref as jssm_scan_ref
 from repro.models import ssm as jssm
 from repro_torch.configs import get_smoke_arch
 from repro_torch.kernels.ssm_scan import ops
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (ssm_scan_exp2,
+                                              ssm_scan_ref, state_bucket)
 from repro_torch.models import ssm
 from repro_torch.weights import lm_params_from_jax
 
@@ -82,6 +83,54 @@ def test_ssm_scan_rejects_bad_shapes():
     with pytest.raises(ValueError):      # d_state above the kernel's 64
         ops.ssm_scan(u, dt, torch.zeros((1, 8, 65)), torch.zeros((1, 8, 65)),
                      wide, d)
+
+
+
+# the CUDA kernel's arithmetic (ref.ssm_scan_exp2) at the reference's cases
+# and at ds on either side of the kernel's state buckets (1, 5, 9, 17, 33)
+# and ragged d_in (130: not a multiple of the kernel's 64-channel blocks or
+# of 4): B, T, d_in, ds, tile_t, tile_d
+EXP2_CASES = SSM_CASES + [(1, 16, 32, 1, 16, 32), (1, 16, 32, 5, 16, 32),
+                          (2, 32, 130, 9, 32, 130), (1, 24, 64, 17, 24, 64),
+                          (1, 16, 32, 33, 16, 32), (1, 8, 48, 64, 8, 48)]
+
+
+@pytest.mark.parametrize("case", EXP2_CASES,
+                         ids=lambda c: f"B{c[0]}T{c[1]}d{c[2]}s{c[3]}")
+def test_kernel_arithmetic_matches_reference_and_pallas_kernel(case):
+    """exp2 of a prescaled a and the kernel's summation order, held to the
+    plain version and to the JAX package's kernel (interpret mode) and
+    oracle at the kernel's tolerance."""
+    b, t, d_in, ds, tt, td = case
+    xs = _inputs(b, t, d_in, ds, seed=7 * t + d_in + ds)
+    y_k, h_k = jssm_scan(*(jnp.asarray(x) for x in xs), tile_t=tt,
+                         tile_d=td, interpret=True)
+    y_r, h_r = jssm_scan_ref(*(jnp.asarray(x) for x in xs))
+    y_p, h_p = ssm_scan_ref(*(torch.from_numpy(x) for x in xs))
+    y, h = ssm_scan_exp2(*(torch.from_numpy(x) for x in xs))
+    assert y.shape == (b, t, d_in) and h.shape == (b, d_in, ds)
+    for got, want in ((y, y_p), (h, h_p), (y, y_k), (h, h_k), (y, y_r),
+                      (h, h_r)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_state_buckets_cover_every_taken_width():
+    assert [state_bucket(ds) for ds in (1, 4, 5, 8, 9, 16, 17, 32, 33, 64)] \
+        == [4, 4, 8, 8, 16, 16, 32, 32, 64, 64]
+    with pytest.raises(ValueError):
+        state_bucket(ops.MAX_D_STATE + 1)
+
+
+@pytest.mark.parametrize("ds", [1, 64, 65])
+def test_wrapper_takes_ds_1_to_64(ds):
+    xs = [torch.from_numpy(x) for x in _inputs(1, 6, 8, ds, seed=ds)]
+    if ds > ops.MAX_D_STATE:
+        with pytest.raises(ValueError, match="ds"):
+            ops.ssm_scan(*xs)
+        return
+    y, h = ops.ssm_scan(*xs)
+    y_r, h_r = ssm_scan_ref(*xs)
+    assert torch.equal(y, y_r) and torch.equal(h, h_r)
 
 
 def _jamba_smoke():
