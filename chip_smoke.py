@@ -12,15 +12,22 @@ precision, and runs these phases, each of which raises on failure and
 prints its seconds:
 
 1. every FL kernel against its plain PyTorch version on the card, at the
-   shapes of the main paths (the race bitwise, the float kernels to a
-   stated tolerance; ``mix_rows_flat`` bitwise, also at ragged widths and
-   on misaligned views, where its float4 path cannot run;
-   ``digest_div_flat`` three calls bitwise equal at every leaf, every leaf
-   as an offset view, and C in DIGEST_CLIENTS x N in DIGEST_WIDTHS), with
-   its time, the plain version's time, the time of one PyTorch call
-   computing the same function where there is one, and its bound on an
-   H100; the race's
-   C = 1 case (one ``ops.mine`` call) is timed too;
+   shapes of the main paths (the float kernels to a stated tolerance;
+   ``mix_rows_flat`` bitwise, also at ragged widths and on misaligned
+   views, where its float4 path cannot run; ``digest_div_flat`` three
+   calls bitwise equal at every leaf, every leaf as an offset view, and C
+   in DIGEST_CLIENTS x N in DIGEST_WIDTHS), with its time, the plain
+   version's time, the time of one PyTorch call computing the same
+   function where there is one, and its bound on an H100. The mine kernel
+   is held bitwise in both modes, the race (``ops.pow_race_flat``) on
+   RACE_CASES and the whole seal (``ops.mine_seal``) on SEAL_CASES
+   (planted ties, all-max payloads, C = 1, budgets of several blocks a
+   client), and timed at C = 20 and C = 1 (flat) and C = 20 (seal) beside
+   the empty-launch floor, with its device operations a call, as is one
+   call of the mine stage ``rounds.make_mine`` (2: the nonce offset's fill
+   and the launch). Every timed function is read by the profiler and by
+   CUDA events (``kernel_ms``); readings more than READING_SPREAD apart
+   are noted before the kernel table;
 1b. the same for the serve path's kernels, ``flash_attention`` (at the
    path's attention shape, the reference's test shapes, ragged S, head
    dims 36 / 112 / 256, a window, a bidirectional mask, GQA, bf16, and
@@ -32,7 +39,8 @@ prints its seconds:
    configuration (C = 20, MLP 784-256-10, 512 samples per client, K = 5,
    tau = 10, 2 lazy clients, sigma2 = 0.01, 10240 mining attempts,
    difficulty 4), with every kernel's launch count read around that run
-   and no host sync inside its rounds;
+   and no host sync inside its rounds (under ``--profile``, also the
+   device operations a round);
 2b. the topology path: the same configuration with ``--topology
    random:0.5 --fused-mix`` (per-round link dropout, the dense mix on the
    ``mix_rows_flat`` kernel), checked the same way;
@@ -60,6 +68,7 @@ exits non-zero, and prints no result, without a GPU or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -76,6 +85,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_ALU_OPS_S = 67e12
 PEAK_TF32_S = 495e12
+# the spin kernel's clock (H100 SXM boost, 1.98 GHz) when it is asked to
+# outlast a span: a slower clock only lengthens the spin
+SPIN_CYCLES_PER_S = 2.0e9
+# the two device-time readings of a function (profiler, CUDA events) are
+# flagged, as a note, when they differ by more than this share
+READING_SPREAD = 0.10
+# profiles of one timing, at most, until the device operations come out a
+# whole number a call
+PROFILE_ATTEMPTS = 5
+# when none of them does, the operations-a-call gates take the largest
+# count seen, which may lie this many activities below the count wanted
+# (the profiler drops activities now and then and never adds one; on an
+# H100, one or two from a profile of 50 calls, and in one profile of the
+# many taken, 61 of 100, which the next profile did not repeat)
+PROFILE_DROP_LIMIT = 3
 # the flash kernel runs each product as three TF32 passes (3xTF32), the
 # least that holds fp32's tolerance on the tensor cores
 FLASH_TF32_PASSES = 3
@@ -97,7 +121,32 @@ ADVERSARIAL_ARGS = [
 ]
 N_CLIENTS = 20
 LEAF_WIDTHS = {"b1": 256, "b2": 10, "w1": 784 * 256, "w2": 256 * 10}
-MINE_ATTEMPTS, MINE_CHUNK = 10240, 1024
+MINE_ATTEMPTS = 10240
+# (C, n_attempts, chunk) the race is held to its plain version at: chunk
+# None lets the wrapper pick the tile (ops.race_tile: one block a client
+# up to 16 384 attempts, else several and the ticket), a number forces
+# that tile (several blocks a client); the main path's budget both ways,
+# tails, C = 1, several blocks a client, one attempt
+RACE_CASES = [(N_CLIENTS, MINE_ATTEMPTS, None), (N_CLIENTS, MINE_ATTEMPTS, 1024),
+              (N_CLIENTS, 3000, 1024), (N_CLIENTS, 1000, 384),
+              (1, MINE_ATTEMPTS, None), (1, MINE_ATTEMPTS, 1024), (7, 4097, 256),
+              (7, 40000, None), (N_CLIENTS, 1 << 20, None), (1, 1 << 24, None),
+              (3, 1, None), (100, 20000, None)]
+# (C, n_attempts, chunk, payloads, difficulty bits) for the seal mode:
+# "salt" salts the digest in the kernel, "ties" plants the best payload at
+# TIE_CLIENTS, "max" gives every client one hash of 0xFFFFFFFF
+SEAL_CASES = [(N_CLIENTS, MINE_ATTEMPTS, None, "salt", 4),
+              (N_CLIENTS, MINE_ATTEMPTS, 1024, "salt", 4),
+              (1, MINE_ATTEMPTS, None, "salt", 4), (1, MINE_ATTEMPTS, 1024, "salt", 0),
+              (7, 4097, 256, "salt", 32), (N_CLIENTS, 1 << 20, None, "salt", 8),
+              (1, 1 << 24, None, "salt", 4), (100, 20000, None, "salt", 4),
+              (7, 40000, None, "salt", 4),
+              (N_CLIENTS, MINE_ATTEMPTS, None, "ties", 4),
+              (N_CLIENTS, MINE_ATTEMPTS, 1024, "ties", 4),
+              (N_CLIENTS, 1 << 20, None, "ties", 4),
+              (5, 1, None, "max", 4), (5, 1, None, "max", 0),
+              (1, 1, None, "max", 0)]
+TIE_CLIENTS = [3, 8, 19]
 # ops of one hash in the race: avalanche (3 shifts, 3 xors, 2 muls), the
 # nonce add and xor, and the compare/select of the running minimum
 OPS_PER_HASH = 12
@@ -260,24 +309,162 @@ def device_us(torch, prof):
                if e.device_type == DeviceType.CUDA)
 
 
-def kernel_ms(torch, fn, reps=20):
-    """Device time per call of ``fn``: the GPU activity torch.profiler
-    records over ``reps`` calls, over ``reps``. Falls back to CUDA events
-    over back-to-back calls if the profiler records no device time."""
+def device_ops(torch, prof):
+    """The number of GPU activities (kernels, memsets, copies) a
+    torch.profiler run recorded."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def events_ms(torch, fn, reps=20, warmup=3):
+    """Device ms per call of ``fn`` by CUDA events: ``reps`` back-to-back
+    calls queued behind a spin kernel that outlasts the host's enqueue of
+    them, so the events time the device's work and the gaps between its
+    launches, not the host. Returns (ms, hidden): ``hidden`` is False when
+    the spin ended before the host had queued every call, so the reading
+    may hold host time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_s = min(2.0, 2 * enqueue_s + 1e-3)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * spin_s))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    hidden = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, hidden
+
+
+# label -> both device-time readings of a function timed by kernel_ms
+READINGS = {}
+
+
+def kernel_ms(torch, fn, label, reps=20):
+    """Device time per call of ``fn``, read two ways: the GPU activity
+    torch.profiler records over ``reps`` calls, and CUDA events over
+    back-to-back calls (:func:`events_ms`). Each call launches the same
+    operations, so a profile whose count is not a multiple of ``reps``
+    dropped activities: it is taken again, up to PROFILE_ATTEMPTS times.
+    Prints both readings and keeps them in READINGS under ``label``, with
+    the operations counted (``whole``: from a whole profile, else the
+    largest count seen). Returns the profiler's reading of a whole
+    profile, else the events'."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = device_us(torch, prof)
-    if us <= 0:
-        print("kernel_ms: profiler saw no device time; timing with CUDA "
-              "events instead", flush=True)
-        return time_ms(torch, fn, reps)
-    return us / 1e3 / reps
+    n_ops, dev_us, whole = -1, 0.0, False
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        count = device_ops(torch, prof)
+        whole = count % reps == 0
+        if whole or count > n_ops:
+            n_ops, dev_us = count, device_us(torch, prof)
+        if whole:
+            break
+        print(f"kernel_ms {label}: the profiler recorded {count} device "
+              f"operations over {reps} calls (attempt {attempt + 1})",
+              flush=True)
+    prof_ms = dev_us / 1e3 / reps
+    ev_ms, hidden = events_ms(torch, fn, reps)
+    READINGS[label] = dict(profiler_ms=prof_ms, events_ms=ev_ms,
+                           ops=n_ops, reps=reps, ops_per_call=n_ops / reps,
+                           whole=whole, host_hidden=hidden)
+    print(f"kernel_ms {label}: profiler {prof_ms:.6g} ms, CUDA events "
+          f"{ev_ms:.6g} ms{'' if hidden else ' (host not hidden)'}, "
+          f"{n_ops / reps:g} device ops a call", flush=True)
+    if not whole or prof_ms <= 0:
+        print(f"kernel_ms {label}: "
+              + ("no whole profile" if not whole else "no device time")
+              + "; using the CUDA events' reading", flush=True)
+        return ev_ms
+    return prof_ms
+
+
+def require_ops(label, want):
+    """The function timed as ``label`` launches ``want`` device operations
+    a call: exactly, by a whole profile; with none, the largest count seen
+    lies at most PROFILE_DROP_LIMIT activities below ``want`` a call."""
+    r = READINGS[label]
+    full = want * r["reps"]
+    ok = r["ops"] == full if r["whole"] else \
+        full - PROFILE_DROP_LIMIT <= r["ops"] < full
+    require(ok, f"{label}: {r['ops']} device operations over {r['reps']} "
+                f"calls{'' if r['whole'] else ' (no whole profile)'}, want "
+                f"{want} a call")
+
+
+def flag_readings():
+    """Print, as a note, every function whose two device-time readings
+    differ by more than READING_SPREAD of the events' reading."""
+    for label, r in READINGS.items():
+        p, e = r["profiler_ms"], r["events_ms"]
+        if not r["whole"]:
+            print(f"note: {label} has no whole profile ({r['ops']} device "
+                  f"operations over {r['reps']} calls); its time is the "
+                  "CUDA events'", flush=True)
+        if abs(p - e) > READING_SPREAD * e:
+            print(f"note: kernel_ms readings of {label} differ by "
+                  f"{100 * (p - e) / e:+.1f} %: profiler {p:.6g} ms, CUDA "
+                  f"events {e:.6g} ms, {r['ops_per_call']:g} device ops a "
+                  "call", flush=True)
+
+
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void repro_empty_kernel() {}
+extern "C" int repro_empty_launch(int blocks, int threads, void* stream) {
+  repro_empty_kernel<<<blocks, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_launch(torch, blocks=1, threads=32):
+    """Build (with the port's nvcc flags) a kernel that does nothing and
+    return a function that launches it once on the current stream with
+    ``blocks`` x ``threads``: at one block of one warp, the floor under
+    any single launch."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    # keyed, like the port's libraries, by a hash of source and flags
+    key = hashlib.sha256((EMPTY_KERNEL_CU + " ".join(_build.NVCC_FLAGS))
+                         .encode()).hexdigest()[:16]
+    src = _build.BUILD_DIR / f"empty_launch-{key}.cu"
+    lib_path = _build.BUILD_DIR / f"empty_launch-{key}.so"
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(EMPTY_KERNEL_CU)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                        str(tmp), str(src)], check=True, capture_output=True)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+    lib.repro_empty_launch.restype = ctypes.c_int
+
+    def launch():
+        err = lib.repro_empty_launch(blocks, threads,
+                                     torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"empty launch: CUDA error {err}")
+
+    return launch
 
 
 def check_digest(torch, x, what):
@@ -305,6 +492,178 @@ def check_digest(torch, x, what):
     return max(abs(float(s) - float(rs)), float(rerr.max()))
 
 
+def same_seal(torch, got, want):
+    """Two ``mine_seal`` results ``(metrics, new_hash)`` agree bitwise,
+    dtypes included."""
+    pairs = [(got[0][k], want[0][k]) for k in want[0]] + [(got[1], want[1])]
+    return set(got[0]) == set(want[0]) and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        for a, b in pairs)
+
+
+def phase_race(torch, dev):
+    """Phase 1, the mine kernel: both modes against their plain versions,
+    bitwise, on RACE_CASES and SEAL_CASES at two nonce offsets (the second
+    wraps past 2**32), then their times beside the empty-launch floor, and
+    the mine stage's device operations a call. Returns (the kernel table's
+    row, a summary for phase 1's line)."""
+    from repro_torch.core import mining, rounds
+    from repro_torch.kernels.pow_hash import ops as pow_ops
+    from repro_torch.kernels.pow_hash import ref as pow_ref
+
+    gen = torch.Generator().manual_seed(1357)
+
+    def word(v):
+        return torch.full((), int(v) & mining.MASK, dtype=torch.int64,
+                          device=dev)
+
+    def draw(c):
+        return torch.randint(0, 2 ** 32, (c,), generator=gen,
+                             dtype=torch.int64).to(dev)
+
+    def draw_word():
+        return word(torch.randint(0, 2 ** 32, (), generator=gen))
+
+    offsets = [4 << 20, 0xFFFFFFFF - 500]
+    checked = 0
+    for c, n, chunk in RACE_CASES:
+        for off in offsets:
+            payloads, prev = draw(c), draw_word()
+            h, nn = pow_ops.pow_race_flat(prev, payloads, word(off), n,
+                                          chunk=chunk)
+            rh, rn = pow_ref.pow_race_ref(prev, word(off), payloads, n)
+            require(torch.equal(h, rh) and torch.equal(nn, rn),
+                    f"pow_race differs from its plain version at C={c} "
+                    f"n={n} chunk={chunk} off={off}")
+            checked += 1
+    # clients whose one hash is 0xFFFFFFFF keep nonce 0
+    prev, off = 0x12345678, 0xFFFFFFF0
+    max_payloads = torch.tensor(
+        [pow_ref.payload_hashing_to(prev, off, mining.MASK)] * 5,
+        dtype=torch.int64, device=dev)
+    h, nn = pow_ops.pow_race_flat(word(prev), max_payloads, word(off), 1)
+    require(h.tolist() == [mining.MASK] * 5 and nn.tolist() == [0] * 5,
+            f"pow_race on all-max payloads: {h.tolist()}, {nn.tolist()}")
+    # the salting wrapper at C = 1 is the single-client search
+    h1, n1 = pow_ops.mine(word(7), word(0xCAFE), word(3), 2500,
+                          nonce_offset=word(1 << 20))
+    rh1, rn1 = mining.pow_search(7, 0xCAFE, 3, 2500, nonce_offset=1 << 20)
+    require(int(h1) == int(rh1) and int(n1) == int(rn1),
+            "single-client mine differs from mining.pow_search")
+
+    seal_checked, ties = 0, 0
+    for c, n, chunk, kind, bits in SEAL_CASES:
+        for off in offsets:
+            prev, digest = draw_word(), draw_word()
+            payloads, want_winner = None, None
+            if kind == "ties":
+                # the best payload copied to clients TIE_CLIENTS, its own
+                # slot given the worst one: the first of them must win
+                payloads = draw(c)
+                rh, _ = pow_ref.pow_race_ref(prev, word(off), payloads, n)
+                best, worst = int(torch.argmin(rh)), int(torch.argmax(rh))
+                best_payload = payloads[best].clone()
+                payloads[best] = payloads[worst]
+                payloads[TIE_CLIENTS] = best_payload
+                want_winner = TIE_CLIENTS[0]
+                ties += 1
+            elif kind == "max":
+                payloads = torch.tensor(
+                    [pow_ref.payload_hashing_to(int(prev), off, mining.MASK)]
+                    * c, dtype=torch.int64, device=dev)
+                want_winner = 0
+            args = (prev, digest, c, n)
+            kw = dict(nonce_offset=word(off), difficulty_bits=bits,
+                      payloads=payloads)
+            got = pow_ops.mine_seal(*args, chunk=chunk, **kw)
+            want = pow_ref.mine_seal_ref(prev, digest, word(off), c, n, bits,
+                                         payloads)
+            require(same_seal(torch, got, want),
+                    f"mine_seal differs from its plain version at C={c} "
+                    f"n={n} chunk={chunk} {kind} bits={bits} off={off}: "
+                    f"{[int(v) for v in got[0].values()]} vs "
+                    f"{[int(v) for v in want[0].values()]}")
+            if want_winner is not None:
+                require(int(want[0]["winner"]) == want_winner,
+                        f"case setup: {kind} at C={c} won by "
+                        f"{int(want[0]['winner'])}, not {want_winner}")
+            if kind == "max":
+                require(int(got[0]["nonce"]) == 0
+                        and int(got[0]["pow_hash"]) == mining.MASK,
+                        "mine_seal on all-max payloads keeps nonce 0")
+            seal_checked += 1
+
+    # times at the main path's shape: C = 20, MINE_ATTEMPTS, the tile the
+    # wrapper picks (one block a client)
+    payloads, prev, digest, off = draw(N_CLIENTS), word(99), word(0xCAFE), \
+        word(4 << 20)
+    salted = (digest ^ mining.client_salt(word(3))).reshape(1).contiguous()
+    h1, n1 = pow_ops.mine(prev, digest, word(3), MINE_ATTEMPTS,
+                          nonce_offset=off)
+    rh1, rn1 = pow_ref.pow_race_ref(prev, off, salted, MINE_ATTEMPTS)
+    require(int(h1) == int(rh1[0]) and int(n1) == int(rn1[0]),
+            "mine at the main path's budget differs from its plain version")
+    floor = empty_launch(torch)
+    floor_ms = kernel_ms(torch, floor, "empty launch (the floor)", reps=50)
+    floor_events_ms = READINGS["empty launch (the floor)"]["events_ms"]
+
+    def timed(label, fn, plain, c, bytes_):
+        """``bytes_``: each input word read once and each output written
+        once."""
+        row = dict(ms=kernel_ms(torch, fn, label, reps=50))
+        row.update(events_ms=READINGS[label]["events_ms"],
+                   device_ops=READINGS[label]["ops_per_call"],
+                   call_ms=time_ms(torch, fn),
+                   plain_ms=kernel_ms(torch, plain, f"{label} plain"),
+                   floor_ms=floor_ms, floor_events_ms=floor_events_ms,
+                   bound_ms=1e3 * max(bytes_ / PEAK_BYTES_S,
+                                      c * MINE_ATTEMPTS * OPS_PER_HASH
+                                      / PEAK_ALU_OPS_S),
+                   bound_by="operations")
+        return row
+
+    # the row's own numbers are the seal's at the main path's shape: every
+    # launch the paths count is a seal; flat mode (the TPU kernel's
+    # function) at C = 20 and C = 1 (its pow_search_kernel) are sub-rows
+    bits = 4
+    seal = "mine_seal (C = 20)"
+    row = dict(max_abs_err=0, library_ms=None, **timed(
+        seal,
+        lambda: pow_ops.mine_seal(prev, digest, N_CLIENTS, MINE_ATTEMPTS,
+                                  nonce_offset=off, difficulty_bits=bits),
+        lambda: pow_ref.mine_seal_ref(prev, digest, off, N_CLIENTS,
+                                      MINE_ATTEMPTS, bits), N_CLIENTS,
+        8 * (3 + 4) + 1))
+    row["flat"] = timed(
+        "pow_race (flat, C = 20)",
+        lambda: pow_ops.pow_race_flat(prev, payloads, off, MINE_ATTEMPTS),
+        lambda: pow_ref.pow_race_ref(prev, off, payloads, MINE_ATTEMPTS),
+        N_CLIENTS, 8 * (2 + 3 * N_CLIENTS))
+    # the launch one ops.mine call of MINE_ATTEMPTS makes, on the payload
+    # it salts
+    row["c1"] = timed(
+        "pow_race (flat, C = 1)",
+        lambda: pow_ops.pow_race_flat(prev, salted, off, MINE_ATTEMPTS),
+        lambda: pow_ref.pow_race_ref(prev, off, salted, MINE_ATTEMPTS), 1,
+        8 * (2 + 3))
+    spec = rounds.RoundSpec(n_clients=N_CLIENTS, tau=10, eta=0.05,
+                            mine_attempts=MINE_ATTEMPTS, difficulty_bits=bits)
+    mine = rounds.make_mine(spec)
+    stage = "mine stage (rounds.make_mine, one call)"
+    row["mine_stage"] = dict(ms=kernel_ms(torch, lambda: mine(prev, digest, 3),
+                                          stage, reps=50),
+                             events_ms=READINGS[stage]["events_ms"],
+                             device_ops=READINGS[stage]["ops_per_call"])
+    for label, want in ((seal, 1), ("pow_race (flat, C = 20)", 1),
+                        ("pow_race (flat, C = 1)", 1), (stage, 2)):
+        require_ops(label, want)
+    summary = (f"pow_race bitwise at {checked} flat and {seal_checked} seal "
+               f"cases ({ties} with planted ties, all-max payloads in both "
+               f"modes); times " + json.dumps(
+                   {k: row[k] for k in ("flat", "c1", "mine_stage")}))
+    return row, summary
+
+
 def phase_kernels(torch, dev):
     """Phase 1: each kernel against its plain version, and its times."""
     from repro_torch.core import mining
@@ -320,68 +679,7 @@ def phase_kernels(torch, dev):
         return torch.full((), int(v) & mining.MASK, dtype=torch.int64,
                           device=dev)
 
-    # --- pow_race: bitwise, at the main path's budget and at tails -------
-    cases = [(N_CLIENTS, MINE_ATTEMPTS, MINE_CHUNK), (N_CLIENTS, 3000, 1024),
-             (N_CLIENTS, 1000, 384), (1, MINE_ATTEMPTS, MINE_CHUNK),
-             (7, 4097, 256)]
-    offsets = [4 << 20, 0xFFFFFFFF - 500]   # the second wraps past 2**32
-    for c, n, chunk in cases:
-        for off in offsets:
-            payloads = torch.randint(0, 2 ** 32, (c,), generator=gen,
-                                     dtype=torch.int64).to(dev)
-            prev = word(torch.randint(0, 2 ** 32, (), generator=gen))
-            h, nn = pow_ops.pow_race_flat(prev, payloads, word(off), n,
-                                          chunk=chunk)
-            rh, rn = pow_ref.pow_race_ref(prev, word(off), payloads, n)
-            require(torch.equal(h, rh) and torch.equal(nn, rn),
-                    f"pow_race differs from its plain version at C={c} "
-                    f"n={n} chunk={chunk} off={off}")
-    # the salting wrapper at C = 1 is the single-client search
-    h1, n1 = pow_ops.mine(word(7), word(0xCAFE), word(3), 2500,
-                          nonce_offset=word(1 << 20))
-    rh1, rn1 = mining.pow_search(7, 0xCAFE, 3, 2500, nonce_offset=1 << 20)
-    require(int(h1) == int(rh1) and int(n1) == int(rn1),
-            "single-client mine differs from mining.pow_search")
-    payloads = torch.randint(0, 2 ** 32, (N_CLIENTS,), generator=gen,
-                             dtype=torch.int64).to(dev)
-    prev, off = word(99), word(4 << 20)
-    hashes = N_CLIENTS * MINE_ATTEMPTS
-    in_out_bytes = 8 * (N_CLIENTS + 2) + 16 * N_CLIENTS
-
-    def race():
-        return pow_ops.pow_race_flat(prev, payloads, off, MINE_ATTEMPTS,
-                                     chunk=MINE_CHUNK)
-
-    # the C = 1 case (the JAX package's pow_search_kernel): the launch one
-    # ops.mine call of MINE_ATTEMPTS makes, on the payload it salts
-    salted = (word(0xCAFE) ^ mining.client_salt(word(3))).reshape(1)
-    salted = salted.contiguous()
-    h1, n1 = pow_ops.mine(word(99), word(0xCAFE), word(3), MINE_ATTEMPTS,
-                          nonce_offset=off)
-    rh1, rn1 = pow_ref.pow_race_ref(prev, off, salted, MINE_ATTEMPTS)
-    require(int(h1) == int(rh1[0]) and int(n1) == int(rn1[0]),
-            "mine at the main path's budget differs from its plain version")
-
-    def race_one():
-        return pow_ops.pow_race_flat(prev, salted, off, MINE_ATTEMPTS,
-                                     chunk=MINE_CHUNK)
-
-    report["pow_race"] = dict(
-        max_abs_err=0,
-        ms=kernel_ms(torch, race), call_ms=time_ms(torch, race),
-        plain_ms=kernel_ms(torch, lambda: pow_ref.pow_race_ref(
-            prev, off, payloads, MINE_ATTEMPTS)),
-        library_ms=None,
-        bound_ms=1e3 * max(in_out_bytes / PEAK_BYTES_S,
-                           hashes * OPS_PER_HASH / PEAK_ALU_OPS_S),
-        bound_by="operations",
-        c1=dict(ms=kernel_ms(torch, race_one),
-                plain_ms=kernel_ms(torch, lambda: pow_ref.pow_race_ref(
-                    prev, off, salted, MINE_ATTEMPTS)),
-                bound_ms=1e3 * max((8 * (1 + 2) + 16) / PEAK_BYTES_S,
-                                   MINE_ATTEMPTS * OPS_PER_HASH
-                                   / PEAK_ALU_OPS_S),
-                bound_by="operations"))
+    report["pow_race"], race_summary = phase_race(torch, dev)
 
     # --- fedavg_flat and digest_div_flat at each leaf width ---------------
     fed_err = dig_err = 0.0
@@ -430,23 +728,27 @@ def phase_kernels(torch, dev):
     mix = per_round(lambda x: fedavg_ops.fedavg_flat(x, uniform))
     report["fedavg_flat"] = dict(
         max_abs_err=fed_err,
-        ms=kernel_ms(torch, mix), call_ms=time_ms(torch, mix),
+        ms=kernel_ms(torch, mix, "fedavg_flat"), call_ms=time_ms(torch, mix),
         plain_ms=kernel_ms(torch, per_round(
-            lambda x: fedavg_ref.fedavg_flat_ref(x, uniform))),
+            lambda x: fedavg_ref.fedavg_flat_ref(x, uniform)),
+            "fedavg_flat plain"),
         # one PyTorch call, same function: the mean-row matrix times x
-        library_ms=kernel_ms(torch, per_round(lambda x: torch.mm(w_rows, x))),
+        library_ms=kernel_ms(torch, per_round(lambda x: torch.mm(w_rows, x)),
+                             "fedavg_flat library (torch.mm)"),
         bound_ms=1e3 * max((8 * elems + 16 * N_CLIENTS) / PEAK_BYTES_S,
                            2 * elems / PEAK_ALU_OPS_S),
         bound_by="bytes")
     sweep = per_round(fedavg_ops.digest_div_flat)
     report["digest_div_flat"] = dict(
         max_abs_err=dig_err,
-        ms=kernel_ms(torch, sweep), call_ms=time_ms(torch, sweep),
-        plain_ms=kernel_ms(torch, per_round(fedavg_ref.digest_div_flat_ref)),
+        ms=kernel_ms(torch, sweep, "digest_div_flat"), call_ms=time_ms(torch, sweep),
+        plain_ms=kernel_ms(torch, per_round(fedavg_ref.digest_div_flat_ref),
+                           "digest_div_flat plain"),
         library_ms=None,
         # each leaf's call alone: the narrow ones are one-block launches
         per_leaf_ms={name: kernel_ms(torch, lambda x=x:
-                                     fedavg_ops.digest_div_flat(x))
+                                     fedavg_ops.digest_div_flat(x),
+                                     f"digest_div_flat leaf {name}")
                      for name, x in leaves.items()},
         bound_ms=1e3 * max((4 * elems + 4 * 4 * (N_CLIENTS + 1))
                            / PEAK_BYTES_S, 4 * elems / PEAK_ALU_OPS_S),
@@ -497,18 +799,19 @@ def phase_kernels(torch, dev):
     dense = per_round(lambda x: fedavg_ops.mix_rows_flat(w_full, x))
     report["mix_rows_flat"] = dict(
         max_abs_err=mix_err,
-        ms=kernel_ms(torch, dense), call_ms=time_ms(torch, dense),
+        ms=kernel_ms(torch, dense, "mix_rows_flat"), call_ms=time_ms(torch, dense),
         plain_ms=kernel_ms(torch, per_round(
-            lambda x: fedavg_ref.mix_rows_flat_ref(w_full, x))),
+            lambda x: fedavg_ref.mix_rows_flat_ref(w_full, x)),
+            "mix_rows_flat plain"),
         # one PyTorch call, same function
-        library_ms=kernel_ms(torch, per_round(lambda x: torch.mm(w_full, x))),
+        library_ms=kernel_ms(torch, per_round(lambda x: torch.mm(w_full, x)),
+                             "mix_rows_flat library (torch.mm)"),
         # each leaf read once and written once, W read once per call
         bound_ms=1e3 * max((8 * elems + 4 * len(LEAF_WIDTHS) * N_CLIENTS ** 2)
                            / PEAK_BYTES_S,
                            2 * N_CLIENTS * elems / PEAK_ALU_OPS_S),
         bound_by="bytes")
-    print(f"phase 1 ok: pow_race bitwise on {len(cases) * len(offsets)} "
-          f"budgets; largest deviation fedavg_flat {fed_err:.3g} "
+    print(f"phase 1 ok: largest deviation fedavg_flat {fed_err:.3g} "
           f"(rtol {FLOAT_RTOL}, atol {FLOAT_ATOL}), digest_div_flat "
           f"{dig_err:.3g} (leaf sum {LEAF_SUM_REL} of sum|x|, residuals "
           f"rtol {FLOAT_RTOL}; {DIGEST_CALLS} calls bitwise equal) at the "
@@ -525,8 +828,7 @@ def phase_kernels(torch, dev):
                                   "mix_rows_flat")})
           + "; digest_div_flat per leaf: "
           + json.dumps(report["digest_div_flat"]["per_leaf_ms"])
-          + "; pow_race C = 1: " + json.dumps(report["pow_race"]["c1"]),
-          flush=True)
+          + "; " + race_summary, flush=True)
     return report
 
 
@@ -667,6 +969,7 @@ def round_ms(torch, args, profile_dir, tag):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         busy_ms = device_us(torch, p) / 1e3
+        ops = device_ops(torch, p)
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, f"profile_rounds_{tag}.txt")
         with open(path, "w") as f:
@@ -675,7 +978,8 @@ def round_ms(torch, args, profile_dir, tag):
                 f.write("\n")
         print(f"profile {tag}: K = {blade.K} rounds in {wall_ms:.3f} ms (host "
               f"clock, under the profiler); device busy {busy_ms:.3f} ms "
-              f"({100 * busy_ms / wall_ms:.1f} %); tables in "
+              f"({100 * busy_ms / wall_ms:.1f} %), {ops / blade.K:g} device "
+              f"operations a round; tables in "
               f"{path}", flush=True)
     return 1e3 * result["wall_s"] / K
 
@@ -869,11 +1173,12 @@ def phase_lm_kernels(torch, dev):
     bound_simt = _bound(*work)[0]
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
-        ms=kernel_ms(torch, flash, reps=10),
+        ms=kernel_ms(torch, flash, "flash_attention", reps=10),
         call_ms=time_ms(torch, flash, reps=10, warmup=2),
         plain_ms=kernel_ms(torch, lambda: flash_ref.mha_ref(
-            q, k, v, causal=True), reps=3),
-        library_ms=kernel_ms(torch, sdpa, reps=10),
+            q, k, v, causal=True), "flash_attention plain", reps=3),
+        library_ms=kernel_ms(torch, sdpa, "flash_attention library (SDPA)",
+                             reps=10),
         bound_ms=bound, bound_by=by)
     del q, k, v
 
@@ -918,10 +1223,10 @@ def phase_lm_kernels(torch, dev):
     bound, by = _bound(*_ssm_work(bsz, t, d_in, ds))
     report["ssm_scan"] = dict(
         max_abs_err=ssm_err, worst_of_tolerance=ssm_ratio,
-        ms=kernel_ms(torch, scan, reps=10),
+        ms=kernel_ms(torch, scan, "ssm_scan", reps=10),
         call_ms=time_ms(torch, scan, reps=10, warmup=2),
         plain_ms=kernel_ms(torch, lambda: ssm_ref.ssm_scan_ref(
-            u, dt, bm, cm, a, dsk), reps=2),
+            u, dt, bm, cm, a, dsk), "ssm_scan plain", reps=2),
         library_ms=None, bound_ms=bound, bound_by=by)
     print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases and "
           f"{len(FLASH_MISALIGNED)} misaligned fp32 views, largest "
@@ -1085,6 +1390,26 @@ def prefill_breakdown(torch, params, cfg, tokens, profile_dir):
          "device_ms_by_class": classes}) + f"; table in {path}", flush=True)
 
 
+def kernel_table(report, by_path):
+    """The rows of the kernel table: each kernel's report, its source, the
+    TPU kernel it replaces, its launches on its main path (and on every
+    path), and its CUDA-event time where the report has none."""
+    from repro_torch.kernels import _build
+
+    table = []
+    for name in REPLACES:
+        row = {"name": name, "route": "cuda",
+               "source": os.path.relpath(_build.SOURCES[LIBRARY[name]], ROOT),
+               "replaces": REPLACES[name],
+               "launches": by_path[MAIN_PATH_OF[name]][name],
+               "launches_by_path": {p: c[name] for p, c in by_path.items()},
+               **report[name]}
+        if "events_ms" not in row:
+            row["events_ms"] = READINGS[name]["events_ms"]
+        table.append(row)
+    return table
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1169,12 +1494,8 @@ def main(argv=None) -> int:
     lap("phase 4b")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches}
-    table = [{"name": name, "route": "cuda",
-              "source": os.path.relpath(_build.SOURCES[LIBRARY[name]], ROOT),
-              "replaces": REPLACES[name],
-              "launches": by_path[MAIN_PATH_OF[name]][name],
-              "launches_by_path": {p: c[name] for p, c in by_path.items()},
-              **report[name]} for name in REPLACES]
+    flag_readings()
+    table = kernel_table(report, by_path)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

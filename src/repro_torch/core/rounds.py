@@ -72,8 +72,6 @@ class RoundSpec:
     # eval stride: compute global_loss only on rounds with
     # (round_idx + 1) % eval_every == 0 (NaN elsewhere); 1 = every round.
     eval_every: int = 1
-    # nonce tile of one CUDA block of the race; results do not depend on it
-    mine_chunk: int = 1024
     # Steps 2+5 communication pattern (core/topology.py); FullMesh is the
     # paper's and runs the FedAvg kernel
     topology: topology_lib.Topology = topology_lib.FullMesh()
@@ -295,27 +293,17 @@ def make_mine(spec: RoundSpec):
     ``round_idx * 2**20`` (mod 2**32) over the calibrated attempt budget
     (eq. 1); the winner is the argmin hash across the client axis (first
     index on ties) and its nonce seals the new block onto ``prev_hash``.
-    Bitwise equal to the JAX package's stage given the same digest."""
+    On the card the stage is the nonce offset's fill and one launch of the
+    mine kernel (``ops.mine_seal``). Bitwise equal to the JAX package's
+    stage given the same digest."""
 
     def mine(prev_hash, digest, round_idx):
-        dev = digest.device
-        client_ids = torch.arange(spec.n_clients, dtype=torch.int64,
-                                  device=dev)
         nonce_offset = torch.full((), (int(round_idx) << 20) & mining.MASK,
-                                  dtype=torch.int64, device=dev)
-        best_h, best_n = pow_ops.pow_race(
-            prev_hash, digest, client_ids, spec.mine_attempts,
-            nonce_offset=nonce_offset, chunk=spec.mine_chunk)
-        winner = mining.winner_of(best_h)
-        # index_select, not best_h[winner]: no device-to-host read
-        at = winner.reshape(1)
-        pow_hash = best_h.index_select(0, at).reshape(())
-        nonce = best_n.index_select(0, at).reshape(())
-        solved = pow_hash <= mining.difficulty_threshold(spec.difficulty_bits)
-        new_hash = mining.mix_hash(prev_hash, digest, nonce)
-        metrics = {"winner": winner, "pow_hash": pow_hash, "nonce": nonce,
-                   "solved": solved}
-        return metrics, new_hash
+                                  dtype=torch.int64, device=digest.device)
+        return pow_ops.mine_seal(prev_hash, digest, spec.n_clients,
+                                 spec.mine_attempts,
+                                 nonce_offset=nonce_offset,
+                                 difficulty_bits=spec.difficulty_bits)
 
     return mine
 

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
@@ -37,6 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# (kernel, device index, stream handle) -> that kernel's ticket on that
+# stream: one int32, zeroed when made, reset to 0 by every launch that
+# takes it (launches that share a ticket must not overlap)
+_TICKETS: Dict[Tuple[str, int, int], object] = {}
 
 
 def nvcc_path() -> str:
@@ -109,3 +113,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ticket(dev, name: str):
+    """(``name``'s last-block ticket on the current stream of CUDA device
+    ``dev``, that stream's handle)."""
+    import torch
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (name, dev.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        _TICKETS[key] = ticket
+    return ticket, stream

@@ -50,11 +50,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# (device index, stream handle) -> the digest/divergence sweep's ticket on
-# that stream: one int32, zeroed when made, reset to 0 by every launch
-_DIGEST_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
 def _check_flat(x: torch.Tensor, what: str) -> None:
     if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
             or x.dim() != 2 or not x.is_contiguous():
@@ -143,12 +138,7 @@ def digest_div_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     blocks = lib.repro_digest_div_blocks(x.data_ptr(), c, n)
     if blocks < 1:
         _build.check(lib, int(-blocks), "digest_div_flat")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    key = (x.device.index, stream)
-    ticket = _DIGEST_TICKETS.get(key)
-    if ticket is None:
-        ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
-        _DIGEST_TICKETS[key] = ticket
+    ticket, stream = _build.stream_ticket(x.device, "digest_div_flat")
     part = torch.empty((blocks, c + 1), dtype=torch.float32, device=x.device)
     out_sum = torch.empty((), dtype=torch.float32, device=x.device)
     out_res = torch.empty(c, dtype=torch.float32, device=x.device)

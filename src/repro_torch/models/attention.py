@@ -123,10 +123,15 @@ def gqa_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
 
     The cache is a ring buffer when cfg.sliding_window > 0 (S_cache ==
     window); attention masks out unwritten and out-of-window slots by each
-    slot's absolute position."""
+    slot's absolute position. An unwindowed cache holds positions below
+    its capacity: a later ``pos`` raises ``ValueError`` before any write
+    (the reference clamps the write onto the last slot)."""
     b = x_t.shape[0]
     hd = cfg.resolved_head_dim
     s_cache = cache["k"].shape[1]
+    if not cfg.sliding_window and not 0 <= pos < s_cache:
+        raise ValueError(f"decode position {pos} is outside the KV cache, "
+                         f"whose capacity is {s_cache} positions")
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
     q, k, v = _qkv(params, cfg, x_t[:, None, :], posv)
     slot = pos % s_cache if cfg.sliding_window else pos

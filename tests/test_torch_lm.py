@@ -172,6 +172,25 @@ def test_gqa_forward_and_ring_decode_match_reference(window):
     _close(cache["v"], jcache["v"])
 
 
+def test_gqa_decode_past_the_cache_capacity_raises():
+    """An unwindowed cache of 4 positions: position 4 raises a ValueError
+    that names the position and the capacity, and writes nothing. (The
+    reference clamps that write onto the last slot; the port refuses.)"""
+    _, cfg = _pair("qwen3-32b")
+    p = _to_torch(jattention.init_attention(jax.random.key(4),
+                                            _pair("qwen3-32b")[0]))
+    cache = attention.init_cache(cfg, 2, 4, device="cpu")
+    x = torch.from_numpy(_rng(6).normal(size=(2, cfg.d_model))
+                         .astype(np.float32))
+    for t in range(4):
+        _, cache = attention.gqa_decode(p, cfg, x, t, cache)
+    before = {k: v.clone() for k, v in cache.items()}
+    for pos in (4, 9):
+        with pytest.raises(ValueError, match=f"position {pos} .*capacity is 4"):
+            attention.gqa_decode(p, cfg, x, pos, cache)
+    assert all(torch.equal(cache[k], before[k]) for k in before)
+
+
 # ---------------------------------------------------------------------------
 # whole models: prefill + cached decode
 # ---------------------------------------------------------------------------

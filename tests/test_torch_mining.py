@@ -16,6 +16,7 @@ from repro.core import mining as jmining
 from repro.kernels.pow_hash.kernel import pow_race_kernel, pow_search_kernel
 from repro_torch.core import chain, mining
 from repro_torch.kernels.pow_hash import ops as pow_ops
+from repro_torch.kernels.pow_hash import ref as pow_ref
 
 # the budgets pinned by tests/test_kernels.py (POW_GRID_CASES): divisible,
 # non-divisible tails, chunk larger than the budget, odd chunk
@@ -188,6 +189,165 @@ def test_pow_wrapper_validates_inputs():
                               torch.zeros(3, dtype=torch.int64,
                                           device="meta"),
                               good.to("meta"), 8)
+
+
+def _jax_seal(prev, digest, payloads, off, n, chunk, bits):
+    """The JAX package's stage on pre-salted payloads and any nonce offset:
+    its Pallas race in interpret mode, ``winner_of``, the difficulty test
+    and ``mix_hash`` with the unsalted digest."""
+    jh, jn = pow_race_kernel(jnp.uint32(prev), _j(payloads), jnp.uint32(off),
+                             n, block=chunk, interpret=True)
+    w = jmining.winner_of(jh)
+    new = jmining.mix_hash(jnp.uint32(prev), jnp.uint32(digest), jn[w])
+    return (int(w), int(jh[w]), int(jn[w]),
+            bool(jh[w] <= jmining.difficulty_threshold(bits)), int(new))
+
+
+def _seal_tuple(got):
+    m, new = got
+    return (int(m["winner"]), int(m["pow_hash"]), int(m["nonce"]),
+            bool(m["solved"]), int(new))
+
+
+def _salted(digest, n_clients):
+    salts = np.asarray(jmining.client_salt(jnp.arange(n_clients,
+                                                      dtype=jnp.uint32)),
+                       np.uint64)
+    return np.uint64(digest) ^ salts
+
+
+@pytest.mark.parametrize("n_clients", [1, 7, 20])
+def test_mine_seal_with_wrapping_offset_matches_reference(n_clients):
+    """Nonces off + j that wrap past 2**32 inside the budget, in both of
+    the seal's payload forms: salted by the wrapper and pre-salted."""
+    prev, digest, bits = 0xDEADBEEF, 0x0BADF00D, 4
+    off, n, chunk = 0xFFFFFFFF - 100, 300, 128
+    want = _jax_seal(prev, digest, _salted(digest, n_clients), off, n, chunk,
+                     bits)
+    kw = dict(nonce_offset=mining.as_word(off), difficulty_bits=bits)
+    got = pow_ops.mine_seal(mining.as_word(prev), mining.as_word(digest),
+                            n_clients, n, **kw)
+    assert _seal_tuple(got) == want
+    got = pow_ops.mine_seal(mining.as_word(prev), mining.as_word(digest),
+                            n_clients, n, chunk=chunk,
+                            payloads=_t(_salted(digest, n_clients)), **kw)
+    assert _seal_tuple(got) == want
+
+
+def test_seal_picks_the_lowest_client_on_planted_ties():
+    """Pre-salted payloads where clients 2, 5 and 6 carry the best payload
+    (and tie on every hash): the first of them wins, as JAX's argmin
+    picks."""
+    prev, digest, off, n = 17, 23, 3 << 20, 500
+    payloads = _words(8, 9)
+    jh, _ = pow_race_kernel(jnp.uint32(prev), _j(payloads), jnp.uint32(off),
+                            n, block=128, interpret=True)
+    best = int(np.argmin(np.asarray(jh, np.uint64)))
+    worst = int(np.argmax(np.asarray(jh, np.uint64)))
+    planted = payloads.copy()
+    planted[best] = payloads[worst]
+    planted[[2, 5, 6]] = payloads[best]
+    want = _jax_seal(prev, digest, planted, off, n, 128, 8)
+    got = pow_ops.mine_seal(mining.as_word(prev), mining.as_word(digest), 8,
+                            n, nonce_offset=mining.as_word(off),
+                            difficulty_bits=8, payloads=_t(planted))
+    assert _seal_tuple(got) == want
+    assert want[0] == 2
+
+
+def test_real_max_hash_keeps_nonce_zero_in_both_modes():
+    """Payloads whose one hash is 0xFFFFFFFF (a budget of one attempt), made
+    by inverting the hash: every client keeps nonce 0 in the race, the JAX
+    Pallas kernel's and ``pow_search``'s too, and the seal links nonce 0."""
+    prev, off = 0x12345678, 0xFFFFFFF0
+    payload = pow_ref.payload_hashing_to(prev, off, mining.MASK)
+    assert int(jmining.mix_hash(jnp.uint32(prev), jnp.uint32(payload),
+                                jnp.uint32(off))) == mining.MASK
+    payloads = np.full(3, payload, np.uint64)
+    jh, jn = pow_race_kernel(jnp.uint32(prev), _j(payloads), jnp.uint32(off),
+                             1, block=16, interpret=True)
+    h, nn = pow_ops.pow_race_flat(mining.as_word(prev), _t(payloads),
+                                  mining.as_word(off), 1)
+    assert h.tolist() == np.asarray(jh, np.int64).tolist() == [mining.MASK] * 3
+    assert nn.tolist() == np.asarray(jn, np.int64).tolist() == [0] * 3
+    digest = 99
+    for bits in (0, 4):
+        want = _jax_seal(prev, digest, payloads, off, 1, 16, bits)
+        got = pow_ops.mine_seal(mining.as_word(prev), mining.as_word(digest),
+                                3, 1, nonce_offset=mining.as_word(off),
+                                difficulty_bits=bits, payloads=_t(payloads))
+        assert _seal_tuple(got) == want == (0, mining.MASK, 0, bits == 0,
+                                            want[4])
+
+
+def test_payload_hashing_to_inverts_the_hash():
+    prev, nonce, target = (int(v) for v in _words(3, 12))
+    for t in (target, 0, mining.MASK):
+        q = pow_ref.payload_hashing_to(prev, nonce, t)
+        assert int(jmining.mix_hash(jnp.uint32(prev), jnp.uint32(q),
+                                    jnp.uint32(nonce))) == t
+
+
+def test_race_tile_is_one_block_a_client_at_the_paper_budget():
+    """At the paper's budget a client is one block (flat mode takes no
+    ticket); larger budgets take several blocks a client, at most
+    MAX_BLOCKS in all unless C alone needs more; a chunk forces the tile,
+    raised only to bound the partial keys."""
+    assert pow_ops.race_tile(10240, 20) == 10240
+    assert pow_ops.race_tile(1, 65535) == 1
+    n = 1 << 20
+    tiles = -(-n // pow_ops.race_tile(n, 20))
+    assert 1 < tiles and 20 * tiles <= pow_ops.MAX_BLOCKS
+    assert pow_ops.race_tile(n, 5000) == n
+    assert pow_ops.race_tile(10240, 20, chunk=1024) == 1024
+    assert pow_ops.race_tile(100, 3, chunk=1024) == 100
+    big = (1 << 31) - 1
+    assert -(-big // pow_ops.race_tile(big, 1, chunk=1)) <= \
+        pow_ops.MAX_BLOCKS << 10
+    for n in (1, 16384, 16385, 40000, 10 ** 6, big):
+        for c in (1, 20, 65535):
+            for chunk in (None, 1, 1000):
+                tile = pow_ops.race_tile(n, c, chunk)
+                tiles = -(-n // tile)
+                assert 1 <= tile <= n and tiles < 2 ** 31
+                assert chunk is not None or c * tiles <= max(
+                    c, pow_ops.MAX_BLOCKS)
+
+
+_W = mining.as_word
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(n_clients=0), ValueError), (dict(n_clients=65536), ValueError),
+    (dict(n_attempts=0), ValueError), (dict(n_attempts=1 << 31), ValueError),
+    (dict(chunk=0), ValueError), (dict(chunk=(1 << 24) + 1), ValueError),
+    (dict(difficulty_bits=-1), ValueError),
+    (dict(difficulty_bits=33), ValueError),
+    (dict(digest=torch.zeros(2, dtype=torch.int64)), TypeError),
+    (dict(prev_hash=torch.zeros((), dtype=torch.int32)), TypeError),
+    (dict(payloads=torch.zeros(3, dtype=torch.int64)), TypeError),
+    (dict(payloads=torch.zeros(4, dtype=torch.int32)), TypeError),
+    (dict(nonce_offset=_W(0).to("meta")), ValueError),
+    (dict(prev_hash=_W(0).to("meta"), digest=_W(0).to("meta"),
+          nonce_offset=_W(0).to("meta")), ValueError),
+], ids=["c0", "c65536", "n0", "n2^31", "chunk0", "chunk2^24+1", "bits-1",
+        "bits33", "digest-shape", "prev-dtype", "payloads-shape",
+        "payloads-dtype", "offset-device", "meta-device"])
+def test_mine_seal_validates_inputs(kwargs, error):
+    args = dict(prev_hash=_W(1), digest=_W(2), n_clients=4, n_attempts=8,
+                nonce_offset=_W(0), difficulty_bits=4)
+    args.update(kwargs)
+    prev, digest = args.pop("prev_hash"), args.pop("digest")
+    c, n = args.pop("n_clients"), args.pop("n_attempts")
+    with pytest.raises(error):
+        pow_ops.mine_seal(prev, digest, c, n, **args)
+
+
+def test_mine_seal_takes_every_difficulty_in_range():
+    for bits in (0, 32):
+        m, _ = pow_ops.mine_seal(_W(1), _W(2), 4, 8, nonce_offset=_W(0),
+                                 difficulty_bits=bits)
+        assert bool(m["solved"]) == (bits == 0)
 
 
 def test_chain_header_hashes_equal_and_validate():

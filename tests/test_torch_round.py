@@ -20,10 +20,12 @@ import jax.numpy as jnp
 
 from repro.core import dp as jdp
 from repro.core import lazy as jlazy
+from repro.core import mining as jmining
 from repro.core import rounds as jrounds
 from repro.models.mlp import init_mlp as jinit_mlp
 from repro.models.mlp import mlp_loss as jmlp_loss
 from repro_torch.core import dp, lazy, mining, rounds
+from repro_torch.kernels.pow_hash import ref as pow_ref
 from repro_torch.launch import train
 from repro_torch.models.mlp import mlp_client_losses
 from repro_torch.weights import batch_from_numpy, params_from_jax
@@ -45,7 +47,10 @@ def _specs(**kw):
     base = dict(n_clients=C, tau=TAU, eta=0.1, n_lazy=1, sigma2=0.0,
                 mine_attempts=256, difficulty_bits=2)
     base.update(kw)
-    return jrounds.RoundSpec(**base), rounds.RoundSpec(**base)
+    jspec = jrounds.RoundSpec(**base)
+    # the port's mine kernel picks its own nonce tile (ops.race_tile)
+    base.pop("mine_chunk", None)
+    return jspec, rounds.RoundSpec(**base)
 
 
 def _jnp(tree):
@@ -174,6 +179,91 @@ def test_mine_with_reference_digest_is_bitwise(attempts, chunk):
         assert int(new) == int(jnew)
         for key in ("winner", "pow_hash", "nonce", "solved"):
             assert int(m[key]) == int(jm[key]), key
+
+
+def _jax_mine(n_clients, attempts, chunk, use_kernel, bits=4):
+    """The JAX package's stage as its tests run it: the Pallas race in
+    interpret mode, or the per-client ``fori_loop`` search."""
+    jspec = jrounds.RoundSpec(n_clients=n_clients, tau=TAU, eta=0.1,
+                              mine_attempts=attempts, mine_chunk=chunk,
+                              difficulty_bits=bits, use_kernel=use_kernel,
+                              kernel_interpret=True)
+    return jax.jit(jrounds.make_mine(jspec))
+
+
+def _assert_stage_equal(got, jgot):
+    (m, new), (jm, jnew) = got, jgot
+    assert int(new) == int(jnew)
+    assert sorted(m) == sorted(jm)
+    for key in ("winner", "pow_hash", "nonce", "solved"):
+        assert int(m[key]) == int(jm[key]), key
+    assert m["solved"].dtype == torch.bool
+    assert all(m[k].dtype == torch.int64 and m[k].dim() == 0
+               for k in ("winner", "pow_hash", "nonce"))
+    assert new.dtype == torch.int64 and new.dim() == 0
+
+
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["pallas", "fori"])
+@pytest.mark.parametrize("n_clients", [1, 7, 20])
+@pytest.mark.parametrize("attempts,chunk", [(300, 128), (257, 64)])
+def test_mine_seal_ref_matches_reference_make_mine(use_kernel, n_clients,
+                                                    attempts, chunk):
+    """The plain twin of the seal kernel, and the port's stage built on it,
+    against the JAX stage at non-divisible budgets; the nonce offset
+    ``round_idx * 2**20`` wraps past 2**32 from round 4096 on."""
+    jmine = _jax_mine(n_clients, attempts, chunk, use_kernel)
+    _, spec = _specs(n_clients=n_clients, mine_attempts=attempts,
+                     mine_chunk=chunk, difficulty_bits=4)
+    mine = rounds.make_mine(spec)
+    rng = np.random.default_rng(100 * n_clients + attempts)
+    for round_idx in (0, 3, 4095, 4096, 4097):
+        prev, digest = (int(v) for v in rng.integers(0, 2 ** 32, 2))
+        jgot = jmine(jnp.uint32(prev), jnp.uint32(digest),
+                     jnp.int32(round_idx))
+        off = mining.as_word((round_idx << 20) & mining.MASK)
+        _assert_stage_equal(pow_ref.mine_seal_ref(
+            mining.as_word(prev), mining.as_word(digest), off, n_clients,
+            attempts, 4), jgot)
+        _assert_stage_equal(mine(mining.as_word(prev),
+                                 mining.as_word(digest), round_idx), jgot)
+
+
+def test_mine_stage_keeps_nonce_zero_when_no_hash_beats_max(monkeypatch):
+    """Every hash forced to 0xFFFFFFFF, as in test_torch_mining's race test:
+    the JAX stage's fori_loop path and the port's stage both pick client 0
+    with nonce 0, and the link takes nonce 0."""
+    monkeypatch.setattr(jmining, "mix_hash",
+                        lambda p, q, n: jnp.full(jnp.shape(n), 0xFFFFFFFF,
+                                                 jnp.uint32))
+    monkeypatch.setattr(mining, "mix_hash",
+                        lambda p, q, n: torch.full(torch.broadcast_shapes(
+                            p.shape, q.shape, n.shape), mining.MASK,
+                            dtype=torch.int64))
+    jgot = _jax_mine(7, 300, 128, False, bits=0)(
+        jnp.uint32(5), jnp.uint32(6), jnp.int32(9))
+    _, spec = _specs(n_clients=7, mine_attempts=300, difficulty_bits=0)
+    got = rounds.make_mine(spec)(mining.as_word(5), mining.as_word(6), 9)
+    _assert_stage_equal(got, jgot)
+    assert (int(got[0]["winner"]), int(got[0]["nonce"])) == (0, 0)
+    assert bool(got[0]["solved"])
+
+
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["pallas", "fori"])
+def test_mine_stage_on_a_real_max_hash(use_kernel):
+    """A digest whose one salted hash is 0xFFFFFFFF (C = 1, one attempt),
+    through the Pallas kernel as well: no monkeypatch reaches it."""
+    prev, round_idx = 0xC0FFEE, 5
+    off = (round_idx << 20) & mining.MASK
+    salt = int(mining.client_salt(mining.as_word(0)))
+    digest = pow_ref.payload_hashing_to(prev, off, mining.MASK) ^ salt
+    jgot = _jax_mine(1, 1, 16, use_kernel)(
+        jnp.uint32(prev), jnp.uint32(digest), jnp.int32(round_idx))
+    _, spec = _specs(n_clients=1, mine_attempts=1, difficulty_bits=4)
+    got = rounds.make_mine(spec)(mining.as_word(prev),
+                                 mining.as_word(digest), round_idx)
+    _assert_stage_equal(got, jgot)
+    assert int(got[0]["pow_hash"]) == mining.MASK
+    assert int(got[0]["nonce"]) == 0 and not bool(got[0]["solved"])
 
 
 def test_port_ledger_validates_and_tamper_fails():
