@@ -38,19 +38,38 @@ prints its seconds:
 2. the paper's path, ``repro_torch.launch.train`` at the paper's full
    configuration (C = 20, MLP 784-256-10, 512 samples per client, K = 5,
    tau = 10, 2 lazy clients, sigma2 = 0.01, 10240 mining attempts,
-   difficulty 4), with every kernel's launch count read around that run
-   and no host sync inside its rounds (under ``--profile``, also the
-   device operations a round);
+   difficulty 4), run by the graph driver (the trainer's default for its
+   static batch: a warm round, then CUDA-graph replays) and by the loop
+   driver (``jit=False``): the two bitwise equal (params, every per-round
+   metric, the ledger), every kernel's launch count read around each run,
+   no host sync in the loop's rounds nor in the replays (the graph
+   driver's set-up syncs printed, not gated), and a profile of the
+   replays that counts each FL kernel's launches by name as the launch
+   counts do; then a ``[K, C, ...]`` stacked batch through
+   ``rounds.run_blade_fl`` by the graph driver, the loop driver and as a
+   per-round callable, the three bitwise equal; ``round_ms`` prints both
+   drivers' round times, the graph runs' growth of reserved device memory
+   and, under ``--profile``, their device busy share and device
+   operations a round (the replays alone as well);
 2b. the topology path: the same configuration with ``--topology
    random:0.5 --fused-mix`` (per-round link dropout, the dense mix on the
    ``mix_rows_flat`` kernel), checked the same way;
 2c. the adversarial paths at K = 2: ``--attack alie --attackers 2
-   --robust median`` and ``--topology snr --fused-mix --attack signflip``;
+   --robust median`` and ``--topology snr --fused-mix --attack signflip``,
+   each by both drivers, bitwise equal, with exact launch counts and no
+   host sync in the loop's rounds nor in the replays (as every path run by
+   both drivers, 3c's ring too);
+2d. graph variants: ``--topology rotate --eval-every 2`` at K = 21 (a
+   shift-schedule phase and the eval stride pick the graph: 19 graphs of
+   one pool for 20 replays, the last replayed out of capture order) by
+   both drivers, bitwise equal, with exact launch counts and no host sync
+   in the loop's rounds nor in the replays;
 3. and 3b. the runs of phases 2 and 2b on the CPU (plain versions), held
-   against the card's; 3c. the same for ``--topology ring``, a
-   non-consensus mix that runs no custom kernel. Per-client params of the
-   non-consensus paths are held to ``CLIENT_SPREAD_LIMIT`` times the
-   tolerance, a limit a planted one-row fault is shown to break;
+   against the card's; 3c. the same for ``--topology ring`` (also run by
+   both drivers), a non-consensus mix that runs no custom kernel.
+   Per-client params of the non-consensus paths are held to
+   ``CLIENT_SPREAD_LIMIT`` times the tolerance, a limit a planted one-row
+   fault is shown to break;
 4. the serve path, ``repro_torch.launch.serve --arch jamba-1.5-large-398b
    --size one-h100 --batch 4 --prompt-len 2048 --gen 32`` (Jamba at its
    published widths, 8 layers, dense MLPs: 9.0 G parameters): one prefill
@@ -59,7 +78,14 @@ prints its seconds:
 4b. on the same full-width params, prefill + 8 decode steps against one
    forward over 2056 tokens, and 256 decode steps from an empty state
    against the forward, in max |logit diff| <= ``AGREE_LIMIT``, and no
-   host sync in the decode loop.
+   host sync in the decode loop;
+5. the paper's K sweep (``repro_torch.benchmarks.paper_tables
+   .fig3_bound_gap``: C = 20, 256 samples a client, Dir(0.2), t_sum 100,
+   alpha 1, beta 6, eta 0.005, K in 1-6, 8, 14) by each driver: its rows
+   (K, empirical loss, bound), ``bound_above`` (required), ``k_emp``,
+   ``k_bound`` and the gap at the optimum (printed), and the sweep's wall
+   time by each driver; then the sweep at K in SWEEP_CARD_CPU_KS on the
+   card against the CPU within rtol 1e-4 / atol 1e-5.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -119,6 +145,18 @@ ADVERSARIAL_ARGS = [
     ["--attack", "alie", "--attackers", "2", "--robust", "median"],
     ["--topology", "snr", "--fused-mix", "--attack", "signflip"],
 ]
+# phase 2d: a periodic shift schedule with an eval stride, so that the
+# graph driver captures one graph a (phase, evaluates) variant. At C = 20
+# the rotation's period is 19: K = 21 takes 19 graphs for its 20 replays,
+# and the last round replays the graph first captured for round 1
+K_VARIANTS = 21
+# (t_sum 420 keeps tau at the paper path's 10 at this K)
+VARIANT_ARGS = MAIN_ARGS + ["--k", str(K_VARIANTS), "--t-sum", "420",
+                            "--topology", "rotate", "--eval-every", "2"]
+# FL kernel wrapper -> a part of its kernel's name in a profile
+KERNEL_SYMBOL = {"pow_race": "mine_kernel", "fedavg_flat": "fedavg_kernel",
+                 "digest_div_flat": "digest_div_",
+                 "mix_rows_flat": "mix_rows_kernel"}
 N_CLIENTS = 20
 LEAF_WIDTHS = {"b1": 256, "b2": 10, "w1": 784 * 256, "w2": 256 * 10}
 MINE_ATTEMPTS = 10240
@@ -265,6 +303,16 @@ LIBRARY = {"pow_race": "pow_race", "fedavg_flat": "fedavg",
 MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
                 "digest_div_flat": "paper", "mix_rows_flat": "topology",
                 "flash_attention": "serve", "ssm_scan": "serve"}
+# path -> what launched its kernels in the counted run: the FL paths' static
+# batch runs on the graph driver (a warm round and K - 1 replays, the
+# replays' launches added by the driver); the serve path calls the wrappers
+LAUNCHED_BY = {"paper": "graph driver", "topology": "graph driver",
+               "serve": "eager calls"}
+# phase 5: the paper's K sweep in Fig. 3's configuration
+# (paper_tables.fig3_bound_gap), and the Ks held card against CPU: tau 10,
+# 6 and 1, at most 60 local steps a run
+FIG3_CONFIG = dict(eta=0.005, alpha=1.0, beta=6.0, t_sum=100.0)
+SWEEP_CARD_CPU_KS = [6, 8, 14]
 # the (R, K) blocks mix_rows_flat is held to its plain version at: the
 # main path's full W, a row block, a column block, the largest it takes
 MIX_BLOCKS = [(N_CLIENTS, N_CLIENTS), (5, N_CLIENTS), (N_CLIENTS, 5),
@@ -832,34 +880,69 @@ def phase_kernels(torch, dev):
     return report
 
 
+def counted_run(torch, args, jit):
+    """``launch.train``'s run of ``args`` on the driver ``jit`` picks, the
+    launch counts set to 0 just before and read just after. Returns
+    (result, state, history, launches)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+
+    kernels.reset_launch_counts()
+    result, state, hist = train.train_mlp(args, jit=jit)
+    torch.cuda.synchronize()
+    return result, state, hist, kernels.launch_counts()
+
+
 def drive_path(torch, dev, flags, want, what, falling=True):
-    """Run ``launch.train`` with ``flags`` on the card, the launch counts
-    set to 0 just before and read just after; check them against ``want``,
-    the ledger, finite metrics and (``falling``) a falling global loss.
-    Returns (args, result, state, history, launches)."""
+    """Run ``launch.train`` with ``flags`` on the card, by the graph driver
+    (the trainer's default for its static batch) and by the loop driver
+    (``jit=False``); check both runs' launch counts against ``want``, that
+    the two runs agree bitwise (params, every per-round metric, the ledger's
+    fields and head), the ledger, finite metrics, (``falling``) a falling
+    global loss, and that neither the loop's rounds nor the replays make a
+    host sync (``round_host_syncs``, kept in ``result["host_syncs"]``).
+    Returns (args, result, state, history, launches) of the graph driver's
+    run."""
     from repro_torch import kernels
     from repro_torch.launch import train
 
     args = train.build_parser().parse_args(flags + ["--device", str(dev)])
     want = {**{name: 0 for name in kernels.WRAPPERS}, **want}
-    kernels.reset_launch_counts()
-    result, state, hist = train.train_mlp(args)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    require(launches == want,
-            f"launch counts {launches} on the {what}, expected {want}")
+    result, state, hist, launches = counted_run(torch, args, True)
+    lresult, lstate, lhist, llaunches = counted_run(torch, args, False)
+    for driver, res, counts in (("graph", result, launches),
+                                ("loop", lresult, llaunches)):
+        require(res["dispatch"]["driver"] == driver,
+                f"the {what} ran on {res['dispatch']}, expected {driver}")
+        require(counts == want, f"launch counts {counts} on the {what} "
+                                f"({driver} driver), expected {want}")
+    require(json.dumps(hist) == json.dumps(lhist)
+            and torch.equal(state.prev_hash, lstate.prev_hash)
+            and all(torch.equal(v, lstate.params[k])
+                    for k, v in state.params.items()),
+            f"graph and loop drivers differ on the {what}")
     require(result["chain_valid"] and result["blocks"] == args.k,
             f"ledger not valid on the {what}: {result}")
-    for h in hist:
+    # the rounds the eval stride evaluates: every eval_every-th and the last
+    evals = [args.eval_every <= 1 or (k + 1) % args.eval_every == 0
+             or k + 1 == args.k for k in range(args.k)]
+    for h, ev in zip(hist, evals):
         require(all(math.isfinite(h[k]) for k in
-                    ("local_loss_mean", "global_loss", "divergence")),
-                f"non-finite metrics on the {what}: {h}")
-    require(not falling or hist[-1]["global_loss"] < hist[0]["global_loss"],
-            f"global loss did not fall on the {what}: "
-            f"{[h['global_loss'] for h in hist]}")
+                    ("local_loss_mean", "divergence"))
+                and (math.isfinite(h["global_loss"]) if ev
+                     else math.isnan(h["global_loss"])),
+                f"non-finite metrics, or a global loss off the eval stride, "
+                f"on the {what}: {h}")
+    losses = [h["global_loss"] for h, ev in zip(hist, evals) if ev]
+    require(not falling or losses[-1] < losses[0],
+            f"global loss did not fall on the {what}: {losses}")
     require(all(math.isfinite(v.float().abs().sum().item())
                 for v in state.params.values()),
             f"non-finite params on the {what}")
+    syncs = result["host_syncs"] = round_host_syncs(torch, args)
+    for key in ("loop", "replays"):
+        require(not syncs[key], f"{len(syncs[key])} host syncs in the "
+                                f"{key} of the {what}: {syncs[key][:3]}")
     return args, result, state, hist, launches
 
 
@@ -869,23 +952,28 @@ def phase_main_path(torch, dev, flags, want, what, label):
     args, result, state, hist, launches = drive_path(torch, dev, flags, want,
                                                      what)
     require(result["tau"] == 10, f"tau {result['tau']} != 10")
-    syncs = round_host_syncs(torch, args)
-    require(not syncs, f"{len(syncs)} host syncs inside the rounds of the "
-                       f"{what}: {syncs[:3]}")
+    syncs = result["host_syncs"]
+    print(f"phase {label}: host syncs of the graph driver's setup (the "
+          f"warm round and the captures; not gated): {len(syncs['setup'])}"
+          f" {syncs['setup'][:2]}", flush=True)
+    replayed = replay_kernel_counts(
+        torch, args, {name: n // args.k for name, n in want.items()}, what)
     print(f"phase {label} ok: " + json.dumps(
         {"path": what, "launches": launches, "dispatch": result["dispatch"],
+         "drivers_bitwise_equal": True,
          "global_loss": [h["global_loss"] for h in hist],
          "final_eval_acc": result["final_eval_acc"],
          "ergodic_gap": result["ergodic_gap"],
-         "host_syncs_in_rounds": len(syncs),
+         "host_syncs_in_loop_rounds": len(syncs["loop"]),
+         "host_syncs_in_replays": len(syncs["replays"]),
+         "replays_profiled_kernels": replayed,
          "wall_s_first_run": result["wall_s"]}), flush=True)
     return args, result, state, hist, launches
 
 
 def phase_adversarial(torch, dev):
     """Phase 2c: the adversarial paths at K = 2, on the card. An attack may
-    keep the loss from falling, so only the ledger, the launch counts and
-    finite metrics are required."""
+    keep the loss from falling, so the falling loss is not required."""
     base = MAIN_ARGS + ["--k", str(K_ADV)]   # the last --k wins
     for extra in ADVERSARIAL_ARGS:
         fused = "--fused-mix" in extra
@@ -897,8 +985,148 @@ def phase_adversarial(torch, dev):
                                                   want, what, falling=False)
         print("phase 2c ok: " + json.dumps(
             {"path": what, "launches": launches,
-             "dispatch": result["dispatch"],
+             "dispatch": result["dispatch"], "drivers_bitwise_equal": True,
+             "host_syncs": {key: len(v) for key, v
+                            in result["host_syncs"].items()},
              "global_loss": [h["global_loss"] for h in hist]}), flush=True)
+
+
+def phase_graph_variants(torch, dev):
+    """Phase 2d: VARIANT_ARGS (the rotating shift schedule, eval stride 2,
+    K = K_VARIANTS) by both drivers, bitwise equal with exact launch
+    counts, no host sync in the loop's rounds nor in the replays, and as
+    many graphs as the run has (phase, evaluates) variants in rounds 1 ..
+    K - 1: graphs of one pool, replayed out of their capture order."""
+    from repro_torch.core import rounds
+
+    what = "rotating schedule, eval stride 2"
+    want = {"pow_race": K_VARIANTS, "fedavg_flat": 0, "mix_rows_flat": 0,
+            "digest_div_flat": 4 * K_VARIANTS}
+    args, result, _, hist, launches = drive_path(torch, dev, VARIANT_ARGS,
+                                                 want, what)
+    graph = dict(rounds.LAST_GRAPH)
+    period = N_CLIENTS - 1
+    variants = {(k % period, (k + 1) % 2 == 0 or k + 1 == K_VARIANTS)
+                for k in range(1, K_VARIANTS)}
+    require(result["dispatch"]["mix_mode"] == "exec_shift_table"
+            and graph["graphs"] == len(variants)
+            and graph["replays"] == K_VARIANTS - 1,
+            f"the {what} ran {result['dispatch']} with {graph}, expected "
+            f"exec_shift_table, {len(variants)} graphs and "
+            f"{K_VARIANTS - 1} replays")
+    print("phase 2d ok: " + json.dumps(
+        {"path": what, "launches": launches, "graphs": graph["graphs"],
+         "replays": graph["replays"], "drivers_bitwise_equal": True,
+         "evaluated_global_loss": [h["global_loss"] for h in hist
+                                   if math.isfinite(h["global_loss"])]}),
+          flush=True)
+
+
+def phase_stacked(torch, args, want):
+    """Phase 2, stacked batch: the paper's path over a ``[K, C, m / 2,
+    ...]`` stack (round k on its own half of each client's samples) through
+    ``rounds.run_blade_fl``: by the graph driver (``stacked=True``), by the
+    loop driver (``jit=False``) and as a per-round callable over the same
+    slices (the loop). The three bitwise equal (params, history, ledger),
+    each with the launch counts ``want`` and a valid chain."""
+    from repro_torch import kernels
+    from repro_torch.core import rounds
+    from repro_torch.launch import train
+    from repro_torch.models.mlp import mlp_client_losses
+
+    blade, spec, src, params, dev = train.prepare_mlp(args)
+    batch = src.static_batch()
+    m = next(iter(batch.values())).shape[1]
+    gen = torch.Generator(device="cpu").manual_seed(args.seed + 7)
+    picks = [torch.randperm(m, generator=gen)[:m // 2].to(dev)
+             for _ in range(blade.K)]
+    stack = {n: torch.stack([v.index_select(1, p) for p in picks])
+             for n, v in batch.items()}
+    runs = {}
+    for how, batches, kw in (
+            ("graph", stack, {"stacked": True}),
+            ("loop", stack, {"stacked": True, "jit": False}),
+            ("callable", lambda k: {n: v[k] for n, v in stack.items()}, {})):
+        kernels.reset_launch_counts()
+        state, hist, ledger = rounds.run_blade_fl(
+            mlp_client_losses, spec, params, batches, blade.K,
+            seed=blade.seed + 2, device=dev, **kw)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in kernels.launch_counts().items()
+                  if n in want}
+        driver = rounds.LAST_DISPATCH["driver"]
+        require(driver == ("graph" if how == "graph" else "loop")
+                and counts == want and ledger.validate_chain()
+                and len(ledger.blocks) == blade.K,
+                f"stacked batch, {how}: driver {driver}, launches {counts} "
+                f"(want {want}), {len(ledger.blocks)} blocks")
+        runs[how] = (state, hist, ledger)
+    state, hist, ledger = runs["graph"]
+    for how in ("loop", "callable"):
+        s, h, led = runs[how]
+        require(json.dumps(hist) == json.dumps(h)
+                and torch.equal(state.prev_hash, s.prev_hash)
+                and ledger.head_hash == led.head_hash
+                and all(torch.equal(v, s.params[k])
+                        for k, v in state.params.items()),
+                f"stacked batch: the graph driver and the {how} run differ")
+    print("phase 2 ok, stacked batch: " + json.dumps(
+        {"batch": {n: list(v.shape) for n, v in stack.items()},
+         "launches": want, "graph_loop_callable_bitwise_equal": True,
+         "global_loss": [h["global_loss"] for h in hist]}), flush=True)
+
+
+def replay_kernel_counts(torch, args, per_round, what):
+    """Profile the graph driver's K - 1 replays of the path ``args``
+    selects and count each FL kernel's launches by its name among the
+    device's activities (KERNEL_SYMBOL). Each count must equal the
+    launches the driver added to the wrapper's count for the replays, and
+    ``per_round`` times K - 1: exactly in one of PROFILE_ATTEMPTS profiles
+    (each of a fresh capture; the profiler drops activities now and then
+    and never adds one), else with the largest counts seen at most
+    PROFILE_DROP_LIMIT activities short in all and none above. Returns
+    the counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from repro_torch import kernels
+    from repro_torch.core import rounds
+    from repro_torch.launch import train
+    from repro_torch.models.mlp import mlp_client_losses
+
+    blade, spec, src, params, dev = train.prepare_mlp(args)
+    batch = src.static_batch()
+    want = {name: per_round[name] * (blade.K - 1) for name in KERNEL_SYMBOL}
+    best = {name: 0 for name in KERNEL_SYMBOL}
+    for attempt in range(PROFILE_ATTEMPTS):
+        captured = rounds.CapturedRounds(rounds.RoundRunner(
+            mlp_client_losses, spec, params, blade.K, seed=blade.seed + 2,
+            device=dev), batch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            captured.replay()
+            torch.cuda.synchronize()
+        added = {name: kernels.launch_counts()[name]
+                 for name in KERNEL_SYMBOL}
+        require(added == want, f"the {what}'s replays added the launch "
+                               f"counts {added}, expected {want}")
+        names = [e.name for e in p.events()
+                 if e.device_type == DeviceType.CUDA]
+        seen = {name: sum(sym in n for n in names)
+                for name, sym in KERNEL_SYMBOL.items()}
+        if seen == want:
+            return seen
+        best = {name: max(best[name], seen[name]) for name in best}
+        print(f"replay profile of the {what}: kernels counted by name "
+              f"{seen}, want {want} (attempt {attempt + 1})", flush=True)
+    short = sum(want[name] - best[name] for name in want)
+    require(all(best[name] <= want[name] for name in want)
+            and short <= PROFILE_DROP_LIMIT,
+            f"the {what}'s replays ran the kernels {best} by the profiler, "
+            f"but the launch counts say {want}")
+    return best
 
 
 def host_syncs(torch, fn):
@@ -920,68 +1148,116 @@ def host_syncs(torch, fn):
 
 
 def round_host_syncs(torch, args):
-    """The host syncs of the K rounds of the path ``args`` selects (no
-    end-of-run transfer). The design makes none: the carry, the metrics,
-    the mixing matrices (uploaded before the loop) and every input of the
-    race stay on the device."""
+    """The host syncs of the path ``args`` selects, by part of a run (the
+    buffers' set-up and the end-of-run transfer left out): ``loop``, the K
+    rounds of the loop driver; ``setup``, the graph driver's warm round
+    and captures; ``replays``, its K - 1 replays. The design makes none in
+    the rounds: the carry, the metrics, the mixing matrices and the noise
+    (uploaded before the rounds) and every input of the race stay on the
+    device."""
     from repro_torch.core import rounds
     from repro_torch.launch import train
     from repro_torch.models.mlp import mlp_client_losses
 
     blade, spec, src, params, dev = train.prepare_mlp(args)
-    table = rounds.mix_matrices(spec, blade.K, blade.seed + 2, dev)
-    state = rounds.init_state({k: v.to(dev) for k, v in params.items()},
-                              spec.n_clients,
-                              torch.Generator().manual_seed(blade.seed + 2))
-    round_fn = rounds.make_integrated_round(mlp_client_losses, spec,
-                                            n_rounds=blade.K, device=dev)
     batch = src.static_batch()
 
-    def run(state=state):
-        for k in range(blade.K):
-            matrix = None if table is None else table[k % len(table)]
-            state, _ = round_fn(state, batch, matrix)
+    def runner():
+        return rounds.RoundRunner(mlp_client_losses, spec, params, blade.K,
+                                  seed=blade.seed + 2, device=dev)
 
-    return host_syncs(torch, run)
+    loop = runner()
+    out = {"loop": host_syncs(torch, lambda: [loop.step(k, batch)
+                                              for k in range(blade.K)])}
+    graph = runner()
+    captured = []
+    out["setup"] = host_syncs(torch, lambda: captured.append(
+        rounds.CapturedRounds(graph, batch)))
+    out["replays"] = host_syncs(torch, captured[0].replay)
+    return out
 
 
 def round_ms(torch, args, profile_dir, tag):
-    """ms per round of a warm run of a path: the trainer's host-clock
-    ``wall_s`` (K rounds ending in the one host transfer, the ledger and
-    the final eval) over K. With ``profile_dir``, also profile the K-round
-    loop alone into ``profile_rounds_<tag>.txt`` and report the device's
-    busy share of it."""
+    """ms per round of warm runs of a path by each driver: the trainer's
+    host-clock ``wall_s`` (K rounds ending in the one host transfer, the
+    ledger and the final eval) over K, for runs in the order loop, graph,
+    graph, loop; the graph driver's warm round and captures (host seconds,
+    ``rounds.LAST_GRAPH``); and the device memory each graph run added to
+    what the allocator reserves (none once the device's side stream and
+    graph pool, ``rounds._CaptureHome``, have held a run of this shape).
+    With ``profile_dir``, also profile one
+    run by each driver, and the graph driver's replays alone, into
+    ``profile_rounds_<tag>_<driver>.txt``, and report the device's busy
+    share and its operations a round."""
+    from repro_torch.core import rounds
+    from repro_torch.launch import train
+
+    out = {"loop": [], "graph": [], "graph_setup_s": [],
+           "graph_reserved_growth_gb": []}
+    for jit in (False, True, True, False):
+        reserved = torch.cuda.memory_reserved()
+        result, _, _ = train.train_mlp(args, jit=jit)
+        out["graph" if jit else "loop"].append(1e3 * result["wall_s"] / K)
+        if jit:
+            out["graph_setup_s"].append({key: rounds.LAST_GRAPH[key] for key
+                                         in ("warm_s", "capture_s")})
+            out["graph_reserved_growth_gb"].append(
+                (torch.cuda.memory_reserved() - reserved) / 1e9)
+    if profile_dir:
+        for driver in ("loop", "graph", "replays"):
+            out[f"profile_{driver}"] = profile_rounds(
+                torch, args, driver, profile_dir, f"{tag}_{driver}")
+    return out
+
+
+def profile_rounds(torch, args, driver, profile_dir, name):
+    """Profile the rounds of the path ``args`` selects by ``driver``:
+    ``loop`` or ``graph`` (``rounds.run_blade_fl``, set-up and end-of-run
+    transfer included), or ``replays`` (the graph driver's K - 1 replays
+    alone); write the tables to ``profile_rounds_<name>.txt`` and return
+    the host ms, the device's busy ms and share, and device operations a
+    round."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
     from repro_torch.core import rounds
     from repro_torch.launch import train
     from repro_torch.models.mlp import mlp_client_losses
 
-    result, _, _ = train.train_mlp(args)
-    if profile_dir:
-        from torch.profiler import ProfilerActivity, profile as prof
-        blade, spec, src, params, dev = train.prepare_mlp(args)
+    blade, spec, src, params, dev = train.prepare_mlp(args)
+    batch = src.static_batch()
+    captured = None
+    if driver == "replays":
+        captured = rounds.CapturedRounds(rounds.RoundRunner(
+            mlp_client_losses, spec, params, blade.K, seed=blade.seed + 2,
+            device=dev), batch)
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        if captured is not None:
+            captured.replay()
+        else:
+            rounds.run_blade_fl(mlp_client_losses, spec, params, batch,
+                                blade.K, seed=blade.seed + 2, device=dev,
+                                jit=driver == "graph")
         torch.cuda.synchronize()
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
-            rounds.run_blade_fl(mlp_client_losses, spec, params,
-                                src.static_batch(), blade.K,
-                                seed=blade.seed + 2, device=dev)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        busy_ms = device_us(torch, p) / 1e3
-        ops = device_ops(torch, p)
-        os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, f"profile_rounds_{tag}.txt")
-        with open(path, "w") as f:
-            for key in ("cuda_time_total", "cpu_time_total"):
-                f.write(p.key_averages().table(sort_by=key, row_limit=40))
-                f.write("\n")
-        print(f"profile {tag}: K = {blade.K} rounds in {wall_ms:.3f} ms (host "
-              f"clock, under the profiler); device busy {busy_ms:.3f} ms "
-              f"({100 * busy_ms / wall_ms:.1f} %), {ops / blade.K:g} device "
-              f"operations a round; tables in "
-              f"{path}", flush=True)
-    return 1e3 * result["wall_s"] / K
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = device_us(torch, p) / 1e3
+    n_rounds = blade.K - 1 if captured is not None else blade.K
+    ops = device_ops(torch, p)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"profile_rounds_{name}.txt")
+    with open(path, "w") as f:
+        for key in ("cuda_time_total", "cpu_time_total"):
+            f.write(p.key_averages().table(sort_by=key, row_limit=40))
+            f.write("\n")
+    print(f"profile {name}: {n_rounds} rounds in {wall_ms:.3f} ms (host "
+          f"clock, under the profiler); device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} %), {ops / n_rounds:g} device "
+          f"operations a round; tables in {path}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "rounds": n_rounds,
+            "device_ops_a_round": ops / n_rounds}
 
 
 def phase_card_vs_cpu(torch, args, result, state, hist, label,
@@ -1049,6 +1325,66 @@ def phase_card_vs_cpu(torch, args, result, state, hist, label,
           f"{max(clients.values()):.3g} (limit {limit})"
           + ("" if consensus else ", a planted fault "
              f"{max(planted.values()):.3g}"), flush=True)
+
+
+def phase_sweep(torch, dev):
+    """Phase 5: the paper's K sweep on the card. ``fig3_bound_gap`` by the
+    graph driver and by the loop driver (runs in the order graph, loop,
+    loop, graph): its rows, claim flags and both drivers' sweep wall
+    times; ``bound_above`` and valid ledgers are required, the gap at the
+    optimum (< 0.05 in the paper) and ``k_emp == k_bound`` are printed.
+    Then ``sweep_k`` at SWEEP_CARD_CPU_KS on the card against the same
+    sweep on the CPU: every loss, the eval loss and the divergence within
+    rtol CARD_CPU_RTOL / atol CARD_CPU_ATOL (accuracy printed)."""
+    from repro_torch.benchmarks import common, paper_tables
+
+    figs, walls = {}, {"graph": [], "loop": []}
+    for driver in ("graph", "loop", "loop", "graph"):
+        fig = paper_tables.fig3_bound_gap(device=dev, jit=driver == "graph")
+        require(fig["driver"] == driver and fig["chain_valid"],
+                f"fig3 sweep by the {driver} driver: driver "
+                f"{fig['driver']}, chain_valid {fig['chain_valid']}")
+        require(fig["bound_above"], f"fig3 by the {driver} driver: the "
+                                    f"bound lies below the experiment: "
+                                    f"{fig['rows']}")
+        figs.setdefault(driver, fig)
+        walls[driver].append({"sweep_s": fig["sweep_s"],
+                              "rounds_s": fig["rounds_s"]})
+    fig = figs["graph"]
+    print("phase 5: fig3 on the card: " + json.dumps(
+        {"rows": fig["rows"], "bound_above": fig["bound_above"],
+         "k_emp": fig["k_emp"], "k_bound": fig["k_bound"],
+         "gap_at_opt": fig["gap"],
+         "gap_below_5_percent": fig["gap"] < 0.05,
+         "k_emp_equals_k_bound": fig["k_emp"] == fig["k_bound"],
+         "drivers_give_equal_rows": fig["rows"] == figs["loop"]["rows"],
+         "wall_by_driver": walls}), flush=True)
+
+    card = common.sweep_k(ks=SWEEP_CARD_CPU_KS, device=dev, **FIG3_CONFIG)
+    cpu = common.sweep_k(ks=SWEEP_CARD_CPU_KS, device="cpu", **FIG3_CONFIG)
+    require([r["k"] for r in card] == [r["k"] for r in cpu]
+            == SWEEP_CARD_CPU_KS, "sweep Ks differ between card and cpu")
+    worst, acc = {}, {}
+    for r, c in zip(card, cpu):
+        for key in ("loss_curve", "final_loss", "eval_loss", "divergence"):
+            a = torch.as_tensor(r[key], dtype=torch.float64)
+            b = torch.as_tensor(c[key], dtype=torch.float64)
+            ratio = float(((a - b).abs() / (CARD_CPU_ATOL + CARD_CPU_RTOL
+                                            * b.abs())).max())
+            worst[key] = max(worst.get(key, 0.0), ratio)
+        acc[r["k"]] = (r["accuracy"], c["accuracy"])
+        require(r["chain_valid"] and c["chain_valid"],
+                f"sweep at K = {r['k']}: invalid ledger")
+    print("phase 5: sweep card vs cpu at K in "
+          f"{SWEEP_CARD_CPU_KS} (tau {[r['tau'] for r in card]}), worst "
+          f"|diff| / (atol + rtol |cpu|): {json.dumps(worst)}; accuracy "
+          f"(card, cpu): {json.dumps(acc)}", flush=True)
+    bad = sorted(k for k, v in worst.items() if not v <= 1)
+    require(not bad, f"{bad} differ between the card's and the cpu's sweep "
+                     f"beyond rtol {CARD_CPU_RTOL} atol {CARD_CPU_ATOL}")
+    print(f"phase 5 ok: fig3 bound above the experiment at every K, sweep "
+          f"card vs cpu within rtol {CARD_CPU_RTOL} atol {CARD_CPU_ATOL} "
+          f"(worst {max(worst.values()):.3g})", flush=True)
 
 
 def _flash_work(b, h, hkv, s, d, causal, window):
@@ -1402,6 +1738,7 @@ def kernel_table(report, by_path):
                "source": os.path.relpath(_build.SOURCES[LIBRARY[name]], ROOT),
                "replaces": REPLACES[name],
                "launches": by_path[MAIN_PATH_OF[name]][name],
+               "launched_by": LAUNCHED_BY[MAIN_PATH_OF[name]],
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                **report[name]}
         if "events_ms" not in row:
@@ -1459,6 +1796,7 @@ def main(argv=None) -> int:
              "digest_div_flat": 4 * K}
     args, result, state, hist, launches = phase_main_path(
         torch, dev, MAIN_ARGS, paper, "paper's path", "2")
+    phase_stacked(torch, args, paper)
     topo = {"pow_race": K, "fedavg_flat": 0, "mix_rows_flat": 4 * K,
             "digest_div_flat": 4 * K}
     targs, tresult, tstate, thist, tlaunches = phase_main_path(
@@ -1467,10 +1805,11 @@ def main(argv=None) -> int:
             and tresult["dispatch"]["pow"] == "kernel",
             f"topology path dispatch {tresult['dispatch']}")
     phase_adversarial(torch, dev)
+    phase_graph_variants(torch, dev)
     for tag, a in (("paper", args), ("topology", targs)):
-        ms_round = round_ms(torch, a, opts.profile, tag)
-        print(f"round time, {tag} path: {ms_round:.3f} ms per round (host "
-              f"clock, warm run of K = {K} at C = {N_CLIENTS})", flush=True)
+        print(f"round_ms, {tag} path (ms per round, host clock, warm runs "
+              f"of K = {K} at C = {N_CLIENTS}, by driver): " + json.dumps(
+                  round_ms(torch, a, opts.profile, tag)), flush=True)
     phase_card_vs_cpu(torch, args, result, state, hist, "3", consensus=True)
     phase_card_vs_cpu(torch, targs, tresult, tstate, thist, "3b",
                       consensus=False)
@@ -1492,6 +1831,8 @@ def main(argv=None) -> int:
                 "4 (smoke)")
     phase_serve_agreement(torch, dev, opts.profile)
     lap("phase 4b")
+    phase_sweep(torch, dev)
+    lap("phase 5")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches}
     flag_readings()

@@ -17,7 +17,8 @@ and replaces only its own rows; honest rows pass through untouched.
 ``rounds.make_attack`` composes the selected attack right after
 ``perturb``. Only :class:`ScaledNoise` draws: from the run's CPU generator
 (after the round's lazy and DP draws), or from an injected dict of
-leaf-shaped standard normals.
+leaf-shaped standard normals; a run draws all its rounds' noise before
+the first (``rounds.draw_noise``) and injects each round's.
 """
 from __future__ import annotations
 
@@ -41,6 +42,12 @@ class Attack:
     @property
     def active(self) -> bool:
         return self.n_attackers > 0
+
+    @property
+    def draws_noise(self) -> bool:
+        """Whether :meth:`apply` draws from the generator (a run draws it
+        up front: ``rounds.draw_noise``)."""
+        return False
 
     def _validate(self, n_clients: int) -> None:
         if not 0 <= self.n_attackers < n_clients:
@@ -80,6 +87,10 @@ class ScaledNoise(Attack):
     from ``generator`` leaf by leaf in sorted key order."""
     scale: float = 1.0
     sigma2: float = 1.0
+
+    @property
+    def draws_noise(self) -> bool:
+        return self.sigma2 > 0.0
 
     def apply(self, full, n_clients, generator=None, noise=None):
         self._validate(n_clients)

@@ -6,8 +6,10 @@ is static per experiment (first M of N clients); lazy client i copies honest
 client M + (i mod (N - M)).
 
 Noise comes from a ``torch.Generator`` on the CPU, so a run draws the same
-numbers whichever device it computes on; tests may instead pass the JAX
-package's per-leaf standard-normal draws as ``noise``.
+numbers whichever device it computes on. A run draws all its rounds'
+noise before the first (``rounds.draw_noise``, in the order this stage
+and ``dp.privatize`` draw it) and passes each round's as ``noise``; tests
+may instead pass the JAX package's per-leaf standard-normal draws.
 """
 from __future__ import annotations
 

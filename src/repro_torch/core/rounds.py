@@ -31,19 +31,35 @@ ledger forks deterministically from the JAX chain while both chains
 validate. Params and losses do not depend on the mining outcome, so they
 stay comparable to the reference.
 
-``run_blade_fl`` drives K rounds in a Python loop. The mixing matrices the
-run needs are built before the loop and uploaded once; the carry and every
-metric stay on the device; the run makes one host transfer at the end and
-then rebuilds and validates the ledger (``chain.ledger_from_scan``).
+A run (:class:`RoundRunner`) holds static buffers on its device: the carry
+(params, ``prev_hash`` and the round index as a device counter), the
+mixing matrices and the run's lazy / DP / attack noise, each drawn and
+uploaded once before the rounds, and ``[K, ...]`` rows for every metric.
+Its ``step`` is one round over those buffers, written back in place. Two
+drivers call it, and ``run_blade_fl`` picks one as the JAX package picks
+between its loop and its ``lax.scan`` engine (:func:`dispatch_plan`):
+
+  loop    ``step`` in a Python loop: the CPU, per-round batch callables and
+          ``jit=False``
+  graph   a static batch on the card (:func:`run_blade_fl_scan`): round 0
+          runs as a warm round on a side stream, the round is captured as
+          a CUDA graph (one per host-side variant, :meth:`RoundRunner.variant`)
+          and the other K - 1 rounds are replays
+
+Both read the same buffers, so on one device they run the same kernels on
+the same inputs and agree bitwise. Each run makes one host transfer at the
+end and then rebuilds and validates the ledger (``chain.ledger_from_scan``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+import time
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import aggregation, attacks as attacks_lib, chain, \
     detection, dp as dp_lib, lazy as lazy_lib, mining, \
     topology as topology_lib
@@ -209,6 +225,56 @@ def mix_matrices(spec: RoundSpec, n_rounds: int, seed: int = 0,
         resolve_device(device))
 
 
+def draw_noise(spec: RoundSpec, params: Tree, n_rounds: int,
+               generator: torch.Generator, device: DeviceLike = "cuda"
+               ) -> Dict[str, Tree]:
+    """A run's lazy, DP and attack noise, drawn once before its rounds.
+
+    ``params`` are the client-stacked ``[C, ...]`` leaves. Returns
+    ``{stage: {leaf: [n_rounds, rows, ...]}}`` on ``device`` for each
+    stage that draws: ``"lazy"`` (``rows = n_lazy``, under ``sigma2 >
+    0``), ``"dp"`` (``rows = C``, under ``dp_sigma > 0``) and ``"attack"``
+    (``rows = C``, an attack that draws: ``ScaledNoise``). The draws come
+    from ``generator`` (``lazy.standard_normal``, one call a leaf) in the
+    order the stages draw them round by round when given no noise: per
+    round, the lazy leaves in sorted key order, then the DP leaves, then
+    the attack's. So a run that reads round ``k`` of this table computes
+    what the stages drawing for themselves would, on the CPU and on the
+    card alike. The table is uploaded once, like the mixing matrices.
+
+    Its cost is memory, not time: ``n_rounds * rows`` model-sized slices a
+    stage, O(K·C·N) floats for a model of N parameters, held pinned on the
+    host and again on the device for the whole run (about 230 MB each for
+    Fig. 10's DP sweep at K = 14, C = 20 and the 203 530-parameter MLP),
+    growing linearly in K, where drawing round by round held one slice."""
+    c = spec.n_clients
+    rows = {}
+    if spec.n_lazy > 0 and spec.sigma2 > 0.0:
+        rows["lazy"] = spec.n_lazy
+    if spec.dp_sigma > 0.0:
+        rows["dp"] = c
+    atk = spec.attack
+    if atk is not None and atk.active and atk.draws_noise:
+        rows["attack"] = c
+    keys = sorted(params)
+    cpu = torch.device("cpu")
+    table = {stage: {k: torch.empty((int(n_rounds), r)
+                                    + tuple(params[k].shape[1:]))
+                     for k in keys}
+             for stage, r in rows.items()}
+    for t in range(int(n_rounds)):
+        for stage, leaves in table.items():
+            for k in keys:
+                leaves[k][t] = lazy_lib.standard_normal(
+                    leaves[k].shape[1:], generator, cpu)
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return table
+    return {stage: {k: v.pin_memory().to(dev, non_blocking=True)
+                    for k, v in leaves.items()}
+            for stage, leaves in table.items()}
+
+
 def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda"):
     """Steps 2+5 stage factory: ``communicate(params, prev_params,
     round_idx, matrix=None) -> (mixed_params, digest, divergence, extra)``.
@@ -293,19 +359,36 @@ def make_mine(spec: RoundSpec):
     ``round_idx * 2**20`` (mod 2**32) over the calibrated attempt budget
     (eq. 1); the winner is the argmin hash across the client axis (first
     index on ties) and its nonce seals the new block onto ``prev_hash``.
-    On the card the stage is the nonce offset's fill and one launch of the
-    mine kernel (``ops.mine_seal``). Bitwise equal to the JAX package's
-    stage given the same digest."""
+    ``round_idx`` is a Python int, or a one-element int64 tensor on the
+    digest's device (a run's round counter, read by a CUDA graph at each
+    replay). On the card the stage is the nonce offset's fill (two
+    integer ops from a tensor) and one launch of the mine kernel
+    (``ops.mine_seal``). Bitwise equal to the JAX package's stage given
+    the same digest."""
 
     def mine(prev_hash, digest, round_idx):
-        nonce_offset = torch.full((), (int(round_idx) << 20) & mining.MASK,
-                                  dtype=torch.int64, device=digest.device)
+        if isinstance(round_idx, torch.Tensor):
+            nonce_offset = (round_idx.reshape(()) << 20) & mining.MASK
+        else:
+            nonce_offset = torch.full((), (int(round_idx) << 20)
+                                      & mining.MASK, dtype=torch.int64,
+                                      device=digest.device)
         return pow_ops.mine_seal(prev_hash, digest, spec.n_clients,
                                  spec.mine_attempts,
                                  nonce_offset=nonce_offset,
                                  difficulty_bits=spec.difficulty_bits)
 
     return mine
+
+
+def evaluates(spec: RoundSpec, round_idx: int,
+              n_rounds: Optional[int] = None) -> bool:
+    """Whether round ``round_idx`` computes the global loss: every
+    ``eval_every``-th round, and the last one of a horizon ``n_rounds``."""
+    k = round_idx + 1
+    return spec.eval_global_loss and (
+        spec.eval_every <= 1 or k % spec.eval_every == 0
+        or (n_rounds is not None and k == n_rounds))
 
 
 def make_finalize(loss_fn: LossFn, spec: RoundSpec,
@@ -320,10 +403,7 @@ def make_finalize(loss_fn: LossFn, spec: RoundSpec,
 
     def finalize(state, params, new_hash, batch, metrics):
         if spec.eval_global_loss:
-            k = state.round_idx + 1
-            is_eval = (spec.eval_every <= 1 or k % spec.eval_every == 0
-                       or (n_rounds is not None and k == n_rounds))
-            if is_eval:
+            if evaluates(spec, state.round_idx, n_rounds):
                 with torch.no_grad():
                     metrics["global_loss"] = loss_fn(params, batch)
             else:
@@ -340,14 +420,18 @@ def make_finalize(loss_fn: LossFn, spec: RoundSpec,
 def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
                           n_rounds: Optional[int] = None,
                           device: DeviceLike = "cuda"):
-    """Build the round: ``(RoundState, batch, matrix=None) -> (RoundState,
-    metrics)``.
+    """Build the round: ``(RoundState, batch, matrix=None, noise=None,
+    device_round=None) -> (RoundState, metrics)``.
 
     ``batch`` leaves have a leading client axis [C, local_batch, ...];
     ``matrix`` is the round's mixing matrix on the device, for the plans
-    that read one (``mix_matrices``). The round is the composition of the
-    stage factories above; ``device`` is where the communicate stage keeps
-    its constants."""
+    that read one (``mix_matrices``). ``noise`` (the round's slice of
+    :func:`draw_noise`: ``"lazy"``, ``"dp"``, ``"attack"``) replaces the
+    stages' draws from ``state.generator``; ``device_round`` (the round
+    index as a tensor on the device) replaces ``state.round_idx`` in the
+    mine stage's nonce offset. The round is the composition of the stage
+    factories above; ``device`` is where the communicate stage keeps its
+    constants."""
     local_train = make_local_train(loss_fn, spec)
     perturb = make_perturb(spec)
     attack = make_attack(spec)
@@ -356,15 +440,20 @@ def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
     finalize = make_finalize(loss_fn, spec, n_rounds)
 
     def round_fn(state: RoundState, batch,
-                 matrix: Optional[torch.Tensor] = None
+                 matrix: Optional[torch.Tensor] = None,
+                 noise: Optional[Dict[str, Tree]] = None,
+                 device_round: Optional[torch.Tensor] = None
                  ) -> Tuple[RoundState, Tree]:
+        noise = noise or {}
         params, local_losses = local_train(state.params, batch)
-        params = perturb(params, state.generator)
-        params = attack(params, state.generator)
+        params = perturb(params, state.generator, noise.get("lazy"),
+                         noise.get("dp"))
+        params = attack(params, state.generator, noise.get("attack"))
         params, digest, divergence, extra = communicate(
             params, state.params, state.round_idx, matrix)
-        mine_metrics, new_hash = mine(state.prev_hash, digest,
-                                      state.round_idx)
+        mine_metrics, new_hash = mine(
+            state.prev_hash, digest,
+            state.round_idx if device_round is None else device_round)
         metrics = {"local_loss": local_losses, **mine_metrics,
                    "digest": digest, "divergence": divergence, **extra}
         return finalize(state, params, new_hash, batch, metrics)
@@ -375,89 +464,360 @@ def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
 # The last decision run_blade_fl took (driver / pow / mix / mix_mode /
 # reason), as in the JAX package, so a caller can report the path it ran.
 LAST_DISPATCH: Dict[str, str] = {}
+# The graph driver's last run: ``graphs`` captured, the host seconds of the
+# warm round (``warm_s``, with its synchronize) and of the captures
+# (``capture_s``), and the ``replays``.
+LAST_GRAPH: Dict[str, float] = {}
 
 
-def dispatch_plan(spec: RoundSpec, device: DeviceLike = "cuda"
-                  ) -> Dict[str, str]:
+def dispatch_plan(spec: RoundSpec, device: DeviceLike = "cuda",
+                  batches=None, *, jit: bool = True) -> Dict[str, str]:
     """The paths a run of ``spec`` on ``device`` takes, with the JAX
-    package's keys: ``driver`` is always ``"loop"`` (the port has no scan
-    engine); ``pow`` is ``"kernel"`` when the race runs on the card, else
-    ``"plain"`` (its plain version, on the CPU); ``mix`` and ``mix_mode``
-    are the resolved ``MixPlan``'s tier and executor, from the same
-    ``topology.resolve_mix_plan`` call ``make_communicate`` makes."""
+    package's keys. Reads only the device's type, so it needs no card.
+
+    ``driver`` is ``"graph"`` (:func:`run_blade_fl_scan`: the round
+    captured as CUDA graphs and replayed) for a static batch, stacked or
+    not, on the card, and ``"loop"`` (the round step in a Python loop) for
+    a per-round batch callable, for ``jit=False`` (the JAX package's name
+    for its debugging path) and on the CPU; the two give the same bits on
+    one device. ``reason`` says why. ``pow`` is ``"kernel"`` when the race
+    runs on the card, else ``"plain"`` (its plain version, on the CPU);
+    ``mix`` and ``mix_mode`` are the resolved ``MixPlan``'s tier and
+    executor, from the same ``topology.resolve_mix_plan`` call
+    ``make_communicate`` makes."""
     on_card = torch.device(device).type == "cuda"
-    plan = topology_lib.resolve_mix_plan(spec)
-    return {"driver": "loop", "reason": "the port drives the rounds in a "
-                                        "Python loop",
-            "pow": "kernel" if on_card else "plain",
-            "mix": plan.mix, "mix_mode": plan.mode}
+    if callable(batches):
+        plan = {"driver": "loop", "reason": "per-round batch callable"}
+    elif not jit:
+        plan = {"driver": "loop", "reason": "jit=False debugging path"}
+    elif not on_card:
+        plan = {"driver": "loop", "reason": "CPU run: CUDA graphs need the "
+                                            "card"}
+    else:
+        plan = {"driver": "graph",
+                "reason": "static batch on the card: a warm round, then "
+                          "the round replayed as CUDA graphs"}
+    mplan = topology_lib.resolve_mix_plan(spec)
+    return {**plan, "pow": "kernel" if on_card else "plain",
+            "mix": mplan.mix, "mix_mode": mplan.mode}
 
 
-def metrics_to_host(rows: List[Tree]) -> Dict[str, np.ndarray]:
-    """Stack K rounds of device metrics and bring them to the host in ONE
-    transfer: every field is packed into one float64 vector (int words
-    below 2**32, bools and fp32 values are exact in float64), then each is
-    cut out and given back its dtype. Returns field -> [K, ...] array."""
-    names = list(rows[0])
-    stacked = [torch.stack([r[n] for r in rows]) for n in names]
-    packed = torch.cat([s.reshape(-1).to(torch.float64) for s in stacked])
+def metrics_to_host(rows: Tree) -> Dict[str, np.ndarray]:
+    """Bring a run's ``[K, ...]`` metric rows to the host in ONE transfer:
+    every field is packed into one float64 vector (int words below 2**32,
+    bools and fp32 values are exact in float64), then each is cut out and
+    given back its dtype. Returns field -> [K, ...] array."""
+    packed = torch.cat([r.reshape(-1).to(torch.float64)
+                        for r in rows.values()])
     flat = packed.cpu().numpy()
     out, at = {}, 0
-    for name, s in zip(names, stacked):
-        size = s.numel()
+    for name, r in rows.items():
+        size = r.numel()
         dtype = {torch.float32: np.float32, torch.bool: np.bool_}.get(
-            s.dtype, np.int64)
-        out[name] = flat[at:at + size].reshape(tuple(s.shape)).astype(dtype)
+            r.dtype, np.int64)
+        out[name] = flat[at:at + size].reshape(tuple(r.shape)).astype(dtype)
         at += size
     return out
 
 
-def run_blade_fl(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
-                 batch: Tree, n_rounds: int, *, seed: int = 0,
-                 device: DeviceLike = "cuda",
-                 ledger: Optional[chain.Ledger] = None,
-                 topology_matrices=None):
-    """Run K integrated rounds; returns (final RoundState, history, ledger).
-
-    ``params_single`` (one model) and ``batch`` (``[C, m, ...]``, reused
-    every round: full-batch GD) are moved to ``device``, which defaults to
-    the GPU and raises when there is none; pass ``device="cpu"`` to run the
-    plain versions of the kernels on the CPU. ``seed`` seeds the CPU
-    generator of the lazy / DP / attack draws and, salted, the topology
-    stream; ``topology_matrices`` (``[M, C, C]``, round ``k`` mixing with
-    ``[k % M]``) replaces the topology's own matrices (the trainer passes
-    the table it reports on; tests inject the JAX package's draws). Each history entry
-    holds the round's mining fields, ``digest``, ``divergence``,
-    ``local_loss_mean``, ``global_loss`` (and ``n_suspects`` under
-    ``detect_lazy``) as floats, reduced on the host as in the JAX package.
-    The paths taken are recorded in :data:`LAST_DISPATCH`."""
-    if int(n_rounds) < 1:
-        raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
-    dev = resolve_device(device)
-    LAST_DISPATCH.clear()
-    LAST_DISPATCH.update(dispatch_plan(spec, dev))
-    params_single = {k: v.to(dev) for k, v in params_single.items()}
-    batch = {k: v.to(dev) for k, v in batch.items()}
-    table = mix_matrices(spec, n_rounds, seed, dev, topology_matrices)
-    generator = torch.Generator(device="cpu").manual_seed(int(seed))
-    state = init_state(params_single, spec.n_clients, generator)
-    round_fn = make_integrated_round(loss_fn, spec, n_rounds=int(n_rounds),
-                                     device=dev)
-    rows = []
-    for k in range(int(n_rounds)):
-        matrix = None if table is None else table[k % table.shape[0]]
-        state, metrics = round_fn(state, batch, matrix)
-        rows.append(metrics)
+def history_and_ledger(rows: Tree, ledger: Optional[chain.Ledger] = None):
+    """``(history, ledger)`` of a run from its ``[K, ...]`` metric rows,
+    after one host transfer: each history entry holds the round's mining
+    fields, ``digest``, ``divergence`` (and ``n_suspects``) as floats and
+    ``local_loss_mean`` and ``global_loss`` reduced on the host, as in the
+    JAX package; the ledger is rebuilt and validated by
+    ``chain.ledger_from_scan``."""
     host = metrics_to_host(rows)   # the one host transfer
     glosses = host.pop("global_loss", None)
     llosses = host.pop("local_loss")
+    n_rounds = len(llosses)
     history = [{name: float(v[k]) for name, v in host.items()}
-               for k in range(int(n_rounds))]
-    for k in range(int(n_rounds)):
+               for k in range(n_rounds)]
+    for k in range(n_rounds):
         history[k]["local_loss_mean"] = float(np.mean(llosses[k]))
         if glosses is not None:
             history[k]["global_loss"] = float(np.mean(glosses[k]))
     ledger = chain.ledger_from_scan(
         host["digest"], host["winner"], host["nonce"], host["pow_hash"],
         ledger=ledger)
-    return state, history, ledger
+    return history, ledger
+
+
+class RoundRunner:
+    """One run's static buffers on its device, and the round step over
+    them.
+
+    Built once per run: the params go to ``device`` and are replicated to
+    the client axis, the mixing matrices (:func:`mix_matrices`) and the
+    noise (:func:`draw_noise`, from the CPU generator seeded with ``seed``)
+    are made and uploaded, and the round index becomes a device counter.
+    :meth:`step` runs one round reading only these buffers, the batch and
+    two host-side values of the round (:meth:`variant`), and writes the new
+    carry back in place and the round's metrics into ``[K, ...]`` rows at
+    the counter. With ``stacked`` the batch is ``[K, C, ...]`` and each
+    round takes its slice by the counter."""
+
+    def __init__(self, loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
+                 n_rounds: int, *, seed: int = 0,
+                 device: DeviceLike = "cuda", stacked: bool = False,
+                 topology_matrices=None):
+        if int(n_rounds) < 1:
+            raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
+        self.spec, self.n_rounds = spec, int(n_rounds)
+        self.stacked = bool(stacked)
+        self.device = dev = resolve_device(device)
+        self.table = mix_matrices(spec, self.n_rounds, seed, dev,
+                                  topology_matrices)
+        generator = torch.Generator(device="cpu").manual_seed(int(seed))
+        self.state = init_state({k: v.to(dev)
+                                 for k, v in params_single.items()},
+                                spec.n_clients, generator)
+        self.noise = draw_noise(spec, self.state.params, self.n_rounds,
+                                generator, dev)
+        self.round_idx = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.rows: Tree = {}
+        self.round_fn = make_integrated_round(loss_fn, spec,
+                                              n_rounds=self.n_rounds,
+                                              device=dev)
+        self.plan = topology_lib.resolve_mix_plan(spec)
+
+    def variant(self, k: int) -> Tuple[int, bool]:
+        """The host-side values round ``k`` reads: the shift-table phase
+        of a periodic schedule (0 otherwise) and whether it evaluates the
+        global loss (:func:`evaluates`). Rounds of one variant run the same
+        device operations, so one CUDA graph serves them all."""
+        phase = (k % self.plan.period
+                 if self.plan.mode == topology_lib.EXEC_SHIFT_TABLE else 0)
+        return phase, evaluates(self.spec, k, self.n_rounds)
+
+    def step(self, k: int, batch: Tree) -> None:
+        """Round ``k``: the round's batch, matrix and noise by the device
+        counter, the round (``make_integrated_round``), then the carry and
+        the metric rows written in place and the counter advanced. ``k`` is
+        read only through :meth:`variant`. A run takes K steps: the
+        counter indexes the K metric rows."""
+        idx = self.round_idx
+        if self.stacked:
+            batch = {n: v.index_select(0, idx).squeeze(0)
+                     for n, v in batch.items()}
+        matrix = None
+        if self.table is not None:
+            m = self.table.shape[0]
+            matrix = self.table[0] if m == 1 else \
+                self.table.index_select(0, idx % m).squeeze(0)
+        noise = {stage: {n: v.index_select(0, idx).squeeze(0)
+                         for n, v in leaves.items()}
+                 for stage, leaves in self.noise.items()}
+        new, metrics = self.round_fn(self.state._replace(round_idx=k), batch,
+                                     matrix, noise=noise, device_round=idx)
+        for name, v in metrics.items():
+            row = self.rows.get(name)
+            if row is None:
+                row = self.rows[name] = torch.empty(
+                    (self.n_rounds,) + tuple(v.shape), dtype=v.dtype,
+                    device=self.device)
+            row.index_copy_(0, idx, v.unsqueeze(0))
+        for name, v in new.params.items():
+            self.state.params[name].copy_(v)
+        self.state.prev_hash.copy_(new.prev_hash)
+        idx.add_(1)
+
+    def finish(self, ledger: Optional[chain.Ledger] = None):
+        """``(final RoundState, history, ledger)`` after the last round."""
+        history, ledger = history_and_ledger(self.rows, ledger)
+        return self.state._replace(round_idx=self.n_rounds), history, ledger
+
+
+class _CaptureHome:
+    """What every run of the graph driver on one device shares.
+
+    ``stream``: the side stream the runs capture and replay on. The
+    caching allocator keeps freed blocks for the stream they were used on,
+    so with a stream of its own a run (the warm round's autograd buffers,
+    its metric rows) would reserve more device memory than the last.
+    ``pool``: the memory pool every graph captures into, where a capture
+    reuses what earlier runs' graphs freed (a graph's own pool stays
+    reserved after the graph is gone, until an ``empty_cache``), so runs of
+    one shape reserve nothing after the first (``chip_smoke.py``'s
+    ``round_ms`` reads the growth). A capture leaves no tensor of the pool
+    alive (the step writes only into buffers made before it), so the graphs
+    of one pool may replay in any order, one at a time. ``graphs``:
+    the last run's graphs, kept so that the pool is never released: a
+    released pool's id cannot be captured into again. Runs share this
+    memory, so the graphs of two runs must not replay at once; each run's
+    replays end with the caller's stream waiting on them."""
+
+    def __init__(self, dev: torch.device):
+        self.stream = torch.cuda.Stream(dev)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: list = []
+
+
+# device index -> its _CaptureHome
+_HOMES: Dict[int, _CaptureHome] = {}
+
+
+class CapturedRounds:
+    """The graph driver's rounds of a :class:`RoundRunner` on the card.
+
+    Made on the device's side stream (:class:`_CaptureHome`): round 0 runs
+    as a warm round (a real round, so cuBLAS's handle and workspace,
+    autograd, the kernels' tickets and the detector's projection exist
+    before any capture), then the step is captured once for each variant
+    rounds 1 .. K-1 take (``CUDAGraph.capture_begin`` / ``capture_end``,
+    into the device's graph memory pool). :meth:`replay` replays them in
+    round order on the same stream.
+
+    The kernels' wrappers count launches as Python calls: the launches
+    made while capturing ran nothing and are taken back, and each replay
+    adds those of its graph, so ``kernels.launch_counts()`` counts what ran
+    on the card."""
+
+    def __init__(self, runner: RoundRunner, batch: Tree):
+        dev = runner.device
+        home = _HOMES.get(dev.index)
+        if home is None:
+            home = _HOMES[dev.index] = _CaptureHome(dev)
+        self.runner, self.stream = runner, home.stream
+        self.replayed = False
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        self.graphs: Dict[Tuple[int, bool], Tuple[object, Dict]] = {}
+        with torch.cuda.stream(self.stream):
+            t0 = time.perf_counter()
+            runner.step(0, batch)
+            self.stream.synchronize()
+            self.warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for k in range(1, runner.n_rounds):
+                variant = runner.variant(k)
+                if variant in self.graphs:
+                    continue
+                before = kernels.launch_counts()
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    graph.capture_begin(pool=home.pool)
+                    try:
+                        runner.step(k, batch)
+                    finally:
+                        graph.capture_end()
+                except BaseException:
+                    if not home.graphs:   # the failed graph released it
+                        home.pool = torch.cuda.graph_pool_handle()
+                    raise
+                counts = {name: n - before[name] for name, n
+                          in kernels.launch_counts().items()}
+                kernels.add_launch_counts({name: -n for name, n
+                                           in counts.items()})
+                self.graphs[variant] = graph, counts
+            self.capture_s = time.perf_counter() - t0
+        if self.graphs:
+            home.graphs = [graph for graph, _ in self.graphs.values()]
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+
+    def replay(self) -> None:
+        """Rounds 1 .. K-1, each the replay of its variant's graph. Once:
+        a second pass would write past the run's K metric rows."""
+        if self.replayed:
+            raise RuntimeError("these rounds were replayed already")
+        self.replayed = True
+        runner = self.runner
+        self.stream.wait_stream(torch.cuda.current_stream(runner.device))
+        with torch.cuda.stream(self.stream):
+            for k in range(1, runner.n_rounds):
+                graph, counts = self.graphs[runner.variant(k)]
+                graph.replay()
+                kernels.add_launch_counts(counts)
+        torch.cuda.current_stream(runner.device).wait_stream(self.stream)
+
+
+def _check_stacked(batch: Tree, n_rounds: int) -> None:
+    leads = {v.shape[0] for v in batch.values()}
+    if leads != {int(n_rounds)}:
+        raise ValueError(f"stacked batch leading dims {sorted(leads)} != "
+                         f"n_rounds={int(n_rounds)}")
+
+
+def run_blade_fl_scan(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
+                      batch: Tree, n_rounds: int, *, seed: int = 0,
+                      device: DeviceLike = "cuda",
+                      ledger: Optional[chain.Ledger] = None,
+                      stacked: bool = False, topology_matrices=None):
+    """The graph driver (the JAX package's ``run_blade_fl_scan``): K
+    rounds on the card as one warm round and K - 1 replays of the captured
+    round (:class:`CapturedRounds`), with one host transfer at the end.
+    ``batch`` is static: one ``[C, ...]`` batch reused every round, or with
+    ``stacked`` a ``[K, C, ...]`` stack. Returns ``(final RoundState,
+    history, ledger)`` like :func:`run_blade_fl`; the seconds of the warm
+    round and of the captures go to :data:`LAST_GRAPH`."""
+    if callable(batch):
+        raise TypeError("run_blade_fl_scan needs a static batch; use "
+                        "run_blade_fl for per-round batch callables")
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the graph driver runs on the card, not {dev}; "
+                         "run_blade_fl drives the CPU in a loop")
+    if stacked:
+        _check_stacked(batch, n_rounds)
+    runner = RoundRunner(loss_fn, spec, params_single, n_rounds, seed=seed,
+                         device=dev, stacked=stacked,
+                         topology_matrices=topology_matrices)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    rounds = CapturedRounds(runner, batch)
+    rounds.replay()
+    LAST_GRAPH.clear()
+    LAST_GRAPH.update(graphs=len(rounds.graphs), warm_s=rounds.warm_s,
+                      capture_s=rounds.capture_s,
+                      replays=runner.n_rounds - 1)
+    return runner.finish(ledger)
+
+
+def run_blade_fl(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
+                 batches, n_rounds: int, *, seed: int = 0,
+                 device: DeviceLike = "cuda",
+                 ledger: Optional[chain.Ledger] = None, jit: bool = True,
+                 stacked: bool = False, topology_matrices=None):
+    """Run K integrated rounds; returns (final RoundState, history, ledger).
+
+    ``params_single`` (one model) and the batches are moved to ``device``,
+    which defaults to the GPU and raises when there is none; pass
+    ``device="cpu"`` to run the plain versions of the kernels on the CPU.
+    ``batches`` is one ``[C, m, ...]`` batch reused every round (full-batch
+    GD), with ``stacked`` a ``[K, C, m, ...]`` stack, or a callable
+    ``batches(k) -> batch``. :func:`dispatch_plan` picks the driver, as in
+    the JAX package: a static batch on the card goes to the graph driver
+    (:func:`run_blade_fl_scan`); a callable, ``jit=False`` and the CPU run
+    the round step in a Python loop. Both give the same bits on one device.
+    ``seed`` seeds the CPU generator of the lazy / DP / attack noise
+    (:func:`draw_noise`) and, salted, the topology stream;
+    ``topology_matrices`` (``[M, C, C]``, round ``k`` mixing with ``[k %
+    M]``) replaces the topology's own matrices (the trainer passes the
+    table it reports on; tests inject the JAX package's draws). Each
+    history entry holds the round's mining fields, ``digest``,
+    ``divergence``, ``local_loss_mean``, ``global_loss`` (and
+    ``n_suspects`` under ``detect_lazy``) as floats, reduced on the host
+    as in the JAX package. The paths taken are recorded in
+    :data:`LAST_DISPATCH`."""
+    if int(n_rounds) < 1:
+        raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
+    dev = resolve_device(device)
+    plan = dispatch_plan(spec, dev, batches, jit=jit)
+    LAST_DISPATCH.clear()
+    LAST_DISPATCH.update(plan)
+    if plan["driver"] == "graph":
+        return run_blade_fl_scan(loss_fn, spec, params_single, batches,
+                                 n_rounds, seed=seed, device=dev,
+                                 ledger=ledger, stacked=stacked,
+                                 topology_matrices=topology_matrices)
+    per_round = callable(batches)
+    if not per_round:
+        if stacked:
+            _check_stacked(batches, n_rounds)
+        batches = {k: v.to(dev) for k, v in batches.items()}
+    runner = RoundRunner(loss_fn, spec, params_single, n_rounds, seed=seed,
+                         device=dev, stacked=stacked and not per_round,
+                         topology_matrices=topology_matrices)
+    for k in range(int(n_rounds)):
+        batch = ({n: v.to(dev) for n, v in batches(k).items()}
+                 if per_round else batches)
+        runner.step(k, batch)
+    return runner.finish(ledger)

@@ -2,7 +2,10 @@
 
 Each kernel's wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``); :data:`WRAPPERS` lists them so that a run can reset
-the counts and read them back to show which kernels it went through.
+the counts and read them back to show which kernels it went through. A
+CUDA graph's replay launches what it captured without calling a wrapper:
+the graph driver (``core/rounds.py``) takes back the counts its captures
+made and adds them again at each replay (:func:`add_launch_counts`).
 """
 from __future__ import annotations
 
@@ -31,3 +34,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches, negative to take back) to
+    the wrappers' counts."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n

@@ -11,7 +11,9 @@ Example:
       --clients 4 --topology random:0.5 --fused-mix --device cpu
 
 It prints the JSON keys of the JAX package's ``launch/train.py::run_mlp``
-except ``fast_allreduce`` (the port runs on one device).
+except ``fast_allreduce`` (the port runs on one device). ``--out-dir DIR``
+appends each round's history entry to ``DIR/blade_mlp.jsonl``, as the JAX
+package's trainer does.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.core import aggregation, allocation, attacks, rounds, \
 from repro_torch.data.pipeline import FLDataSource
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import init_mlp, mlp_client_losses, mlp_loss
+from repro_torch.training.metrics import MetricLogger
 
 
 def spec_of(blade: BladeConfig, eval_every: int = 1,
@@ -86,10 +89,13 @@ def prepare_mlp(args):
     return blade, spec, src, init_mlp(gen), dev
 
 
-def train_mlp(args):
+def train_mlp(args, jit: bool = True):
     """Run the MLP experiment; returns (result dict, final RoundState,
-    history)."""
+    history). The rounds run on the driver ``rounds.dispatch_plan`` picks;
+    ``jit=False`` keeps them in the loop (``result["dispatch"]`` says
+    which)."""
     blade, spec, src, params, dev = prepare_mlp(args)
+    log = MetricLogger(args.out_dir, "blade_mlp")
     seed = blade.seed + 2
     t0 = time.time()
     # the run's mixing matrices, drawn once: the rounds mix with them and
@@ -98,11 +104,13 @@ def train_mlp(args):
                                  topology.topology_generator(seed))
     state, hist, ledger = rounds.run_blade_fl(
         mlp_client_losses, spec, params, src.static_batch(), blade.K,
-        seed=seed, device=dev, topology_matrices=table)
+        seed=seed, device=dev, topology_matrices=table, jit=jit)
     # final eval on held-out data with the aggregated model
     final = aggregation.aggregate_once(state.params)
     with torch.no_grad():
         loss, metrics = mlp_loss(final, src.eval_data)
+    for i, h in enumerate(hist):
+        log.log(i, **h)
     result = {
         "K": blade.K, "tau": spec.tau, "final_eval_loss": float(loss),
         "final_eval_acc": float(metrics["accuracy"]),
@@ -164,6 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "CUDA kernel (kernels/fedavg) instead of "
                          "torch.matmul; the digest/divergence sweep is "
                          "fused on every path")
+    ap.add_argument("--out-dir", default=None,
+                    help="append each round's metrics to "
+                         "OUT_DIR/blade_mlp.jsonl")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap

@@ -11,6 +11,7 @@ differences compound over tau * K steps. Import after
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.core import rounds as jrounds
 from repro.models.mlp import init_mlp as jinit_mlp
@@ -85,3 +86,42 @@ def assert_runs_close(ref, got, keys=("local_loss_mean", "global_loss",
                                    rtol=RTOL, atol=ATOL, err_msg=name)
     assert ledger.validate_chain() and jledger.validate_chain()
     assert len(ledger.blocks) == len(jledger.blocks)
+
+
+def stage_loop(loss_fn, spec, params_single, batch, k, seed=0,
+               topology_matrices=None):
+    """The port's loop before its round became a step over static buffers:
+    ``make_integrated_round`` over a ``RoundState`` in a Python loop, every
+    stage drawing its noise from the run's generator round by round, the
+    matrix ``table[t % M]`` and the nonce offset from the host's round
+    index; on the CPU. Returns (state, history, ledger) like
+    ``run_blade_fl``."""
+    table = rounds.mix_matrices(spec, k, seed, "cpu", topology_matrices)
+    state = rounds.init_state(params_single, spec.n_clients,
+                              torch.Generator().manual_seed(seed))
+    round_fn = rounds.make_integrated_round(loss_fn, spec, n_rounds=k,
+                                            device="cpu")
+    per_round = []
+    for t in range(k):
+        state, metrics = round_fn(
+            state, batch, None if table is None else table[t % len(table)])
+        per_round.append(metrics)
+    rows = {n: torch.stack([m[n] for m in per_round]) for n in per_round[0]}
+    history, ledger = rounds.history_and_ledger(rows)
+    return state, history, ledger
+
+
+def assert_runs_bitwise(want, got):
+    """Two port runs (state, history, ledger) agree bit for bit."""
+    (wstate, whist, wledger), (state, hist, ledger) = want, got
+    assert state.round_idx == wstate.round_idx
+    assert set(state.params) == set(wstate.params)
+    for name, v in state.params.items():
+        assert torch.equal(v, wstate.params[name]), name
+    assert torch.equal(state.prev_hash, wstate.prev_hash)
+    assert [list(h) for h in hist] == [list(h) for h in whist]
+    for h, wh in zip(hist, whist):
+        np.testing.assert_array_equal(np.array(list(h.values())),
+                                      np.array(list(wh.values())))
+    assert ledger.validate_chain()
+    assert ledger.blocks == wledger.blocks

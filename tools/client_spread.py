@@ -9,8 +9,9 @@ Run from the root of a checkout on a machine with a CUDA GPU:
 For the ring path and the topology path (``chip_smoke.RING_ARGS`` and
 ``chip_smoke.TOPOLOGY_ARGS``: the paper's configuration with ``--topology
 ring``, or ``--topology random:0.5 --fused-mix``) it runs
-``launch.train`` for K rounds on the card and on the CPU (plain versions,
-the same draws) and prints, per path, the worst |card - cpu| / (atol +
+``launch.train`` for K rounds on the card (the graph driver, which
+``chip_smoke.py`` holds bitwise to the loop driver) and on the CPU (plain
+versions, the same draws, the loop driver) and prints, with the drivers, per path, the worst |card - cpu| / (atol +
 rtol |cpu|) (``chip_smoke.CARD_CPU_ATOL`` / ``CARD_CPU_RTOL``) of the
 per-round metrics and of each client-stacked param, beside
 ``chip_smoke.CLIENT_SPREAD_LIMIT``. A reading, not a gate: it exits 0
@@ -56,7 +57,8 @@ def main(argv=None) -> int:
             args = train.build_parser().parse_args(flags + ["--device", dev])
             result, state, hist = train.train_mlp(args)
             runs[dev] = (result, state, hist)
-        (_, state, hist), (_, cpu_state, cpu_hist) = runs["cuda:0"], runs["cpu"]
+        (result, state, hist), (cpu_result, cpu_state, cpu_hist) = \
+            runs["cuda:0"], runs["cpu"]
         metrics = {key: max(ratio(a[key], b[key]) for a, b in
                             zip(hist, cpu_hist))
                    for key in ("local_loss_mean", "global_loss",
@@ -64,6 +66,9 @@ def main(argv=None) -> int:
         clients = {key: ratio(v, cpu_state.params[key])
                    for key, v in state.params.items()}
         print(json.dumps({"path": name, "k": opts.k,
+                          "drivers": {
+                              "card": result["dispatch"]["driver"],
+                              "cpu": cpu_result["dispatch"]["driver"]},
                           "metrics_worst_of_tolerance": metrics,
                           "per_client_params_worst_of_tolerance": clients,
                           "worst": max(clients.values()),

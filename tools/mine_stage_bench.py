@@ -19,8 +19,9 @@ call):
   C = 20 with 2**20 attempts (several blocks a client); both modes at
   C = 20 with the tile forced to each of CHUNK_SWEEP; flat mode at
   LARGE_CASES; empty launches of EMPTY_SHAPES;
-- the paper's path: ms a round on the host clock, device operations and
-  device ms a round.
+- the paper's path run by the loop driver (``jit=False``, where the tree
+  also has the graph driver): ms a round on the host clock, device
+  operations and device ms a round, and the driver's name.
 
 ``--src`` names the ``src`` directory of the tree to measure (default:
 this checkout's), so that a parent tree unpacked under ``build/`` is
@@ -64,8 +65,12 @@ def host_ms(torch, fn, reps=200, warmup=5):
 
 def rounds_of_paper_path(torch, cs, dev, runs=5):
     """The paper's path (``chip_smoke.MAIN_ARGS``, K = 5): host-clock ms per
-    round of ``runs`` warm runs of ``rounds.run_blade_fl``, then one run
-    under the profiler for its device operations and device ms a round."""
+    round of ``runs`` warm runs of ``rounds.run_blade_fl`` by the loop
+    driver (a tree with a graph driver takes ``jit=False``; an older one
+    has only the loop), then one run under the profiler for its device
+    operations and device ms a round."""
+    import inspect
+
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import rounds
@@ -76,10 +81,12 @@ def rounds_of_paper_path(torch, cs, dev, runs=5):
                                            + ["--device", str(dev)])
     blade, spec, src, params, _ = train.prepare_mlp(args)
     batch = src.static_batch()
+    loop = ({"jit": False} if "jit" in inspect.signature(
+        rounds.run_blade_fl).parameters else {})
 
     def run():
         rounds.run_blade_fl(mlp_client_losses, spec, params, batch, blade.K,
-                            seed=blade.seed + 2, device=dev)
+                            seed=blade.seed + 2, device=dev, **loop)
         torch.cuda.synchronize()
 
     run()
@@ -90,7 +97,7 @@ def rounds_of_paper_path(torch, cs, dev, runs=5):
         walls.append(1e3 * (time.perf_counter() - t0) / blade.K)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
-    return {"round_ms": walls,
+    return {"driver": rounds.LAST_DISPATCH["driver"], "round_ms": walls,
             "round_device_ops": cs.device_ops(torch, prof) / blade.K,
             "round_device_ms": cs.device_us(torch, prof) / 1e3 / blade.K}
 
