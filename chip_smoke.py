@@ -85,7 +85,19 @@ prints its seconds:
    (K, empirical loss, bound), ``bound_above`` (required), ``k_emp``,
    ``k_bound`` and the gap at the optimum (printed), and the sweep's wall
    time by each driver; then the sweep at K in SWEEP_CARD_CPU_KS on the
-   card against the CPU within rtol 1e-4 / atol 1e-5.
+   card against the CPU within rtol 1e-4 / atol 1e-5;
+6. the cohort path (``launch.train --enrolled``): 6a ``fedavg_flat``,
+   ``digest_div_flat`` and the seal at every cohort size the phase runs
+   (COHORT_SIZES) on every leaf, ``mix_rows_flat`` bitwise at
+   MIX_COHORT_BLOCKS (R = K = 16 and 128 as the dense paths run it, and K
+   past one 64-k stage of w_rows), and their times at the cohort sizes;
+   6b the paper's configuration on a cohort of 64 of 10 000 enrolled
+   clients, then of 128 under ``--topology random:0.5 --fused-mix``:
+   launch counts, the ledger, memberships replayed from the seed,
+   ``touched``, at most one host sync a round, peak device memory under
+   COHORT_PEAK_GB, each round's host-clock split and a profiled busy
+   share; 6c the degenerate cohort (20 of 20, ``prefix``) bitwise equal
+   to the loop driver; 6d 1 000 enrolled, cohort 16, card against CPU.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -94,7 +106,6 @@ exits non-zero, and prints no result, without a GPU or outside a checkout.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import math
 import os
@@ -111,15 +122,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_ALU_OPS_S = 67e12
 PEAK_TF32_S = 495e12
-# the spin kernel's clock (H100 SXM boost, 1.98 GHz) when it is asked to
-# outlast a span: a slower clock only lengthens the spin
-SPIN_CYCLES_PER_S = 2.0e9
 # the two device-time readings of a function (profiler, CUDA events) are
 # flagged, as a note, when they differ by more than this share
 READING_SPREAD = 0.10
-# profiles of one timing, at most, until the device operations come out a
-# whole number a call
-PROFILE_ATTEMPTS = 5
 # when none of them does, the operations-a-call gates take the largest
 # count seen, which may lie this many activities below the count wanted
 # (the profiler drops activities now and then and never adds one; on an
@@ -321,6 +326,37 @@ MIX_BLOCKS = [(N_CLIENTS, N_CLIENTS), (5, N_CLIENTS), (N_CLIENTS, 5),
 # first at the widest leaf's width; each is also held on a contiguous view
 # whose storage starts one float past an aligned address, as is every leaf
 MIX_RAGGED = [784 * 256 + 1, 2050, 7]
+# phase 6: the cohort path (launch/train.py --enrolled): the paper's
+# configuration on a cohort of 64 of 10 000 enrolled clients a round, then
+# a cohort of 128 mixed densely by mix_rows_flat at R = K = 128
+COHORT_ARGS = MAIN_ARGS + ["--enrolled", "10000", "--cohort", "64",
+                           "--cohort-bias", "uniform"]
+COHORT_DENSE_ARGS = MAIN_ARGS + ["--enrolled", "10000", "--cohort", "128",
+                                 "--cohort-bias", "uniform", "--topology",
+                                 "random:0.5", "--fused-mix"]
+# a run's peak of allocated device memory: a [10 000, N] fp32 population
+# alone would be 8.1 GB
+COHORT_PEAK_GB = 3.0
+COHORT_C = 64   # the FL kernels at the first run's cohort size
+# 6c: the degenerate cohort, every client every round, against the loop
+DEGENERATE_ARGS = MAIN_ARGS + ["--enrolled", "20", "--cohort", "20",
+                               "--cohort-bias", "prefix"]
+# 6d: card against CPU at a reduced size, a consensus and a dense mix
+COHORT_CPU_ARGS = ["--arch", "mlp", "--k", "3", "--enrolled", "1000",
+                   "--cohort", "16", "--lazy", "2", "--sigma2", "0.01",
+                   "--seed", "0"]
+COHORT_CPU_SAMPLES = 64   # a client (train.train_cohort's ``samples``)
+COHORT_CPU_TOPOLOGIES = [("full", True), ("random:0.5", False)]
+# the cohorts the phase-6 paths run: 6d's, then 6b's two (6c's 20 is the
+# main path's C); each FL kernel of those paths is held at each of them
+COHORT_SIZES = [16, 64, 128]
+# mix_rows_flat, bitwise, at (R, K) x N: the dense paths' R = K = A, then
+# blocks past one 64-k stage of w_rows, at every leaf width and at ragged
+# ones
+MIX_COHORT_BLOCKS = [(16, 16), (64, 64), (65, 65), (100, 100), (128, 128),
+                     (20, 200), (200, 20), (256, 256)]
+MIX_COHORT_WIDTHS = list(LEAF_WIDTHS.values()) + [784 * 256 + 1, 7]
+MIX_TIMED = [(20, 20), (64, 64), (128, 128)]
 
 
 class SmokeFailure(RuntimeError):
@@ -332,120 +368,13 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def time_ms(torch, fn, reps=50, warmup=5):
-    """Mean ms per call of ``fn`` over ``reps`` back-to-back calls, timed
-    with CUDA events after a warm-up: the call's throughput, host overhead
-    included when it exceeds the device's work."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_us(torch, prof):
-    """Total duration of the GPU activities (kernels, memsets, copies) a
-    torch.profiler run recorded, in microseconds."""
-    from torch.autograd import DeviceType
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA)
-
-
-def device_ops(torch, prof):
-    """The number of GPU activities (kernels, memsets, copies) a
-    torch.profiler run recorded."""
-    from torch.autograd import DeviceType
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-
-
-def events_ms(torch, fn, reps=20, warmup=3):
-    """Device ms per call of ``fn`` by CUDA events: ``reps`` back-to-back
-    calls queued behind a spin kernel that outlasts the host's enqueue of
-    them, so the events time the device's work and the gaps between its
-    launches, not the host. Returns (ms, hidden): ``hidden`` is False when
-    the spin ended before the host had queued every call, so the reading
-    may hold host time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    spin_s = min(2.0, 2 * enqueue_s + 1e-3)
-    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * spin_s))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    hidden = not start.query()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, hidden
-
-
-# label -> both device-time readings of a function timed by kernel_ms
-READINGS = {}
-
-
-def kernel_ms(torch, fn, label, reps=20):
-    """Device time per call of ``fn``, read two ways: the GPU activity
-    torch.profiler records over ``reps`` calls, and CUDA events over
-    back-to-back calls (:func:`events_ms`). Each call launches the same
-    operations, so a profile whose count is not a multiple of ``reps``
-    dropped activities: it is taken again, up to PROFILE_ATTEMPTS times.
-    Prints both readings and keeps them in READINGS under ``label``, with
-    the operations counted (``whole``: from a whole profile, else the
-    largest count seen). Returns the profiler's reading of a whole
-    profile, else the events'."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    n_ops, dev_us, whole = -1, 0.0, False
-    for attempt in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        count = device_ops(torch, prof)
-        whole = count % reps == 0
-        if whole or count > n_ops:
-            n_ops, dev_us = count, device_us(torch, prof)
-        if whole:
-            break
-        print(f"kernel_ms {label}: the profiler recorded {count} device "
-              f"operations over {reps} calls (attempt {attempt + 1})",
-              flush=True)
-    prof_ms = dev_us / 1e3 / reps
-    ev_ms, hidden = events_ms(torch, fn, reps)
-    READINGS[label] = dict(profiler_ms=prof_ms, events_ms=ev_ms,
-                           ops=n_ops, reps=reps, ops_per_call=n_ops / reps,
-                           whole=whole, host_hidden=hidden)
-    print(f"kernel_ms {label}: profiler {prof_ms:.6g} ms, CUDA events "
-          f"{ev_ms:.6g} ms{'' if hidden else ' (host not hidden)'}, "
-          f"{n_ops / reps:g} device ops a call", flush=True)
-    if not whole or prof_ms <= 0:
-        print(f"kernel_ms {label}: "
-              + ("no whole profile" if not whole else "no device time")
-              + "; using the CUDA events' reading", flush=True)
-        return ev_ms
-    return prof_ms
-
-
 def require_ops(label, want):
     """The function timed as ``label`` launches ``want`` device operations
     a call: exactly, by a whole profile; with none, the largest count seen
     lies at most PROFILE_DROP_LIMIT activities below ``want`` a call."""
-    r = READINGS[label]
+    from repro_torch.benchmarks import timing
+
+    r = timing.READINGS[label]
     full = want * r["reps"]
     ok = r["ops"] == full if r["whole"] else \
         full - PROFILE_DROP_LIMIT <= r["ops"] < full
@@ -457,7 +386,9 @@ def require_ops(label, want):
 def flag_readings():
     """Print, as a note, every function whose two device-time readings
     differ by more than READING_SPREAD of the events' reading."""
-    for label, r in READINGS.items():
+    from repro_torch.benchmarks import timing
+
+    for label, r in timing.READINGS.items():
         p, e = r["profiler_ms"], r["events_ms"]
         if not r["whole"]:
             print(f"note: {label} has no whole profile ({r['ops']} device "
@@ -490,19 +421,11 @@ def empty_launch(torch, blocks=1, threads=32):
 
     from repro_torch.kernels import _build
 
-    # keyed, like the port's libraries, by a hash of source and flags
-    key = hashlib.sha256((EMPTY_KERNEL_CU + " ".join(_build.NVCC_FLAGS))
-                         .encode()).hexdigest()[:16]
-    src = _build.BUILD_DIR / f"empty_launch-{key}.cu"
-    lib_path = _build.BUILD_DIR / f"empty_launch-{key}.so"
-    if not lib_path.exists():
+    src = _build.BUILD_DIR / "empty_launch.cu"
+    if not src.exists() or src.read_text() != EMPTY_KERNEL_CU:
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         src.write_text(EMPTY_KERNEL_CU)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                        str(tmp), str(src)], check=True, capture_output=True)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _build.load_file(src, "empty_launch")
     lib.repro_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p]
     lib.repro_empty_launch.restype = ctypes.c_int
@@ -555,6 +478,7 @@ def phase_race(torch, dev):
     wraps past 2**32), then their times beside the empty-launch floor, and
     the mine stage's device operations a call. Returns (the kernel table's
     row, a summary for phase 1's line)."""
+    from repro_torch.benchmarks import timing
     from repro_torch.core import mining, rounds
     from repro_torch.kernels.pow_hash import ops as pow_ops
     from repro_torch.kernels.pow_hash import ref as pow_ref
@@ -652,17 +576,17 @@ def phase_race(torch, dev):
     require(int(h1) == int(rh1[0]) and int(n1) == int(rn1[0]),
             "mine at the main path's budget differs from its plain version")
     floor = empty_launch(torch)
-    floor_ms = kernel_ms(torch, floor, "empty launch (the floor)", reps=50)
-    floor_events_ms = READINGS["empty launch (the floor)"]["events_ms"]
+    floor_ms = timing.kernel_ms(floor, "empty launch (the floor)", reps=50)
+    floor_events_ms = timing.READINGS["empty launch (the floor)"]["events_ms"]
 
     def timed(label, fn, plain, c, bytes_):
         """``bytes_``: each input word read once and each output written
         once."""
-        row = dict(ms=kernel_ms(torch, fn, label, reps=50))
-        row.update(events_ms=READINGS[label]["events_ms"],
-                   device_ops=READINGS[label]["ops_per_call"],
-                   call_ms=time_ms(torch, fn),
-                   plain_ms=kernel_ms(torch, plain, f"{label} plain"),
+        row = dict(ms=timing.kernel_ms(fn, label, reps=50))
+        row.update(events_ms=timing.READINGS[label]["events_ms"],
+                   device_ops=timing.READINGS[label]["ops_per_call"],
+                   call_ms=timing.time_ms(fn),
+                   plain_ms=timing.kernel_ms(plain, f"{label} plain"),
                    floor_ms=floor_ms, floor_events_ms=floor_events_ms,
                    bound_ms=1e3 * max(bytes_ / PEAK_BYTES_S,
                                       c * MINE_ATTEMPTS * OPS_PER_HASH
@@ -698,10 +622,10 @@ def phase_race(torch, dev):
                             mine_attempts=MINE_ATTEMPTS, difficulty_bits=bits)
     mine = rounds.make_mine(spec)
     stage = "mine stage (rounds.make_mine, one call)"
-    row["mine_stage"] = dict(ms=kernel_ms(torch, lambda: mine(prev, digest, 3),
+    row["mine_stage"] = dict(ms=timing.kernel_ms(lambda: mine(prev, digest, 3),
                                           stage, reps=50),
-                             events_ms=READINGS[stage]["events_ms"],
-                             device_ops=READINGS[stage]["ops_per_call"])
+                             events_ms=timing.READINGS[stage]["events_ms"],
+                             device_ops=timing.READINGS[stage]["ops_per_call"])
     for label, want in ((seal, 1), ("pow_race (flat, C = 20)", 1),
                         ("pow_race (flat, C = 1)", 1), (stage, 2)):
         require_ops(label, want)
@@ -714,6 +638,7 @@ def phase_race(torch, dev):
 
 def phase_kernels(torch, dev):
     """Phase 1: each kernel against its plain version, and its times."""
+    from repro_torch.benchmarks import timing
     from repro_torch.core import mining
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.fedavg import ref as fedavg_ref
@@ -776,12 +701,12 @@ def phase_kernels(torch, dev):
     mix = per_round(lambda x: fedavg_ops.fedavg_flat(x, uniform))
     report["fedavg_flat"] = dict(
         max_abs_err=fed_err,
-        ms=kernel_ms(torch, mix, "fedavg_flat"), call_ms=time_ms(torch, mix),
-        plain_ms=kernel_ms(torch, per_round(
+        ms=timing.kernel_ms(mix, "fedavg_flat"), call_ms=timing.time_ms(mix),
+        plain_ms=timing.kernel_ms(per_round(
             lambda x: fedavg_ref.fedavg_flat_ref(x, uniform)),
             "fedavg_flat plain"),
         # one PyTorch call, same function: the mean-row matrix times x
-        library_ms=kernel_ms(torch, per_round(lambda x: torch.mm(w_rows, x)),
+        library_ms=timing.kernel_ms(per_round(lambda x: torch.mm(w_rows, x)),
                              "fedavg_flat library (torch.mm)"),
         bound_ms=1e3 * max((8 * elems + 16 * N_CLIENTS) / PEAK_BYTES_S,
                            2 * elems / PEAK_ALU_OPS_S),
@@ -789,12 +714,12 @@ def phase_kernels(torch, dev):
     sweep = per_round(fedavg_ops.digest_div_flat)
     report["digest_div_flat"] = dict(
         max_abs_err=dig_err,
-        ms=kernel_ms(torch, sweep, "digest_div_flat"), call_ms=time_ms(torch, sweep),
-        plain_ms=kernel_ms(torch, per_round(fedavg_ref.digest_div_flat_ref),
+        ms=timing.kernel_ms(sweep, "digest_div_flat"), call_ms=timing.time_ms(sweep),
+        plain_ms=timing.kernel_ms(per_round(fedavg_ref.digest_div_flat_ref),
                            "digest_div_flat plain"),
         library_ms=None,
         # each leaf's call alone: the narrow ones are one-block launches
-        per_leaf_ms={name: kernel_ms(torch, lambda x=x:
+        per_leaf_ms={name: timing.kernel_ms(lambda x=x:
                                      fedavg_ops.digest_div_flat(x),
                                      f"digest_div_flat leaf {name}")
                      for name, x in leaves.items()},
@@ -847,12 +772,12 @@ def phase_kernels(torch, dev):
     dense = per_round(lambda x: fedavg_ops.mix_rows_flat(w_full, x))
     report["mix_rows_flat"] = dict(
         max_abs_err=mix_err,
-        ms=kernel_ms(torch, dense, "mix_rows_flat"), call_ms=time_ms(torch, dense),
-        plain_ms=kernel_ms(torch, per_round(
+        ms=timing.kernel_ms(dense, "mix_rows_flat"), call_ms=timing.time_ms(dense),
+        plain_ms=timing.kernel_ms(per_round(
             lambda x: fedavg_ref.mix_rows_flat_ref(w_full, x)),
             "mix_rows_flat plain"),
         # one PyTorch call, same function
-        library_ms=kernel_ms(torch, per_round(lambda x: torch.mm(w_full, x)),
+        library_ms=timing.kernel_ms(per_round(lambda x: torch.mm(w_full, x)),
                              "mix_rows_flat library (torch.mm)"),
         # each leaf read once and written once, W read once per call
         bound_ms=1e3 * max((8 * elems + 4 * len(LEAF_WIDTHS) * N_CLIENTS ** 2)
@@ -1090,6 +1015,7 @@ def replay_kernel_counts(torch, args, per_round, what):
     from torch.profiler import ProfilerActivity, profile as prof
 
     from repro_torch import kernels
+    from repro_torch.benchmarks import timing
     from repro_torch.core import rounds
     from repro_torch.launch import train
     from repro_torch.models.mlp import mlp_client_losses
@@ -1098,7 +1024,7 @@ def replay_kernel_counts(torch, args, per_round, what):
     batch = src.static_batch()
     want = {name: per_round[name] * (blade.K - 1) for name in KERNEL_SYMBOL}
     best = {name: 0 for name in KERNEL_SYMBOL}
-    for attempt in range(PROFILE_ATTEMPTS):
+    for attempt in range(timing.PROFILE_ATTEMPTS):
         captured = rounds.CapturedRounds(rounds.RoundRunner(
             mlp_client_losses, spec, params, blade.K, seed=blade.seed + 2,
             device=dev), batch)
@@ -1219,6 +1145,7 @@ def profile_rounds(torch, args, driver, profile_dir, name):
     round."""
     from torch.profiler import ProfilerActivity, profile as prof
 
+    from repro_torch.benchmarks import timing
     from repro_torch.core import rounds
     from repro_torch.launch import train
     from repro_torch.models.mlp import mlp_client_losses
@@ -1242,9 +1169,9 @@ def profile_rounds(torch, args, driver, profile_dir, name):
                                 jit=driver == "graph")
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms = device_us(torch, p) / 1e3
+    busy_ms = timing.device_us(p) / 1e3
     n_rounds = blade.K - 1 if captured is not None else blade.K
-    ops = device_ops(torch, p)
+    ops = timing.device_ops(p)
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"profile_rounds_{name}.txt")
     with open(path, "w") as f:
@@ -1387,6 +1314,355 @@ def phase_sweep(torch, dev):
           f"(worst {max(worst.values()):.3g})", flush=True)
 
 
+def phase_cohort_kernels(torch, dev, report):
+    """Phase 6a: the FL kernels at the cohort paths' sizes. At each C of
+    COHORT_SIZES and each leaf width: ``fedavg_flat`` (uniform and
+    weighted, with and without noise) and ``digest_div_flat`` within
+    their tolerances, and the mine kernel in seal mode, bitwise, at two
+    nonce offsets. ``mix_rows_flat`` bitwise at MIX_COHORT_BLOCKS x
+    MIX_COHORT_WIDTHS (K past the 64 k its stage holds). Then the times of
+    ``mix_rows_flat`` at MIX_TIMED and of ``fedavg_flat`` and
+    ``digest_div_flat`` at C = COHORT_C over the four leaves, with their
+    bounds, added to ``report``'s rows under ``at_cohort``."""
+    from repro_torch.benchmarks import timing
+    from repro_torch.core import mining
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+    from repro_torch.kernels.pow_hash import ops as pow_ops
+    from repro_torch.kernels.pow_hash import ref as pow_ref
+
+    gen = torch.Generator(device=dev).manual_seed(8642)
+    fed_err = dig_err = 0.0
+    for c in COHORT_SIZES:
+        for name, n in LEAF_WIDTHS.items():
+            x = torch.randn((c, n), generator=gen, device=dev) + 0.25
+            noise = 0.1 * torch.randn((c, n), generator=gen, device=dev)
+            w = torch.rand(c, generator=gen, device=dev) + 0.5
+            for weights in (torch.full((c,), 1.0 / c, device=dev),
+                            (w / w.sum()).contiguous()):
+                for nz in (None, noise):
+                    got = fedavg_ops.fedavg_flat(x, weights, nz)
+                    want = fedavg_ref.fedavg_flat_ref(x, weights, nz)
+                    err = (got - want).abs()
+                    fed_err = max(fed_err, float(err.max()))
+                    require(bool((err <= FLOAT_ATOL + FLOAT_RTOL
+                                  * want.abs()).all()),
+                            f"fedavg_flat off tolerance at C={c} leaf "
+                            f"{name}")
+            dig_err = max(dig_err, check_digest(torch, x,
+                                                f"C={c} leaf {name}"))
+        for off in (5 << 20, (1 << 32) - 77):
+            prev, digest, offset = (
+                torch.full((), v & mining.MASK, dtype=torch.int64,
+                           device=dev)
+                for v in (0x2468ACE, 0x13579BD ^ off ^ c, off))
+            got = pow_ops.mine_seal(prev, digest, c, MINE_ATTEMPTS,
+                                    nonce_offset=offset, difficulty_bits=4)
+            want = pow_ref.mine_seal_ref(prev, digest, offset, c,
+                                         MINE_ATTEMPTS, 4)
+            require(same_seal(torch, got, want),
+                    f"mine_seal not bitwise equal at C={c} offset {off}")
+    mix_cases = 0
+    for r, k in MIX_COHORT_BLOCKS:
+        w = torch.rand((r, k), generator=gen, device=dev) + 0.1
+        w = w / w.sum(dim=1, keepdim=True)
+        for n in MIX_COHORT_WIDTHS:
+            x = torch.randn((k, n), generator=gen, device=dev)
+            require(torch.equal(fedavg_ops.mix_rows_flat(w, x),
+                                fedavg_ref.mix_rows_flat_ref(w, x)),
+                    f"mix_rows_flat not bitwise equal to its plain version "
+                    f"at R={r} K={k} N={n}")
+            mix_cases += 1
+            del x
+    torch.cuda.empty_cache()
+
+    widths = list(LEAF_WIDTHS.values())
+    elems = sum(widths)
+
+    def leaves(rows):
+        return [torch.randn((rows, n), generator=gen, device=dev)
+                for n in widths]
+
+    timed = {}
+    for r, k in MIX_TIMED:
+        xs = leaves(k)
+        w = torch.rand((r, k), generator=gen, device=dev) + 0.1
+        w = w / w.sum(dim=1, keepdim=True)
+        timed[f"R{r}xK{k}"] = dict(
+            ms=timing.kernel_ms(lambda xs=xs, w=w: [
+                fedavg_ops.mix_rows_flat(w, x) for x in xs],
+                f"mix_rows_flat R={r} K={k}"),
+            library_ms=timing.kernel_ms(lambda xs=xs, w=w: [
+                torch.mm(w, x) for x in xs],
+                f"mix_rows_flat library (torch.mm) R={r} K={k}"),
+            bound_ms=1e3 * max((4 * (k + r) * elems + 16 * r * k)
+                               / PEAK_BYTES_S,
+                               2 * r * k * elems / PEAK_ALU_OPS_S))
+    report["mix_rows_flat"]["at_cohort"] = timed
+    c = COHORT_C
+    xs = leaves(c)
+    u = torch.full((c,), 1.0 / c, device=dev)
+    report["fedavg_flat"]["at_cohort"] = {f"C{c}": dict(
+        ms=timing.kernel_ms(lambda: [fedavg_ops.fedavg_flat(x, u)
+                                     for x in xs], f"fedavg_flat C={c}"),
+        bound_ms=1e3 * max((8 * c * elems + 16 * c) / PEAK_BYTES_S,
+                           2 * c * elems / PEAK_ALU_OPS_S))}
+    report["digest_div_flat"]["at_cohort"] = {f"C{c}": dict(
+        ms=timing.kernel_ms(lambda: [fedavg_ops.digest_div_flat(x)
+                                     for x in xs], f"digest_div_flat C={c}"),
+        bound_ms=1e3 * max((4 * c * elems + 16 * (c + 1)) / PEAK_BYTES_S,
+                           4 * c * elems / PEAK_ALU_OPS_S))}
+    print(f"phase 6a ok: at C in {COHORT_SIZES} and every leaf, "
+          f"fedavg_flat (uniform and weighted, with and without noise) "
+          f"within rtol {FLOAT_RTOL} (largest deviation {fed_err:.3g}), "
+          f"digest_div_flat within its tolerance (largest deviation "
+          f"{dig_err:.3g}), mine_seal x {MINE_ATTEMPTS} bitwise at two "
+          f"offsets; mix_rows_flat bitwise "
+          f"at {mix_cases} cases ((R, K) in {MIX_COHORT_BLOCKS} x N in "
+          f"{MIX_COHORT_WIDTHS}); times " + json.dumps(
+              {name: report[name]["at_cohort"] for name in
+               ("mix_rows_flat", "fedavg_flat", "digest_div_flat")}),
+          flush=True)
+
+
+def cohort_runner(torch, args):
+    """A ``rounds.CohortRunner`` as ``launch.train.train_cohort`` builds
+    it for ``args`` (a fresh data source: every client's set still to be
+    built), and the run's seed."""
+    from repro_torch.core import rounds, topology
+    from repro_torch.launch import train
+    from repro_torch.models.mlp import mlp_client_losses
+
+    blade, spec, cohort, src, params, dev = train.prepare_cohort(args)
+    seed = blade.seed + 2
+    table = topology.round_table(spec.topology, spec.n_clients, blade.K,
+                                 topology.topology_generator(seed))
+    return rounds.CohortRunner(mlp_client_losses, spec, params,
+                               src.cohort_batch, blade.K, cohort, seed=seed,
+                               device=dev, topology_matrices=table), seed
+
+
+def cohort_path(torch, dev, flags, want, what, profile_dir):
+    """Phase 6b, one full-width cohort path: the trainer's run with its
+    launch counts (``want``) and peak device memory, its ledger, its
+    memberships (sorted, distinct, in range, ``topology.cohort_table``
+    replayed from the seed) and ``touched``; the host syncs of a run's
+    rounds (at most one a round: the scatter); each round's host-clock
+    split; the device busy share of a profiled run. Returns (result,
+    launches)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from repro_torch import kernels
+    from repro_torch.benchmarks import timing
+    from repro_torch.core import topology
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(flags + ["--device", str(dev)])
+    want = {**{name: 0 for name in kernels.WRAPPERS}, **want}
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    result, store, hist = train.train_cohort(args)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(launches == want, f"launch counts {launches} on the {what}, "
+                              f"expected {want}")
+    require(result["chain_valid"] and result["blocks"] == args.k
+            and result["dispatch"]["driver"] == "cohort",
+            f"the {what}: {result}")
+    cohorts = [h["cohort"] for h in hist]
+    schedule = topology.CohortSchedule.from_spec(args.enrolled, args.cohort,
+                                                 args.cohort_bias)
+    require(all(len(c) == args.cohort and all(0 <= a < b < args.enrolled
+                                               for a, b in zip(c, c[1:]))
+                and 0 <= c[0] for c in cohorts)
+            and cohorts == topology.cohort_table(schedule, args.k,
+                                                 args.seed + 2).tolist(),
+            f"the {what}'s memberships are not the seed's sorted, distinct "
+            f"draws: {cohorts}")
+    touched = len({i for c in cohorts for i in c})
+    require(result["touched"] == store.touched == touched,
+            f"the {what} touched {result['touched']}, its cohorts hold "
+            f"{touched} clients")
+    require(all(math.isfinite(h[key]) for h in hist
+                for key in ("local_loss_mean", "global_loss", "divergence")),
+            f"non-finite metrics on the {what}")
+    require(peak_gb < COHORT_PEAK_GB, f"the {what} peaked at {peak_gb:.3f} "
+                                      f"GB of device memory (limit "
+                                      f"{COHORT_PEAK_GB})")
+    runner, _ = cohort_runner(torch, args)
+    syncs = host_syncs(torch, lambda: [runner.step(k)
+                                       for k in range(args.k)])
+    require(len(syncs) <= args.k, f"{len(syncs)} host syncs in the "
+                                  f"{args.k} rounds of the {what}: "
+                                  f"{syncs[:3]}")
+    runner, _ = cohort_runner(torch, args)
+    split = []
+    for k in range(args.k):
+        t = [time.perf_counter()]
+        batch = runner.batch(k)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        runner.load(k)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        runner.runner.step(k, batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        runner.store_back(k)
+        t.append(time.perf_counter())
+        split.append({part: 1e3 * (b - a) for part, a, b in zip(
+            ("data_build_ms", "gather_upload_ms", "device_round_ms",
+             "scatter_ms"), t, t[1:])})
+    runner, _ = cohort_runner(torch, args)
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for k in range(args.k):
+            runner.step(k)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = timing.device_us(p) / 1e3
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir,
+                            f"profile_cohort_A{args.cohort}.txt")
+        with open(path, "w") as f:
+            f.write(p.key_averages().table(sort_by="cuda_time_total",
+                                           row_limit=40))
+    print(f"phase 6b ok: " + json.dumps(
+        {"path": what, "launches": launches, "dispatch": result["dispatch"],
+         "touched": touched, "store_mb": result["store_mb"],
+         "global_loss": [h["global_loss"] for h in hist],
+         "final_eval_acc": result["final_eval_acc"],
+         "peak_allocated_gb": peak_gb, "allocated_before_gb": base_gb,
+         "host_syncs_in_rounds": len(syncs), "wall_s": result["wall_s"],
+         "round_split_ms": split,
+         "profiled_rounds": {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                             "busy_share": busy_ms / wall_ms,
+                             "device_ops_a_round":
+                                 timing.device_ops(p) / args.k}}),
+          flush=True)
+    return result, launches
+
+
+def phase_degenerate_cohort(torch, dev):
+    """Phase 6c: DEGENERATE_ARGS (20 enrolled, a cohort of 20, ``prefix``)
+    by the cohort driver, against ``rounds.run_blade_fl``'s loop on the
+    same spec, params, data, seed and matrices: params, every metric and
+    the ledger bitwise equal."""
+    import numpy as np
+
+    from repro_torch.core import rounds, topology
+    from repro_torch.launch import train
+    from repro_torch.models.mlp import mlp_client_losses
+
+    args = train.build_parser().parse_args(DEGENERATE_ARGS
+                                           + ["--device", str(dev)])
+    blade, spec, cohort, src, params, dev = train.prepare_cohort(args)
+    seed = blade.seed + 2
+    table = topology.round_table(spec.topology, spec.n_clients, blade.K,
+                                 topology.topology_generator(seed))
+    store, chist, cledger = rounds.run_blade_fl_cohort(
+        mlp_client_losses, spec, params, src.cohort_batch, blade.K, cohort,
+        seed=seed, device=dev, topology_matrices=table)
+    everyone = np.arange(args.enrolled)
+    state, lhist, lledger = rounds.run_blade_fl(
+        mlp_client_losses, spec, params, src.cohort_batch(0, everyone),
+        blade.K, seed=seed, device=dev, jit=False, topology_matrices=table)
+    final = store.gather(everyone)
+    require(all(h.pop("cohort") == everyone.tolist() for h in chist)
+            and json.dumps(chist) == json.dumps(lhist)
+            and [b.header_hash for b in cledger.blocks]
+            == [b.header_hash for b in lledger.blocks]
+            and all(torch.equal(final[k], v)
+                    for k, v in state.params.items()),
+            "the degenerate cohort differs from the loop driver")
+    print("phase 6c ok: the degenerate cohort (20 of 20, prefix) bitwise "
+          "equal to the loop driver (params, every metric, ledger hashes "
+          f"{cledger.head_hash:#010x})", flush=True)
+
+
+def phase_cohort_card_vs_cpu(torch, dev):
+    """Phase 6d: COHORT_CPU_ARGS on the card and on the CPU, per topology
+    of COHORT_CPU_TOPOLOGIES: the memberships equal; every per-round
+    metric, the eval loss and the last cohort's aggregate within rtol
+    CARD_CPU_RTOL / atol CARD_CPU_ATOL; every touched client's row within
+    it on a consensus mix, else within CLIENT_SPREAD_LIMIT times it."""
+    import numpy as np
+
+    from repro_torch.core import aggregation
+    from repro_torch.launch import train
+
+    def ratio(a, b):   # |a - b| over the tolerance at b; <= 1 passes
+        a = torch.as_tensor(a, dtype=torch.float64).cpu()
+        b = torch.as_tensor(b, dtype=torch.float64)
+        return float(((a - b).abs() / (CARD_CPU_ATOL + CARD_CPU_RTOL
+                                       * b.abs())).max())
+
+    out = {}
+    for topo, consensus in COHORT_CPU_TOPOLOGIES:
+        flags = COHORT_CPU_ARGS + ["--topology", topo]
+        if not consensus:
+            flags += ["--fused-mix"]
+        (result, store, hist), (cresult, cstore, chist) = (
+            train.train_cohort(train.build_parser().parse_args(
+                flags + ["--device", device]), samples=COHORT_CPU_SAMPLES)
+            for device in (str(dev), "cpu"))
+        cohorts = [h["cohort"] for h in hist]
+        require(cohorts == [h["cohort"] for h in chist],
+                f"cohort card vs cpu ({topo}): memberships differ")
+        gated = {key: max(ratio(a[key], b[key]) for a, b in zip(hist, chist))
+                 for key in ("local_loss_mean", "global_loss", "divergence")}
+        gated["final_eval_loss"] = ratio(result["final_eval_loss"],
+                                         cresult["final_eval_loss"])
+        touched = np.array(sorted({i for c in cohorts for i in c}))
+        rows, crows = store.gather(touched), cstore.gather(touched)
+        last = np.array(cohorts[-1])
+        agg = aggregation.aggregate_once(store.gather(last))
+        cagg = aggregation.aggregate_once(cstore.gather(last))
+        for name, v in agg.items():
+            gated[f"aggregate {name}"] = ratio(v, cagg[name])
+        limit = 1.0 if consensus else CLIENT_SPREAD_LIMIT
+        clients = {f"client {name}": ratio(v, crows[name])
+                   for name, v in rows.items()}
+        bad = sorted(k for k, r in gated.items() if not r <= 1)
+        bad += sorted(k for k, r in clients.items() if not r <= limit)
+        require(not bad, f"cohort card vs cpu ({topo}): {bad} beyond rtol "
+                         f"{CARD_CPU_RTOL} atol {CARD_CPU_ATOL} (rows: "
+                         f"{limit} times): {gated} {clients}")
+        out[topo] = {"worst_gated": max(gated.values()),
+                     "worst_client_row": max(clients.values()),
+                     "row_limit": limit, "touched": len(touched)}
+    print("phase 6d ok: cohort card vs cpu (1000 enrolled, cohort 16, K = "
+          f"3, {COHORT_CPU_SAMPLES} samples), worst |diff| / (atol + rtol "
+          "|cpu|): "
+          + json.dumps(out), flush=True)
+
+
+def phase_cohort(torch, dev, report, profile_dir):
+    """Phase 6, the cohort path: 6a its kernels at its sizes, 6b the two
+    full-width runs, 6c the degenerate cohort, 6d card against CPU.
+    Returns the launch counts of the two 6b runs."""
+    phase_cohort_kernels(torch, dev, report)
+    torch.cuda.empty_cache()
+    k = K
+    _, launches = cohort_path(
+        torch, dev, COHORT_ARGS,
+        {"pow_race": k, "fedavg_flat": 4 * k, "digest_div_flat": 4 * k},
+        "cohort path (64 of 10 000)", profile_dir)
+    _, dlaunches = cohort_path(
+        torch, dev, COHORT_DENSE_ARGS,
+        {"pow_race": k, "mix_rows_flat": 4 * k, "digest_div_flat": 4 * k},
+        "dense cohort path (128 of 10 000, random:0.5, fused mix)",
+        profile_dir)
+    phase_degenerate_cohort(torch, dev)
+    phase_cohort_card_vs_cpu(torch, dev)
+    return launches, dlaunches
+
+
 def _flash_work(b, h, hkv, s, d, causal, window):
     """(bytes, flops, exps) the attention function needs: q, k, v read
     once and o written once; 4 D flops (QK^T and PV) and one exp per
@@ -1430,6 +1706,7 @@ def phase_lm_kernels(torch, dev):
     times."""
     import torch.nn.functional as F
 
+    from repro_torch.benchmarks import timing
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
@@ -1509,11 +1786,11 @@ def phase_lm_kernels(torch, dev):
     bound_simt = _bound(*work)[0]
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
-        ms=kernel_ms(torch, flash, "flash_attention", reps=10),
-        call_ms=time_ms(torch, flash, reps=10, warmup=2),
-        plain_ms=kernel_ms(torch, lambda: flash_ref.mha_ref(
+        ms=timing.kernel_ms(flash, "flash_attention", reps=10),
+        call_ms=timing.time_ms(flash, reps=10, warmup=2),
+        plain_ms=timing.kernel_ms(lambda: flash_ref.mha_ref(
             q, k, v, causal=True), "flash_attention plain", reps=3),
-        library_ms=kernel_ms(torch, sdpa, "flash_attention library (SDPA)",
+        library_ms=timing.kernel_ms(sdpa, "flash_attention library (SDPA)",
                              reps=10),
         bound_ms=bound, bound_by=by)
     del q, k, v
@@ -1559,9 +1836,9 @@ def phase_lm_kernels(torch, dev):
     bound, by = _bound(*_ssm_work(bsz, t, d_in, ds))
     report["ssm_scan"] = dict(
         max_abs_err=ssm_err, worst_of_tolerance=ssm_ratio,
-        ms=kernel_ms(torch, scan, "ssm_scan", reps=10),
-        call_ms=time_ms(torch, scan, reps=10, warmup=2),
-        plain_ms=kernel_ms(torch, lambda: ssm_ref.ssm_scan_ref(
+        ms=timing.kernel_ms(scan, "ssm_scan", reps=10),
+        call_ms=timing.time_ms(scan, reps=10, warmup=2),
+        plain_ms=timing.kernel_ms(lambda: ssm_ref.ssm_scan_ref(
             u, dt, bm, cm, a, dsk), "ssm_scan plain", reps=2),
         library_ms=None, bound_ms=bound, bound_by=by)
     print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases and "
@@ -1730,6 +2007,7 @@ def kernel_table(report, by_path):
     """The rows of the kernel table: each kernel's report, its source, the
     TPU kernel it replaces, its launches on its main path (and on every
     path), and its CUDA-event time where the report has none."""
+    from repro_torch.benchmarks import timing
     from repro_torch.kernels import _build
 
     table = []
@@ -1742,7 +2020,7 @@ def kernel_table(report, by_path):
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                **report[name]}
         if "events_ms" not in row:
-            row["events_ms"] = READINGS[name]["events_ms"]
+            row["events_ms"] = timing.READINGS[name]["events_ms"]
         table.append(row)
     return table
 
@@ -1833,8 +2111,11 @@ def main(argv=None) -> int:
     lap("phase 4b")
     phase_sweep(torch, dev)
     lap("phase 5")
+    clau, dclau = phase_cohort(torch, dev, report, opts.profile)
+    lap("phase 6")
 
-    by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches}
+    by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
+               "cohort": clau, "dense cohort": dclau}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

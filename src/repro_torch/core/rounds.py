@@ -49,6 +49,11 @@ between its loop and its ``lax.scan`` engine (:func:`dispatch_plan`):
 Both read the same buffers, so on one device they run the same kernels on
 the same inputs and agree bitwise. Each run makes one host transfer at the
 end and then rebuilds and validates the ledger (``chain.ledger_from_scan``).
+
+A third driver, :func:`run_blade_fl_cohort`, runs the round on a cohort of
+A of C_enrolled clients a round: one :class:`RoundRunner` at size A whose
+carry is loaded from and stored back to a host-side
+:class:`PopulationStore` every round (:class:`CohortRunner`).
 """
 from __future__ import annotations
 
@@ -820,4 +825,275 @@ def run_blade_fl(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
         batch = ({n: v.to(dev) for n, v in batches(k).items()}
                  if per_round else batches)
         runner.step(k, batch)
+    return runner.finish(ledger)
+
+
+# ---------------------------------------------------------------------------
+# Cohort-sampled population driver (enrolled C >> active A)
+# ---------------------------------------------------------------------------
+
+
+class PopulationStore:
+    """Host-side parameter store of the enrolled population (the JAX
+    package's ``PopulationStore``).
+
+    The device holds only the ``[A, ...]`` stack of a round's cohort. The
+    ``n_enrolled`` population lives here, lazily: every client reads the
+    shared init model until a round it took part in scatters its own row
+    back, so host memory is O(model + touched x model), never O(C_enrolled x
+    model).
+
+    ``gather(idx)`` stacks the cohort's rows on ``device`` through one
+    staging buffer (pinned when ``device`` is the card) and non-blocking
+    copies; the buffer is not refilled while a copy from it may still be in
+    flight. ``scatter(idx, params)`` brings a round's cohort back with one
+    device-to-host copy and copies each client's row out of it."""
+
+    def __init__(self, params_single: Tree, n_enrolled: int,
+                 device: DeviceLike = "cuda"):
+        if n_enrolled < 1:
+            raise ValueError("PopulationStore needs n_enrolled >= 1")
+        self.n_enrolled = int(n_enrolled)
+        self.device = resolve_device(device)
+        self.keys = sorted(params_single)
+        self._init = {k: params_single[k].detach().to("cpu", torch.float32)
+                      .contiguous().clone() for k in self.keys}
+        self._rows: Dict[int, Tree] = {}
+        # cohort size -> (gather staging, scatter landing): flat host
+        # buffers, leaf-major, so each leaf's [A, ...] block is contiguous
+        self._buffers: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._uploaded: Optional[torch.cuda.Event] = None
+
+    @property
+    def touched(self) -> int:
+        """How many clients have materialized their own row."""
+        return len(self._rows)
+
+    def materialized_bytes(self) -> int:
+        """Host bytes held beyond the shared init model."""
+        row_bytes = sum(v.numel() * v.element_size()
+                        for v in self._init.values())
+        return row_bytes * self.touched
+
+    def _check_idx(self, idx) -> np.ndarray:
+        idx = np.asarray(idx)
+        if idx.ndim != 1:
+            raise ValueError(f"cohort index must be 1-D, got {idx.shape}")
+        if idx.size and (idx.min() < 0 or idx.max() >= self.n_enrolled):
+            raise ValueError(
+                f"cohort indices must lie in [0, {self.n_enrolled}), got "
+                f"range [{idx.min()}, {idx.max()}]")
+        return idx
+
+    def _views(self, flat: torch.Tensor, a: int) -> Tree:
+        """Each leaf's ``[a, ...]`` block of a leaf-major flat buffer."""
+        out, at = {}, 0
+        for k in self.keys:
+            shape = self._init[k].shape
+            size = a * self._init[k].numel()
+            out[k] = flat[at:at + size].view((a,) + tuple(shape))
+            at += size
+        return out
+
+    def _buffer(self, a: int, which: int) -> torch.Tensor:
+        bufs = self._buffers.get(a)
+        if bufs is None:
+            n = a * sum(v.numel() for v in self._init.values())
+            pin = self.device.type == "cuda"
+            bufs = self._buffers[a] = tuple(
+                torch.empty(n, dtype=torch.float32, pin_memory=pin)
+                for _ in range(2))
+        return bufs[which]
+
+    def gather(self, idx, out: Optional[Tree] = None) -> Tree:
+        """Rows ``idx`` as ``[len(idx), ...]`` leaves on the store's device:
+        written into ``out`` (leaves of that shape there) when given, else
+        into new tensors."""
+        idx = self._check_idx(idx)
+        a = int(idx.size)
+        if self._uploaded is not None and not self._uploaded.query():
+            self._uploaded.synchronize()   # the last upload still reads it
+        staging = self._views(self._buffer(a, 0), a)
+        for row, i in enumerate(idx):
+            src = self._rows.get(int(i), self._init)
+            for k in self.keys:
+                staging[k][row].copy_(src[k])
+        if out is None:
+            out = {k: torch.empty_like(v, device=self.device)
+                   for k, v in staging.items()}
+        for k in self.keys:
+            out[k].copy_(staging[k], non_blocking=True)
+        if self.device.type == "cuda":
+            self._uploaded = torch.cuda.Event()
+            self._uploaded.record(torch.cuda.current_stream(self.device))
+        return out
+
+    def scatter(self, idx, cohort_params: Tree) -> None:
+        """Write a round's post-mix ``[len(idx), ...]`` cohort back: one
+        device-to-host copy (the run's one host sync a round), then each
+        client's row copied out, so no row is a view of a reused buffer."""
+        idx = self._check_idx(idx)
+        leads = {v.shape[0] for v in cohort_params.values()}
+        if leads != {idx.size}:
+            raise ValueError(
+                f"cohort_params leading dims {sorted(leads)} != "
+                f"len(idx)={idx.size}")
+        a = int(idx.size)
+        landing = self._buffer(a, 1)
+        flat = torch.cat([cohort_params[k].detach().reshape(-1)
+                          for k in self.keys])
+        landing.copy_(flat, non_blocking=True)
+        if flat.is_cuda:
+            torch.cuda.current_stream(flat.device).synchronize()
+        host = self._views(landing, a)
+        for row, i in enumerate(idx):
+            self._rows[int(i)] = {k: host[k][row].clone() for k in self.keys}
+
+
+def _batch_to(batch, dev: torch.device) -> Tree:
+    """A round's batch on ``dev``: numpy leaves as float32 / int64 tensors;
+    a host tensor goes to the card from pinned memory without a host sync."""
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, torch.Tensor):
+            v = np.asarray(v)
+            v = torch.from_numpy(np.ascontiguousarray(
+                v, np.float32 if np.issubdtype(v.dtype, np.floating)
+                else np.int64))
+        if v.device != dev:
+            if dev.type == "cuda" and v.device.type == "cpu":
+                v = v.pin_memory().to(dev, non_blocking=True)
+            else:
+                v = v.to(dev)
+        out[k] = v
+    return out
+
+
+class CohortRunner:
+    """One run of the cohort driver: a :class:`RoundRunner` at cohort size
+    A, built once as ``run_blade_fl`` builds it (noise, matrices, counter
+    and ``[K, ...]`` metric rows drawn and uploaded once), the population's
+    :class:`PopulationStore` and the run's ``[K, A]`` memberships.
+
+    :meth:`step` is one round in four parts, each a method of its own so
+    that a caller can time them: :meth:`batch` (the cohort's data on the
+    device), :meth:`load` (the store's rows into the runner's carry, in
+    place), the runner's step, and :meth:`store_back` (the scatter)."""
+
+    def __init__(self, loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
+                 batches, n_rounds: int,
+                 cohort: topology_lib.CohortSchedule, *, seed: int = 0,
+                 device: DeviceLike = "cuda",
+                 store: Optional[PopulationStore] = None, cohorts=None,
+                 topology_matrices=None):
+        if cohort.cohort_size != spec.n_clients:
+            raise ValueError(
+                f"spec.n_clients={spec.n_clients} must equal "
+                f"cohort.cohort_size={cohort.cohort_size}: the round engine "
+                "runs at cohort size")
+        dev = resolve_device(device)
+        if store is None:
+            store = PopulationStore(params_single, cohort.n_enrolled, dev)
+        if store.n_enrolled != cohort.n_enrolled:
+            raise ValueError(
+                f"store holds n_enrolled={store.n_enrolled} but the schedule "
+                f"samples from {cohort.n_enrolled}")
+        if store.device != dev:
+            raise ValueError(f"store gathers onto {store.device}, the run "
+                             f"is on {dev}")
+        n_rounds = int(n_rounds)
+        if cohorts is None:
+            table = topology_lib.cohort_table(cohort, n_rounds, seed)
+        else:
+            table = np.asarray(cohorts)
+            if table.shape != (n_rounds, cohort.cohort_size):
+                raise ValueError(f"cohorts of shape {table.shape}, expected "
+                                 f"[{n_rounds}, {cohort.cohort_size}]")
+            for row in table:
+                store._check_idx(row)
+        if callable(batches):
+            self.batch_fn = batches
+        else:
+            host = _batch_to(batches, torch.device("cpu"))
+            leads = {v.shape[0] for v in host.values()}
+            if leads != {cohort.n_enrolled}:
+                raise ValueError(
+                    f"static batches leading dims {sorted(leads)} != "
+                    f"n_enrolled={cohort.n_enrolled} (pass a callable "
+                    "(round_idx, cohort_idx) -> batch to build per-cohort "
+                    "data)")
+
+            def batch_fn(k, idx):
+                rows = torch.from_numpy(np.asarray(idx, np.int64))
+                return {n: v.index_select(0, rows) for n, v in host.items()}
+
+            self.batch_fn = batch_fn
+        self.store, self.table, self.device = store, table, dev
+        self.runner = RoundRunner(loss_fn, spec, params_single, n_rounds,
+                                  seed=seed, device=dev,
+                                  topology_matrices=topology_matrices)
+
+    def batch(self, k: int) -> Tree:
+        """Round ``k``'s ``[A, ...]`` batch on the device."""
+        return _batch_to(self.batch_fn(k, self.table[k]), self.device)
+
+    def load(self, k: int) -> None:
+        """Round ``k``'s cohort rows into the runner's carry, in place."""
+        self.store.gather(self.table[k], out=self.runner.state.params)
+
+    def store_back(self, k: int) -> None:
+        """Round ``k``'s post-mix cohort back into the store."""
+        self.store.scatter(self.table[k], self.runner.state.params)
+
+    def step(self, k: int) -> None:
+        batch = self.batch(k)
+        self.load(k)
+        self.runner.step(k, batch)
+        self.store_back(k)
+
+    def finish(self, ledger: Optional[chain.Ledger] = None):
+        """``(store, history, ledger)``; each entry records its cohort."""
+        _, history, ledger = self.runner.finish(ledger)
+        for entry, idx in zip(history, self.table):
+            entry["cohort"] = [int(i) for i in idx]
+        return self.store, history, ledger
+
+
+def run_blade_fl_cohort(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
+                        batches, n_rounds: int,
+                        cohort: topology_lib.CohortSchedule, *, seed: int = 0,
+                        device: DeviceLike = "cuda",
+                        ledger: Optional[chain.Ledger] = None,
+                        store: Optional[PopulationStore] = None,
+                        cohorts=None, topology_matrices=None):
+    """Cohort-sampled population driver (the JAX package's
+    ``run_blade_fl_cohort``): K rounds over ``cohort.n_enrolled`` clients of
+    which a cohort of ``A = spec.n_clients`` takes part in each round.
+
+    The memberships are drawn before the rounds (``topology.cohort_table``
+    of ``seed``; ``cohorts``, ``[K, A]``, replaces them, as
+    ``topology_matrices`` replaces the topology's draws). Each round gathers
+    the cohort's rows out of the host-side :class:`PopulationStore` into the
+    carry of one :class:`RoundRunner` at size A, runs one integrated round
+    (training, perturbation, digest, the intra-cohort mix, mining, the hash
+    link) and scatters the cohort back: one host sync a round. Nothing
+    shaped ``[C_enrolled, ...]`` exists on the device.
+
+    ``batches`` is a callable ``(round_idx, cohort_idx) -> [A, ...]`` batch
+    (numpy or tensors), or a static ``[C_enrolled, ...]`` batch kept on the
+    host and indexed there each round. With ``A == C_enrolled`` under
+    ``prefix`` the run is bitwise :func:`run_blade_fl`'s loop. Returns
+    ``(store, history, ledger)``; each history entry also records the
+    round's ``"cohort"``. :data:`LAST_DISPATCH` records ``driver="cohort"``."""
+    runner = CohortRunner(loss_fn, spec, params_single, batches, n_rounds,
+                          cohort, seed=seed, device=device, store=store,
+                          cohorts=cohorts, topology_matrices=topology_matrices)
+    plan = dispatch_plan(spec, runner.device, batches, jit=False)
+    plan.update(driver="cohort",
+                reason=f"cohort A={cohort.cohort_size} over "
+                       f"C_enrolled={cohort.n_enrolled}")
+    LAST_DISPATCH.clear()
+    LAST_DISPATCH.update(plan)
+    for k in range(int(n_rounds)):
+        runner.step(k)
     return runner.finish(ledger)

@@ -822,10 +822,26 @@ class LinkQualitySchedule(Schedule):
 _TOPOLOGY_SALT = 0x746F706F  # "topo"
 
 
+def salted_generator(seed: int, salt: int) -> torch.Generator:
+    """A CPU generator of its own for the stream ``salt`` of run ``seed``.
+    The two are hashed into the 32-bit seed that the CPU generator keeps
+    (it drops the upper half of a 64-bit seed), so every run seed gives
+    another stream.
+
+    >>> a, b = salted_generator(0, 1), salted_generator(1, 1)
+    >>> bool(torch.equal(torch.rand(2, generator=a),
+    ...                  torch.rand(2, generator=b)))
+    False
+    """
+    state = np.random.SeedSequence(
+        [int(seed) & 0xFFFFFFFFFFFFFFFF, int(salt)]).generate_state(1)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
 def topology_generator(seed: int) -> torch.Generator:
     """The CPU generator of a run's stochastic topology draws, seeded from
     the run seed and :data:`_TOPOLOGY_SALT`."""
-    return torch.Generator().manual_seed((int(seed) << 32) | _TOPOLOGY_SALT)
+    return salted_generator(seed, _TOPOLOGY_SALT)
 
 
 def round_table(topo: Topology, n_clients: int, n_rounds: int,
@@ -849,6 +865,117 @@ def round_table(topo: Topology, n_clients: int, n_rounds: int,
     if isinstance(topo, Schedule):
         return topo.table(n_clients)
     return topo.matrix(n_clients)[None]
+
+
+# Salt of a run's cohort stream (the JAX package's fold_in salt): the
+# memberships draw from a CPU generator of their own, so a stochastic
+# intra-cohort topology draws the same matrices with a cohort as without.
+_COHORT_SALT = 0x636F686F  # "coho"
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortSchedule:
+    """Per-round active-cohort sampling from an enrolled population (the
+    JAX package's ``CohortSchedule``).
+
+    Each round, :meth:`cohort_at` draws ``cohort_size`` distinct clients of
+    the ``n_enrolled`` population. ``bias`` shapes the selection weights:
+    ``uniform`` (every client equally likely), ``pareto`` (client ``i``
+    drawn in proportion to ``(i + 1) ** -pareto_alpha``: a head of clients
+    in nearly every round, a tail that rarely joins) or ``prefix`` (the
+    first ``cohort_size`` clients, deterministically). Sampling without
+    replacement is the Gumbel top-k trick over ``log w``; the cohort comes
+    back sorted ascending, so the intra-round client order is a function of
+    the membership set alone.
+
+    >>> cs = CohortSchedule(n_enrolled=100, cohort_size=8)
+    >>> idx = cs.cohort_at(torch.Generator().manual_seed(0))
+    >>> int(idx.shape[0]), bool((idx[1:] > idx[:-1]).all())
+    (8, True)
+    >>> CohortSchedule(10, 3, bias="prefix").cohort_at(None)
+    array([0, 1, 2], dtype=int32)
+    """
+    n_enrolled: int
+    cohort_size: int
+    bias: str = "uniform"
+    pareto_alpha: float = 1.1
+
+    def __post_init__(self):
+        if self.n_enrolled < 1:
+            raise ValueError("CohortSchedule needs n_enrolled >= 1")
+        if not 1 <= self.cohort_size <= self.n_enrolled:
+            raise ValueError(
+                f"cohort_size={self.cohort_size} must lie in "
+                f"[1, n_enrolled={self.n_enrolled}]")
+        if self.bias not in ("uniform", "pareto", "prefix"):
+            raise ValueError(
+                f"unknown bias {self.bias!r} "
+                "(expected uniform | pareto | prefix)")
+        if self.bias == "pareto" and self.pareto_alpha <= 0:
+            raise ValueError("pareto bias needs pareto_alpha > 0")
+
+    @classmethod
+    def from_spec(cls, n_enrolled: int, cohort_size: int,
+                  bias_spec: str = "uniform") -> "CohortSchedule":
+        """CLI constructor: ``bias_spec`` is ``uniform | pareto[:alpha] |
+        prefix`` (``--cohort-bias``).
+
+        >>> CohortSchedule.from_spec(100, 8, "pareto:1.5").pareto_alpha
+        1.5
+        """
+        head, _, arg = bias_spec.strip().lower().partition(":")
+        if head == "pareto" and arg:
+            return cls(n_enrolled, cohort_size, bias="pareto",
+                       pareto_alpha=float(arg))
+        return cls(n_enrolled, cohort_size, bias=head)
+
+    def weights(self) -> np.ndarray:
+        """The normalized float64 selection weights ``[n_enrolled]``."""
+        if self.bias == "pareto":
+            w = (np.arange(self.n_enrolled, dtype=np.float64) + 1.0) \
+                ** -self.pareto_alpha
+        elif self.bias == "prefix":
+            w = np.zeros(self.n_enrolled, np.float64)
+            w[:self.cohort_size] = 1.0
+        else:
+            w = np.ones(self.n_enrolled, np.float64)
+        return w / w.sum()
+
+    def cohort_at(self, generator: Optional[torch.Generator]) -> np.ndarray:
+        """One round's cohort: ``[cohort_size]`` distinct int32 client ids in
+        ascending order, drawn on the CPU from ``generator`` (unused by
+        ``prefix``): the top ``cohort_size`` of Gumbel noise plus ``log
+        w``."""
+        if self.bias == "prefix":
+            return np.arange(self.cohort_size, dtype=np.int32)
+        # Gumbel(0, 1) = -log(Exp(1))
+        gumbel = -torch.empty(self.n_enrolled, dtype=torch.float32) \
+            .exponential_(generator=generator).log()
+        if self.bias == "pareto":
+            gumbel -= float(np.float32(self.pareto_alpha)) * torch.log1p(
+                torch.arange(self.n_enrolled, dtype=torch.float32))
+        idx = torch.topk(gumbel, self.cohort_size).indices
+        return np.sort(idx.numpy()).astype(np.int32)
+
+
+def cohort_generator(seed: int) -> torch.Generator:
+    """The CPU generator of a run's cohort draws, seeded from the run seed
+    and :data:`_COHORT_SALT`."""
+    return salted_generator(seed, _COHORT_SALT)
+
+
+def cohort_table(schedule: CohortSchedule, n_rounds: int,
+                 seed: int) -> np.ndarray:
+    """A run's memberships, ``[n_rounds, cohort_size]`` int32, drawn up
+    front round by round from :func:`cohort_generator` of ``seed``: the same
+    seed replays the same cohorts.
+
+    >>> cs = CohortSchedule(50, 4)
+    >>> bool((cohort_table(cs, 3, 7) == cohort_table(cs, 3, 7)).all())
+    True
+    """
+    gen = cohort_generator(seed)
+    return np.stack([schedule.cohort_at(gen) for _ in range(int(n_rounds))])
 
 
 def from_name(name: str) -> Topology:

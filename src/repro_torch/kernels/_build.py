@@ -58,11 +58,24 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    src = SOURCES[name]
+def _keyed_path(name: str, src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def library_path(name: str) -> Path:
+    return _keyed_path(name, SOURCES[name])
+
+
+def _nvcc(src: Path, out: Path) -> Tuple[Path, subprocess.Popen]:
+    """Start ``nvcc`` on ``src`` into a temporary file beside ``out``;
+    returns (that file, the process)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    return tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -70,16 +83,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     processes at once; return each one's compiler output (``-Xptxas -v``
     register and spill report). Raises if any build fails."""
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List = []
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        if not out.exists():
+            procs.append((name, out, *_nvcc(SOURCES[name], out)))
     logs, failed = {}, []
     for name, out, tmp, proc in procs:
         logs[name], _ = proc.communicate()
@@ -106,6 +114,21 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def load_file(src: Path, name: str) -> ctypes.CDLL:
+    """A library built from any ``.cu`` file ``src`` with the port's
+    flags (a test kernel, another tree's source), cached in BUILD_DIR
+    under ``name`` and a hash of source and flags like the port's own."""
+    out = _keyed_path(name, Path(src))
+    if not out.exists():
+        tmp, proc = _nvcc(Path(src), out)
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"build of {src} failed (nvcc exit "
+                               f"{proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

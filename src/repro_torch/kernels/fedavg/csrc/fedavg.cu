@@ -67,7 +67,10 @@
 //   4 accumulators (RB a template argument, a multiple of 4 up to 32: R = 20
 //   runs 20 rows, R > 32 splits into equal chunks over blockIdx.y) and walks
 //   k = 0..K-1 in ascending order, with the loads of the next KL k in flight
-//   while it multiplies the current ones. An input too narrow to fill the
+//   while it multiplies the current ones. The stage holds 64 k of the
+//   block's rows; a larger K restages it between chunks of 64 (a barrier
+//   either side) while the k loop runs on across them, so any R and K run
+//   with the same order of sums. An input too narrow to fill the
 //   card (fewer column groups than 256 per SM, the SM count read from the
 //   device) runs RB = 4, its R/4 row chunks side by side, so its few columns
 //   spread over many short warps. Blocks of 64 threads spread the one-wave grid evenly
@@ -87,7 +90,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMixMax = 64;      // largest R and K of mix_rows (ops.MIX_MAX)
+constexpr int kMixMax = 64;      // k of w_rows a mix_rows block stages at once
 constexpr int kMixThreads = 64;  // threads per mix_rows block
 // an input with fewer column groups than this many per SM runs mix_rows in
 // 4-row chunks
@@ -465,16 +468,43 @@ cudaError_t digest_div(bool launch, const float* x, int n_clients,
   return cudaGetLastError();
 }
 
+// Stage rows [r0, r0 + RB) of w_rows, at k in [kc, kc + kMixMax),
+// transposed into ws[(k - kc) * RB + r], zero past R and past K: every load
+// in flight at once, then the stores. WIDE: R x K may pass 2^31, so the
+// offsets are 64-bit.
+template <int RB, bool WIDE>
+__device__ __forceinline__ void stage_w(const float* __restrict__ w,
+                                        float* ws, int r0, int rows,
+                                        int depth, int kc) {
+  constexpr int kStage = kMixMax * RB / kMixThreads;
+  float v[kStage];
+#pragma unroll
+  for (int u = 0; u < kStage; ++u) {
+    const int i = threadIdx.x + u * kMixThreads;
+    const int k = kc + i / RB;
+    const int r = r0 + i - (i / RB) * RB;
+    v[u] = k < depth && r < rows
+               ? w[WIDE ? static_cast<long long>(r) * depth + k
+                        : r * depth + k] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kStage; ++u) ws[threadIdx.x + u * kMixThreads] = v[u];
+}
+
 // RB: output rows whose accumulators a thread holds (a multiple of 4, at
 // most 32): rows [RB * blockIdx.y, RB * blockIdx.y + RB). VEC: the float4
-// path.
-template <int RB, bool VEC>
+// path. CHUNKED: K > kMixMax, so ws holds kMixMax k of the block's rows at
+// a time, restaged between chunks while the k loop runs on in ascending
+// order across them (the sums keep the plain version's order). Without
+// CHUNKED the kernel has no barrier in its k loop and no thread past N
+// stays: the restaging, kept out of that form, cost the K = 20 mix 16 %.
+template <int RB, bool VEC, bool CHUNKED>
 __global__ void __launch_bounds__(kMixThreads, RB <= 24 ? 6 : 4)
 mix_rows_kernel(const float* __restrict__ w, const float* __restrict__ x,
                 float* __restrict__ out, int rows, int depth, long long n) {
   constexpr int KL = RB <= 8 ? 8 : 4;   // k loaded ahead of the multiply
-  constexpr int kStage = kMixMax * RB / kMixThreads;
-  // this block's rows of w_rows transposed, ws[k * RB + r], zero past R
+  static_assert(kMixMax % KL == 0, "a chunk of k ends on a load group");
+  // this block's rows of w_rows for one chunk of k, transposed
   __shared__ __align__(16) float ws[kMixMax * RB];
   const int r0 = RB * blockIdx.y;
   const long long c0 =
@@ -485,36 +515,34 @@ mix_rows_kernel(const float* __restrict__ w, const float* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < KL; ++j)
     cur[j] = active && j < depth ? load_cols<VEC>(x, j, n, c0) : zero4();
-  {
-    float v[kStage];   // every load of the stage in flight at once
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int i = threadIdx.x + u * kMixThreads;
-      const int k = i / RB;
-      const int r = r0 + i - k * RB;
-      v[u] = k < depth && r < rows ? w[r * depth + k] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) ws[threadIdx.x + u * kMixThreads] = v[u];
-  }
+  stage_w<RB, CHUNKED>(w, ws, r0, rows, depth, 0);
   __syncthreads();
-  if (!active) return;
+  // with one chunk no barrier follows, so a thread past N may leave; with
+  // more it stays for the restaging barriers and multiplies zeros
+  if (!CHUNKED && !active) return;
   float acc[RB][4];
 #pragma unroll
   for (int r = 0; r < RB; ++r)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
   for (int k0 = 0; k0 < depth; k0 += KL) {
+    const int kk = CHUNKED ? k0 % kMixMax : k0;   // k0's place in ws
+    if (CHUNKED && kk == 0 && k0 > 0) {   // the next chunk (uniform)
+      __syncthreads();
+      stage_w<RB, CHUNKED>(w, ws, r0, rows, depth, k0);
+      __syncthreads();
+    }
     // the next KL k go out before this chunk's multiplies
 #pragma unroll
     for (int j = 0; j < KL; ++j) {
       const int k = k0 + KL + j;
-      next[j] = k < depth ? load_cols<VEC>(x, k, n, c0) : zero4();
+      next[j] = (!CHUNKED || active) && k < depth
+                    ? load_cols<VEC>(x, k, n, c0) : zero4();
     }
 #pragma unroll
     for (int j = 0; j < KL; ++j) {
       if (k0 + j < depth) {
-        const float* wk = ws + (k0 + j) * RB;
+        const float* wk = ws + (kk + j) * RB;
 #pragma unroll
         for (int r = 0; r < RB; r += 4) {
           const float4 w4 = *reinterpret_cast<const float4*>(wk + r);
@@ -528,11 +556,12 @@ mix_rows_kernel(const float* __restrict__ w, const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < KL; ++j) cur[j] = next[j];
   }
+  if (CHUNKED && !active) return;
   const int nr = min(RB, rows - r0);
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
     if (r < nr) {
-      float* o = out + (r0 + r) * n + c0;
+      float* o = out + static_cast<long long>(r0 + r) * n + c0;
       if (VEC) {
         *reinterpret_cast<float4*>(o) =
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
@@ -555,11 +584,18 @@ cudaError_t launch_mix_rows(const float* w, const float* x, float* out,
       (rows + RB - 1) / RB);
   const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) {
-    mix_rows_kernel<RB, true><<<blocks, kMixThreads, 0, stream>>>(
+  const bool chunked = depth > kMixMax;
+  if (vec && chunked) {
+    mix_rows_kernel<RB, true, true><<<blocks, kMixThreads, 0, stream>>>(
+        w, x, out, rows, depth, n);
+  } else if (vec) {
+    mix_rows_kernel<RB, true, false><<<blocks, kMixThreads, 0, stream>>>(
+        w, x, out, rows, depth, n);
+  } else if (chunked) {
+    mix_rows_kernel<RB, false, true><<<blocks, kMixThreads, 0, stream>>>(
         w, x, out, rows, depth, n);
   } else {
-    mix_rows_kernel<RB, false><<<blocks, kMixThreads, 0, stream>>>(
+    mix_rows_kernel<RB, false, false><<<blocks, kMixThreads, 0, stream>>>(
         w, x, out, rows, depth, n);
   }
   return cudaGetLastError();
@@ -634,9 +670,10 @@ extern "C" int repro_digest_div(const void* x, int n_clients, long long n,
       static_cast<cudaStream_t>(stream)));
 }
 
-// w: f32 [rows, depth]; x: f32 [depth, n]; out: f32 [rows, n]; 1 <= rows,
-// depth <= kMixMax (the wrapper checks). The SM count of the current device
-// is read on its first call and kept.
+// w: f32 [rows, depth]; x: f32 [depth, n]; out: f32 [rows, n]; rows >= 1,
+// depth >= 1, and rows of at most 65 535 row blocks (blockIdx.y), of 4 rows
+// at the narrowest: rows <= 262 140 (the wrapper checks). The SM count of
+// the current device is read on its first call and kept.
 extern "C" int repro_mix_rows(const void* w, const void* x, void* out,
                               int rows, int depth, long long n, void* stream) {
   int dev = 0, sms = 0;

@@ -29,9 +29,9 @@ _SIGNATURES = {
     "repro_mix_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, _P],
 }
-# largest R and K of mix_rows_flat: a block's rows of w_rows (at most 32 of
-# them) stay whole in shared memory
-MIX_MAX = 64
+# largest R of mix_rows_flat: the grid's 65 535 row blocks (blockIdx.y) of
+# 4 rows, the narrowest block the kernel runs; K has no limit
+MIX_MAX_ROWS = 4 * 65535
 
 Tree = Dict[str, torch.Tensor]
 
@@ -95,9 +95,9 @@ fedavg_flat.launches = 0
 
 
 def mix_rows_flat(w_rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """w_rows: [R, K] f32; x: [K, N] f32 -> [R, N] = w_rows @ x, with R, K
-    <= MIX_MAX. The CUDA path adds the rounded products in ascending k, as
-    ``mix_rows_flat_ref`` does, so the two agree bitwise."""
+    """w_rows: [R, K] f32; x: [K, N] f32 -> [R, N] = w_rows @ x, with R <=
+    MIX_MAX_ROWS and any K. The CUDA path adds the rounded products in
+    ascending k, as ``mix_rows_flat_ref`` does, so the two agree bitwise."""
     _check_flat(x, "mix_rows_flat")
     k, n = x.shape
     if not isinstance(w_rows, torch.Tensor) or w_rows.dtype != torch.float32 \
@@ -106,9 +106,10 @@ def mix_rows_flat(w_rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise TypeError("mix_rows_flat: w_rows must be a contiguous float32 "
                         f"[R, {k}] tensor on {x.device}")
     r = w_rows.shape[0]
-    if not (1 <= r <= MIX_MAX and k <= MIX_MAX):
-        raise ValueError(f"mix_rows_flat: R={r}, K={k}; the kernel takes "
-                         f"1 <= R, K <= {MIX_MAX}")
+    if not 1 <= r <= MIX_MAX_ROWS:
+        raise ValueError(f"mix_rows_flat: R={r}; the kernel's grid takes "
+                         f"1 <= R <= {MIX_MAX_ROWS} (65 535 row blocks of "
+                         "4 rows)")
     if x.device.type == "cpu":
         return mix_rows_flat_ref(w_rows, x)
     lib = _lib()

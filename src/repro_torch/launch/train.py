@@ -14,6 +14,14 @@ It prints the JSON keys of the JAX package's ``launch/train.py::run_mlp``
 except ``fast_allreduce`` (the port runs on one device). ``--out-dir DIR``
 appends each round's history entry to ``DIR/blade_mlp.jsonl``, as the JAX
 package's trainer does.
+
+``--enrolled N`` runs the cohort-sampled population instead (the JAX
+package's ``run_cohort``): N enrolled clients, of which a cohort of
+``--cohort`` (default 64) drawn by ``--cohort-bias`` takes part in each
+round; the device holds only the cohort:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mlp \\
+      --enrolled 1000 --cohort 8 --k 2 --device cpu
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import torch
 from repro_torch.configs import BladeConfig
 from repro_torch.core import aggregation, allocation, attacks, rounds, \
     spectral, topology
-from repro_torch.data.pipeline import FLDataSource
+from repro_torch.data.pipeline import CohortDataSource, FLDataSource
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import init_mlp, mlp_client_losses, mlp_loss
 from repro_torch.training.metrics import MetricLogger
@@ -130,6 +138,71 @@ def run_mlp(args) -> dict:
     return result
 
 
+def prepare_cohort(args, samples=BladeConfig.samples_per_client):
+    """Config, round spec at cohort size, cohort schedule, data source and
+    initial model of a cohort run, drawn on the CPU from the seed;
+    ``samples`` a client (by default the paper's 512)."""
+    dev = resolve_device(args.device)
+    blade = BladeConfig(n_clients=args.cohort, n_lazy=args.lazy,
+                        sigma2=args.sigma2, t_sum=args.t_sum,
+                        alpha=args.alpha, beta=args.beta, eta=args.eta,
+                        K=args.k, dp_sigma=args.dp_sigma, seed=args.seed,
+                        samples_per_client=samples)
+    spec = spec_of(blade, args.eval_every,
+                   topology=topology.from_name(args.schedule
+                                               or args.topology),
+                   fused_mix=args.fused_mix, **adversary_fields(args))
+    cohort = topology.CohortSchedule.from_spec(args.enrolled, args.cohort,
+                                               args.cohort_bias)
+    src = CohortDataSource(blade.seed, blade.samples_per_client,
+                           blade.dirichlet_alpha, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(blade.seed)
+    return blade, spec, cohort, src, init_mlp(gen), dev
+
+
+def train_cohort(args, samples=BladeConfig.samples_per_client):
+    """Run the cohort experiment; returns (result dict, store, history).
+    ``result`` has the JAX package's ``run_cohort`` keys."""
+    blade, spec, cohort, src, params, dev = prepare_cohort(args, samples)
+    log = MetricLogger(args.out_dir, "blade_cohort")
+    seed = blade.seed + 2
+    t0 = time.time()
+    # the intra-cohort matrices at size A, drawn once (see train_mlp)
+    table = topology.round_table(spec.topology, spec.n_clients, blade.K,
+                                 topology.topology_generator(seed))
+    store, hist, ledger = rounds.run_blade_fl_cohort(
+        mlp_client_losses, spec, params, src.cohort_batch, blade.K, cohort,
+        seed=seed, device=dev, topology_matrices=table)
+    # final eval: the aggregate of the last round's cohort
+    final = aggregation.aggregate_once(store.gather(hist[-1]["cohort"]))
+    with torch.no_grad():
+        loss, metrics = mlp_loss(final, src.eval_data)
+    for i, h in enumerate(hist):
+        log.log(i, **{k: v for k, v in h.items() if k != "cohort"})
+    result = {
+        "enrolled": args.enrolled, "cohort": args.cohort,
+        "cohort_bias": args.cohort_bias, "K": blade.K, "tau": spec.tau,
+        "touched": store.touched,
+        "store_mb": round(store.materialized_bytes() / 1e6, 3),
+        "final_eval_loss": float(loss),
+        "final_eval_acc": float(metrics["accuracy"]),
+        "final_global_loss": hist[-1].get("global_loss"),
+        "chain_valid": ledger.validate_chain(), "blocks": len(ledger.blocks),
+        "devices": 1,
+        "dispatch": dict(rounds.LAST_DISPATCH),
+        "wall_s": time.time() - t0,
+        # the intra-cohort mix at size A: the enrolled graph is never built
+        **spectral_fields(spec, blade.K, table),
+    }
+    return result, store, hist
+
+
+def run_cohort(args) -> dict:
+    result, _, _ = train_cohort(args)
+    print(json.dumps(result, indent=1))
+    return result
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="mlp", choices=["mlp"],
@@ -172,16 +245,31 @@ def build_parser() -> argparse.ArgumentParser:
                          "CUDA kernel (kernels/fedavg) instead of "
                          "torch.matmul; the digest/divergence sweep is "
                          "fused on every path")
+    ap.add_argument("--enrolled", type=int, default=0,
+                    help="cohort mode (the mlp arch): the enrolled clients, "
+                         "of which a cohort of --cohort takes part in each "
+                         "round; the device holds only the cohort "
+                         "(core/rounds.py run_blade_fl_cohort)")
+    ap.add_argument("--cohort", type=int, default=64,
+                    help="active cohort size A per round (with --enrolled)")
+    ap.add_argument("--cohort-bias", default="uniform",
+                    help="cohort sampling weights: uniform | pareto[:alpha] "
+                         "| prefix (core/topology.py CohortSchedule)")
     ap.add_argument("--out-dir", default=None,
                     help="append each round's metrics to "
-                         "OUT_DIR/blade_mlp.jsonl")
+                         "OUT_DIR/blade_mlp.jsonl (blade_cohort.jsonl with "
+                         "--enrolled)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
 
 
 def main(argv=None):
-    run_mlp(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.enrolled > 0:
+        run_cohort(args)
+    else:
+        run_mlp(args)
 
 
 if __name__ == "__main__":

@@ -59,8 +59,8 @@ def _close(got, want):
 
 
 # (R, K, N): square, a row block (R < K), a column block (R > K), the
-# largest block the kernel takes, and widths the 2048-column Pallas tile
-# does not divide
+# largest block whose w_rows the kernel stages at once, and widths the
+# 2048-column Pallas tile does not divide
 MIX_CASES = [(4, 4, 3000), (20, 20, 2560), (5, 20, 2049), (20, 5, 10),
              (64, 64, 4100), (1, 3, 7), (8, 2, 200)]
 
@@ -86,6 +86,27 @@ def test_mix_rows_flat_plain_version_matches_pallas_kernel(r, k, n):
     assert kernels.launch_counts()["mix_rows_flat"] == 0
 
 
+@pytest.mark.parametrize("r", [65, 100, 200])
+@pytest.mark.parametrize("k", [65, 100, 200])
+def test_mix_rows_flat_past_64_clients_matches_pallas_kernel(r, k):
+    """R and K past the 64 the kernel's shared-memory stage holds at once:
+    the wrapper takes them (the kernel restages w_rows every 64 k), bitwise
+    equal to the rounded products added in ascending k, and within the
+    reference's tolerance of the JAX kernel."""
+    n = 515
+    w, x = _stochastic(r, k, r + k), _x((k, n), r * k)
+    want = np.asarray(jmix_rows_flat(jnp.asarray(w), jnp.asarray(x),
+                                     interpret=True))
+    got = fedavg_ops.mix_rows_flat(torch.from_numpy(w), torch.from_numpy(x))
+    assert torch.equal(got, mix_rows_flat_ref(torch.from_numpy(w),
+                                              torch.from_numpy(x)))
+    acc = np.zeros((r, n), np.float32)
+    for kk in range(k):
+        acc = acc + w[:, kk:kk + 1] * x[kk:kk + 1]
+    np.testing.assert_array_equal(got.numpy(), acc)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def test_mix_rows_tree_matches_reference_tree():
     tree = _tree(6, 0)
     w = _stochastic(3, 6, 1)   # a row block of a 6-client W
@@ -103,10 +124,9 @@ def test_mix_rows_flat_validates_inputs():
         fedavg_ops.mix_rows_flat(w[:, :3].contiguous(), x)   # K mismatch
     with pytest.raises(TypeError):
         fedavg_ops.mix_rows_flat(w.t(), x.t().contiguous()[:4])
-    with pytest.raises(ValueError):
-        fedavg_ops.mix_rows_flat(torch.zeros((65, 4)), x)     # R > 64
-    with pytest.raises(ValueError):
-        fedavg_ops.mix_rows_flat(torch.zeros((2, 65)), torch.zeros((65, 3)))
+    with pytest.raises(ValueError, match="row blocks"):   # past the grid
+        fedavg_ops.mix_rows_flat(
+            torch.zeros((fedavg_ops.MIX_MAX_ROWS + 1, 1)), torch.zeros((1, 3)))
     with pytest.raises(ValueError):
         fedavg_ops.mix_rows_flat(w.to("meta"), x.to("meta"))
     assert "mix_rows_flat" in kernels.WRAPPERS

@@ -7,9 +7,9 @@ Run from the root of a checkout on a machine with a CUDA GPU:
     python3 tools/mine_stage_bench.py [--src DIR] [--label NAME]
 
 At the paper's configuration (C = 20 clients, 10 240 attempts, difficulty
-4) it measures, each with ``chip_smoke.kernel_ms`` (profiler
-device time, CUDA-event time over back-to-back calls, device operations a
-call):
+4) it measures, each with ``repro_torch.benchmarks.timing.kernel_ms``
+(profiler device time, CUDA-event time over back-to-back calls, device
+operations a call):
 
 - an empty kernel launch, the floor under any single launch;
 - the race ``ops.pow_race_flat`` at C = 20 and at C = 1;
@@ -25,7 +25,9 @@ call):
 
 ``--src`` names the ``src`` directory of the tree to measure (default:
 this checkout's), so that a parent tree unpacked under ``build/`` is
-measured with the same helpers. Prints one JSON line of results and the
+measured with the same helpers; that tree's ``repro_torch`` must have the
+timing module (``benchmarks/timing.py``) and ``kernels/_build.py``'s
+``load_file``, which ``chip_smoke.empty_launch`` builds with. Prints one JSON line of results and the
 card's name and power limit.
 """
 from __future__ import annotations
@@ -63,7 +65,7 @@ def host_ms(torch, fn, reps=200, warmup=5):
     return 1e3 * (t1 - t0) / reps
 
 
-def rounds_of_paper_path(torch, cs, dev, runs=5):
+def rounds_of_paper_path(torch, cs, timing, dev, runs=5):
     """The paper's path (``chip_smoke.MAIN_ARGS``, K = 5): host-clock ms per
     round of ``runs`` warm runs of ``rounds.run_blade_fl`` by the loop
     driver (a tree with a graph driver takes ``jit=False``; an older one
@@ -98,8 +100,8 @@ def rounds_of_paper_path(torch, cs, dev, runs=5):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     return {"driver": rounds.LAST_DISPATCH["driver"], "round_ms": walls,
-            "round_device_ops": cs.device_ops(torch, prof) / blade.K,
-            "round_device_ms": cs.device_us(torch, prof) / 1e3 / blade.K}
+            "round_device_ops": timing.device_ops(prof) / blade.K,
+            "round_device_ms": timing.device_us(prof) / 1e3 / blade.K}
 
 
 def main(argv=None) -> int:
@@ -114,6 +116,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(opts.src))
     sys.path.insert(1, ROOT)
     import chip_smoke as cs
+    from repro_torch.benchmarks import timing
     from repro_torch.core import mining, rounds
     from repro_torch.kernels import _build
     from repro_torch.kernels.pow_hash import ops as pow_ops
@@ -133,16 +136,16 @@ def main(argv=None) -> int:
     prev, digest, off = word(99), word(0xCAFE), word(4 << 20)
     out = {"label": tag, "src": os.path.relpath(opts.src, ROOT)}
     empty = cs.empty_launch(torch)
-    out["floor_ms"] = cs.kernel_ms(torch, empty, f"{tag} empty launch",
+    out["floor_ms"] = timing.kernel_ms(empty, f"{tag} empty launch",
                                    reps=50)
     # the parent tree's wrappers default to chunk 1024; this tree's pick
     # their own grid
-    out["race_c20_ms"] = cs.kernel_ms(
-        torch, lambda: pow_ops.pow_race_flat(prev, payloads, off, ATTEMPTS),
+    out["race_c20_ms"] = timing.kernel_ms(
+        lambda: pow_ops.pow_race_flat(prev, payloads, off, ATTEMPTS),
         f"{tag} pow_race_flat C=20", reps=50)
     one = payloads[:1].contiguous()
-    out["race_c1_ms"] = cs.kernel_ms(
-        torch, lambda: pow_ops.pow_race_flat(prev, one, off, ATTEMPTS),
+    out["race_c1_ms"] = timing.kernel_ms(
+        lambda: pow_ops.pow_race_flat(prev, one, off, ATTEMPTS),
         f"{tag} pow_race_flat C=1", reps=50)
     spec = rounds.RoundSpec(n_clients=N_CLIENTS, tau=10, eta=0.05,
                             mine_attempts=ATTEMPTS,
@@ -151,45 +154,45 @@ def main(argv=None) -> int:
     stage = lambda: mine(prev, digest, 3)   # noqa: E731
     # few calls: about 80 launches each on the parent tree, all queued
     # behind the events' spin kernel
-    out["mine_stage_ms"] = cs.kernel_ms(torch, stage, f"{tag} make_mine",
+    out["mine_stage_ms"] = timing.kernel_ms(stage, f"{tag} make_mine",
                                         reps=10)
     out["mine_stage_host_ms"] = host_ms(torch, stage)
     if hasattr(pow_ops, "mine_seal"):
         for name, c, n in (("seal_c20", N_CLIENTS, ATTEMPTS),
                            ("seal_c1", 1, ATTEMPTS),
                            ("seal_c20_large", N_CLIENTS, LARGE_ATTEMPTS)):
-            out[f"{name}_ms"] = cs.kernel_ms(
-                torch, lambda c=c, n=n: pow_ops.mine_seal(
+            out[f"{name}_ms"] = timing.kernel_ms(
+                lambda c=c, n=n: pow_ops.mine_seal(
                     prev, digest, c, n, nonce_offset=off,
                     difficulty_bits=DIFFICULTY),
                 f"{tag} mine_seal C={c} n={n}", reps=50)
         # the tile at the paper's budget: one block a client (10240), or
         # several and the ticket
         for chunk in CHUNK_SWEEP:
-            out[f"flat_chunk{chunk}_ms"] = cs.kernel_ms(
-                torch, lambda chunk=chunk: pow_ops.pow_race_flat(
+            out[f"flat_chunk{chunk}_ms"] = timing.kernel_ms(
+                lambda chunk=chunk: pow_ops.pow_race_flat(
                     prev, payloads, off, ATTEMPTS, chunk=chunk),
                 f"{tag} pow_race_flat C=20 chunk={chunk}", reps=50)
-            out[f"seal_chunk{chunk}_ms"] = cs.kernel_ms(
-                torch, lambda chunk=chunk: pow_ops.mine_seal(
+            out[f"seal_chunk{chunk}_ms"] = timing.kernel_ms(
+                lambda chunk=chunk: pow_ops.mine_seal(
                     prev, digest, N_CLIENTS, ATTEMPTS, nonce_offset=off,
                     difficulty_bits=DIFFICULTY, chunk=chunk),
                 f"{tag} mine_seal C=20 chunk={chunk}", reps=50)
         # budgets of several blocks a client
         for c, n in LARGE_CASES:
             pay = payloads[:c].contiguous()
-            out[f"flat_c{c}_n{n}_ms"] = cs.kernel_ms(
-                torch, lambda pay=pay, n=n: pow_ops.pow_race_flat(
+            out[f"flat_c{c}_n{n}_ms"] = timing.kernel_ms(
+                lambda pay=pay, n=n: pow_ops.pow_race_flat(
                     prev, pay, off, n),
                 f"{tag} pow_race_flat C={c} n={n}", reps=20)
         # empty launches of the race's shapes: what a launch of that many
         # threads costs with no work
         for blocks, threads in EMPTY_SHAPES:
-            out[f"empty_{blocks}x{threads}_ms"] = cs.kernel_ms(
-                torch, cs.empty_launch(torch, blocks, threads),
+            out[f"empty_{blocks}x{threads}_ms"] = timing.kernel_ms(
+                cs.empty_launch(torch, blocks, threads),
                 f"{tag} empty launch {blocks}x{threads}", reps=50)
-    out.update(rounds_of_paper_path(torch, cs, dev))
-    out["readings"] = cs.READINGS
+    out.update(rounds_of_paper_path(torch, cs, timing, dev))
+    out["readings"] = timing.READINGS
     print(json.dumps(out), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
