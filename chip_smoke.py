@@ -28,10 +28,13 @@ prints its seconds:
    and the launch). Every timed function is read by the profiler and by
    CUDA events (``kernel_ms``); readings more than READING_SPREAD apart
    are noted before the kernel table;
-1b. the same for the serve path's kernels, ``flash_attention`` (at the
-   path's attention shape, the reference's test shapes, ragged S, head
-   dims 36 / 112 / 256, a window, a bidirectional mask, GQA, bf16, and
-   fp32 views too misaligned for its cp.async staging) and
+1b. the same for the serve paths' kernels, ``flash_attention`` (at both
+   paths' attention shapes, Jamba's GQA at D 128 and DeepSeek's MLA at B
+   4, H = Hkv = 128, S 2048, D 192, its row timed at the latter; the
+   reference's test shapes, ragged S, head dims 36 / 112 / 132 / 192 (the
+   kernel's NC = 3 form, ragged and under GQA) / 256, a window, a
+   bidirectional mask, GQA, bf16, and fp32 views too misaligned for its
+   cp.async staging) and
    ``ssm_scan`` (the path's Mamba shape, the reference's test shapes,
    ragged T and d_in, ds at its state-bucket edges, T at its chunk edges,
    d_in off its channel block, offset views);
@@ -79,6 +82,20 @@ prints its seconds:
    forward over 2056 tokens, and 256 decode steps from an empty state
    against the forward, in max |logit diff| <= ``AGREE_LIMIT``, and no
    host sync in the decode loop;
+4c. ``launch.serve --arch deepseek-v2-236b --size one-h100`` at the same
+   batch, prompt and gen (DeepSeek-V2 at its published widths, the dense
+   first layer and three MoE layers of 160 experts, MLA throughout: 13.14
+   G parameters): one prefill launches ``flash_attention`` 4 times (D
+   192) and no other kernel; the share of the prefill's top-6 choices
+   the capacity dropped is printed;
+4d. on the same full-width params with the capacity out of the way
+   (nothing dropped, asserted), prefill + 8 decode steps (MLA absorbed)
+   against one forward (MLA materialized) within ``AGREE_LIMIT``, no host
+   sync in decode; one MoE and one MLA layer on 256 tokens, card against
+   CPU within rtol 1e-4 / atol 1e-5, and ``moe.route`` on both devices
+   equal on the card's router logits. Under ``--profile`` the Jamba and
+   the DeepSeek prefill are profiled, device time by class (GEMMs, flash,
+   scan, MoE routing and dispatch, other);
 5. the paper's K sweep (``repro_torch.benchmarks.paper_tables
    .fig3_bound_gap``: C = 20, 256 samples a client, Dir(0.2), t_sum 100,
    alpha 1, beta 6, eta 0.005, K in 1-6, 8, 14) by each driver: its rows
@@ -231,14 +248,35 @@ SERVE_SMOKE_LAUNCHES = {"flash_attention": 2, "ssm_scan": 0}
 AGREE_PREFILL, AGREE_STEPS, AGREE_DECODE_LEN = 2048, 8, 256
 AGREE_LIMIT = 1e-3
 SYNC_CHECK_STEPS = 4   # greedy decode steps run in CUDA's sync-debug mode
-# the flash kernel at the serve path's attention shape: B, H, Hkv, S, D
+# phase 4c: DeepSeek-V2 at its published widths cut to one H100
+# (configs/deepseek_v2_236b.py ONE_H100: the dense first layer and three
+# MoE layers of 160 experts, MLA in all four), the same prompt and batch
+MLA_SERVE_ARGS = ["--arch", "deepseek-v2-236b", "--size", "one-h100",
+                  "--batch", "4", "--prompt-len", "2048", "--gen", "32"]
+MLA_SERVE_LAUNCHES = {"flash_attention": 4, "ssm_scan": 0}   # one prefill
+# phase 4d: on a copy of the config whose capacity drops nothing at this
+# size (capacity factor 8, as the reference's decode-consistency tests
+# take it: 316 slots an expert for 1056 tokens' 6336 choices), prefill of
+# MLA_AGREE_PREFILL tokens and AGREE_STEPS teacher-forced decode steps
+# against one forward over all of them; then one MoE layer and one MLA
+# layer on LAYER_TOKENS tokens, card against CPU
+UNCAPPED_FACTOR = 8.0
+MLA_AGREE_PREFILL = 256
+LAYER_TOKENS = 256
+LAYER_RTOL, LAYER_ATOL = 1e-4, 1e-5
+# the flash kernel at the serve paths' attention shapes: B, H, Hkv, S, D;
+# MLA runs it at hd + rope = 192, the kernel's NC = 3 form (dpad 129-192)
 FLASH_PATH = (4, 64, 8, 2048, 128)
-# (B, H, Hkv, S, D, causal, window, bf16): the path shape; the reference's
+FLASH_MLA_PATH = (4, 128, 128, 2048, 192)
+# (B, H, Hkv, S, D, causal, window, bf16): the path shapes; the reference's
 # FLASH_CASES (tests/test_kernels.py); ragged S; the zoo's odd head dims
-# (minicpm 36, kimi 112) and the largest (256); a window; a ragged
+# (minicpm 36, kimi 112), the MLA path's 192 ragged and under GQA, the
+# NC = 3 form's lowest (132) and the largest (256); a window; a ragged
 # bidirectional mask; GQA throughout; bf16 at a small and the path shape
 FLASH_CASES = [
-    FLASH_PATH + (True, 0, False),
+    FLASH_PATH + (True, 0, False), FLASH_MLA_PATH + (True, 0, False),
+    (1, 8, 8, 777, 192, True, 0, False), (2, 4, 2, 333, 192, True, 0, False),
+    (1, 4, 4, 300, 132, True, 0, False),
     (2, 4, 4, 256, 64, True, 0, False), (1, 2, 2, 128, 32, False, 0, False),
     (2, 2, 2, 256, 64, True, 64, False), (1, 1, 1, 512, 128, True, 0, False),
     (1, 2, 2, 128, 16, True, 32, False),
@@ -304,15 +342,16 @@ REPLACES = {
 LIBRARY = {"pow_race": "pow_race", "fedavg_flat": "fedavg",
            "digest_div_flat": "fedavg", "mix_rows_flat": "fedavg",
            "flash_attention": "flash_attention", "ssm_scan": "ssm_scan"}
-# kernel -> the path whose run gives its launch count in the table
+# kernel -> the path whose run gives its launch count in the table (flash:
+# the DeepSeek serve path, at whose shape its row is timed)
 MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
                 "digest_div_flat": "paper", "mix_rows_flat": "topology",
-                "flash_attention": "serve", "ssm_scan": "serve"}
+                "flash_attention": "mla serve", "ssm_scan": "serve"}
 # path -> what launched its kernels in the counted run: the FL paths' static
 # batch runs on the graph driver (a warm round and K - 1 replays, the
-# replays' launches added by the driver); the serve path calls the wrappers
+# replays' launches added by the driver); the serve paths call the wrappers
 LAUNCHED_BY = {"paper": "graph driver", "topology": "graph driver",
-               "serve": "eager calls"}
+               "serve": "eager calls", "mla serve": "eager calls"}
 # phase 5: the paper's K sweep in Fig. 3's configuration
 # (paper_tables.fig3_bound_gap), and the Ks held card against CPU: tau 10,
 # 6 and 1, at most 60 local steps a run
@@ -1766,34 +1805,44 @@ def phase_lm_kernels(torch, dev):
                 f"({how} view): max |diff| {float(err.max()):.3g}")
         del q, k, v, got, want, err
 
-    b, h, hkv, s, d = FLASH_PATH
-    q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+    def flash_times(shape, tag):
+        """The flash kernel at ``shape`` (causal): its time by the profiler
+        and CUDA events, its plain version's, SDPA's in fp32, its bound
+        as 3xTF32 and as one fp32 pass outside the tensor cores."""
+        b, h, hkv, s, d = shape
+        q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
 
-    def flash():
-        return flash_ops.mha(q, k, v, causal=True)
+        def flash():
+            return flash_ops.mha(q, k, v, causal=True)
 
-    def sdpa():   # timed only: the port never calls it
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
+        def sdpa():   # timed only: the port never calls it
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
 
-    require(float((sdpa().transpose(1, 2) - flash()).abs().max()) < 1e-4,
-            "SDPA and the flash kernel disagree at the path shape")
-    work = _flash_work(b, h, hkv, s, d, True, 0)
-    bound, by = _bound(*work, tf32_passes=FLASH_TF32_PASSES)
-    # the same work as one fp32 pass outside the tensor cores, printed on
-    # this phase's line only: the kernel's bound is the 3xTF32 one
-    bound_simt = _bound(*work)[0]
+        require(float((sdpa().transpose(1, 2) - flash()).abs().max())
+                < 1e-4, f"SDPA and the flash kernel disagree at {shape}")
+        work = _flash_work(b, h, hkv, s, d, True, 0)
+        bound, by = _bound(*work, tf32_passes=FLASH_TF32_PASSES)
+        label = f"flash_attention{tag}"
+        times = dict(
+            ms=timing.kernel_ms(flash, label, reps=10),
+            call_ms=timing.time_ms(flash, reps=10, warmup=2),
+            plain_ms=timing.kernel_ms(lambda: flash_ref.mha_ref(
+                q, k, v, causal=True), f"{label} plain", reps=3),
+            library_ms=timing.kernel_ms(sdpa, f"{label} library (SDPA)",
+                                        reps=10),
+            bound_ms=bound, bound_by=by, bound_fp32_ms=_bound(*work)[0])
+        times["events_ms"] = timing.READINGS[label]["events_ms"]
+        return times
+
+    # the row is timed at the MLA path's shape (4 launches a DeepSeek
+    # prefill); the GQA path's (1 a Jamba prefill) is kept beside it
+    gqa = flash_times(FLASH_PATH, " (gqa path)")
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
-        ms=timing.kernel_ms(flash, "flash_attention", reps=10),
-        call_ms=timing.time_ms(flash, reps=10, warmup=2),
-        plain_ms=timing.kernel_ms(lambda: flash_ref.mha_ref(
-            q, k, v, causal=True), "flash_attention plain", reps=3),
-        library_ms=timing.kernel_ms(sdpa, "flash_attention library (SDPA)",
-                             reps=10),
-        bound_ms=bound, bound_by=by)
-    del q, k, v
+        **flash_times(FLASH_MLA_PATH, ""),
+        at_gqa_path={"shape": FLASH_PATH, **gqa})
 
     ssm_err, ssm_ratio = 0.0, 0.0
     ssm_cases = ([(case, False) for case in SSM_CASES
@@ -1845,17 +1894,24 @@ def phase_lm_kernels(torch, dev):
           f"{len(FLASH_MISALIGNED)} misaligned fp32 views, largest "
           f"deviation {flash_err:.3g} in fp32 (rtol {FLASH_RTOL}, "
           f"atol {FLASH_ATOL}) and {flash_bf16_err:.3g} in bf16 (rtol "
-          f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}); its bound "
-          f"{bound_simt:.4g} ms as one fp32 pass outside the tensor cores, "
+          f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}); its bound at "
+          f"{FLASH_MLA_PATH} "
+          f"{report['flash_attention']['bound_fp32_ms']:.4g} ms as one "
+          f"fp32 pass outside the tensor cores, "
           f"{report['flash_attention']['bound_ms']:.4g} ms as "
-          f"{FLASH_TF32_PASSES} TF32 passes (the kernel's); ssm_scan at "
+          f"{FLASH_TF32_PASSES} TF32 passes (the kernel's), at "
+          f"{FLASH_PATH} {gqa['bound_fp32_ms']:.4g} / "
+          f"{gqa['bound_ms']:.4g} ms; ssm_scan at "
           f"{len(ssm_cases)} cases ({len(SSM_MISALIGNED)} of offset "
           f"views), largest deviation {ssm_err:.3g}, "
           f"{ssm_ratio:.3g} of atol {SSM_ATOL} + "
           f"rtol {SSM_RTOL} |want|; times " + json.dumps(
-              {n: {key: report[n][key] for key in
+              {n: {key: row[key] for key in
                    ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-               for n in ("flash_attention", "ssm_scan")}), flush=True)
+               for n, row in (("flash_attention", report["flash_attention"]),
+                              ("flash_attention (gqa path)", gqa),
+                              ("ssm_scan", report["ssm_scan"]))}),
+          flush=True)
     return report
 
 
@@ -1876,10 +1932,13 @@ def phase_serve(torch, dev, flags, want_lm, label):
     require(launches == want, f"launch counts {launches} on the serve path "
                               f"{' '.join(flags)}, expected {want}")
     require(result["finite"], f"non-finite logits on the serve path: {result}")
+    require(math.isfinite(result["peak_mem_gb"]),
+            f"peak memory not read on the serve path: {result}")
     print(f"phase {label} ok: " + json.dumps(
         {key: result[key] for key in
          ("arch", "batch", "prompt_len", "generated_tokens", "prefill_s",
-          "decode_s", "tokens_per_s", "peak_mem_gb", "launches")}),
+          "decode_s", "tokens_per_s", "peak_mem_gb", "prefill_dropped_share",
+          "launches")}),
         flush=True)
     return result, launches
 
@@ -1957,14 +2016,154 @@ def phase_serve_agreement(torch, dev, profile_dir):
                        f"{syncs[:3]}")
     if profile_dir:
         prefill_breakdown(torch, params, cfg, tokens[:, :AGREE_PREFILL],
-                          profile_dir)
+                          profile_dir, "jamba")
     print("phase 4b ok", flush=True)
 
 
-def prefill_breakdown(torch, params, cfg, tokens, profile_dir):
+def layer_card_vs_cpu(torch, what, fn, params, x):
+    """``fn(params, x)`` on the card and on a CPU copy of both; require
+    the card within LAYER_RTOL / LAYER_ATOL of the CPU and return the
+    worst |diff| / (atol + rtol |cpu|)."""
+    from repro_torch.models.transformer import _tree_map
+
+    got = fn(params, x).cpu()
+    want = fn(_tree_map(lambda t: t.cpu(), params), x.cpu())
+    ratio = float(((got - want).abs()
+                   / (LAYER_ATOL + LAYER_RTOL * want.abs())).max())
+    require(ratio <= 1, f"{what}: card vs cpu at {ratio:.3g} of atol "
+                        f"{LAYER_ATOL} + rtol {LAYER_RTOL} |cpu|")
+    return ratio
+
+
+def phase_mla_agreement(torch, dev, profile_dir):
+    """Phase 4d: on the DeepSeek serve path's full-width params (the same
+    seed), (i) with the capacity out of the way (UNCAPPED_FACTOR, no
+    choice dropped, which the phase asserts), prefill of MLA_AGREE_PREFILL
+    tokens and AGREE_STEPS teacher-forced decode steps (MLA absorbed, MoE
+    at T = B) against one forward over all of them (MLA materialized on
+    the flash kernel, MoE at T = B S), then the decode loop's host syncs;
+    (ii) the first MoE layer and the first MLA layer on LAYER_TOKENS
+    tokens, card against CPU, and the routing of the card's router logits
+    by ``moe.route`` on both devices, which must be equal. With
+    ``profile_dir``, profile one prefill as served (B 4 x 2048)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, moe, registry, transformer
+
+    args = serve.build_parser().parse_args(MLA_SERVE_ARGS
+                                           + ["--device", str(dev)])
+    cfg = serve.config_of(args)
+    params = registry.init_model(
+        torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    uncapped = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=UNCAPPED_FACTOR))
+    n = MLA_AGREE_PREFILL + AGREE_STEPS
+    tokens = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+        ShapeConfig("agree", n, args.batch, "prefill"))["tokens"]
+    drops = []
+    h, _ = transformer.forward(
+        params, uncapped, transformer._embed_inputs(
+            params, uncapped, {"tokens": tokens}), moe_drops=drops)
+    want = transformer._lm_head(params, uncapped,
+                                h[:, MLA_AGREE_PREFILL - 1:])
+    del h
+    logits, state = transformer.prefill(
+        params, uncapped, {"tokens": tokens[:, :MLA_AGREE_PREFILL]},
+        max_len=n + SYNC_CHECK_STEPS, moe_drops=drops)
+    dropped = sum(int(c) for _, c in drops)
+    n_moe = sum(transformer._uses_moe(cfg, i) for i in range(cfg.n_layers))
+    require(len(drops) == 2 * n_moe and dropped == 0,
+            f"{dropped} choices dropped in {len(drops)} uncapped MoE calls")
+    got = [logits]
+    for t in range(MLA_AGREE_PREFILL, n):
+        logits, state = transformer.decode_step(params, uncapped, state,
+                                                tokens[:, t], t)
+        got.append(logits)
+    err = float((torch.stack(got, 1) - want).abs().max())
+    scale = float(want.abs().max())
+    syncs = host_syncs(torch, lambda: serve.decode_loop(
+        params, uncapped, state, torch.argmax(logits, -1), n,
+        SYNC_CHECK_STEPS))
+    del state, got, want
+
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    x = torch.randn((1, LAYER_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    moe_p = transformer._period(params["period"], 0)["j0"]["moe"]
+    logits_card = x.reshape(-1, cfg.d_model) @ moe_p["router"]
+    r_card = moe.route(logits_card, cfg)
+    r_cpu = moe.route(logits_card.cpu(), cfg)
+    require(r_card.capacity == r_cpu.capacity
+            and all(torch.equal(getattr(r_card, f).cpu(), getattr(r_cpu, f))
+                    for f in ("gate_idx", "slots", "keeps")),
+            "moe.route on the card and on the CPU disagree on the card's "
+            "router logits")
+    positions = torch.arange(LAYER_TOKENS, dtype=torch.int32,
+                             device=dev)[None]
+    mask = {"causal": True, "prefix_len": 0, "window": 0}
+    moe_ratio = layer_card_vs_cpu(
+        torch, "MoE layer", lambda p, v: moe.moe_apply(p, cfg, v)[0],
+        moe_p, x)
+    mla_ratio = layer_card_vs_cpu(
+        torch, "MLA layer", lambda p, v: attention.mla_forward(
+            p, cfg, v, positions.to(v.device), mask)[0],
+        params["prefix"][0]["mixer"], x)
+    print(f"phase 4d: uncapped (capacity factor {UNCAPPED_FACTOR}), "
+          f"prefill of {MLA_AGREE_PREFILL} + {AGREE_STEPS} decode steps vs "
+          f"forward over {n} tokens: max |logit diff| {err:.3g} (max "
+          f"|logit| {scale:.3g}, limit {AGREE_LIMIT}), 0 of "
+          f"{sum(a for a, _ in drops)} choices dropped; host syncs in "
+          f"{SYNC_CHECK_STEPS} decode steps: {len(syncs)}; on "
+          f"{LAYER_TOKENS} tokens, card vs cpu at {moe_ratio:.3g} (MoE "
+          f"layer, capacity {r_card.capacity}, "
+          f"{int((~r_cpu.keeps).sum())} of {r_cpu.keeps.numel()} choices "
+          f"dropped) and {mla_ratio:.3g} (MLA layer) of atol {LAYER_ATOL} "
+          f"+ rtol {LAYER_RTOL} |cpu|; routing equal", flush=True)
+    require(err <= AGREE_LIMIT,
+            f"DeepSeek serve path disagrees with the forward: {err:.3g} > "
+            f"{AGREE_LIMIT}")
+    require(not syncs, f"{len(syncs)} host syncs in the decode loop: "
+                       f"{syncs[:3]}")
+    if profile_dir:
+        tokens = registry.make_prefill_batch(
+            torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+            ShapeConfig("serve", args.prompt_len, args.batch,
+                        "prefill"))["tokens"]
+        prefill_breakdown(torch, params, cfg, tokens, profile_dir,
+                          "deepseek")
+    print("phase 4d ok", flush=True)
+
+
+# the kernels of MoE's routing and dispatch (``moe.route``, the scatter
+# into the expert buffer and the gather back): softmax, the sort (top-k),
+# the one-hot compare, the cumsum, index_put / gather / indexing; the
+# token embedding's gather falls in with them (one [B S, D] copy)
+ROUTING_KERNELS = ("softmax", "sort", "compareeq", "scan", "index", "gather",
+                   "scatter", "where")
+
+
+def kernel_class(name):
+    """The class of a device kernel by its name: gemm, flash_attention,
+    ssm_scan, moe_routing or other."""
+    name = name.lower()
+    if "flash_fwd" in name:
+        return "flash_attention"
+    if "ssm_scan_kernel" in name:
+        return "ssm_scan"
+    if "gemm" in name or "cutlass" in name or "matmul" in name:
+        return "gemm"
+    if any(key in name for key in ROUTING_KERNELS):
+        return "moe_routing"
+    return "other"
+
+
+def prefill_breakdown(torch, params, cfg, tokens, profile_dir, tag):
     """Profile one prefill; print its device time by class of kernel
-    (GEMMs, the flash kernel, the scan kernel, everything else) and write
-    the full table into ``profile_dir``."""
+    (``kernel_class``) and write the full table, and each class's
+    kernels by time, into ``profile_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -1978,29 +2177,31 @@ def prefill_breakdown(torch, params, cfg, tokens, profile_dir):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     classes = {"gemm": 0.0, "flash_attention": 0.0, "ssm_scan": 0.0,
-               "other": 0.0}
+               "moe_routing": 0.0, "other": 0.0}
+    by_kernel = {}
     for e in p.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = e.name.lower()
-        if "flash_fwd" in name:
-            key = "flash_attention"
-        elif "ssm_scan_kernel" in name:
-            key = "ssm_scan"
-        elif "gemm" in name or "cutlass" in name or "matmul" in name:
-            key = "gemm"
-        else:
-            key = "other"
-        classes[key] += e.time_range.elapsed_us() / 1e3
+        ms = e.time_range.elapsed_us() / 1e3
+        key = kernel_class(e.name)
+        classes[key] += ms
+        by_kernel[(key, e.name)] = by_kernel.get((key, e.name), 0.0) + ms
     busy = sum(classes.values())
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "profile_prefill.txt")
+    path = os.path.join(profile_dir, f"profile_prefill_{tag}.txt")
     with open(path, "w") as f:
         f.write(p.key_averages().table(sort_by="cuda_time_total",
                                        row_limit=40))
-    print("prefill profile: " + json.dumps(
+        f.write("\ndevice ms by class and kernel:\n")
+        for (key, name), ms in sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1]):
+            f.write(f"{key:16s} {ms:12.4f}  {name[:160]}\n")
+    print(f"prefill profile ({tag}): " + json.dumps(
         {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
-         "device_ms_by_class": classes}) + f"; table in {path}", flush=True)
+         "device_ms_by_class": classes,
+         "share_by_class": {k: v / busy if busy else None
+                            for k, v in classes.items()}})
+        + f"; table in {path}", flush=True)
 
 
 def kernel_table(report, by_path):
@@ -2030,7 +2231,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile one warm run of the rounds of the "
                          "paper's and the topology path and one prefill of "
-                         "the serve path, and write the tables into DIR")
+                         "each serve path, and write the tables into DIR")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2108,14 +2309,22 @@ def main(argv=None) -> int:
     phase_serve(torch, dev, SERVE_SMOKE_ARGS, SERVE_SMOKE_LAUNCHES,
                 "4 (smoke)")
     phase_serve_agreement(torch, dev, opts.profile)
+    torch.cuda.empty_cache()
     lap("phase 4b")
+    _, mlaunches = phase_serve(torch, dev, MLA_SERVE_ARGS,
+                               MLA_SERVE_LAUNCHES, "4c")
+    torch.cuda.empty_cache()
+    lap("phase 4c")
+    phase_mla_agreement(torch, dev, opts.profile)
+    torch.cuda.empty_cache()
+    lap("phase 4d")
     phase_sweep(torch, dev)
     lap("phase 5")
     clau, dclau = phase_cohort(torch, dev, report, opts.profile)
     lap("phase 6")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
-               "cohort": clau, "dense cohort": dclau}
+               "mla serve": mlaunches, "cohort": clau, "dense cohort": dclau}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

@@ -58,7 +58,7 @@ d_conv 4, expand 2 (d_in 16384, dt_rank 512). Two keys change:
 - ``moe`` -> None: the 16-expert top-2 MoE of every 2nd layer becomes the
   dense SwiGLU MLP of the same d_ff, the block ``transformer._init_block``
   builds without MoE. Four MoE layers alone would be 38.7 G parameters
-  (155 GB in fp32), and MoE is not ported yet.
+  (155 GB in fp32), twice the card's memory.
 
 That leaves about 9.0 G parameters (``ONE_H100.param_count()``: embedding
 and head 1.07 G, seven Mamba mixers at 0.420 G, attention 0.151 G, eight

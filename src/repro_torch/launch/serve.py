@@ -6,18 +6,23 @@ greedy decode through the cache (the JAX package's ``launch/serve.py``).
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-1.5-large-398b --size one-h100 --batch 4 \\
       --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-236b --size one-h100 --batch 4 \\
+      --prompt-len 2048 --gen 32
 
 ``--size smoke`` runs the architecture's CPU-test config, ``--size
-one-h100`` its published widths cut to one 80 GB H100 (only Jamba has
-one). Weights
-are random, drawn on the device from ``--seed``; the prompts from
-``--seed + 1``. The prefill runs the flash-attention kernel in every
-attention layer and the selective-scan kernel in every Mamba layer; decode
-is plain torch. Times are host-clock seconds between
-``torch.cuda.synchronize()`` calls; the decode loop keeps its tokens on the
-device and makes no host sync until the end. It prints the reference's
-JSON keys plus ``launches`` (kernel launches in this run) and
-``peak_mem_gb`` (``torch.cuda.max_memory_allocated``, None on the CPU).
+one-h100`` its published widths cut to one 80 GB H100 (Jamba and
+DeepSeek-V2 have one). Weights are random, drawn on the device from
+``--seed``; the prompts from ``--seed + 1``. The prefill runs the
+flash-attention kernel in every attention layer (GQA or MLA) and the
+selective-scan kernel in every Mamba layer; decode is plain torch. Times
+are host-clock seconds between ``torch.cuda.synchronize()`` calls; the
+decode loop keeps its tokens on the device and makes no host sync until
+the end. It prints the reference's JSON keys plus ``launches`` (kernel
+launches in this run), ``peak_mem_gb`` (``torch.cuda.max_memory_allocated``,
+None on the CPU) and ``prefill_dropped_share``, the share of the
+prefill's routing choices that the MoE capacity dropped (None without
+MoE).
 Argmax ties go to the first index, as in JAX. fp32 GEMMs run in full fp32
 (TF32 off).
 """
@@ -84,7 +89,9 @@ def serve(args) -> dict:
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = transformer.prefill(params, cfg, batch, max_len=max_len)
+    drops = []
+    logits, state = transformer.prefill(params, cfg, batch, max_len=max_len,
+                                        moe_drops=drops)
     tok = torch.argmax(logits, dim=-1)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -107,6 +114,9 @@ def serve(args) -> dict:
         "launches": {k: after[k] - before[k] for k in after},
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None),
+        "prefill_dropped_share": (
+            sum(int(n) for _, n in drops) / sum(a for a, _ in drops)
+            if drops else None),
     }
     print(json.dumps(result, indent=1))
     return result

@@ -1,23 +1,31 @@
-"""GQA attention (qk-norm, sliding window) with a full-sequence forward
-and a single-step decode: the GQA part of the JAX package's
-``models/attention.py``.
+"""Attention: GQA (qk-norm, sliding window) and DeepSeek-style MLA, each
+with a full-sequence forward and a single-step decode (the JAX package's
+``models/attention.py``).
 
-KV cache: ``{"k": [B, S_cache, Hkv, hd], "v": [B, S_cache, Hkv, hd]}``, a
-ring buffer of ``S_cache = sliding_window`` slots when windowed.
+KV caches:
+  GQA: ``{"k": [B, S_cache, Hkv, hd], "v": [B, S_cache, Hkv, hd]}``, a
+       ring buffer of ``S_cache = sliding_window`` slots when windowed;
+  MLA: ``{"ckv": [B, S_cache, kv_lora], "k_rope": [B, S_cache, rope_dim]}``.
 
 The full-sequence forward goes through the flash-attention kernel
 (``kernels.flash_attention.ops.mha``) for every causal or bidirectional
-mask it takes; the prefix-LM mask of the VLM is not one of them. Decode
-stays plain torch (one query row against the cache), as the JAX package
-leaves it to XLA, and writes the step's k and v into the cache in place
-(slice assignment where the reference has ``dynamic_update_slice``): no
-copy of the cache per step, and the caller's state is updated.
+mask it takes; the prefix-LM mask of the VLM is not one of them. MLA's
+forward reconstructs per-head keys and values from the latent and runs
+the kernel at head dim hd + rope (keys and queries concatenated with their
+rope parts, values zero-padded), the reference's materialized form; its
+absorbed form (scores in the latent space) is the ``absorbed=True``
+ablation. Decode stays plain torch (one query row against the cache), as
+the JAX package leaves it to XLA; MLA decodes in the absorbed form. Decode
+writes the step's entries into the cache in place (slice assignment where
+the reference has ``dynamic_update_slice``): no copy of the cache per
+step, and the caller's state is updated.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -25,26 +33,39 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
-MLA_TODO = ("MLA attention (DeepSeek-V2) is not ported yet: ROADMAP "
-            "Queue 1 item 10c")
 
 Params = Dict[str, torch.Tensor]
 
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
-                   dtype=torch.float32) -> Params:
+                   dtype=torch.float32, lead: Tuple[int, ...] = ()) -> Params:
+    hd, d, h = cfg.resolved_head_dim, cfg.d_model, cfg.n_heads
+    dev = generator.device
+
+    def dense(din, dout):
+        return layers.dense_init(generator, din, dout, dtype, lead=lead)
+
     if cfg.mla is not None:
-        raise NotImplementedError(MLA_TODO)
-    hd, d = cfg.resolved_head_dim, cfg.d_model
-    p = {
-        "w_q": layers.dense_init(generator, d, cfg.n_heads * hd, dtype),
-        "w_k": layers.dense_init(generator, d, cfg.n_kv_heads * hd, dtype),
-        "w_v": layers.dense_init(generator, d, cfg.n_kv_heads * hd, dtype),
-        "w_o": layers.dense_init(generator, cfg.n_heads * hd, d, dtype),
-    }
+        m = cfg.mla
+        p = {"w_dkv": dense(d, m.kv_lora + m.rope_dim),
+             "kv_norm": layers.rms_norm_init(m.kv_lora, dtype, dev, lead),
+             "w_uk": dense(m.kv_lora, h * hd),
+             "w_uv": dense(m.kv_lora, h * hd),
+             "w_o": dense(h * hd, d)}
+        if m.q_lora:
+            p["w_dq"] = dense(d, m.q_lora)
+            p["q_norm"] = layers.rms_norm_init(m.q_lora, dtype, dev, lead)
+            p["w_uq"] = dense(m.q_lora, h * (hd + m.rope_dim))
+        else:
+            p["w_uq"] = dense(d, h * (hd + m.rope_dim))
+        return p
+    p = {"w_q": dense(d, h * hd),
+         "w_k": dense(d, cfg.n_kv_heads * hd),
+         "w_v": dense(d, cfg.n_kv_heads * hd),
+         "w_o": dense(h * hd, d)}
     if cfg.qk_norm:
-        p["q_norm"] = layers.rms_norm_init(hd, dtype, generator.device)
-        p["k_norm"] = layers.rms_norm_init(hd, dtype, generator.device)
+        p["q_norm"] = layers.rms_norm_init(hd, dtype, dev, lead)
+        p["k_norm"] = layers.rms_norm_init(hd, dtype, dev, lead)
     return p
 
 
@@ -52,12 +73,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device: DeviceLike = "cuda") -> Params:
     """A zeroed kv cache on ``device`` (the card unless asked for the
     CPU; raises without a GPU)."""
-    if cfg.mla is not None:
-        raise NotImplementedError(MLA_TODO)
     device = resolve_device(device)
-    hd = cfg.resolved_head_dim
     s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (batch, s, cfg.n_kv_heads, hd)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, s, m.kv_lora), dtype=dtype,
+                                   device=device),
+                "k_rope": torch.zeros((batch, s, m.rope_dim), dtype=dtype,
+                                      device=device)}
+    shape = (batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -96,16 +120,26 @@ def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _no_prefix_lm(mask_info: dict) -> None:
+    if mask_info.get("prefix_len", 0):
+        raise NotImplementedError(
+            "the prefix-LM mask (VLM) is not ported yet: ROADMAP Queue 1 "
+            "item 10e")
+
+
+def _check_position(pos: int, capacity: int) -> None:
+    if not 0 <= pos < capacity:
+        raise ValueError(f"decode position {pos} is outside the KV cache, "
+                         f"whose capacity is {capacity} positions")
+
+
 def gqa_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, mask_info: dict
                 ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward. Returns (out, kv) where kv feeds cache fill.
     The window applies only under the causal mask, as the reference's
     ``build_mask`` applies it."""
-    if mask_info.get("prefix_len", 0):
-        raise NotImplementedError(
-            "the prefix-LM mask (VLM) is not ported yet: ROADMAP Queue 1 "
-            "item 10e")
+    _no_prefix_lm(mask_info)
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
     causal = mask_info["causal"]
@@ -129,9 +163,8 @@ def gqa_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
     b = x_t.shape[0]
     hd = cfg.resolved_head_dim
     s_cache = cache["k"].shape[1]
-    if not cfg.sliding_window and not 0 <= pos < s_cache:
-        raise ValueError(f"decode position {pos} is outside the KV cache, "
-                         f"whose capacity is {s_cache} positions")
+    if not cfg.sliding_window:
+        _check_position(pos, s_cache)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
     q, k, v = _qkv(params, cfg, x_t[:, None, :], posv)
     slot = pos % s_cache if cfg.sliding_window else pos
@@ -151,13 +184,140 @@ def gqa_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
     return out.reshape(b, cfg.n_heads * hd) @ params["w_o"], cache
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(params: Params, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    b, s, _ = x.shape
+    hd, m = cfg.resolved_head_dim, cfg.mla
+    if m.q_lora:
+        x = layers.rms_norm(params["q_norm"], x @ params["w_dq"],
+                            cfg.norm_eps)
+    q = (x @ params["w_uq"]).reshape(b, s, cfg.n_heads, hd + m.rope_dim)
+    q_rope = layers.apply_rope(q[..., hd:], positions, cfg.rope_theta)
+    return q[..., :hd], q_rope
+
+
+def _mla_kv(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    m = cfg.mla
+    dkv = x @ params["w_dkv"]
+    ckv = layers.rms_norm(params["kv_norm"], dkv[..., :m.kv_lora],
+                          cfg.norm_eps)
+    k_rope = layers.apply_rope(dkv[..., None, m.kv_lora:], positions,
+                               cfg.rope_theta)[..., 0, :]
+    return ckv, k_rope
+
+
+def _mla_attend(params: Params, cfg: ModelConfig, q_nope, q_rope, ckv,
+                k_rope, mask):
+    """Latent-space attention, W_uk absorbed into the query and W_uv
+    applied after the values. q_nope: [B,S,H,hd]; q_rope: [B,S,H,r]; ckv:
+    [B,T,kv_lora]; k_rope: [B,T,r]; mask: [S,T] additive."""
+    b, s, h, hd = q_nope.shape
+    m = cfg.mla
+    w_uk = params["w_uk"].reshape(m.kv_lora, h, hd)
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)
+    scores = torch.einsum("bshl,btl->bhst", q_lat, ckv) \
+        + torch.einsum("bshr,btr->bhst", q_rope, k_rope)
+    scores = scores.to(torch.float32) * (hd + m.rope_dim) ** -0.5 + mask
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bhst,btl->bshl", probs, ckv)
+    w_uv = params["w_uv"].reshape(m.kv_lora, h, hd)
+    out = torch.einsum("bshl,lhd->bshd", o_lat, w_uv)
+    return out.reshape(b, s, h * hd) @ params["w_o"]
+
+
+def _mla_attend_materialized(params: Params, cfg: ModelConfig, q_nope,
+                             q_rope, ckv, k_rope, causal: bool, window: int):
+    """Prefill form: per-head keys and values reconstructed from the
+    latent once, then the flash kernel at head dim hd + rope, its scale
+    1/sqrt(hd + rope) the reference's; values zero-padded to that dim and
+    the padding sliced off the output."""
+    b, s, h, hd = q_nope.shape
+    r = cfg.mla.rope_dim
+    k_nope = (ckv @ params["w_uk"]).reshape(b, s, h, hd)
+    v = (ckv @ params["w_uv"]).reshape(b, s, h, hd)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, r)],
+                      dim=-1)
+    del k_nope
+    v_pad = F.pad(v, (0, r))
+    del v
+    out = flash_ops.mha(q_cat, k_cat, v_pad, causal=causal, window=window)
+    return out[..., :hd].reshape(b, s, h * hd) @ params["w_o"]
+
+
+def _dense_mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
+    """[S, S] additive mask (0 or NEG_INF): causal, and within the window
+    when ``window > 0`` (the reference's ``build_mask``)."""
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    ok = j <= i if causal else torch.ones((s, s), dtype=torch.bool,
+                                          device=device)
+    if causal and window:
+        ok = ok & (j > i - window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def mla_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, mask_info: dict, *,
+                absorbed: bool = False) -> Tuple[torch.Tensor, Params]:
+    """Full-sequence MLA. Returns (out, the latent cache entries). The
+    default is the materialized form on the flash kernel; ``absorbed``
+    takes the latent-space form with a dense mask (plain torch), the
+    reference's ablation, which it selects by ``REPRO_MLA_ABSORBED``."""
+    _no_prefix_lm(mask_info)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv, k_rope = _mla_kv(params, cfg, x, positions)
+    causal = mask_info["causal"]
+    window = mask_info.get("window", 0) if causal else 0
+    if absorbed:
+        mask = _dense_mask(x.shape[1], causal, window, x.device)
+        out = _mla_attend(params, cfg, q_nope, q_rope, ckv, k_rope, mask)
+    else:
+        out = _mla_attend_materialized(params, cfg, q_nope, q_rope, ckv,
+                                       k_rope, causal, window)
+    return out, {"ckv": ckv, "k_rope": k_rope}
+
+
+def mla_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
+               pos: int, cache: Params) -> Tuple[torch.Tensor, Params]:
+    """Single-token MLA decode in the absorbed form. x_t: [B, d]; pos: the
+    current position (a Python int). Writes the step's latent and rope key
+    into ``cache`` in place and returns it; a ``pos`` past the cache's
+    capacity raises ``ValueError`` before any write (the reference clamps
+    the write onto the last slot)."""
+    b = x_t.shape[0]
+    t = cache["ckv"].shape[1]
+    _check_position(pos, t)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
+    q_nope, q_rope = _mla_q(params, cfg, x_t[:, None, :], posv)
+    ckv_t, k_rope_t = _mla_kv(params, cfg, x_t[:, None, :], posv)
+    cache["ckv"][:, pos] = ckv_t[:, 0]
+    cache["k_rope"][:, pos] = k_rope_t[:, 0]
+    valid = torch.arange(t, device=x_t.device) <= pos
+    mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, :]
+    out = _mla_attend(params, cfg, q_nope, q_rope, cache["ckv"],
+                      cache["k_rope"], mask)
+    return out[:, 0, :], cache
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
 def attn_forward(params, cfg, x, positions, mask_info):
     if cfg.mla is not None:
-        raise NotImplementedError(MLA_TODO)
+        return mla_forward(params, cfg, x, positions, mask_info)
     return gqa_forward(params, cfg, x, positions, mask_info)
 
 
 def attn_decode(params, cfg, x_t, pos, cache):
     if cfg.mla is not None:
-        raise NotImplementedError(MLA_TODO)
+        return mla_decode(params, cfg, x_t, pos, cache)
     return gqa_decode(params, cfg, x_t, pos, cache)

@@ -2,13 +2,16 @@
 tensors, in the JAX package's layout (``w [in, out]``, ``x @ w``).
 
 Initialisers draw from an explicit ``torch.Generator`` on the generator's
-own device, so full-width weights are drawn where they live. Numbers that
+own device, so full-width weights are drawn where they live. ``lead``
+prefixes a leaf's shape: ``transformer.init_lm`` draws each pattern
+position's blocks at ``[n_per, ...]`` in place, with no second copy of a
+stack of full-width blocks. Numbers that
 differ from the JAX package on purpose: ``jax.nn.gelu`` defaults to its tanh
 approximation, so ``gelu``/``geglu`` use ``F.gelu(approximate="tanh")``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,12 +29,12 @@ def _randn(generator: torch.Generator, shape, scale: float,
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
-               dtype=torch.float32, scale: Optional[float] = None
-               ) -> torch.Tensor:
-    """[in_dim, out_dim] weights ~ N(0, scale^2), scale = in_dim**-0.5 by
-    default; drawn on the generator's device."""
+               dtype=torch.float32, scale: Optional[float] = None,
+               lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """[*lead, in_dim, out_dim] weights ~ N(0, scale^2), scale =
+    in_dim**-0.5 by default; drawn on the generator's device."""
     scale = scale if scale is not None else in_dim ** -0.5
-    return _randn(generator, (in_dim, out_dim), scale, dtype)
+    return _randn(generator, (*lead, in_dim, out_dim), scale, dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, dim: int,
@@ -56,9 +59,9 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def rms_norm_init(dim: int, dtype: torch.dtype, device: torch.device
-                  ) -> Params:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def rms_norm_init(dim: int, dtype: torch.dtype, device: torch.device,
+                  lead: Tuple[int, ...] = ()) -> Params:
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device)}
 
 
 def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-5
@@ -99,11 +102,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
-             dtype=torch.float32) -> Params:
-    p: Params = {"w_in": dense_init(generator, d_model, d_ff, dtype)}
+             dtype=torch.float32, lead: Tuple[int, ...] = ()) -> Params:
+    p: Params = {"w_in": dense_init(generator, d_model, d_ff, dtype,
+                                    lead=lead)}
     if kind in ("swiglu", "geglu"):
-        p["w_gate"] = dense_init(generator, d_model, d_ff, dtype)
-    p["w_out"] = dense_init(generator, d_ff, d_model, dtype)
+        p["w_gate"] = dense_init(generator, d_model, d_ff, dtype, lead=lead)
+    p["w_out"] = dense_init(generator, d_ff, d_model, dtype, lead=lead)
     return p
 
 
@@ -128,9 +132,11 @@ def mlp_apply(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def causal_conv_init(generator: torch.Generator, channels: int, width: int,
-                     dtype=torch.float32) -> Params:
-    return {"w": _randn(generator, (width, channels), width ** -0.5, dtype),
-            "b": torch.zeros((channels,), dtype=dtype,
+                     dtype=torch.float32, lead: Tuple[int, ...] = ()
+                     ) -> Params:
+    return {"w": _randn(generator, (*lead, width, channels), width ** -0.5,
+                        dtype),
+            "b": torch.zeros((*lead, channels), dtype=dtype,
                              device=generator.device)}
 
 

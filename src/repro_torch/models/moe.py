@@ -1,0 +1,155 @@
+"""Mixture-of-Experts MLP with capacity-based scatter dispatch (the JAX
+package's ``models/moe.py``).
+
+Expert weights are stacked ``[E, ...]``. :func:`route` makes the integer
+decisions: softmax over the router logits, the top-k experts of each token
+(the lower index first on equal probabilities, as ``jax.lax.top_k`` orders
+them: a stable descending sort), the renormalised gates, the capacity and
+each choice's slot in its expert. A choice whose slot reaches the capacity
+is dropped: it goes to the overflow slot ``capacity``, which many tokens
+write and none read. :func:`moe_apply` scatters the tokens into ``[E,
+capacity + 1, D]``, runs each expert's FFN as a batched matmul, gathers
+the kept choices back and weights them by their gates.
+
+The reference zero-pads the experts' output with an overflow row; here the
+overflow row of the input is zeroed after the scatter, and an expert's FFN
+maps a zero row to zero (no biases), so the row it gathers for a dropped
+choice is zero all the same, with no copy of the output.
+
+The capacity depends on the token count T, so a forward over S tokens and
+prefill plus decode over the same tokens agree only when nothing is
+dropped. Decode calls :func:`moe_apply` on ``[B, 1, D]``: T = B and the
+capacity is at least 4, so every expert runs on its slots and a step reads
+every expert's weights, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+Params = Dict[str, object]
+
+
+class Routing(NamedTuple):
+    """The router's decisions for T tokens and k choices each."""
+    probs: torch.Tensor       # [T, E] softmax of the router logits
+    gate_vals: torch.Tensor   # [T, k] renormalised gates
+    gate_idx: torch.Tensor    # [T, k] int64 expert of each choice
+    slots: torch.Tensor       # [T, k] int64 slot, ``capacity`` if dropped
+    keeps: torch.Tensor       # [T, k] bool, the choice kept
+    capacity: int
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32, lead: Tuple[int, ...] = ()) -> Params:
+    m, d = cfg.moe, cfg.d_model
+    scale = d ** -0.5
+
+    def stack(din, dout):
+        return layers.dense_init(generator, din, dout, dtype, scale,
+                                 lead=(*lead, m.n_experts))
+
+    p: Params = {
+        "router": layers.dense_init(generator, d, m.n_experts, torch.float32,
+                                    lead=lead),
+        "w_in": stack(d, m.d_ff),
+        "w_out": stack(m.d_ff, d),
+    }
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["w_gate"] = stack(d, m.d_ff)
+    if m.n_shared:
+        p["shared"] = layers.mlp_init(generator, d, m.n_shared * m.d_ff,
+                                      cfg.mlp, dtype, lead)
+    return p
+
+
+def capacity_of(cfg: ModelConfig, t: int) -> int:
+    """Slots an expert has for T tokens, in Python floats as the reference
+    computes it."""
+    m = cfg.moe
+    return max(int(t * m.top_k * m.capacity_factor / m.n_experts), 4)
+
+
+def route(logits: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """logits: [T, E] fp32 router logits -> the routing of the T tokens.
+    Slots are given one routing choice at a time: choice j of a token
+    ranks after every choice j' < j and after choice j of earlier tokens.
+    Makes no host sync."""
+    m = cfg.moe
+    t, n_exp = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :m.top_k], idx[:, :m.top_k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    capacity = capacity_of(cfg, t)
+
+    experts = torch.arange(n_exp, device=logits.device)
+    counts = torch.zeros(n_exp, dtype=torch.int64, device=logits.device)
+    slot_list, keep_list = [], []
+    for j in range(m.top_k):
+        e_j = gate_idx[:, j]                                       # [T]
+        onehot = (e_j[:, None] == experts).to(torch.int64)          # [T, E]
+        ranks = onehot.cumsum(0) - 1          # rank among this choice
+        slot = ranks.gather(1, e_j[:, None])[:, 0] + counts[e_j]
+        keep = slot < capacity
+        slot_list.append(torch.where(keep, slot, capacity))
+        keep_list.append(keep)
+        counts = counts + onehot.sum(0)
+    return Routing(probs, gate_vals, gate_idx, torch.stack(slot_list, 1),
+                   torch.stack(keep_list, 1), capacity)
+
+
+def _expert_ffn(p: Params, h: torch.Tensor, kind: str) -> torch.Tensor:
+    """h: [E, C, D] -> [E, C, D] through each expert's FFN (batched)."""
+    up = torch.bmm(h, p["w_in"])
+    if kind == "swiglu":
+        up = F.silu(torch.bmm(h, p["w_gate"])) * up
+    elif kind == "geglu":
+        up = F.gelu(torch.bmm(h, p["w_gate"]), approximate="tanh") * up
+    elif kind == "squared_relu":
+        up = F.relu(up).square()
+    elif kind == "gelu":
+        up = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp kind {kind}")
+    return torch.bmm(up, p["w_out"])
+
+
+def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
+              drops: Optional[List[Tuple[int, torch.Tensor]]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (out [B, S, D], the Switch-style load-balance aux
+    loss, a scalar). With ``drops`` given, appends (the call's T * k
+    assignments, the count dropped as a device tensor): no host sync."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    r = route(xt.to(torch.float32) @ params["router"], cfg)
+    if drops is not None:
+        drops.append((t * m.top_k, (~r.keeps).sum()))
+
+    # dispatch: scatter tokens into [E, C + 1, D], slot C the overflow bin
+    buf = x.new_zeros((m.n_experts, r.capacity + 1, d))
+    buf.index_put_((r.gate_idx, r.slots),
+                   xt[:, None, :].expand(t, m.top_k, d))
+    buf[:, r.capacity] = 0
+    expert_out = _expert_ffn(params, buf, cfg.mlp)       # overflow rows 0
+
+    # combine: gather back, weight by the (renormalised) gates
+    gathered = expert_out[r.gate_idx, r.slots]                  # [T, k, D]
+    w = (r.gate_vals * r.keeps.to(r.gate_vals.dtype)).to(x.dtype)
+    out = torch.einsum("tkd,tk->td", gathered, w)
+    if m.n_shared:
+        out = out + layers.mlp_apply(params["shared"], xt, cfg.mlp)
+
+    frac_tokens = (r.gate_idx[:, 0, None] == torch.arange(
+        m.n_experts, device=x.device)).to(torch.float32).mean(0)
+    frac_probs = r.probs.mean(0)
+    aux = m.n_experts * (frac_tokens * frac_probs).sum() * m.aux_loss_weight
+    return out.reshape(b, s, d), aux

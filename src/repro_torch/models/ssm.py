@@ -34,21 +34,26 @@ def _dims(cfg: ModelConfig):
 
 
 def init_ssm(generator: torch.Generator, cfg: ModelConfig,
-             dtype=torch.float32) -> Params:
+             dtype=torch.float32, lead: Tuple[int, ...] = ()) -> Params:
     s, d_in, dt_rank = _dims(cfg)
     dev = generator.device
     a_init = torch.log(torch.arange(1, s.d_state + 1, dtype=torch.float32,
-                                    device=dev)).expand(d_in, s.d_state)
+                                    device=dev)).expand(*lead, d_in,
+                                                        s.d_state)
     return {
-        "w_in": layers.dense_init(generator, cfg.d_model, 2 * d_in, dtype),
-        "conv": layers.causal_conv_init(generator, d_in, s.d_conv, dtype),
+        "w_in": layers.dense_init(generator, cfg.d_model, 2 * d_in, dtype,
+                                  lead=lead),
+        "conv": layers.causal_conv_init(generator, d_in, s.d_conv, dtype,
+                                        lead),
         "w_x": layers.dense_init(generator, d_in, dt_rank + 2 * s.d_state,
-                                 dtype),
-        "w_dt": layers.dense_init(generator, dt_rank, d_in, dtype),
-        "dt_bias": torch.full((d_in,), -4.6, dtype=dtype, device=dev),
+                                 dtype, lead=lead),
+        "w_dt": layers.dense_init(generator, dt_rank, d_in, dtype,
+                                  lead=lead),
+        "dt_bias": torch.full((*lead, d_in), -4.6, dtype=dtype, device=dev),
         "a_log": a_init.to(dtype).contiguous(),
-        "d_skip": torch.ones((d_in,), dtype=dtype, device=dev),
-        "w_out": layers.dense_init(generator, d_in, cfg.d_model, dtype),
+        "d_skip": torch.ones((*lead, d_in), dtype=dtype, device=dev),
+        "w_out": layers.dense_init(generator, d_in, cfg.d_model, dtype,
+                                   lead=lead),
     }
 
 

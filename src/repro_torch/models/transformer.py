@@ -10,9 +10,12 @@ params stacked over periods (``params["period"]["j<j>"]``, leaves
 (``weights.lm_params_from_jax``). Where the reference scans over periods,
 the port runs a Python loop and indexes period ``p`` of every leaf (a view).
 
-Block kinds ``attn`` (GQA) and ``ssm`` with dense MLPs are ported. MoE,
-MLA, ``mlstm``/``slstm``, the VLM patch prefix and the audio frontend
-raise NotImplementedError naming the ROADMAP item that ports them.
+Block kinds ``attn`` (GQA or MLA) and ``ssm``, each with a dense or an
+MoE MLP, are ported; a block takes the MoE MLP where the reference's
+``_uses_moe`` says so. ``mlstm``/``slstm``, the VLM patch prefix and the
+audio frontend raise NotImplementedError naming the ROADMAP item that
+ports them. The forward drops MoE's load-balance loss, which only
+training reads.
 
 Public API:
   init_lm(generator, cfg, dtype)                   -> params
@@ -26,21 +29,19 @@ assignment, the recurrent states by ``copy_``) and returns it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import attention, layers, ssm as ssm_lib
+from repro_torch.models import attention, layers, moe as moe_lib, \
+    ssm as ssm_lib
 
 Params = Dict[str, Any]
 
 # what is not ported yet, and the ROADMAP item (Queue 1) that ports it
 _TODO = {
-    "moe": "MoE MLPs (models/moe.py) are not ported yet: ROADMAP Queue 1 "
-           "item 10b",
-    "mla": attention.MLA_TODO,
     "xlstm": "mLSTM/sLSTM blocks (models/xlstm.py) are not ported yet: "
              "ROADMAP Queue 1 item 10d",
     "frontend": "the VLM patch prefix and the audio frontend are not ported "
@@ -50,10 +51,6 @@ _TODO = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config that needs an unported part."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['moe']}")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['mla']}")
     if {"mlstm", "slstm"} & set(cfg.pattern):
         raise NotImplementedError(f"{cfg.name}: {_TODO['xlstm']}")
     if cfg.family == "vlm" or cfg.audio_frontend:
@@ -74,6 +71,22 @@ def _n_periods(cfg: ModelConfig) -> int:
     return body // pat
 
 
+def _uses_moe(cfg: ModelConfig, layer_idx: int) -> bool:
+    if cfg.moe is None or layer_idx < cfg.n_dense_prefix:
+        return False
+    return layer_idx % cfg.moe.every == cfg.moe.every - 1
+
+
+def _check_static_period(cfg: ModelConfig) -> None:
+    """MoE placement must be the same in every period so params can
+    stack."""
+    if cfg.moe is not None and cfg.moe.every > 1 \
+            and len(cfg.pattern) % cfg.moe.every and len(cfg.pattern) != 1:
+        raise ValueError(f"{cfg.name}: moe.every={cfg.moe.every} "
+                         f"incompatible with pattern length "
+                         f"{len(cfg.pattern)}")
+
+
 def _tree_map(fn, *trees):
     first = trees[0]
     if isinstance(first, dict):
@@ -87,8 +100,8 @@ def _period(tree: Params, p: int) -> Params:
 
 
 def _stack(trees: List[Params]) -> Params:
-    """Stack trees leaf by leaf on a new leading period axis; one period
-    becomes a view (no second copy of a full-width block)."""
+    """Stack trees (caches) leaf by leaf on a new leading period axis; one
+    period becomes a view, with no copy."""
     if len(trees) == 1:
         return _tree_map(lambda x: x.unsqueeze(0), trees[0])
     return _tree_map(lambda *xs: torch.stack(xs), *trees)
@@ -100,20 +113,35 @@ def _stack(trees: List[Params]) -> Params:
 
 
 def _init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
-                dtype) -> Params:
+                use_moe: bool, dtype, lead: Tuple[int, ...] = ()) -> Params:
     init = attention.init_attention if kind == "attn" else ssm_lib.init_ssm
     dev = generator.device
-    p: Params = {"norm1": layers.rms_norm_init(cfg.d_model, dtype, dev),
-                 "mixer": init(generator, cfg, dtype)}
-    if cfg.d_ff > 0:
-        p["norm2"] = layers.rms_norm_init(cfg.d_model, dtype, dev)
+    p: Params = {"norm1": layers.rms_norm_init(cfg.d_model, dtype, dev, lead),
+                 "mixer": init(generator, cfg, dtype, lead)}
+    if use_moe or cfg.d_ff > 0:
+        p["norm2"] = layers.rms_norm_init(cfg.d_model, dtype, dev, lead)
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(generator, cfg, dtype, lead)
+    elif cfg.d_ff > 0:
         p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp,
-                                   dtype)
+                                   dtype, lead)
     return p
 
 
+def _mlp_half(p: Params, cfg: ModelConfig, x, moe_drops=None):
+    """x + the block's MLP (dense or MoE) of norm2(x), x: [..., D]; every
+    token of x is one of the MoE's T (the reference's [B, S, D] and, in
+    decode, [B, 1, D])."""
+    h2 = layers.rms_norm(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        out, _ = moe_lib.moe_apply(p["moe"], cfg,
+                                   h2.reshape(-1, 1, cfg.d_model), moe_drops)
+        return x + out.reshape(x.shape)
+    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp)
+
+
 def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
-                   mask: dict):
+                   mask: dict, moe_drops=None):
     """Full-sequence block. Returns (x, cache)."""
     h = layers.rms_norm(p["norm1"], x, cfg.norm_eps)
     if kind == "attn":
@@ -122,9 +150,8 @@ def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
     else:
         out, cache = ssm_lib.ssm_forward(p["mixer"], cfg, h)
     x = x + out
-    if "mlp" in p:
-        h2 = layers.rms_norm(p["norm2"], x, cfg.norm_eps)
-        x = x + layers.mlp_apply(p["mlp"], h2, cfg.mlp)
+    if "norm2" in p:
+        x = _mlp_half(p, cfg, x, moe_drops)
     return x, cache
 
 
@@ -136,9 +163,8 @@ def _block_decode(p: Params, cfg: ModelConfig, kind: str, x_t, pos: int,
     else:
         out, cache = ssm_lib.ssm_decode(p["mixer"], cfg, h, cache)
     x_t = x_t + out
-    if "mlp" in p:
-        h2 = layers.rms_norm(p["norm2"], x_t, cfg.norm_eps)
-        x_t = x_t + layers.mlp_apply(p["mlp"], h2, cfg.mlp)
+    if "norm2" in p:
+        x_t = _mlp_half(p, cfg, x_t)
     return x_t, cache
 
 
@@ -152,6 +178,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
     """Random params in the reference's tree, drawn on the generator's
     device."""
     check_supported(cfg)
+    _check_static_period(cfg)
     n_per = _n_periods(cfg)
     params: Params = {
         "embed": layers.embed_init(generator, cfg.vocab, cfg.d_model, dtype),
@@ -162,11 +189,13 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
         params["lm_head"] = layers.dense_init(generator, cfg.d_model,
                                               cfg.vocab, dtype)
     if cfg.n_dense_prefix:
-        params["prefix"] = [_init_block(generator, cfg, "attn", dtype)
+        params["prefix"] = [_init_block(generator, cfg, "attn", False, dtype)
                             for _ in range(cfg.n_dense_prefix)]
+    # each pattern position's blocks drawn at [n_per, ...] in place
     params["period"] = {
-        f"j{j}": _stack([_init_block(generator, cfg, kind, dtype)
-                         for _ in range(n_per)])
+        f"j{j}": _init_block(generator, cfg, kind,
+                             _uses_moe(cfg, cfg.n_dense_prefix + j), dtype,
+                             (n_per,))
         for j, kind in enumerate(cfg.pattern)}
     return params
 
@@ -183,10 +212,13 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
 
 
 def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
-            want_cache: bool = False):
+            want_cache: bool = False,
+            moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None):
     """x: [B, S, D] embeddings -> (hidden [B, S, D], caches). ``caches``
     is ``{"prefix": [...], "period": {"j<j>": leaves [n_per, ...]}}`` when
-    ``want_cache``, else None."""
+    ``want_cache``, else None. With ``moe_drops`` given, each MoE layer
+    appends its (assignments, dropped count) to it
+    (``moe.moe_apply``)."""
     check_supported(cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -195,7 +227,8 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             "window": cfg.sliding_window}
     prefix_caches = []
     for blk in params.get("prefix", []):
-        x, c = _block_forward(blk, cfg, "attn", x, positions, mask)
+        x, c = _block_forward(blk, cfg, "attn", x, positions, mask,
+                              moe_drops)
         prefix_caches.append(c)
     per_period = []
     for p in range(_n_periods(cfg)):
@@ -203,7 +236,7 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
         caches = {}
         for j, kind in enumerate(cfg.pattern):
             x, c = _block_forward(blocks[f"j{j}"], cfg, kind, x, positions,
-                                  mask)
+                                  mask, moe_drops)
             if want_cache:
                 caches[f"j{j}"] = c
         per_period.append(caches)
@@ -270,12 +303,13 @@ def _fill_attn_cache(cfg: ModelConfig, kv: Params, max_len: int,
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, max_len: int = 0):
+            *, max_len: int = 0,
+            moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None):
     """Run the full prompt; return (last-token logits [B, V], decode
-    state)."""
+    state). ``moe_drops`` as in :func:`forward`."""
     x = _embed_inputs(params, cfg, batch)
     max_len = max_len or x.shape[1]
-    h, caches = forward(params, cfg, x, want_cache=True)
+    h, caches = forward(params, cfg, x, want_cache=True, moe_drops=moe_drops)
     logits = _lm_head(params, cfg, h[:, -1, :])
     state: Params = {}
     if caches["prefix"]:
