@@ -33,8 +33,13 @@ prints its seconds:
    4, H = Hkv = 128, S 2048, D 192, its row timed at the latter; the
    reference's test shapes, ragged S, head dims 36 / 112 / 132 / 192 (the
    kernel's NC = 3 form, ragged and under GQA) / 256, a window, a
-   bidirectional mask, GQA, bf16, and fp32 views too misaligned for its
-   cp.async staging) and
+   bidirectional mask (HuBERT's path shape, D 80, among them), GQA, bf16,
+   and fp32 views too misaligned for its cp.async staging; the prefix-LM
+   form at PaliGemma's path shape (prefix 256, MQA at D 256), at ragged S
+   with prefixes off both tiles, a prefix of S and past it, a prefix with
+   a window, bf16; prefix 0 (the default: determinism) and 1 (through
+   the prefix tests) bitwise the causal call; its times at
+   both new path shapes beside SDPA with the same mask) and
    ``ssm_scan`` (the path's Mamba shape, the reference's test shapes,
    ragged T and d_in, ds at its state-bucket edges, T at its chunk edges,
    d_in off its channel block, offset views);
@@ -96,6 +101,24 @@ prints its seconds:
    equal on the card's router logits. Under ``--profile`` the Jamba and
    the DeepSeek prefill are profiled, device time by class (GEMMs, flash,
    scan, MoE routing and dispatch, other);
+4e. ``launch.serve --arch xlstm-125m --size one-h100`` (the published
+   config, 0.22 G parameters) at the same batch, prompt and gen: no
+   kernel launch (xLSTM runs none); prefill of 2040 tokens and 8 decode
+   steps against one forward over 2048 within ``AGREE_LIMIT``, no host
+   sync in decode; one mLSTM and one sLSTM layer card against CPU within
+   rtol 1e-4 / atol 1e-5; a warm prefill's seconds, and in one more each
+   block kind's share (the sLSTM time loops');
+4f. ``launch.serve --arch paligemma-3b --size one-h100`` (the published
+   config, 2.51 G parameters; 256 patches and 1792 text tokens): 18 flash
+   launches a prefill under the prefix-LM mask; prefill + 8 decode steps
+   against the forward, no host sync in decode; one attention layer under
+   the prefix-LM mask card against CPU;
+4g. hubert-xlarge's encoder (the published config, 0.95 G parameters)
+   and its codebook head over 4 x 2048 frames, half of them replaced by
+   the mask embedding: 48 flash launches (bidirectional, D 80), finite
+   logits, seconds and peak memory; one attention layer card against
+   CPU. Under ``--profile`` 4e and 4f also profile 4 decode steps, and
+   4e-4g one prefill (device ops, busy share, time by class);
 5. the paper's K sweep (``repro_torch.benchmarks.paper_tables
    .fig3_bound_gap``: C = 20, 256 samples a client, Dir(0.2), t_sum 100,
    alpha 1, beta 6, eta 0.005, K in 1-6, 8, 14) by each driver: its rows
@@ -264,10 +287,33 @@ UNCAPPED_FACTOR = 8.0
 MLA_AGREE_PREFILL = 256
 LAYER_TOKENS = 256
 LAYER_RTOL, LAYER_ATOL = 1e-4, 1e-5
+# phases 4e-4g: the three published configs that fit one H100 whole, at the
+# same batch and prompt (PaliGemma's prompt: 256 image patches and 1792
+# text tokens; HuBERT's: 2048 frames, encoder only, no decode)
+XLSTM_SERVE_ARGS = ["--arch", "xlstm-125m", "--size", "one-h100",
+                    "--batch", "4", "--prompt-len", "2048", "--gen", "32"]
+VLM_SERVE_ARGS = ["--arch", "paligemma-3b", "--size", "one-h100",
+                  "--batch", "4", "--prompt-len", "2048", "--gen", "32"]
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES = "hubert-xlarge", 4, 2048
+XLSTM_SERVE_LAUNCHES = {"flash_attention": 0, "ssm_scan": 0}
+VLM_SERVE_LAUNCHES = {"flash_attention": 18, "ssm_scan": 0}   # one prefill
+AUDIO_LAUNCHES = {"flash_attention": 48, "ssm_scan": 0}       # one forward
+# 4e's prefill + decode check: prefill of 2040 tokens (chunkwise mLSTM in
+# 17 chunks of 120) and AGREE_STEPS decode steps against one forward over
+# 2048 (16 chunks of 128); a forward over 2056 would run the sequential
+# mLSTM (2056 has no divisor in [16, 128])
+XLSTM_AGREE_PREFILL = 2040
+# 4g: the share of frames replaced by the mask embedding (i.i.d. here;
+# HuBERT masks spans covering about half the frames)
+AUDIO_MASK_SHARE = 0.5
 # the flash kernel at the serve paths' attention shapes: B, H, Hkv, S, D;
 # MLA runs it at hd + rope = 192, the kernel's NC = 3 form (dpad 129-192)
 FLASH_PATH = (4, 64, 8, 2048, 128)
 FLASH_MLA_PATH = (4, 128, 128, 2048, 192)
+# PaliGemma's (prefix-LM mask, prefix 256, MQA at D 256, the NC = 4 form)
+# and HuBERT's (bidirectional, D 80)
+FLASH_VLM_PATH, FLASH_VLM_PREFIX = (4, 8, 1, 2048, 256), 256
+FLASH_AUDIO_PATH = (4, 16, 16, 2048, 80)
 # (B, H, Hkv, S, D, causal, window, bf16): the path shapes; the reference's
 # FLASH_CASES (tests/test_kernels.py); ragged S; the zoo's odd head dims
 # (minicpm 36, kimi 112), the MLA path's 192 ragged and under GQA, the
@@ -285,7 +331,26 @@ FLASH_CASES = [
     (1, 4, 1, 300, 256, True, 0, False),
     (2, 4, 4, 1000, 64, True, 128, False), (2, 4, 2, 777, 64, False, 0, False),
     (1, 2, 2, 128, 64, True, 0, True), FLASH_PATH + (True, 0, True),
+    FLASH_AUDIO_PATH + (False, 0, False), (2, 4, 4, 300, 80, False, 0, False),
 ]
+# the prefix-LM form, all causal: (B, H, Hkv, S, D, window, prefix, bf16):
+# the VLM path's shape; prefixes off both tiles at ragged S (100, 300); a
+# prefix of S and one past it (the whole square); a prefix with a window;
+# a prefix of one (the causal mask itself); bf16
+FLASH_PREFIX_CASES = [
+    FLASH_VLM_PATH + (0, FLASH_VLM_PREFIX, False),
+    (2, 4, 2, 777, 64, 0, 100, False), (1, 8, 1, 1000, 256, 0, 300, False),
+    (2, 4, 4, 333, 128, 0, 300, False), (1, 4, 2, 300, 80, 0, 300, False),
+    (1, 4, 2, 300, 192, 0, 305, False), (2, 4, 2, 700, 64, 128, 300, False),
+    (1, 2, 1, 257, 256, 64, 100, False), (2, 2, 2, 200, 32, 0, 1, False),
+    (2, 8, 1, 600, 256, 0, 256, True),
+]
+# causal shapes at which the call with no prefix must equal, bit for bit,
+# the call given prefix 0 (the wrapper's default: the same launch, so this
+# shows only that the kernel is deterministic) and prefix 1 (the causal
+# mask itself, reached through the prefix form's tests). That prefix 0
+# keeps the parent kernel's bits is ``bench_kernels --against``'s check.
+FLASH_PREFIX_CAUSAL = [FLASH_PATH, (2, 8, 1, 600, 256), (1, 4, 2, 300, 80)]
 # fp32 cases whose q, k, v the kernel cannot stage with 16-byte cp.async,
 # so it loads them with plain loads: (B, H, Hkv, S, D, causal, window, how)
 # with ``how`` "offset" (each tensor a view starting one float past an
@@ -351,7 +416,9 @@ MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
 # batch runs on the graph driver (a warm round and K - 1 replays, the
 # replays' launches added by the driver); the serve paths call the wrappers
 LAUNCHED_BY = {"paper": "graph driver", "topology": "graph driver",
-               "serve": "eager calls", "mla serve": "eager calls"}
+               "serve": "eager calls", "mla serve": "eager calls",
+               "xlstm serve": "eager calls", "vlm serve": "eager calls",
+               "audio encoder": "eager calls"}
 # phase 5: the paper's K sweep in Fig. 3's configuration
 # (paper_tables.fig3_bound_gap), and the Ks held card against CPU: tau 10,
 # 6 and 1, at most 60 local steps a run
@@ -1702,14 +1769,16 @@ def phase_cohort(torch, dev, report, profile_dir):
     return launches, dlaunches
 
 
-def _flash_work(b, h, hkv, s, d, causal, window):
+def _flash_work(b, h, hkv, s, d, causal, window, prefix=0):
     """(bytes, flops, exps) the attention function needs: q, k, v read
     once and o written once; 4 D flops (QK^T and PV) and one exp per
-    (row, key) pair the masks keep."""
+    (row, key) pair the masks keep (under causal, the rows below
+    ``prefix`` keep every key below it too)."""
     pairs = 0
     for row in range(s):
         lo = max(0, row - window + 1) if window > 0 else 0
-        hi = row + 1 if causal else s
+        hi = (max(row + 1, min(prefix, s) if row < prefix else 0) if causal
+              else s)
         pairs += hi - lo
     pairs *= b * h
     return (4 * (2 * b * s * h * d + 2 * b * s * hkv * d), 4 * d * pairs,
@@ -1804,45 +1873,105 @@ def phase_lm_kernels(torch, dev):
                 f"flash_attention off tolerance at {(b, h, hkv, s, d)} "
                 f"({how} view): max |diff| {float(err.max()):.3g}")
         del q, k, v, got, want, err
+    prefix_err = 0.0
+    for b, h, hkv, s, d, window, prefix, bf16 in FLASH_PREFIX_CASES:
+        q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        if bf16:
+            q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        got = flash_ops.mha(q, k, v, causal=True, window=window,
+                            prefix_len=prefix).float()
+        want = flash_ref.mha_ref(q.float(), k.float(), v.float(),
+                                 causal=True, window=window,
+                                 prefix_len=prefix)
+        err = (got - want).abs()
+        atol, rtol = ((FLASH_BF16_ATOL, FLASH_BF16_RTOL) if bf16
+                      else (FLASH_ATOL, FLASH_RTOL))
+        if bf16:
+            flash_bf16_err = max(flash_bf16_err, float(err.max()))
+        else:
+            prefix_err = max(prefix_err, float(err.max()))
+        require(bool((err <= atol + rtol * want.abs()).all()),
+                f"flash_attention off tolerance at {(b, h, hkv, s, d)} with "
+                f"window {window}, prefix {prefix}"
+                f"{' (bf16)' if bf16 else ''}: max |diff| "
+                f"{float(err.max()):.3g}")
+        del q, k, v, got, want, err
+    flash_err = max(flash_err, prefix_err)
+    for b, h, hkv, s, d in FLASH_PREFIX_CAUSAL:
+        q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        base = flash_ops.mha(q, k, v, causal=True)
+        for prefix in (0, 1):
+            require(torch.equal(flash_ops.mha(q, k, v, causal=True,
+                                              prefix_len=prefix), base),
+                    f"flash_attention at {(b, h, hkv, s, d)}: prefix "
+                    f"{prefix} is not bitwise the causal call")
+        del q, k, v, base
 
-    def flash_times(shape, tag):
-        """The flash kernel at ``shape`` (causal): its time by the profiler
-        and CUDA events, its plain version's, SDPA's in fp32, its bound
-        as 3xTF32 and as one fp32 pass outside the tensor cores."""
+    def flash_times(shape, tag, causal=True, prefix=0):
+        """The flash kernel at ``shape``: its row (its time by the profiler
+        and CUDA events, its plain version's, SDPA's in fp32 with the same
+        mask: ``is_causal``, or the prefix mask as a boolean [S, S]; and,
+        under a prefix, SDPA with no mask at all; its bound as 3xTF32, the
+        kernel's), and for the summary line its kept (row, key) pairs and
+        its bound as one fp32 pass outside the tensor cores."""
         b, h, hkv, s, d = shape
         q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        keep = (flash_ref.keep_mask(s, causal=True, window=0,
+                                    prefix_len=prefix, device=dev)
+                if prefix else None)
 
         def flash():
-            return flash_ops.mha(q, k, v, causal=True)
+            return flash_ops.mha(q, k, v, causal=causal, prefix_len=prefix)
 
         def sdpa():   # timed only: the port never calls it
             return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
+                qt, kt, vt, attn_mask=keep, is_causal=causal and not prefix,
+                enable_gqa=True)
+
+        def sdpa_unmasked():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
 
         require(float((sdpa().transpose(1, 2) - flash()).abs().max())
                 < 1e-4, f"SDPA and the flash kernel disagree at {shape}")
-        work = _flash_work(b, h, hkv, s, d, True, 0)
+        work = _flash_work(b, h, hkv, s, d, causal, 0, prefix)
         bound, by = _bound(*work, tf32_passes=FLASH_TF32_PASSES)
         label = f"flash_attention{tag}"
         times = dict(
             ms=timing.kernel_ms(flash, label, reps=10),
             call_ms=timing.time_ms(flash, reps=10, warmup=2),
             plain_ms=timing.kernel_ms(lambda: flash_ref.mha_ref(
-                q, k, v, causal=True), f"{label} plain", reps=3),
+                q, k, v, causal=causal, prefix_len=prefix),
+                f"{label} plain", reps=3),
             library_ms=timing.kernel_ms(sdpa, f"{label} library (SDPA)",
                                         reps=10),
-            bound_ms=bound, bound_by=by, bound_fp32_ms=_bound(*work)[0])
+            bound_ms=bound, bound_by=by)
+        if prefix:
+            times["library_unmasked_ms"] = timing.kernel_ms(
+                sdpa_unmasked, f"{label} library (SDPA, no mask)", reps=10)
         times["events_ms"] = timing.READINGS[label]["events_ms"]
-        return times
+        return times, {"kept_pairs": work[2], "bound_ms": bound,
+                       "bound_fp32_ms": _bound(*work)[0]}
 
     # the row is timed at the MLA path's shape (4 launches a DeepSeek
-    # prefill); the GQA path's (1 a Jamba prefill) is kept beside it
-    gqa = flash_times(FLASH_PATH, " (gqa path)")
+    # prefill); the GQA, VLM and audio paths' shapes are kept beside it
+    gqa, gqa_work = flash_times(FLASH_PATH, " (gqa path)")
+    vlm, vlm_work = flash_times(FLASH_VLM_PATH, " (vlm path, prefix)",
+                                prefix=FLASH_VLM_PREFIX)
+    audio, audio_work = flash_times(FLASH_AUDIO_PATH,
+                                    " (audio path, bidirectional)",
+                                    causal=False)
+    mla, mla_work = flash_times(FLASH_MLA_PATH, "")
+    flash_work = {"mla path": mla_work, "gqa path": gqa_work,
+                  "vlm path": vlm_work, "audio path": audio_work}
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
-        **flash_times(FLASH_MLA_PATH, ""),
-        at_gqa_path={"shape": FLASH_PATH, **gqa})
+        max_abs_err_prefix=prefix_err, **mla,
+        at_gqa_path={"shape": FLASH_PATH, **gqa},
+        at_vlm_path={"shape": FLASH_VLM_PATH, "prefix": FLASH_VLM_PREFIX,
+                     **vlm},
+        at_audio_path={"shape": FLASH_AUDIO_PATH, "causal": False, **audio})
 
     ssm_err, ssm_ratio = 0.0, 0.0
     ssm_cases = ([(case, False) for case in SSM_CASES
@@ -1890,18 +2019,19 @@ def phase_lm_kernels(torch, dev):
         plain_ms=timing.kernel_ms(lambda: ssm_ref.ssm_scan_ref(
             u, dt, bm, cm, a, dsk), "ssm_scan plain", reps=2),
         library_ms=None, bound_ms=bound, bound_by=by)
-    print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases and "
-          f"{len(FLASH_MISALIGNED)} misaligned fp32 views, largest "
+    print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases, "
+          f"{len(FLASH_MISALIGNED)} misaligned fp32 views and "
+          f"{len(FLASH_PREFIX_CASES)} prefix-LM cases (largest fp32 "
+          f"deviation {prefix_err:.3g}; prefix 0, the default, and 1 "
+          f"bitwise the causal call at {len(FLASH_PREFIX_CAUSAL)} "
+          f"shapes), largest "
           f"deviation {flash_err:.3g} in fp32 (rtol {FLASH_RTOL}, "
           f"atol {FLASH_ATOL}) and {flash_bf16_err:.3g} in bf16 (rtol "
-          f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}); its bound at "
-          f"{FLASH_MLA_PATH} "
-          f"{report['flash_attention']['bound_fp32_ms']:.4g} ms as one "
-          f"fp32 pass outside the tensor cores, "
-          f"{report['flash_attention']['bound_ms']:.4g} ms as "
-          f"{FLASH_TF32_PASSES} TF32 passes (the kernel's), at "
-          f"{FLASH_PATH} {gqa['bound_fp32_ms']:.4g} / "
-          f"{gqa['bound_ms']:.4g} ms; ssm_scan at "
+          f"{FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}); its kept (row, "
+          f"key) pairs and its bound as {FLASH_TF32_PASSES} TF32 passes "
+          f"(the kernel's, bound_ms) and as one fp32 pass outside the "
+          f"tensor cores (bound_fp32_ms) at the paths' shapes "
+          + json.dumps(flash_work) + f"; ssm_scan at "
           f"{len(ssm_cases)} cases ({len(SSM_MISALIGNED)} of offset "
           f"views), largest deviation {ssm_err:.3g}, "
           f"{ssm_ratio:.3g} of atol {SSM_ATOL} + "
@@ -1910,6 +2040,8 @@ def phase_lm_kernels(torch, dev):
                    ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                for n, row in (("flash_attention", report["flash_attention"]),
                               ("flash_attention (gqa path)", gqa),
+                              ("flash_attention (vlm path)", vlm),
+                              ("flash_attention (audio path)", audio),
                               ("ssm_scan", report["ssm_scan"]))}),
           flush=True)
     return report
@@ -2015,8 +2147,9 @@ def phase_serve_agreement(torch, dev, profile_dir):
     require(not syncs, f"{len(syncs)} host syncs in the decode loop: "
                        f"{syncs[:3]}")
     if profile_dir:
-        prefill_breakdown(torch, params, cfg, tokens[:, :AGREE_PREFILL],
-                          profile_dir, "jamba")
+        prefill_breakdown(torch, params, cfg,
+                          {"tokens": tokens[:, :AGREE_PREFILL]}, profile_dir,
+                          "jamba")
     print("phase 4b ok", flush=True)
 
 
@@ -2132,9 +2265,265 @@ def phase_mla_agreement(torch, dev, profile_dir):
             torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
             ShapeConfig("serve", args.prompt_len, args.batch,
                         "prefill"))["tokens"]
-        prefill_breakdown(torch, params, cfg, tokens, profile_dir,
-                          "deepseek")
+        prefill_breakdown(torch, params, cfg, {"tokens": tokens},
+                          profile_dir, "deepseek")
     print("phase 4d ok", flush=True)
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sync_s(torch, fn):
+    """(fn's result, its host-clock seconds between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _decode_agreement(torch, params, cfg, batch, n_prefill, n, first_pos):
+    """Prefill of ``batch`` cut to its first ``n_prefill`` positions, then
+    teacher-forced decode steps up to ``n``, against one forward over all
+    ``n`` positions: max |logit diff| and the largest |logit|. ``first_pos``
+    is the position of the first token of ``batch["tokens"]`` (the
+    patches come first in a VLM's)."""
+    from repro_torch.models import transformer
+
+    toks = batch["tokens"]
+    h, _ = transformer.forward(params, cfg,
+                               transformer._embed_inputs(params, cfg, batch))
+    want = transformer._lm_head(params, cfg, h[:, n_prefill - 1:n])
+    del h
+    cut = {**batch, "tokens": toks[:, :n_prefill - first_pos]}
+    logits, state = transformer.prefill(params, cfg, cut,
+                                        max_len=n + 2 * SYNC_CHECK_STEPS)
+    got = [logits]
+    for t in range(n_prefill, n):
+        logits, state = transformer.decode_step(params, cfg, state,
+                                                toks[:, t - first_pos], t)
+        got.append(logits)
+    err = float((torch.stack(got, 1) - want).abs().max())
+    return err, float(want.abs().max()), state, logits
+
+
+def phase_xlstm(torch, dev, profile_dir):
+    """Phase 4e: xlstm-125m ONE_H100 (the published config) served as phase
+    4 serves Jamba: no kernel launch (flash 0, scan 0: xLSTM runs none);
+    then on the same params prefill of XLSTM_AGREE_PREFILL tokens and
+    AGREE_STEPS decode steps against one forward, the decode loop's host
+    syncs, one mLSTM and one sLSTM layer card against CPU on LAYER_TOKENS
+    tokens and a warm prefill's seconds. With ``profile_dir``, profile 4
+    decode steps and one prefill (whose host time in each block kind's
+    mixers gives the sLSTM time loops' share)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import registry, transformer, xlstm
+
+    result, launches = phase_serve(torch, dev, XLSTM_SERVE_ARGS,
+                                   XLSTM_SERVE_LAUNCHES, "4e (serve)")
+    args = serve.build_parser().parse_args(XLSTM_SERVE_ARGS
+                                           + ["--device", str(dev)])
+    cfg = serve.config_of(args)
+    params = registry.init_model(
+        torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    n = XLSTM_AGREE_PREFILL + AGREE_STEPS
+    batch = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+        ShapeConfig("agree", n, args.batch, "prefill"))
+    err, scale, state, logits = _decode_agreement(
+        torch, params, cfg, batch, XLSTM_AGREE_PREFILL, n, 0)
+    syncs = host_syncs(torch, lambda: serve.decode_loop(
+        params, cfg, state, torch.argmax(logits, -1), n, SYNC_CHECK_STEPS))
+    if profile_dir:
+        profile_breakdown(torch, lambda: serve.decode_loop(
+            params, cfg, state, torch.argmax(logits, -1),
+            n + SYNC_CHECK_STEPS, SYNC_CHECK_STEPS), profile_dir,
+            f"decode_xlstm_{SYNC_CHECK_STEPS}_steps")
+    del state, logits
+    served = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+        ShapeConfig("serve", args.prompt_len, args.batch, "prefill"))
+    _, prefill_s = _sync_s(torch, lambda: transformer.prefill(
+        params, cfg, served))
+
+    gen = torch.Generator(device=dev).manual_seed(4323)
+    x = torch.randn((1, LAYER_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    blocks = transformer._period(params["period"], 0)
+    kinds = {kind: f"j{j}" for j, kind in enumerate(cfg.pattern)}
+    ratios = {kind: layer_card_vs_cpu(
+        torch, f"{kind} layer", lambda p, v, f=fwd: f(p, cfg, v)[0],
+        blocks[kinds[kind]]["mixer"], x)
+        for kind, fwd in (("mlstm", xlstm.mlstm_forward),
+                          ("slstm", xlstm.slstm_forward))}
+    print(f"phase 4e: {sum(t.numel() for t in _leaves(params))} "
+          f"parameters; prefill of {XLSTM_AGREE_PREFILL} + {AGREE_STEPS} "
+          f"decode steps vs forward over {n} tokens: max |logit diff| "
+          f"{err:.3g} (max |logit| {scale:.3g}, limit {AGREE_LIMIT}); host "
+          f"syncs in {SYNC_CHECK_STEPS} decode steps: {len(syncs)}; on "
+          f"{LAYER_TOKENS} tokens, card vs cpu at {ratios['mlstm']:.3g} "
+          f"(mLSTM layer, chunkwise) and {ratios['slstm']:.3g} (sLSTM "
+          f"layer) of atol {LAYER_ATOL} + rtol {LAYER_RTOL} |cpu|; a warm "
+          f"prefill at B {args.batch} x {args.prompt_len} took "
+          f"{prefill_s:.4g} s (the served one, the first: "
+          f"{result['prefill_s']:.4g} s)", flush=True)
+    require(err <= AGREE_LIMIT, f"xLSTM serve path disagrees with the "
+                                f"forward: {err:.3g} > {AGREE_LIMIT}")
+    require(not syncs, f"{len(syncs)} host syncs in the decode loop: "
+                       f"{syncs[:3]}")
+    if profile_dir:
+        prefill_breakdown(torch, params, cfg, registry.make_prefill_batch(
+            torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+            ShapeConfig("serve", args.prompt_len, args.batch, "prefill")),
+            profile_dir, "xlstm")
+    print("phase 4e ok", flush=True)
+    return launches
+
+
+def phase_vlm(torch, dev, profile_dir):
+    """Phase 4f: paligemma-3b ONE_H100 (the published config) served:
+    flash_attention 18 times a prefill (prefix 256); then on the same
+    params prefill of the 256 patches and 1792 text tokens and AGREE_STEPS
+    decode steps against one forward, the decode loop's host syncs, and
+    one attention layer under the prefix-LM mask card against CPU on
+    LAYER_TOKENS + 44 tokens (the prefix square and a causal tail). With
+    ``profile_dir``, profile one prefill."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, registry, transformer
+
+    result, launches = phase_serve(torch, dev, VLM_SERVE_ARGS,
+                                   VLM_SERVE_LAUNCHES, "4f (serve)")
+    args = serve.build_parser().parse_args(VLM_SERVE_ARGS
+                                           + ["--device", str(dev)])
+    cfg = serve.config_of(args)
+    params = registry.init_model(
+        torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    n = args.prompt_len + AGREE_STEPS
+    p = cfg.vlm_prefix_len
+    batch = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+        ShapeConfig("agree", n, args.batch, "prefill"))
+    err, scale, state, logits = _decode_agreement(
+        torch, params, cfg, batch, args.prompt_len, n, p)
+    syncs = host_syncs(torch, lambda: serve.decode_loop(
+        params, cfg, state, torch.argmax(logits, -1), n, SYNC_CHECK_STEPS))
+    if profile_dir:
+        profile_breakdown(torch, lambda: serve.decode_loop(
+            params, cfg, state, torch.argmax(logits, -1),
+            n + SYNC_CHECK_STEPS, SYNC_CHECK_STEPS), profile_dir,
+            f"decode_paligemma_{SYNC_CHECK_STEPS}_steps")
+    del state, logits
+
+    s = LAYER_TOKENS + 44
+    x = torch.randn((1, s, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(4324),
+                    device=dev)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    mask = {"causal": True, "prefix_len": p, "window": 0}
+    ratio = layer_card_vs_cpu(
+        torch, "attention layer (prefix-LM)",
+        lambda prm, v: attention.gqa_forward(
+            prm, cfg, v, positions.to(v.device), mask)[0],
+        transformer._period(params["period"], 0)["j0"]["mixer"], x)
+    print(f"phase 4f: {sum(t.numel() for t in _leaves(params))} "
+          f"parameters; prefill of {p} patches + {args.prompt_len - p} "
+          f"tokens and {AGREE_STEPS} decode steps vs forward over {n} "
+          f"positions: max |logit diff| {err:.3g} (max |logit| "
+          f"{scale:.3g}, limit {AGREE_LIMIT}); host syncs in "
+          f"{SYNC_CHECK_STEPS} decode steps: {len(syncs)}; the attention "
+          f"layer under the prefix-LM mask on {s} positions, card vs cpu "
+          f"at {ratio:.3g} of atol {LAYER_ATOL} + rtol {LAYER_RTOL} |cpu|",
+          flush=True)
+    require(err <= AGREE_LIMIT, f"PaliGemma serve path disagrees with the "
+                                f"forward: {err:.3g} > {AGREE_LIMIT}")
+    require(not syncs, f"{len(syncs)} host syncs in the decode loop: "
+                       f"{syncs[:3]}")
+    if profile_dir:
+        prefill_breakdown(torch, params, cfg, registry.make_prefill_batch(
+            torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+            ShapeConfig("serve", args.prompt_len, args.batch, "prefill")),
+            profile_dir, "paligemma")
+    print("phase 4f ok", flush=True)
+    return launches
+
+
+def phase_audio(torch, dev, profile_dir):
+    """Phase 4g: hubert-xlarge ONE_H100 (the published config, encoder
+    only): with the launch counts set to 0 just before, the encoder's
+    forward over AUDIO_BATCH x AUDIO_FRAMES frames (AUDIO_MASK_SHARE of them
+    replaced by the mask embedding) and the codebook head's logits at every
+    frame, what the reference's masked prediction computes before its
+    loss: flash_attention 48 times (bidirectional, D 80), finite logits;
+    its seconds and peak memory; then one attention layer card against
+    CPU on LAYER_TOKENS frames. With ``profile_dir``, profile one forward
+    (its device time by class)."""
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig, get_one_h100_arch
+    from repro_torch.models import attention, registry, transformer
+
+    cfg = get_one_h100_arch(AUDIO_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = registry.init_model(torch.Generator(device=dev).manual_seed(0),
+                                 cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = registry.make_prefill_batch(
+        gen, cfg, ShapeConfig("encode", AUDIO_FRAMES, AUDIO_BATCH, "prefill"))
+    batch["mask_positions"] = (torch.rand(
+        (AUDIO_BATCH, AUDIO_FRAMES), generator=gen, device=dev)
+        < AUDIO_MASK_SHARE).to(torch.int32)
+
+    def encode():
+        h, _ = transformer.forward(params, cfg, transformer._embed_inputs(
+            params, cfg, batch))
+        return transformer._lm_head(params, cfg, h)
+
+    kernels.reset_launch_counts()
+    logits, encode_s = _sync_s(torch, encode)
+    launches = kernels.launch_counts()
+    want = {**{name: 0 for name in kernels.WRAPPERS}, **AUDIO_LAUNCHES}
+    require(launches == want, f"launch counts {launches} on the audio "
+                              f"encoder path, expected {want}")
+    require(tuple(logits.shape) == (AUDIO_BATCH, AUDIO_FRAMES, cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"audio encoder logits {tuple(logits.shape)}, finite "
+            f"{bool(torch.isfinite(logits).all())}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del logits
+    _, again_s = _sync_s(torch, encode)
+
+    x = torch.randn((1, LAYER_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    positions = torch.arange(LAYER_TOKENS, dtype=torch.int32,
+                             device=dev)[None]
+    mask = {"causal": False, "prefix_len": 0, "window": 0}
+    ratio = layer_card_vs_cpu(
+        torch, "attention layer (bidirectional)",
+        lambda prm, v: attention.gqa_forward(
+            prm, cfg, v, positions.to(v.device), mask)[0],
+        transformer._period(params["period"], 0)["j0"]["mixer"], x)
+    print("phase 4g ok: " + json.dumps(
+        {"arch": cfg.name, "batch": AUDIO_BATCH, "frames": AUDIO_FRAMES,
+         "params": sum(t.numel() for t in _leaves(params)),
+         "encode_s": encode_s, "encode_again_s": again_s,
+         "peak_mem_gb": peak_gb, "launches": launches,
+         "layer_card_vs_cpu": ratio}), flush=True)
+    if profile_dir:
+        prefill_breakdown(torch, params, cfg, batch, profile_dir, "hubert")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 # the kernels of MoE's routing and dispatch (``moe.route``, the scatter
@@ -2160,10 +2549,20 @@ def kernel_class(name):
     return "other"
 
 
-def prefill_breakdown(torch, params, cfg, tokens, profile_dir, tag):
-    """Profile one prefill; print its device time by class of kernel
-    (``kernel_class``) and write the full table, and each class's
-    kernels by time, into ``profile_dir``."""
+def prefill_breakdown(torch, params, cfg, batch, profile_dir, tag):
+    """Profile one prefill of ``batch`` (``profile_breakdown``)."""
+    from repro_torch.models import transformer
+
+    profile_breakdown(torch, lambda: transformer.prefill(params, cfg, batch),
+                      profile_dir, f"prefill_{tag}")
+
+
+def profile_breakdown(torch, run, profile_dir, tag):
+    """Profile ``run()``; print its device time by class of kernel
+    (``kernel_class``), its device operations, its busy share of the wall
+    time and the host time inside each recurrent block kind's mixers (the
+    forward's ``mixer:<kind>`` ranges), and write the full table, and each
+    class's kernels by time, into ``profile_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -2172,23 +2571,28 @@ def prefill_breakdown(torch, params, cfg, tokens, profile_dir, tag):
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        transformer.prefill(params, cfg, {"tokens": tokens},
-                            max_len=tokens.shape[1])
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     classes = {"gemm": 0.0, "flash_attention": 0.0, "ssm_scan": 0.0,
                "moe_routing": 0.0, "other": 0.0}
-    by_kernel = {}
+    by_kernel, n_ops, mixers = {}, 0, {}
     for e in p.events():
+        if e.name.startswith(transformer.MIXER_RANGE):
+            if e.device_type == DeviceType.CPU:
+                mixers[e.name] = (mixers.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us() / 1e3)
+            continue
         if e.device_type != DeviceType.CUDA:
             continue
+        n_ops += 1
         ms = e.time_range.elapsed_us() / 1e3
         key = kernel_class(e.name)
         classes[key] += ms
         by_kernel[(key, e.name)] = by_kernel.get((key, e.name), 0.0) + ms
     busy = sum(classes.values())
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, f"profile_prefill_{tag}.txt")
+    path = os.path.join(profile_dir, f"profile_{tag}.txt")
     with open(path, "w") as f:
         f.write(p.key_averages().table(sort_by="cuda_time_total",
                                        row_limit=40))
@@ -2196,11 +2600,14 @@ def prefill_breakdown(torch, params, cfg, tokens, profile_dir, tag):
         for (key, name), ms in sorted(by_kernel.items(),
                                       key=lambda kv: -kv[1]):
             f.write(f"{key:16s} {ms:12.4f}  {name[:160]}\n")
-    print(f"prefill profile ({tag}): " + json.dumps(
+    print(f"profile ({tag}): " + json.dumps(
         {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
+         "busy_share": busy / wall_ms, "device_ops": n_ops,
          "device_ms_by_class": classes,
          "share_by_class": {k: v / busy if busy else None
-                            for k, v in classes.items()}})
+                            for k, v in classes.items()},
+         "host_ms_by_mixer": mixers,
+         "host_share_by_mixer": {k: v / wall_ms for k, v in mixers.items()}})
         + f"; table in {path}", flush=True)
 
 
@@ -2318,13 +2725,24 @@ def main(argv=None) -> int:
     phase_mla_agreement(torch, dev, opts.profile)
     torch.cuda.empty_cache()
     lap("phase 4d")
+    xlaunches = phase_xlstm(torch, dev, opts.profile)
+    _free(torch)
+    lap("phase 4e")
+    vlaunches = phase_vlm(torch, dev, opts.profile)
+    _free(torch)
+    lap("phase 4f")
+    alaunches = phase_audio(torch, dev, opts.profile)
+    _free(torch)
+    lap("phase 4g")
     phase_sweep(torch, dev)
     lap("phase 5")
     clau, dclau = phase_cohort(torch, dev, report, opts.profile)
     lap("phase 6")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
-               "mla serve": mlaunches, "cohort": clau, "dense cohort": dclau}
+               "mla serve": mlaunches, "xlstm serve": xlaunches,
+               "vlm serve": vlaunches, "audio encoder": alaunches,
+               "cohort": clau, "dense cohort": dclau}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

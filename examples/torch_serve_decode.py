@@ -2,13 +2,19 @@
 greedy decode (``examples/serve_decode.py`` over the port's
 ``repro_torch.launch.serve``), with the same defaults: DeepSeek-V2 (MLA
 attention, MoE MLPs) at its smoke size, 4 prompts of 32 tokens, 16 new
-tokens each. ``--size one-h100`` serves the published widths cut to one
-80 GB H100 (DeepSeek-V2: 4 layers, 13.14 G parameters). On the GPU by
-default.
+tokens each. ``--size one-h100`` serves the published widths on one 80 GB
+H100 (DeepSeek-V2 cut to 4 layers, 13.14 G parameters; xlstm-125m and
+paligemma-3b whole). ``--arch`` takes any decoder of the zoo; an
+encoder-only one (hubert-xlarge) exits as the reference's does. On the
+GPU by default.
 
   PYTHONPATH=src python examples/torch_serve_decode.py --device cpu
+  PYTHONPATH=src python examples/torch_serve_decode.py --arch xlstm-125m \\
+      --device cpu
   PYTHONPATH=src python examples/torch_serve_decode.py --size one-h100 \\
       --prompt-len 2048 --gen 32
+  PYTHONPATH=src python examples/torch_serve_decode.py --arch paligemma-3b \\
+      --size one-h100 --prompt-len 2048 --gen 32
 """
 import argparse
 import os

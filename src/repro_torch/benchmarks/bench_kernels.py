@@ -7,7 +7,8 @@ Shapes: the JAX package's ``benchmarks/bench_kernels.py`` (attention B 1,
 H 4, S 1024, D 64; FedAvg C 20 x 1 M; the PoW race C 8 x 65 536 attempts)
 and the main paths' (the paper's four MLP leaves at C = 20, the cohort
 path's at C = 64 and 128, the mine stage at 10 240 attempts, Jamba's
-attention and Mamba shapes). Every reading is device ms a call by CUDA
+attention and Mamba shapes, PaliGemma's attention under its prefix-LM
+mask and HuBERT's bidirectional one). Every reading is device ms a call by CUDA
 events over back-to-back calls queued behind a spin kernel
 (``timing.events_ms``, the helper ``chip_smoke.py`` uses). Prints one CSV
 line a case (``name,us_per_call,derived``) and a JSON line with every
@@ -16,9 +17,12 @@ reading and the card's name and power limit.
   PYTHONPATH=src python -m repro_torch.benchmarks.bench_kernels [--quick]
 
 ``--against DIR`` also times ``mix_rows_flat`` at R = K = 20 and 64 over
-the paper's leaves with the kernel built from another tree's ``src`` (an
-unpacked parent commit), in the order other, this, this, other, each by
-the profiler and by CUDA events (``timing.kernel_ms``).
+the paper's leaves, and ``flash_attention`` (causal, no prefix) at
+Jamba's and DeepSeek's attention shapes, with the kernels built from
+another tree's ``src`` (an unpacked parent commit), each held bitwise to
+this tree's and timed in the order other, this, this, other, by the
+profiler and by CUDA events (``timing.kernel_ms``). The other tree's
+flash source must take the prefix-LM form's ``prefix_len``.
 
 It needs the card: ``--device cpu`` is refused, since a CPU run times
 PyTorch's CPU kernels and not these.
@@ -28,6 +32,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -116,17 +121,27 @@ def _lm_cases(dev, gen):
         return torch.randn(shape, generator=gen, device=dev)
 
     cases = []
-    for label, (b, h, hkv, s, d) in (("B1_H4_S1024_D64", (1, 4, 4, 1024, 64)),
-                                     ("jamba_B4_H64_8_S2048_D128",
-                                      (4, 64, 8, 2048, 128))):
+    # (label, shape, causal, prefix)
+    for label, (b, h, hkv, s, d), causal, prefix in (
+            ("B1_H4_S1024_D64", (1, 4, 4, 1024, 64), True, 0),
+            ("jamba_B4_H64_8_S2048_D128", (4, 64, 8, 2048, 128), True, 0),
+            ("paligemma_B4_H8_1_S2048_D256_prefix256",
+             (4, 8, 1, 2048, 256), True, 256),
+            ("hubert_B4_H16_S2048_D80_bidirectional",
+             (4, 16, 16, 2048, 80), False, 0)):
         q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        keep = (flash_ref.keep_mask(s, causal=True, window=0,
+                                    prefix_len=prefix, device=dev)
+                if prefix else None)
+        mask = dict(causal=causal, prefix_len=prefix)
         cases.append((
             "flash_attention", label,
-            lambda q=q, k=k, v=v: flash_ops.mha(q, k, v, causal=True),
-            lambda q=q, k=k, v=v: flash_ref.mha_ref(q, k, v, causal=True),
-            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            lambda q=q, k=k, v=v, m=mask: flash_ops.mha(q, k, v, **m),
+            lambda q=q, k=k, v=v, m=mask: flash_ref.mha_ref(q, k, v, **m),
+            lambda q=q, k=k, v=v, c=causal and not prefix, keep=keep:
+            F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)))
+                attn_mask=keep, is_causal=c, enable_gqa=True)))
     bsz, t, d_in, ds = 4, 2048, 16384, 16
     u, bm, cm = randn(bsz, t, d_in), randn(bsz, t, ds), randn(bsz, t, ds)
     dt = F.softplus(randn(bsz, t, d_in) - 2)
@@ -165,6 +180,75 @@ def _mix_rows_of(src_dir: str):
     return mix
 
 
+def _alternate(fns: dict, label: str, csv_name: str, out: dict, **kw):
+    """Time ``fns["other"]`` and ``fns["this"]`` in the order other, this,
+    this, other (``timing.kernel_ms`` with ``kw``): each reading into
+    ``out`` under ``"<label> <which> <i>"``, and a CSV line."""
+    for i, which in enumerate(("other", "this", "this", "other")):
+        key = f"{label} {which} {i}"
+        timing.kernel_ms(fns[which], key, **kw)
+        reading = timing.READINGS[key]
+        out[key] = {name: reading[name]
+                    for name in ("profiler_ms", "events_ms")}
+        common.csv_line(f"kernel_{csv_name}_{which}_{i}",
+                        1e3 * reading["profiler_ms"],
+                        f"events_us={1e3 * reading['events_ms']:.2f}")
+
+
+def _flash_of(src_dir: str):
+    """``repro_flash_attention`` built from ``src_dir``'s source, as a
+    causal ``mha`` ``(q, k, v) -> out`` (prefix 0) on [B, S, H, D]
+    contiguous fp32 tensors on the current stream."""
+    from repro_torch.kernels import _build
+
+    cu = Path(src_dir) / "repro_torch" / "kernels" / "flash_attention" \
+        / "csrc" / "flash_attention.cu"
+    fn = _build.load_file(cu, "flash_attention-against").repro_flash_attention
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p] * 4 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, i, i,
+                                                    p]
+    fn.restype = ctypes.c_int
+
+    def mha(q, k, v):
+        b, s, h, d = q.shape
+        out = torch.empty_like(q)
+        strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0,
+                 b, h, k.shape[2], s, d, *strides, 1.0 / math.sqrt(d), 1, 0,
+                 0, torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention of {src_dir}: CUDA error "
+                               f"{err}")
+        return out
+
+    return mha
+
+
+def compare_flash(against: str, dev) -> dict:
+    """``flash_attention`` (causal, no prefix) of this tree against the one
+    of ``against`` at Jamba's and DeepSeek's attention shapes, bitwise
+    equal, timed in the order other, this, this, other."""
+    from repro_torch.kernels.flash_attention import ops
+
+    other = _flash_of(against)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for label, (b, h, hkv, s, d) in (("gqa", (4, 64, 8, 2048, 128)),
+                                     ("mla", (4, 128, 128, 2048, 192))):
+        q = torch.randn((b, s, h, d), generator=gen, device=dev)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
+                for _ in range(2))
+        if not torch.equal(other(q, k, v), ops.mha(q, k, v, causal=True)):
+            raise RuntimeError(f"flash_attention differs from {against}'s "
+                               f"at {(b, h, hkv, s, d)}")
+        _alternate({"other": lambda: other(q, k, v),
+                    "this": lambda: ops.mha(q, k, v, causal=True)},
+                   f"flash_attention {label}", f"flash_attention_{label}",
+                   out, reps=10)
+        del q, k, v
+    return out
+
+
 def compare_mix(against: str, dev) -> dict:
     """``mix_rows_flat`` of this tree against the one of ``against`` at R
     = K = 20 and 64 over the paper's leaves, bitwise equal, timed in the
@@ -183,17 +267,10 @@ def compare_mix(against: str, dev) -> dict:
                    for x in xs):
             raise RuntimeError(f"mix_rows_flat differs from {against}'s at "
                                f"R = K = {r}")
-        fns = {"other": lambda: [other(w, x) for x in xs],
-               "this": lambda: [ops.mix_rows_flat(w, x) for x in xs]}
-        for i, which in enumerate(("other", "this", "this", "other")):
-            label = f"mix_rows_flat R{r}xK{r}_leaves {which} {i}"
-            timing.kernel_ms(fns[which], label)
-            reading = timing.READINGS[label]
-            out[label] = {key: reading[key]
-                          for key in ("profiler_ms", "events_ms")}
-            common.csv_line(f"kernel_mix_rows_flat_R{r}_{which}_{i}",
-                            1e3 * reading["profiler_ms"],
-                            f"events_us={1e3 * reading['events_ms']:.2f}")
+        _alternate({"other": lambda: [other(w, x) for x in xs],
+                    "this": lambda: [ops.mix_rows_flat(w, x) for x in xs]},
+                   f"mix_rows_flat R{r}xK{r}_leaves", f"mix_rows_flat_R{r}",
+                   out)
     return out
 
 
@@ -208,7 +285,8 @@ def card_name() -> str:
 def bench(device="cuda", quick: bool = False,
           against: Optional[str] = None) -> dict:
     """Time every case; ``quick`` leaves out the serve path's kernels;
-    ``against`` adds :func:`compare_mix` with that tree."""
+    ``against`` adds :func:`compare_mix` and :func:`compare_flash` with
+    that tree."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"bench_kernels times the CUDA kernels on the "
@@ -234,7 +312,8 @@ def bench(device="cuda", quick: bool = False,
                         f"plain_us={1e3 * row['plain_ms']:.2f};"
                         f"library_us={lib}")
     if against:
-        out["against"] = compare_mix(against, dev)
+        out["against"] = {**compare_mix(against, dev),
+                          **compare_flash(against, dev)}
     out["device"] = card_name()
     print(json.dumps(out))
     return out
@@ -245,8 +324,8 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="the FL kernels only")
     ap.add_argument("--against", metavar="SRC", default=None,
-                    help="also compare mix_rows_flat with the one of "
-                         "another tree's src directory")
+                    help="also compare mix_rows_flat and flash_attention "
+                         "with those of another tree's src directory")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default); cpu is refused")
     args = ap.parse_args(argv)

@@ -34,3 +34,11 @@ SMOKE = dataclasses.replace(
     d_ff=256,
     vocab=96,
 )
+
+ONE_H100 = CONFIG
+"""HuBERT X-Large's encoder (arXiv:2106.07447) as published, not cut: 48
+bidirectional layers of d_model 1280, 16 heads of dim 80, GELU d_ff 5120, a
+504-entry codebook head (the conv feature extractor is a stub: frame
+embeddings arrive as inputs, as in the reference). 0.95 G parameters, 3.8
+GB in fp32: it fits one 80 GB H100 whole, so ``reduced`` lists nothing.
+Encoder only: no decode step."""

@@ -37,3 +37,11 @@ SMOKE = dataclasses.replace(
     vocab=512,
     vlm_prefix_len=16,
 )
+
+ONE_H100 = CONFIG
+"""PaliGemma-3B's decoder (arXiv:2407.07726) as published, not cut: 18 layers
+of d_model 2048, 8 query heads over 1 kv head of dim 256, GeGLU d_ff 16384,
+vocab 257216 tied, a 256-patch image prefix under the prefix-LM mask (the
+SigLIP tower is a stub: patch embeddings arrive as inputs, as in the
+reference). 2.51 G parameters, 10.0 GB in fp32: it fits one 80 GB H100
+whole, so ``reduced`` lists nothing."""

@@ -6,7 +6,10 @@
 // a full-row softmax over the keys with online fp32 statistics (m, l, acc),
 // the causal mask cols <= rows, the window mask cols > rows - window when
 // window > 0, masked logits at -1e30, l clamped to 1e-30, output in the
-// input's type (fp32 or bf16; fp32 inside).
+// input's type (fp32 or bf16; fp32 inside). Beyond the TPU kernel, the
+// prefix-LM mask of the VLM (the JAX model's attention.build_mask): under
+// causal, rows and keys both below prefix_len also attend both ways, so the
+// mask is (cols <= rows || (rows < P && cols < P)) && the window.
 //
 // Bound on the H100: operations. At the serve path's shape (B 4, H 64,
 // S 2048, D 128, causal) QK^T and PV are 2*B*H*S^2*D = 0.275 Tflop after
@@ -49,10 +52,15 @@
 // 16-byte aligned) take the same path with synchronous loads that convert
 // to fp32 while they stage. kv tiles wholly outside the causal and window
 // band are not visited; masks are applied only in tiles that cross a band
-// edge or the ragged tail of S (cols >= S), so any S >= 1 is taken. Causal
-// blocks are scheduled heaviest first. Heads are read through strides, and
-// head h reads kv head h / rep, so GQA needs neither a transpose nor a
-// repeat of K and V. TF32 wgmma would need V transposed in shared memory
+// edge or the ragged tail of S (cols >= S), so any S >= 1 is taken. A q
+// tile that starts below the prefix length P reads keys up to P as well; a
+// kv tile inside the prefix square of a q tile inside it needs no mask,
+// and one that straddles P takes the per-element mask with the prefix
+// term. At P = 0 both tests reduce to the causal ones, so the causal
+// arithmetic is unchanged. Causal blocks are scheduled heaviest first; the
+// q tiles inside a prefix come last and stay among the cheapest (P keys at
+// most). Heads are read through strides, and head h reads kv head h / rep,
+// so GQA needs neither a transpose nor a repeat of K and V. TF32 wgmma would need V transposed in shared memory
 // (it takes K-major operands only): later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,7 +197,8 @@ __global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
           Strides sv, Strides so, int n_heads, int rep, int seq, int dim,
-          int dpad, int stride, float scale_log2, int causal, int window) {
+          int dpad, int stride, float scale_log2, int causal, int window,
+          int prefix) {
   constexpr int MT = m_tiles<NC>();
   constexpr int kBQ = block_q<NC>();
   extern __shared__ __align__(16) float smem[];
@@ -228,7 +237,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   map.dc = kThreads - map.dr * map.cpr;
 
   int kv_begin = 0, kv_end = seq;
-  if (causal) kv_end = min(seq, q0 + kBQ);
+  if (causal) kv_end = min(seq, max(q0 + kBQ, q0 < prefix ? prefix : 0));
   if (window > 0) kv_begin = max(0, q0 - window + 1);
   const int t_begin = kv_begin / kBK;
   const int t_end = (kv_end + kBK - 1) / kBK;
@@ -305,7 +314,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
     // mask (only where the tile crosses a band edge or the tail), online
     // softmax in log2 units, rescale O
-    const bool full = k0 + kBK <= seq && (!causal || k0 + kBK - 1 <= q0) &&
+    const bool full = k0 + kBK <= seq &&
+                      (!causal || k0 + kBK - 1 <= q0 ||
+                       (q0 + kBQ <= prefix && k0 + kBK <= prefix)) &&
                       (window <= 0 || k0 > q0 + kBQ - 1 - window);
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -319,7 +330,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
             const int col = k0 + 8 * j + 2 * tq + (e & 1);
             const int row = row_a[i] + 8 * (e >> 1);
             bool ok = col < seq;
-            if (causal) ok = ok && col <= row;
+            if (causal)
+              ok = ok && (col <= row || (row < prefix && col < prefix));
             if (window > 0) ok = ok && col > row - window;
             x = ok ? x : kNegInf;
           }
@@ -441,7 +453,8 @@ template <typename T, int NC, bool ASYNC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    Strides sq, Strides sk, Strides sv, Strides so, int batch,
                    int n_heads, int rep, int seq, int dim, int dpad,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   float scale, int causal, int window, int prefix,
+                   cudaStream_t stream) {
   constexpr int kBQ = block_q<NC>();
   const int stride = tile_stride(dpad);
   const size_t smem = sizeof(float) * (kBQ + 2 * kBK) * stride;
@@ -453,7 +466,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd<T, NC, ASYNC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, n_heads,
-      rep, seq, dim, dpad, stride, scale * kLog2e, causal, window);
+      rep, seq, dim, dpad, stride, scale * kLog2e, causal, window, prefix);
   return cudaGetLastError();
 }
 
@@ -461,25 +474,26 @@ template <typename T, bool ASYNC>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      Strides sq, Strides sk, Strides sv, Strides so, int batch,
                      int n_heads, int rep, int seq, int dim, float scale,
-                     int causal, int window, cudaStream_t stream) {
+                     int causal, int window, int prefix,
+                     cudaStream_t stream) {
   const int dpad = (dim + 7) / 8 * 8;   // the mma depth
   switch ((dpad + 63) / 64) {
     case 1:
       return launch<T, 1, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
                                  rep, seq, dim, dpad, scale, causal, window,
-                                 stream);
+                                 prefix, stream);
     case 2:
       return launch<T, 2, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
                                  rep, seq, dim, dpad, scale, causal, window,
-                                 stream);
+                                 prefix, stream);
     case 3:
       return launch<T, 3, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
                                  rep, seq, dim, dpad, scale, causal, window,
-                                 stream);
+                                 prefix, stream);
     default:
       return launch<T, 4, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
                                  rep, seq, dim, dpad, scale, causal, window,
-                                 stream);
+                                 prefix, stream);
   }
 }
 
@@ -499,7 +513,8 @@ extern "C" const char* repro_cuda_error_string(int err) {
 // in any axis order, given by element strides (b, s, h) each with a
 // head_dim stride of 1; fp32 (is_bf16 = 0) or bf16. Head h reads kv head
 // h / (n_heads / n_kv_heads). The wrapper checks: 4 <= dim <= 256, dim % 4
-// == 0, n_heads % n_kv_heads == 0, batch * n_heads <= 65535, seq >= 1.
+// == 0, n_heads % n_kv_heads == 0, batch * n_heads <= 65535, seq >= 1, and
+// passes 0 <= prefix_len <= seq (read only under causal).
 // fp32 q, k, v whose bases and strides are 16-byte aligned stage with
 // cp.async; the rest with plain loads.
 extern "C" int repro_flash_attention(
@@ -508,7 +523,7 @@ extern "C" int repro_flash_attention(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, int prefix_len, void* stream) {
   const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
       sv{v_sb, v_ss, v_sh}, so{o_sb, o_ss, o_sh};
   const int rep = n_heads / n_kv_heads;
@@ -517,14 +532,16 @@ extern "C" int repro_flash_attention(
   if (is_bf16) {
     err = dispatch<__nv_bfloat16, false>(q, k, v, o, sq, sk, sv, so, batch,
                                          n_heads, rep, seq, dim, scale,
-                                         causal, window, s);
+                                         causal, window, prefix_len, s);
   } else if (aligned16(q) && aligned16(k) && aligned16(v) &&
              rows_aligned(sq) && rows_aligned(sk) && rows_aligned(sv)) {
     err = dispatch<float, true>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                rep, seq, dim, scale, causal, window, s);
+                                rep, seq, dim, scale, causal, window,
+                                prefix_len, s);
   } else {
     err = dispatch<float, false>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                 rep, seq, dim, scale, causal, window, s);
+                                 rep, seq, dim, scale, causal, window,
+                                 prefix_len, s);
   }
   return static_cast<int>(err);
 }

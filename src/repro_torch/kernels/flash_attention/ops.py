@@ -7,7 +7,9 @@ raise), reading q, k and v through their strides: ``mha`` needs neither a
 transpose nor a repeat of kv. On a CPU tensor they run the plain version
 (``ref.attention_ref``, ``ref.mha_ref``: the JAX package's transposes and
 ``repeat`` of kv around it). Both take any S >= 1 and any head dim D <= 256 that is a
-multiple of 4; fp32 or bf16, fp32 inside. The kernel computes both
+multiple of 4; fp32 or bf16, fp32 inside; the causal, window and
+prefix-LM masks (``ref.keep_mask``; the TPU kernel has no prefix form,
+the JAX model builds that mask in ``attention.build_mask``). The kernel computes both
 products on the tensor cores in 3xTF32, which holds the fp32 tolerance;
 ``ref.attention_tf32`` emulates that arithmetic on the CPU for the tests.
 """
@@ -24,7 +26,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref, mha_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 \
-    + [ctypes.c_float, _I, _I, _P]
+    + [ctypes.c_float, _I, _I, _I, _P]
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -58,12 +60,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{q.device}, {k.device}, {v.device}")
 
 
+def _prefix(prefix_len: int, seq: int) -> int:
+    """The prefix length as the kernel's int takes it, in [0, S]: a prefix
+    that covers the sequence is the whole square, and one of 0 or less
+    none, on both devices."""
+    return max(0, min(int(prefix_len), seq))
+
+
 def _d_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
 def _launch(q, k, v, out, *, seq_axis: int, head_axis: int, causal: bool,
-            window: int, scale: float) -> torch.Tensor:
+            window: int, scale: float, prefix_len: int) -> torch.Tensor:
     """Launch the kernel on 4-D q, k, v, out whose axes are (batch,
     ``seq_axis``, ``head_axis``, dim) with a head_dim stride of 1."""
     q, k, v = _d_contiguous(q), _d_contiguous(k), _d_contiguous(v)
@@ -82,7 +91,7 @@ def _launch(q, k, v, out, *, seq_axis: int, head_axis: int, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, h, hkv, s, d, *strides(q),
         *strides(k), *strides(v), *strides(out), scale, int(causal),
-        int(window), stream)
+        int(window), _prefix(prefix_len, s), stream)
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out
@@ -90,11 +99,13 @@ def _launch(q, k, v, out, *, seq_axis: int, head_axis: int, causal: bool,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """q, k, v: [B, H, S, D] (kv already expanded to H heads) -> [B, H, S,
-    D]: softmax attention with the causal mask (``causal``) and the window
-    mask cols > rows - window (``window > 0``), scale 1/sqrt(D) unless
-    given."""
+    D]: softmax attention with the causal mask (``causal``), under it the
+    prefix-LM square (rows and keys both below ``prefix_len`` attend both
+    ways), and the window mask cols > rows - window (``window > 0``);
+    scale 1/sqrt(D) unless given (``ref.keep_mask``)."""
     _check(q, k, v)
     if k.shape != q.shape:
         raise ValueError(f"q/k/v shapes must match: q={tuple(q.shape)} "
@@ -102,19 +113,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+                             scale=scale, prefix_len=prefix_len)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _launch(q, k, v, out, seq_axis=2, head_axis=1, causal=causal,
-                   window=window, scale=scale)
+                   window=window, scale=scale, prefix_len=prefix_len)
 
 
 flash_attention.launches = 0
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, window: int = 0) -> torch.Tensor:
+        causal: bool = True, window: int = 0,
+        prefix_len: int = 0) -> torch.Tensor:
     """q: [B, S, H, D]; k, v: [B, S, Hkv, D] (GQA, H a multiple of Hkv; head
-    h reads kv head h // (H / Hkv)) -> [B, S, H, D], scale 1/sqrt(D)."""
+    h reads kv head h // (H / Hkv)) -> [B, S, H, D], scale 1/sqrt(D); the
+    masks as in :func:`flash_attention`."""
     _check(q, k, v)
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -123,7 +136,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)} need equal B, S, D and H a "
                          "multiple of Hkv")
     if q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=causal, window=window)
+        return mha_ref(q, k, v, causal=causal, window=window,
+                       prefix_len=prefix_len)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     return _launch(q, k, v, out, seq_axis=1, head_axis=2, causal=causal,
-                   window=window, scale=1.0 / math.sqrt(d))
+                   window=window, scale=1.0 / math.sqrt(d),
+                   prefix_len=prefix_len)

@@ -12,22 +12,37 @@ import torch
 NEG_INF = -1e30
 
 
+def keep_mask(s: int, *, causal: bool, window: int, prefix_len: int,
+              device) -> torch.Tensor:
+    """[S, S] bool, True where row i may attend to key j: under ``causal``
+    the keys j <= i, and (prefix-LM) every pair inside the first
+    ``prefix_len`` positions, as the JAX package's ``build_mask`` has it;
+    without ``causal`` every pair (``prefix_len`` ignored, as there). Then,
+    with ``window > 0``, only the keys j > i - window."""
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        ok = j <= i
+        if prefix_len > 0:
+            ok = ok | ((i < prefix_len) & (j < prefix_len))
+    if window > 0:
+        ok = ok & (j > i - window)
+    return ok
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
     """q, k, v: [B, H, S, D] -> [B, H, S, D]; full softmax attention with
-    the dense [S, S] mask, in fp32, output in q's dtype."""
+    the dense [S, S] mask (``keep_mask``), in fp32, output in q's dtype."""
     s, d = q.shape[2], q.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
                           k.to(torch.float32)) * scale
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        ok = ok & (j <= i)
-    if window > 0:
-        ok = ok & (j > i - window)
+    ok = keep_mask(s, causal=causal, window=window, prefix_len=prefix_len,
+                   device=q.device)
     logits = torch.where(ok, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", probs,
@@ -35,7 +50,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, window: int = 0) -> torch.Tensor:
+            causal: bool = True, window: int = 0,
+            prefix_len: int = 0) -> torch.Tensor:
     """q: [B, S, H, D]; k, v: [B, S, Hkv, D] -> [B, S, H, D]: the JAX
     package's ``mha`` without its kernel (kv repeated to H heads, heads
     moved before S, ``attention_ref``, moved back)."""
@@ -43,7 +59,7 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
     out = attention_ref(q.transpose(1, 2), kt, vt, causal=causal,
-                        window=window)
+                        window=window, prefix_len=prefix_len)
     return out.transpose(1, 2)
 
 
@@ -77,7 +93,7 @@ def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
 def attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
                    scale: Optional[float] = None,
-                   passes: int = 3) -> torch.Tensor:
+                   passes: int = 3, prefix_len: int = 0) -> torch.Tensor:
     """``attention_ref`` with QK^T and PV as the flash kernel computes them
     on the tensor cores (``tf32_matmul`` with ``passes``): the scale applied
     to the product, the softmax in fp32. q, k, v: [B, H, S, D]. A test
@@ -85,12 +101,7 @@ def attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s, d = q.shape[2], q.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = tf32_matmul(q, k.transpose(-1, -2), passes) * scale
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        ok = ok & (j <= i)
-    if window > 0:
-        ok = ok & (j > i - window)
+    ok = keep_mask(s, causal=causal, window=window, prefix_len=prefix_len,
+                   device=q.device)
     probs = torch.softmax(torch.where(ok, logits, NEG_INF), dim=-1)
     return tf32_matmul(probs, v, passes).to(q.dtype)

@@ -9,13 +9,20 @@ greedy decode through the cache (the JAX package's ``launch/serve.py``).
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-236b --size one-h100 --batch 4 \\
       --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch paligemma-3b --size one-h100 --batch 4 \\
+      --prompt-len 2048 --gen 32      # also xlstm-125m
 
 ``--size smoke`` runs the architecture's CPU-test config, ``--size
-one-h100`` its published widths cut to one 80 GB H100 (Jamba and
-DeepSeek-V2 have one). Weights are random, drawn on the device from
-``--seed``; the prompts from ``--seed + 1``. The prefill runs the
-flash-attention kernel in every attention layer (GQA or MLA) and the
-selective-scan kernel in every Mamba layer; decode is plain torch. Times
+one-h100`` its published widths on one 80 GB H100: cut to fit for Jamba
+and DeepSeek-V2, whole for xLSTM-125M and PaliGemma-3B. Weights are
+random, drawn on the device from ``--seed``; the prompts from ``--seed +
+1`` (for PaliGemma the prompt is its 256 image-patch embeddings, drawn
+N(0, 1), then ``--prompt-len`` - 256 text tokens). The prefill runs the
+flash-attention kernel in every attention layer (GQA, MLA, or under the
+VLM's prefix-LM mask) and the selective-scan kernel in every Mamba layer;
+xLSTM's blocks and decode are plain torch. An encoder-only config
+(HuBERT) exits, as the reference's driver does. Times
 are host-clock seconds between ``torch.cuda.synchronize()`` calls; the
 decode loop keeps its tokens on the device and makes no host sync until
 the end. It prints the reference's JSON keys plus ``launches`` (kernel

@@ -1,6 +1,6 @@
-"""Attention: GQA (qk-norm, sliding window) and DeepSeek-style MLA, each
-with a full-sequence forward and a single-step decode (the JAX package's
-``models/attention.py``).
+"""Attention: GQA (qk-norm, sliding window, prefix-LM mask) and
+DeepSeek-style MLA, each with a full-sequence forward and a single-step
+decode (the JAX package's ``models/attention.py``).
 
 KV caches:
   GQA: ``{"k": [B, S_cache, Hkv, hd], "v": [B, S_cache, Hkv, hd]}``, a
@@ -8,8 +8,10 @@ KV caches:
   MLA: ``{"ckv": [B, S_cache, kv_lora], "k_rope": [B, S_cache, rope_dim]}``.
 
 The full-sequence forward goes through the flash-attention kernel
-(``kernels.flash_attention.ops.mha``) for every causal or bidirectional
-mask it takes; the prefix-LM mask of the VLM is not one of them. MLA's
+(``kernels.flash_attention.ops.mha``) for every mask the reference's
+``build_mask`` makes: causal, bidirectional, windowed, and the VLM's
+prefix-LM mask (``mask_info["prefix_len"]``: the image positions attend
+to each other both ways, the text causally). MLA's
 forward reconstructs per-head keys and values from the latent and runs
 the kernel at head dim hd + rope (keys and queries concatenated with their
 rope parts, values zero-padded), the reference's materialized form; its
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -120,11 +123,14 @@ def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _no_prefix_lm(mask_info: dict) -> None:
-    if mask_info.get("prefix_len", 0):
-        raise NotImplementedError(
-            "the prefix-LM mask (VLM) is not ported yet: ROADMAP Queue 1 "
-            "item 10e")
+def _flash_mask(mask_info: dict) -> dict:
+    """The mask keywords of ``flash_ops.mha`` for the model's symbolic mask
+    (``{"causal", "prefix_len", "window"}``): the window and the prefix
+    only under the causal mask, as ``build_mask`` reads them."""
+    causal = mask_info["causal"]
+    return {"causal": causal,
+            "window": mask_info.get("window", 0) if causal else 0,
+            "prefix_len": mask_info.get("prefix_len", 0) if causal else 0}
 
 
 def _check_position(pos: int, capacity: int) -> None:
@@ -137,14 +143,11 @@ def gqa_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, mask_info: dict
                 ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward. Returns (out, kv) where kv feeds cache fill.
-    The window applies only under the causal mask, as the reference's
-    ``build_mask`` applies it."""
-    _no_prefix_lm(mask_info)
+    The window and the prefix apply only under the causal mask, as the
+    reference's ``build_mask`` applies them."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
-    causal = mask_info["causal"]
-    window = mask_info.get("window", 0) if causal else 0
-    out = flash_ops.mha(q, k, v, causal=causal, window=window)
+    out = flash_ops.mha(q, k, v, **_flash_mask(mask_info))
     out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
     return out @ params["w_o"], {"k": k, "v": v}
 
@@ -232,7 +235,7 @@ def _mla_attend(params: Params, cfg: ModelConfig, q_nope, q_rope, ckv,
 
 
 def _mla_attend_materialized(params: Params, cfg: ModelConfig, q_nope,
-                             q_rope, ckv, k_rope, causal: bool, window: int):
+                             q_rope, ckv, k_rope, mask_info: dict):
     """Prefill form: per-head keys and values reconstructed from the
     latent once, then the flash kernel at head dim hd + rope, its scale
     1/sqrt(hd + rope) the reference's; values zero-padded to that dim and
@@ -247,19 +250,14 @@ def _mla_attend_materialized(params: Params, cfg: ModelConfig, q_nope,
     del k_nope
     v_pad = F.pad(v, (0, r))
     del v
-    out = flash_ops.mha(q_cat, k_cat, v_pad, causal=causal, window=window)
+    out = flash_ops.mha(q_cat, k_cat, v_pad, **_flash_mask(mask_info))
     return out[..., :hd].reshape(b, s, h * hd) @ params["w_o"]
 
 
-def _dense_mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
-    """[S, S] additive mask (0 or NEG_INF): causal, and within the window
-    when ``window > 0`` (the reference's ``build_mask``)."""
-    i = torch.arange(s, device=device)[:, None]
-    j = torch.arange(s, device=device)[None, :]
-    ok = j <= i if causal else torch.ones((s, s), dtype=torch.bool,
-                                          device=device)
-    if causal and window:
-        ok = ok & (j > i - window)
+def _dense_mask(s: int, mask_info: dict, device) -> torch.Tensor:
+    """[S, S] additive mask (0 or NEG_INF), the reference's ``build_mask``
+    (``flash_attention.ref.keep_mask`` under ``_flash_mask``'s rules)."""
+    ok = flash_ref.keep_mask(s, **_flash_mask(mask_info), device=device)
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
@@ -270,17 +268,14 @@ def mla_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     default is the materialized form on the flash kernel; ``absorbed``
     takes the latent-space form with a dense mask (plain torch), the
     reference's ablation, which it selects by ``REPRO_MLA_ABSORBED``."""
-    _no_prefix_lm(mask_info)
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
     ckv, k_rope = _mla_kv(params, cfg, x, positions)
-    causal = mask_info["causal"]
-    window = mask_info.get("window", 0) if causal else 0
     if absorbed:
-        mask = _dense_mask(x.shape[1], causal, window, x.device)
+        mask = _dense_mask(x.shape[1], mask_info, x.device)
         out = _mla_attend(params, cfg, q_nope, q_rope, ckv, k_rope, mask)
     else:
         out = _mla_attend_materialized(params, cfg, q_nope, q_rope, ckv,
-                                       k_rope, causal, window)
+                                       k_rope, mask_info)
     return out, {"ckv": ckv, "k_rope": k_rope}
 
 

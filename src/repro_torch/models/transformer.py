@@ -1,6 +1,7 @@
 """The serving part of the JAX package's ``models/transformer.py``: decoder
-LMs and the hybrid Mamba/attention stack, with a full forward, prefill and
-a cached decode step.
+LMs (dense, MoE, MLA), the hybrid Mamba/attention stack, xLSTM, the
+prefix-LM VLM and the audio encoder, with a full forward, prefill and a
+cached decode step.
 
 Layer layout and params are the reference's: ``n_dense_prefix`` unrolled
 blocks (``params["prefix"]``), then the remaining layers grouped into
@@ -10,12 +11,16 @@ params stacked over periods (``params["period"]["j<j>"]``, leaves
 (``weights.lm_params_from_jax``). Where the reference scans over periods,
 the port runs a Python loop and indexes period ``p`` of every leaf (a view).
 
-Block kinds ``attn`` (GQA or MLA) and ``ssm``, each with a dense or an
-MoE MLP, are ported; a block takes the MoE MLP where the reference's
-``_uses_moe`` says so. ``mlstm``/``slstm``, the VLM patch prefix and the
-audio frontend raise NotImplementedError naming the ROADMAP item that
-ports them. The forward drops MoE's load-balance loss, which only
-training reads.
+Block kinds ``attn`` (GQA or MLA), ``ssm``, ``mlstm`` and ``slstm``, each
+with a dense or an MoE MLP (or none, ``d_ff = 0``), as the reference's
+``_init_block`` lays them out; a block takes the MoE MLP where the
+reference's ``_uses_moe`` says so. Inputs as the reference's
+``_embed_inputs`` takes them: tokens; for a VLM (``family == "vlm"``) the
+image's patch embeddings ``[B, P, D]`` before the text tokens, under the
+prefix-LM mask (``prefix_len = cfg.vlm_prefix_len``); for the audio
+encoder frame embeddings ``[B, S, D]``, optionally blended with
+``mask_emb`` at ``mask_positions``, plus the positional conv. The forward
+drops MoE's load-balance loss, which only training reads.
 
 Public API:
   init_lm(generator, cfg, dtype)                   -> params
@@ -36,25 +41,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention, layers, moe as moe_lib, \
-    ssm as ssm_lib
+    ssm as ssm_lib, xlstm as xlstm_lib
 
 Params = Dict[str, Any]
 
-# what is not ported yet, and the ROADMAP item (Queue 1) that ports it
-_TODO = {
-    "xlstm": "mLSTM/sLSTM blocks (models/xlstm.py) are not ported yet: "
-             "ROADMAP Queue 1 item 10d",
-    "frontend": "the VLM patch prefix and the audio frontend are not ported "
-                "yet: ROADMAP Queue 1 item 10e",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config that needs an unported part."""
-    if {"mlstm", "slstm"} & set(cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: {_TODO['xlstm']}")
-    if cfg.family == "vlm" or cfg.audio_frontend:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['frontend']}")
+_MIXER_INIT = {"attn": attention.init_attention, "ssm": ssm_lib.init_ssm,
+               "mlstm": xlstm_lib.init_mlstm, "slstm": xlstm_lib.init_slstm}
+# the recurrent mixers' full-sequence forward, decode step and zeroed state
+_FORWARD = {"ssm": ssm_lib.ssm_forward, "mlstm": xlstm_lib.mlstm_forward,
+            "slstm": xlstm_lib.slstm_forward}
+_DECODE = {"ssm": ssm_lib.ssm_decode, "mlstm": xlstm_lib.mlstm_decode,
+           "slstm": xlstm_lib.slstm_decode}
+_STATE = {"ssm": ssm_lib.init_state, "mlstm": xlstm_lib.init_mlstm_state,
+          "slstm": xlstm_lib.init_slstm_state}
+# the profiler range around each recurrent mixer's forward, named by kind
+# ("mixer:slstm"), so a profile splits a prefill's host time by block kind
+MIXER_RANGE = "mixer:"
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +116,9 @@ def _stack(trees: List[Params]) -> Params:
 
 def _init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
                 use_moe: bool, dtype, lead: Tuple[int, ...] = ()) -> Params:
-    init = attention.init_attention if kind == "attn" else ssm_lib.init_ssm
     dev = generator.device
     p: Params = {"norm1": layers.rms_norm_init(cfg.d_model, dtype, dev, lead),
-                 "mixer": init(generator, cfg, dtype, lead)}
+                 "mixer": _MIXER_INIT[kind](generator, cfg, dtype, lead)}
     if use_moe or cfg.d_ff > 0:
         p["norm2"] = layers.rms_norm_init(cfg.d_model, dtype, dev, lead)
     if use_moe:
@@ -148,7 +149,8 @@ def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
         out, cache = attention.attn_forward(p["mixer"], cfg, h, positions,
                                             mask)
     else:
-        out, cache = ssm_lib.ssm_forward(p["mixer"], cfg, h)
+        with torch.profiler.record_function(MIXER_RANGE + kind):
+            out, cache = _FORWARD[kind](p["mixer"], cfg, h)
     x = x + out
     if "norm2" in p:
         x = _mlp_half(p, cfg, x, moe_drops)
@@ -161,7 +163,7 @@ def _block_decode(p: Params, cfg: ModelConfig, kind: str, x_t, pos: int,
     if kind == "attn":
         out, cache = attention.attn_decode(p["mixer"], cfg, h, pos, cache)
     else:
-        out, cache = ssm_lib.ssm_decode(p["mixer"], cfg, h, cache)
+        out, cache = _DECODE[kind](p["mixer"], cfg, h, cache)
     x_t = x_t + out
     if "norm2" in p:
         x_t = _mlp_half(p, cfg, x_t)
@@ -177,7 +179,6 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
             dtype=torch.float32) -> Params:
     """Random params in the reference's tree, drawn on the generator's
     device."""
-    check_supported(cfg)
     _check_static_period(cfg)
     n_per = _n_periods(cfg)
     params: Params = {
@@ -188,6 +189,11 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(generator, cfg.d_model,
                                               cfg.vocab, dtype)
+    if cfg.audio_frontend:
+        params["mask_emb"] = layers._randn(generator, (cfg.d_model,), 0.02,
+                                           dtype)
+        params["pos_conv"] = layers.causal_conv_init(generator, cfg.d_model,
+                                                     4, dtype)
     if cfg.n_dense_prefix:
         params["prefix"] = [_init_block(generator, cfg, "attn", False, dtype)
                             for _ in range(cfg.n_dense_prefix)]
@@ -207,8 +213,23 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Token embeddings [B, S, D] (the token path of the reference)."""
-    return params["embed"][batch["tokens"]]
+    """The model's input [B, S, D], as the reference's ``_embed_inputs``
+    builds it for serving: for a VLM ``patches`` [B, P, D] then the
+    embeddings of ``tokens`` [B, S - P]; for the audio encoder ``frames``
+    [B, S, D], with ``mask_emb`` in place of the frames at
+    ``mask_positions`` [B, S] (0/1) when given, plus the positional conv
+    of the result; else the embeddings of ``tokens``."""
+    emb = params["embed"]
+    if cfg.family == "vlm":
+        return torch.cat([batch["patches"].to(emb.dtype),
+                          emb[batch["tokens"]]], dim=1)
+    if cfg.audio_frontend:
+        frames = batch["frames"].to(emb.dtype)
+        if "mask_positions" in batch:
+            m = batch["mask_positions"][..., None].to(emb.dtype)
+            frames = frames * (1 - m) + params["mask_emb"] * m
+        return frames + layers.causal_conv_apply(params["pos_conv"], frames)
+    return emb[batch["tokens"]]
 
 
 def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -219,11 +240,11 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     ``want_cache``, else None. With ``moe_drops`` given, each MoE layer
     appends its (assignments, dropped count) to it
     (``moe.moe_apply``)."""
-    check_supported(cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    mask = {"causal": cfg.causal, "prefix_len": 0,
+    mask = {"causal": cfg.causal,
+            "prefix_len": cfg.vlm_prefix_len if cfg.family == "vlm" else 0,
             "window": cfg.sliding_window}
     prefix_caches = []
     for blk in params.get("prefix", []):
@@ -261,7 +282,7 @@ def _cache_struct(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                   dtype, device) -> Params:
     if kind == "attn":
         return attention.init_cache(cfg, batch, max_len, dtype, device)
-    return ssm_lib.init_state(cfg, batch, dtype, device)
+    return _STATE[kind](cfg, batch, dtype, device)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -269,7 +290,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: DeviceLike = "cuda") -> Params:
     """Zeroed caches for decode, on ``device`` (the card unless asked
     for the CPU; raises without a GPU)."""
-    check_supported(cfg)
     device = resolve_device(device)
     n_per = _n_periods(cfg)
     state: Params = {}
@@ -305,8 +325,9 @@ def _fill_attn_cache(cfg: ModelConfig, kv: Params, max_len: int,
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, max_len: int = 0,
             moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None):
-    """Run the full prompt; return (last-token logits [B, V], decode
-    state). ``moe_drops`` as in :func:`forward`."""
+    """Run the full prompt (a batch as :func:`_embed_inputs` takes it);
+    return (last-token logits [B, V], decode state). ``moe_drops`` as in
+    :func:`forward`."""
     x = _embed_inputs(params, cfg, batch)
     max_len = max_len or x.shape[1]
     h, caches = forward(params, cfg, x, want_cache=True, moe_drops=moe_drops)
@@ -328,7 +349,6 @@ def decode_step(params: Params, cfg: ModelConfig, state: Params,
     """token: [B] int; pos: the position being decoded (a Python int: the
     step makes no host sync). Returns (logits [B, V], state), ``state``
     updated in place."""
-    check_supported(cfg)
     x_t = params["embed"][token]
     for blk, cache in zip(params.get("prefix", []), state.get("prefix", [])):
         x_t, _ = _block_decode(blk, cfg, "attn", x_t, pos, cache)

@@ -539,16 +539,3 @@ def test_state_allocators_default_to_the_gpu(name):
         pytest.skip("a GPU is present: the default device does not raise")
     with pytest.raises(RuntimeError, match="cuda"):
         _allocators()[name]()
-
-
-@pytest.mark.parametrize("arch,changes", [
-    ("xlstm-125m", {}),                            # mLSTM / sLSTM
-    ("paligemma-3b", {}),                          # VLM patch prefix
-    ("hubert-xlarge", {}),                         # audio frontend
-])
-def test_unported_parts_raise_not_implemented(arch, changes):
-    cfg = dataclasses.replace(configs.get_smoke_arch(arch), **changes)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        transformer.init_lm(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_decode_state(cfg, 1, 4, device="cpu")
