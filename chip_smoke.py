@@ -137,7 +137,24 @@ prints its seconds:
    ``touched``, at most one host sync a round, peak device memory under
    COHORT_PEAK_GB, each round's host-clock split and a profiled busy
    share; 6c the degenerate cohort (20 of 20, ``prefix``) bitwise equal
-   to the loop driver; 6d 1 000 enrolled, cohort 16, card against CPU.
+   to the loop driver; 6d 1 000 enrolled, cohort 16, card against CPU;
+7. LM training on the card (``launch.train --arch``): 7a ``flash_attention``,
+   ``mha`` and ``ssm_scan`` refuse CUDA inputs that require grad (their
+   kernels have no backward yet) and launch under ``torch.no_grad()``, and
+   a phi4-mini smoke training loss on the card raises naming flash; 7b
+   ``fedavg_flat`` and ``digest_div_flat`` (tolerance) and the seal
+   (bitwise) at C = 4 on every xLSTM-125M leaf (up to 38.6 M floats a
+   row), with their times over a round's leaves and at the widest; 7c
+   xLSTM-125M at its published widths (0.22 G parameters), 4 clients of 2
+   x 256 tokens, K = 3, one lazy client, by both drivers: bitwise equal,
+   launch counts exact (the seal K times, ``fedavg_flat`` and
+   ``digest_div_flat`` once a leaf a round, flash, scan and mix never), no
+   host sync in the loop's rounds nor in the replays, a valid chain,
+   finite losses; the ms a round by each driver and a replay's, the warm
+   round's and the captures' seconds, the peak device memory and, under
+   ``--profile``, the replays' busy share and device operations a round;
+   7d the xLSTM smoke config with 2 microbatches a client at K = 2 by
+   both drivers, bitwise, and card against CPU.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -146,6 +163,7 @@ exits non-zero, and prints no result, without a GPU or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -416,6 +434,7 @@ MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
 # batch runs on the graph driver (a warm round and K - 1 replays, the
 # replays' launches added by the driver); the serve paths call the wrappers
 LAUNCHED_BY = {"paper": "graph driver", "topology": "graph driver",
+               "xlstm train": "graph driver",
                "serve": "eager calls", "mla serve": "eager calls",
                "xlstm serve": "eager calls", "vlm serve": "eager calls",
                "audio encoder": "eager calls"}
@@ -463,6 +482,27 @@ MIX_COHORT_BLOCKS = [(16, 16), (64, 64), (65, 65), (100, 100), (128, 128),
                      (20, 200), (200, 20), (256, 256)]
 MIX_COHORT_WIDTHS = list(LEAF_WIDTHS.values()) + [784 * 256 + 1, 7]
 MIX_TIMED = [(20, 20), (64, 64), (128, 128)]
+
+# phase 7: LM training on the card (launch/train.py --arch): xLSTM-125M at
+# its published widths (configs/xlstm_125m.py ONE_H100: nothing cut, 0.22 G
+# parameters), C = 4 clients of 2 sequences of 256 tokens, K = 3 rounds, one
+# lazy client (sigma2 1e-4), FullMesh, the reference's run_arch_smoke round
+# (tau 2, eta 1e-2, 256 attempts, difficulty 2)
+K_TRAIN = 3
+TRAIN_CLIENTS = 4
+XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--size", "one-h100",
+                    "--clients", str(TRAIN_CLIENTS), "--per-client", "2",
+                    "--seq", "256", "--rounds", str(K_TRAIN), "--lazy", "1",
+                    "--sigma2", "1e-4"]
+# 7d: the smoke config, each client's batch in 2 microbatches, by both
+# drivers and against the CPU
+K_TRAIN_SMOKE = 2
+XLSTM_MB_ARGS = ["--arch", "xlstm-125m", "--size", "smoke", "--clients",
+                 str(TRAIN_CLIENTS), "--per-client", "2", "--seq", "32",
+                 "--rounds", str(K_TRAIN_SMOKE), "--lazy", "1", "--sigma2",
+                 "1e-4", "--microbatches", "2"]
+# 7a: an arch whose forward launches flash (GQA), trained on the card
+GUARD_ARCH = "phi4-mini-3.8b"
 
 
 class SmokeFailure(RuntimeError):
@@ -911,15 +951,16 @@ def phase_kernels(torch, dev):
     return report
 
 
-def counted_run(torch, args, jit):
-    """``launch.train``'s run of ``args`` on the driver ``jit`` picks, the
-    launch counts set to 0 just before and read just after. Returns
+def counted_run(torch, args, jit, run=None):
+    """``launch.train``'s run of ``args`` (``run``: ``train.train_mlp``
+    unless given, or ``train.train_arch``) on the driver ``jit`` picks,
+    the launch counts set to 0 just before and read just after. Returns
     (result, state, history, launches)."""
     from repro_torch import kernels
     from repro_torch.launch import train
 
     kernels.reset_launch_counts()
-    result, state, hist = train.train_mlp(args, jit=jit)
+    result, state, hist = (run or train.train_mlp)(args, jit=jit)
     torch.cuda.synchronize()
     return result, state, hist, kernels.launch_counts()
 
@@ -931,16 +972,17 @@ def drive_path(torch, dev, flags, want, what, falling=True):
     the two runs agree bitwise (params, every per-round metric, the ledger's
     fields and head), the ledger, finite metrics, (``falling``) a falling
     global loss, and that neither the loop's rounds nor the replays make a
-    host sync (``round_host_syncs``, kept in ``result["host_syncs"]``).
-    Returns (args, result, state, history, launches) of the graph driver's
-    run."""
+    host sync (``watched_rounds`` on those two runs, kept in
+    ``result["host_syncs"]``). Returns (args, result, state, history,
+    launches) of the graph driver's run."""
     from repro_torch import kernels
     from repro_torch.launch import train
 
     args = train.build_parser().parse_args(flags + ["--device", str(dev)])
     want = {**{name: 0 for name in kernels.WRAPPERS}, **want}
-    result, state, hist, launches = counted_run(torch, args, True)
-    lresult, lstate, lhist, llaunches = counted_run(torch, args, False)
+    with watched_rounds(torch) as syncs:
+        result, state, hist, launches = counted_run(torch, args, True)
+        lresult, lstate, lhist, llaunches = counted_run(torch, args, False)
     for driver, res, counts in (("graph", result, launches),
                                 ("loop", lresult, llaunches)):
         require(res["dispatch"]["driver"] == driver,
@@ -970,7 +1012,8 @@ def drive_path(torch, dev, flags, want, what, falling=True):
     require(all(math.isfinite(v.float().abs().sum().item())
                 for v in state.params.values()),
             f"non-finite params on the {what}")
-    syncs = result["host_syncs"] = round_host_syncs(torch, args)
+    syncs = result["host_syncs"] = {key: syncs[key] for key
+                                    in ("loop", "setup", "replays")}
     for key in ("loop", "replays"):
         require(not syncs[key], f"{len(syncs[key])} host syncs in the "
                                 f"{key} of the {what}: {syncs[key][:3]}")
@@ -1179,34 +1222,54 @@ def host_syncs(torch, fn):
             if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def round_host_syncs(torch, args):
-    """The host syncs of the path ``args`` selects, by part of a run (the
-    buffers' set-up and the end-of-run transfer left out): ``loop``, the K
-    rounds of the loop driver; ``setup``, the graph driver's warm round
-    and captures; ``replays``, its K - 1 replays. The design makes none in
+@contextlib.contextmanager
+def watched_rounds(torch):
+    """Within the block, read the host syncs of each part of the round
+    drivers' runs that the block makes through the entry points themselves
+    (the buffers' set-up and the end-of-run transfer left out): ``loop``,
+    each ``RoundRunner.step`` the loop driver calls; ``setup``, each
+    ``CapturedRounds`` made (the graph driver's warm round and captures);
+    ``replays``, each ``CapturedRounds.replay``. The design makes none in
     the rounds: the carry, the metrics, the mixing matrices and the noise
     (uploaded before the rounds) and every input of the race stay on the
-    device."""
+    device. Yields ``{part: [warnings]}`` and the host seconds of each part
+    under ``"seconds"`` (between two synchronizes)."""
     from repro_torch.core import rounds
-    from repro_torch.launch import train
-    from repro_torch.models.mlp import mlp_client_losses
 
-    blade, spec, src, params, dev = train.prepare_mlp(args)
-    batch = src.static_batch()
+    out = {"loop": [], "setup": [], "replays": [],
+           "seconds": {"loop": 0.0, "setup": 0.0, "replays": 0.0}}
+    step = rounds.RoundRunner.step
+    init = rounds.CapturedRounds.__init__
+    replay = rounds.CapturedRounds.replay
+    capturing = []
 
-    def runner():
-        return rounds.RoundRunner(mlp_client_losses, spec, params, blade.K,
-                                  seed=blade.seed + 2, device=dev)
+    def watch(part, fn, *args):
+        t0 = time.perf_counter()
+        out[part] += host_syncs(torch, lambda: fn(*args))
+        out["seconds"][part] += time.perf_counter() - t0
 
-    loop = runner()
-    out = {"loop": host_syncs(torch, lambda: [loop.step(k, batch)
-                                              for k in range(blade.K)])}
-    graph = runner()
-    captured = []
-    out["setup"] = host_syncs(torch, lambda: captured.append(
-        rounds.CapturedRounds(graph, batch)))
-    out["replays"] = host_syncs(torch, captured[0].replay)
-    return out
+    def watched_step(self, *args):
+        if capturing:   # the graph driver's warm round and captures
+            return step(self, *args)
+        return watch("loop", step, self, *args)
+
+    def watched_init(self, *args):
+        capturing.append(True)
+        try:
+            watch("setup", init, self, *args)
+        finally:
+            capturing.pop()
+
+    rounds.RoundRunner.step = watched_step
+    rounds.CapturedRounds.__init__ = watched_init
+    rounds.CapturedRounds.replay = lambda self: watch("replays", replay,
+                                                      self)
+    try:
+        yield out
+    finally:
+        rounds.RoundRunner.step = step
+        rounds.CapturedRounds.__init__ = init
+        rounds.CapturedRounds.replay = replay
 
 
 def round_ms(torch, args, profile_dir, tag):
@@ -2099,9 +2162,9 @@ def phase_serve_agreement(torch, dev, profile_dir):
         ShapeConfig("agree", n, args.batch, "prefill"))["tokens"]
 
     def full_logits(toks, positions):
-        h, _ = transformer.forward(
+        h, _, _ = transformer.forward(
             params, cfg, transformer._embed_inputs(params, cfg,
-                                                   {"tokens": toks}))
+                                                   {"tokens": toks})[0])
         return transformer._lm_head(params, cfg, h[:, positions])
 
     want = full_logits(tokens, slice(AGREE_PREFILL - 1, n))
@@ -2157,10 +2220,10 @@ def layer_card_vs_cpu(torch, what, fn, params, x):
     """``fn(params, x)`` on the card and on a CPU copy of both; require
     the card within LAYER_RTOL / LAYER_ATOL of the CPU and return the
     worst |diff| / (atol + rtol |cpu|)."""
-    from repro_torch.models.transformer import _tree_map
+    from repro_torch.tree import tree_map
 
     got = fn(params, x).cpu()
-    want = fn(_tree_map(lambda t: t.cpu(), params), x.cpu())
+    want = fn(tree_map(lambda t: t.cpu(), params), x.cpu())
     ratio = float(((got - want).abs()
                    / (LAYER_ATOL + LAYER_RTOL * want.abs())).max())
     require(ratio <= 1, f"{what}: card vs cpu at {ratio:.3g} of atol "
@@ -2197,9 +2260,9 @@ def phase_mla_agreement(torch, dev, profile_dir):
         torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
         ShapeConfig("agree", n, args.batch, "prefill"))["tokens"]
     drops = []
-    h, _ = transformer.forward(
+    h, _, _ = transformer.forward(
         params, uncapped, transformer._embed_inputs(
-            params, uncapped, {"tokens": tokens}), moe_drops=drops)
+            params, uncapped, {"tokens": tokens})[0], moe_drops=drops)
     want = transformer._lm_head(params, uncapped,
                                 h[:, MLA_AGREE_PREFILL - 1:])
     del h
@@ -2295,8 +2358,8 @@ def _decode_agreement(torch, params, cfg, batch, n_prefill, n, first_pos):
     from repro_torch.models import transformer
 
     toks = batch["tokens"]
-    h, _ = transformer.forward(params, cfg,
-                               transformer._embed_inputs(params, cfg, batch))
+    h, _, _ = transformer.forward(
+        params, cfg, transformer._embed_inputs(params, cfg, batch)[0])
     want = transformer._lm_head(params, cfg, h[:, n_prefill - 1:n])
     del h
     cut = {**batch, "tokens": toks[:, :n_prefill - first_pos]}
@@ -2479,8 +2542,8 @@ def phase_audio(torch, dev, profile_dir):
         < AUDIO_MASK_SHARE).to(torch.int32)
 
     def encode():
-        h, _ = transformer.forward(params, cfg, transformer._embed_inputs(
-            params, cfg, batch))
+        h, _, _ = transformer.forward(params, cfg, transformer._embed_inputs(
+            params, cfg, batch)[0])
         return transformer._lm_head(params, cfg, h)
 
     kernels.reset_launch_counts()
@@ -2516,6 +2579,377 @@ def phase_audio(torch, dev, profile_dir):
     if profile_dir:
         prefill_breakdown(torch, params, cfg, batch, profile_dir, "hubert")
     return launches
+
+
+def phase_train_guard(torch, dev):
+    """Phase 7a: the flash and scan kernels have no backward yet, so on a
+    CUDA input that requires grad, under grad mode, ``flash_attention``,
+    ``mha`` and ``ssm_scan`` raise a RuntimeError naming the kernel, and
+    launch nothing; under ``torch.no_grad()`` the same calls launch once
+    each. A GQA arch's (GUARD_ARCH smoke) training loss on the card
+    raises, naming flash."""
+    from repro_torch import kernels, tree
+    from repro_torch.configs import ShapeConfig, get_smoke_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models import registry
+
+    gen = torch.Generator(device=dev).manual_seed(9753)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    k, v = randn(2, 4, 64, 32), randn(2, 4, 64, 32)
+    km, vm = randn(2, 64, 2, 32), randn(2, 64, 2, 32)
+    dt = 0.1 * torch.rand((2, 16, 64), generator=gen, device=dev)
+    bm, cm, d_skip = randn(2, 16, 8), randn(2, 16, 8), randn(64)
+    a = -torch.rand((64, 8), generator=gen, device=dev)
+    cases = [("flash_attention", "flash_attention", randn(2, 4, 64, 32),
+              lambda x: flash_ops.flash_attention(x, k, v)),
+             ("mha", "flash_attention", randn(2, 64, 4, 32),
+              lambda x: flash_ops.mha(x, km, vm)),
+             ("ssm_scan", "ssm_scan", randn(2, 16, 64),
+              lambda x: ssm_ops.ssm_scan(x, dt, bm, cm, a, d_skip))]
+    for what, name, x, call in cases:
+        leaf = x.requires_grad_(True)
+        before = kernels.launch_counts()[name]
+        try:
+            call(leaf)
+        except RuntimeError as err:
+            require(name in str(err) and "10f-2" in str(err),
+                    f"{what} raised, but not naming {name}: {err}")
+        else:
+            raise SmokeFailure(f"{what} ran on a CUDA input that requires "
+                               "grad (its kernel has no backward)")
+        require(kernels.launch_counts()[name] == before,
+                f"{what} counted a launch it refused")
+        with torch.no_grad():
+            out = call(leaf)
+        torch.cuda.synchronize()
+        out = out[0] if isinstance(out, tuple) else out
+        require(kernels.launch_counts()[name] == before + 1
+                and bool(torch.isfinite(out).all()),
+                f"{what} under no_grad did not launch once")
+    cfg = get_smoke_arch(GUARD_ARCH)
+    params = {key: leaf.requires_grad_(True) for key, leaf in tree.flatten(
+        registry.init_model(torch.Generator(device=dev).manual_seed(0),
+                            cfg)).items()}
+    batch = registry.make_train_batch(
+        torch.Generator(device=dev).manual_seed(1), cfg,
+        ShapeConfig("t", 32, 2, "train"))
+    try:
+        loss, _ = registry.loss_fn(tree.unflatten(params), cfg, batch)
+        loss.backward()
+    except RuntimeError as err:
+        require("flash_attention" in str(err),
+                f"{GUARD_ARCH}'s training loss raised, not naming flash: "
+                f"{err}")
+        message = str(err)
+    else:
+        raise SmokeFailure(f"{GUARD_ARCH}'s training loss ran backward on "
+                           "the card through the flash kernel")
+    print(f"phase 7a ok: flash_attention, mha and ssm_scan refuse CUDA "
+          f"inputs that require grad and launch under no_grad; "
+          f"{GUARD_ARCH} smoke's training loss on the card raised: "
+          f"{message[:120]}", flush=True)
+
+
+def train_leaf_widths(torch, dev):
+    """{leaf path: width} of xLSTM-125M's ONE_H100 params, as the round
+    engine flattens them (``tree.flatten``), drawn on the card."""
+    from repro_torch import tree
+    from repro_torch.configs import get_one_h100_arch
+    from repro_torch.models import registry
+
+    params = tree.flatten(registry.init_model(
+        torch.Generator(device=dev).manual_seed(0),
+        get_one_h100_arch("xlstm-125m")))
+    widths = {k: v.numel() for k, v in params.items()}
+    del params
+    _free(torch)
+    return widths
+
+
+def phase_train_kernels(torch, dev, report):
+    """Phase 7b: the FL kernels at the shapes the LM training path gives
+    them: ``fedavg_flat`` (uniform and weighted, with and without noise)
+    and ``digest_div_flat`` within their tolerances at C = TRAIN_CLIENTS
+    on every leaf of xLSTM-125M (up to the 50 304 x 768 embedding, 38.6 M
+    floats a row), the mine kernel in seal mode bitwise at C =
+    TRAIN_CLIENTS and 256 attempts at two offsets; then the times of one
+    round's calls (every leaf) and of one call at the embedding, with
+    their bounds, added to ``report``'s rows under ``at_lm_train``."""
+    from repro_torch.benchmarks import timing
+    from repro_torch.core import mining
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+    from repro_torch.kernels.pow_hash import ops as pow_ops
+    from repro_torch.kernels.pow_hash import ref as pow_ref
+
+    c, attempts = TRAIN_CLIENTS, 256
+    widths = train_leaf_widths(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(8643)
+    uniform = torch.full((c,), 1.0 / c, device=dev)
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    fed_err = dig_err = 0.0
+    for name, n in widths.items():
+        x = torch.randn((c, n), generator=gen, device=dev) + 0.25
+        noise = 0.1 * torch.randn((c, n), generator=gen, device=dev)
+        for weights in (uniform, (w / w.sum()).contiguous()):
+            for nz in (None, noise):
+                got = fedavg_ops.fedavg_flat(x, weights, nz)
+                want = fedavg_ref.fedavg_flat_ref(x, weights, nz)
+                err = (got - want).abs()
+                fed_err = max(fed_err, float(err.max()))
+                require(bool((err <= FLOAT_ATOL + FLOAT_RTOL
+                              * want.abs()).all()),
+                        f"fedavg_flat off tolerance at C={c} on the "
+                        f"xLSTM leaf {name} ({n} floats)")
+                del got, want, err
+        dig_err = max(dig_err, check_digest(torch, x, f"C={c} xLSTM leaf "
+                                                      f"{name}"))
+        del x, noise
+    for off in (7 << 20, (1 << 32) - 99):
+        prev, digest, offset = (
+            torch.full((), val & mining.MASK, dtype=torch.int64, device=dev)
+            for val in (0x1357BDF, 0x2468ACE ^ off, off))
+        got = pow_ops.mine_seal(prev, digest, c, attempts,
+                                nonce_offset=offset, difficulty_bits=2)
+        want = pow_ref.mine_seal_ref(prev, digest, offset, c, attempts, 2)
+        require(same_seal(torch, got, want),
+                f"mine_seal not bitwise equal at C={c}, {attempts} "
+                f"attempts, offset {off}")
+    _free(torch)
+
+    widest = max(widths, key=widths.get)
+    big = widths[widest]
+    elems = sum(widths.values())
+    xs = [torch.randn((c, n), generator=gen, device=dev)
+          for n in widths.values()]
+    x_big = xs[list(widths).index(widest)]
+    timed = {"fedavg_flat": {}, "digest_div_flat": {}, "pow_race": {}}
+    for tag, fed_fn, dig_fn, n in (
+            ("all_leaves", lambda: [fedavg_ops.fedavg_flat(x, uniform)
+                                    for x in xs],
+             lambda: [fedavg_ops.digest_div_flat(x) for x in xs], elems),
+            (f"leaf_{big}", lambda: fedavg_ops.fedavg_flat(x_big, uniform),
+             lambda: fedavg_ops.digest_div_flat(x_big), big)):
+        timed["fedavg_flat"][tag] = dict(
+            ms=timing.kernel_ms(fed_fn, f"fedavg_flat C={c} {tag}"),
+            bound_ms=1e3 * max((8 * c * n + 16 * c) / PEAK_BYTES_S,
+                               2 * c * n / PEAK_ALU_OPS_S))
+        timed["digest_div_flat"][tag] = dict(
+            ms=timing.kernel_ms(dig_fn, f"digest_div_flat C={c} {tag}"),
+            bound_ms=1e3 * max((4 * c * n + 16 * (c + 1)) / PEAK_BYTES_S,
+                               4 * c * n / PEAK_ALU_OPS_S))
+    timed["fedavg_flat"][f"leaf_{big}"]["plain_ms"] = timing.kernel_ms(
+        lambda: fedavg_ref.fedavg_flat_ref(x_big, uniform),
+        f"fedavg_flat plain C={c} leaf_{big}")
+    timed["fedavg_flat"][f"leaf_{big}"]["library_ms"] = timing.kernel_ms(
+        lambda: torch.mm(uniform[None], x_big),
+        f"fedavg_flat library (torch.mm) C={c} leaf_{big}")
+    timed["digest_div_flat"][f"leaf_{big}"]["plain_ms"] = timing.kernel_ms(
+        lambda: fedavg_ref.digest_div_flat_ref(x_big),
+        f"digest_div_flat plain C={c} leaf_{big}")
+    prev, digest, offset = (torch.full((), val, dtype=torch.int64,
+                                       device=dev)
+                            for val in (0x1357BDF, 0x2468ACE, 7 << 20))
+    timed["pow_race"][f"seal_C{c}"] = dict(
+        ms=timing.kernel_ms(lambda: pow_ops.mine_seal(
+            prev, digest, c, attempts, nonce_offset=offset,
+            difficulty_bits=2), f"mine_seal C={c} x {attempts}"),
+        bound_ms=1e3 * OPS_PER_HASH * c * attempts / PEAK_ALU_OPS_S)
+    for name, rows in timed.items():
+        report[name]["at_lm_train"] = rows
+    del xs, x_big
+    _free(torch)
+    print(f"phase 7b ok: at C = {c} on the {len(widths)} xLSTM-125M leaves "
+          f"({elems} floats a client, the widest {widest} of {big}), "
+          f"fedavg_flat (uniform and weighted, with and without noise) "
+          f"within rtol {FLOAT_RTOL} (largest deviation {fed_err:.3g}), "
+          f"digest_div_flat within its tolerance (largest deviation "
+          f"{dig_err:.3g}), mine_seal x {attempts} bitwise at two offsets; "
+          f"times " + json.dumps(timed), flush=True)
+    return len(widths)
+
+
+def lm_ledger_head(hist):
+    """The head hash of the ledger a run's history rebuilds."""
+    from repro_torch.core import chain
+
+    return chain.ledger_from_scan(
+        *([h[key] for h in hist]
+          for key in ("digest", "winner", "nonce", "pow_hash"))).head_hash
+
+
+def drive_lm_path(torch, dev, flags, want, what):
+    """An LM arch run of ``launch.train`` by the graph driver and by the
+    loop driver (``jit=False``): each run's launch counts exactly ``want``
+    (every other kernel 0), the two bitwise equal (params, every
+    per-round metric, the ledger's head), the ledger valid with a block a
+    round, finite losses and params. Returns (args, (result, state,
+    history, launches, LAST_GRAPH) of the graph run, the loop run's
+    result)."""
+    from repro_torch import kernels
+    from repro_torch.core import rounds
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(flags + ["--device", str(dev)])
+    want = {**{name: 0 for name in kernels.WRAPPERS}, **want}
+    result, state, hist, launches = counted_run(torch, args, True,
+                                                train.train_arch)
+    graph = dict(rounds.LAST_GRAPH)
+    lresult, lstate, lhist, llaunches = counted_run(torch, args, False,
+                                                    train.train_arch)
+    for driver, res, counts in (("graph", result, launches),
+                                ("loop", lresult, llaunches)):
+        require(res["dispatch"]["driver"] == driver,
+                f"the {what} ran on {res['dispatch']}, expected {driver}")
+        require(counts == want and res["launches"] == want,
+                f"launch counts {counts} on the {what} ({driver} driver), "
+                f"expected {want}")
+        require(res["chain_valid"] and res["blocks"] == args.rounds,
+                f"ledger not valid on the {what} ({driver}): {res}")
+    require(json.dumps(hist) == json.dumps(lhist)
+            and torch.equal(state.prev_hash, lstate.prev_hash)
+            and lm_ledger_head(hist) == lm_ledger_head(lhist)
+            and all(torch.equal(v, lstate.params[k])
+                    for k, v in state.params.items()),
+            f"graph and loop drivers differ on the {what}")
+    del lstate
+    require(all(math.isfinite(h[key]) for h in hist
+                for key in ("local_loss_mean", "global_loss", "divergence")),
+            f"non-finite metrics on the {what}: {hist}")
+    require(all(math.isfinite(v.float().abs().sum().item())
+                for v in state.params.values()),
+            f"non-finite params on the {what}")
+    return args, (result, state, hist, launches, graph), lresult
+
+
+def profile_lm_replays(torch, args, profile_dir):
+    """Profile the K - 1 replays of a fresh capture of the LM arch path
+    ``args`` selects: the device's busy share and its operations a round;
+    the table goes to ``profile_rounds_xlstm_train.txt``."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from repro_torch.benchmarks import timing
+    from repro_torch.core import rounds
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    cfg, spec, src, params, dev = train.prepare_arch(args)
+    captured = rounds.CapturedRounds(rounds.RoundRunner(
+        registry.client_losses(cfg), spec, params, args.rounds,
+        seed=args.seed + 2, device=dev, stacked=True),
+        src.stacked_batches(args.rounds))
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        captured.replay()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    n = args.rounds - 1
+    busy_ms = timing.device_us(p) / 1e3
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "profile_rounds_xlstm_train.txt")
+    with open(path, "w") as f:
+        f.write(p.key_averages().table(sort_by="cuda_time_total",
+                                       row_limit=40))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "rounds": n,
+            "device_ops_a_round": timing.device_ops(p) / n, "table": path}
+
+
+def phase_lm_train(torch, dev, n_leaves, profile_dir):
+    """Phase 7c: ``launch.train --arch xlstm-125m --size one-h100`` at
+    XLSTM_TRAIN_ARGS by both drivers (``drive_lm_path``): the seal K
+    times, ``fedavg_flat`` and ``digest_div_flat`` once a leaf a round,
+    flash, the scan and the mix never; no host sync in the loop's rounds
+    nor in the replays of those two runs (``watched_rounds``). Prints the
+    ms a round by each driver and of a replay, the warm round's and the
+    captures' seconds and the peak of allocated device memory; with
+    ``profile_dir``, the replays' busy share (``profile_lm_replays``).
+    Returns the graph run's launches."""
+    what = "xLSTM-125M training path"
+    want = {"pow_race": K_TRAIN, "fedavg_flat": n_leaves * K_TRAIN,
+            "digest_div_flat": n_leaves * K_TRAIN}
+    with watched_rounds(torch) as syncs:
+        args, (result, state, hist, launches, graph), lresult = \
+            drive_lm_path(torch, dev, XLSTM_TRAIN_ARGS, want, what)
+    n_params = sum(v[0].numel() for v in state.params.values())
+    del state
+    _free(torch)
+    replay_ms = 1e3 * syncs["seconds"]["replays"] / (K_TRAIN - 1)
+    profiled = (profile_lm_replays(torch, args, profile_dir)
+                if profile_dir else None)
+    for key in ("loop", "replays"):
+        require(not syncs[key], f"{len(syncs[key])} host syncs in the "
+                                f"{key} of the {what}: {syncs[key][:3]}")
+    print("phase 7c ok: " + json.dumps(
+        {"path": what, "parameters": n_params, "leaves": n_leaves,
+         "launches": launches, "dispatch": result["dispatch"],
+         "drivers_bitwise_equal": True,
+         "loss_curve": result["loss_curve"],
+         "local_loss_mean": [h["local_loss_mean"] for h in hist],
+         "round_ms": {"graph": 1e3 * result["wall_s"] / K_TRAIN,
+                      "loop": 1e3 * lresult["wall_s"] / K_TRAIN,
+                      "replay": replay_ms},
+         "graph_setup_s": {key: graph[key] for key in
+                           ("warm_s", "capture_s", "graphs", "replays")},
+         "peak_mem_gb": {"graph": result["peak_mem_gb"],
+                         "loop": lresult["peak_mem_gb"]},
+         "host_syncs": {key: len(syncs[key])
+                        for key in ("loop", "setup", "replays")},
+         "profile_replays": profiled}), flush=True)
+    return launches
+
+
+def phase_lm_microbatches(torch, dev):
+    """Phase 7d: XLSTM_MB_ARGS (xlstm-125m smoke, each client's batch in 2
+    microbatches under activation checkpointing) by both drivers, bitwise
+    equal with exact launch counts; then the same run on the CPU: every
+    per-round metric and the aggregate within rtol CARD_CPU_RTOL / atol
+    CARD_CPU_ATOL, each client's params within CLIENT_SPREAD_LIMIT times
+    it."""
+    from repro_torch.core import aggregation
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(XLSTM_MB_ARGS
+                                           + ["--device", str(dev)])
+    _, _, _, params, _ = train.prepare_arch(args)
+    n = len(params)
+    del params
+    want = {"pow_race": K_TRAIN_SMOKE, "fedavg_flat": n * K_TRAIN_SMOKE,
+            "digest_div_flat": n * K_TRAIN_SMOKE}
+    what = "xLSTM smoke path with 2 microbatches"
+    args, (result, state, hist, launches, _), _ = drive_lm_path(
+        torch, dev, XLSTM_MB_ARGS, want, what)
+    cpu_args = argparse.Namespace(**{**vars(args), "device": "cpu"})
+    _, cpu_state, cpu_hist = train.train_arch(cpu_args)
+
+    def ratio(a, b):   # |a - b| over the tolerance at b; <= 1 passes
+        a = torch.as_tensor(a, dtype=torch.float64).cpu()
+        b = torch.as_tensor(b, dtype=torch.float64)
+        return float(((a - b).abs() / (CARD_CPU_ATOL + CARD_CPU_RTOL
+                                       * b.abs())).max())
+
+    gated = {key: max(ratio(a[key], b[key]) for a, b in zip(hist, cpu_hist))
+             for key in ("local_loss_mean", "global_loss", "divergence")}
+    agg = aggregation.aggregate_once(state.params)
+    cpu_agg = aggregation.aggregate_once(cpu_state.params)
+    gated["aggregate"] = max(ratio(v, cpu_agg[k]) for k, v in agg.items())
+    clients = max(ratio(v, cpu_state.params[k])
+                  for k, v in state.params.items())
+    require(all(r <= 1 for r in gated.values())
+            and clients <= CLIENT_SPREAD_LIMIT,
+            f"the {what} differs between card and cpu: {gated}, per-client "
+            f"params {clients:.3g} (limit {CLIENT_SPREAD_LIMIT})")
+    print("phase 7d ok: " + json.dumps(
+        {"path": what, "launches": launches, "drivers_bitwise_equal": True,
+         "card_vs_cpu_worst_of_tolerance": gated,
+         "per_client_params_worst": clients,
+         "loss_curve": result["loss_curve"]}), flush=True)
 
 
 def _leaves(tree):
@@ -2738,11 +3172,21 @@ def main(argv=None) -> int:
     lap("phase 5")
     clau, dclau = phase_cohort(torch, dev, report, opts.profile)
     lap("phase 6")
+    phase_train_guard(torch, dev)
+    n_leaves = phase_train_kernels(torch, dev, report)
+    lap("phases 7a-7b")
+    tlaunches7 = phase_lm_train(torch, dev, n_leaves, opts.profile)
+    _free(torch)
+    lap("phase 7c")
+    phase_lm_microbatches(torch, dev)
+    _free(torch)
+    lap("phase 7d")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
                "vlm serve": vlaunches, "audio encoder": alaunches,
-               "cohort": clau, "dense cohort": dclau}
+               "cohort": clau, "dense cohort": dclau,
+               "xlstm train": tlaunches7}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

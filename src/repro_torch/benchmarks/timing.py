@@ -87,8 +87,9 @@ def kernel_ms(fn, label, reps=20):
     """Device time per call of ``fn``, read two ways: the GPU activity
     torch.profiler records over ``reps`` calls, and CUDA events over
     back-to-back calls (:func:`events_ms`). Each call launches the same
-    operations, so a profile whose count is not a multiple of ``reps``
-    dropped activities: it is taken again, up to PROFILE_ATTEMPTS times.
+    operations, so a profile whose count is not a positive multiple of
+    ``reps`` dropped activities: it is taken again, up to PROFILE_ATTEMPTS
+    times.
     Prints both readings and keeps them in READINGS under ``label``, with
     the operations counted (``whole``: from a whole profile, else the
     largest count seen). Returns the profiler's reading of a whole
@@ -104,7 +105,8 @@ def kernel_ms(fn, label, reps=20):
                 fn()
             torch.cuda.synchronize()
         count = device_ops(prof)
-        whole = count % reps == 0
+        # a profile that recorded nothing dropped everything
+        whole = count > 0 and count % reps == 0
         if whole or count > n_ops:
             n_ops, dev_us = count, device_us(prof)
         if whole:

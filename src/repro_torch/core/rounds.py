@@ -63,6 +63,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels
 from repro_torch.core import aggregation, attacks as attacks_lib, chain, \
@@ -90,6 +91,9 @@ class RoundSpec:
     mine_attempts: int = 1024   # calibrated from beta (allocation.mining_iterations)
     difficulty_bits: int = 8
     eval_global_loss: bool = True
+    # gradient accumulation inside each local iteration: each client's
+    # batch splits into this many microbatches along its sample axis
+    microbatches: int = 1
     # eval stride: compute global_loss only on rounds with
     # (round_idx + 1) % eval_every == 0 (NaN elsewhere); 1 = every round.
     eval_every: int = 1
@@ -132,14 +136,66 @@ def init_state(params_single: Tree, n_clients: int,
     )
 
 
+def _microbatched_grad(loss_fn: LossFn, n_mb: int):
+    """The gradient of each client's mean loss over ``n_mb`` microbatches
+    (the reference's ``_microbatched_grad``): each client's ``[m, ...]``
+    batch splits along its sample axis into ``n_mb`` contiguous blocks of
+    m / n_mb, run one after another, each under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant, standing in for the
+    reference's per-microbatch ``jax.checkpoint``), so that the activations
+    of one microbatch are alive at a time.
+
+    Returns ``grad_fn(params, batch) -> (losses [C], grads)``: params a
+    dict of ``[C, ...]`` leaves that require grad, grads a list in
+    ``sorted(params)`` order, both the microbatches' mean."""
+
+    def grad_fn(params: Tree, batch: Tree):
+        m = next(iter(batch.values())).shape[1]
+        if m % n_mb:
+            raise ValueError(f"a client batch of {m} does not split into "
+                             f"{n_mb} microbatches")
+        size = m // n_mb
+        keys = sorted(params)
+        leaves = [params[k] for k in keys]
+        loss, grads = None, None
+        for j in range(n_mb):
+            mb = {k: v[:, j * size:(j + 1) * size] for k, v in batch.items()}
+            with torch.enable_grad():
+                l_j = checkpoint(loss_fn, params, mb, use_reentrant=False,
+                                 preserve_rng_state=False)
+                g_j = torch.autograd.grad(l_j.sum(), leaves,
+                                          materialize_grads=True)
+            l_j = l_j.detach()
+            loss = l_j if loss is None else loss + l_j
+            grads = list(g_j) if grads is None else [
+                a + b for a, b in zip(grads, g_j)]
+        scale = 1.0 / n_mb
+        return loss * scale, [g * scale for g in grads]
+
+    return grad_fn
+
+
 def make_local_train(loss_fn: LossFn, spec: RoundSpec):
     """Step 1 stage factory: tau local GD iterations per client, eq. 3.
 
     Returns ``local_train(params, batch) -> (params, local_losses)``, both
     with a leading client axis. The clients are independent, so the
-    gradient of ``sum_c loss_c`` is each client's own gradient. The loss
-    returned is the one at the last iteration's pre-update params, as the
-    JAX package's ``value_and_grad`` gives it."""
+    gradient of ``sum_c loss_c`` is each client's own gradient (zero for a
+    leaf the loss does not read, as JAX's ``grad`` gives it). With
+    ``spec.microbatches > 1`` each iteration's gradient accumulates over
+    that many microbatches (:func:`_microbatched_grad`). The loss returned
+    is the one at the last iteration's pre-update params, as the JAX
+    package's ``value_and_grad`` gives it."""
+    if spec.microbatches > 1:
+        grad_fn = _microbatched_grad(loss_fn, spec.microbatches)
+    else:
+        def grad_fn(params, batch):
+            with torch.enable_grad():
+                losses = loss_fn(params, batch)
+                grads = torch.autograd.grad(
+                    losses.sum(), [params[k] for k in sorted(params)],
+                    materialize_grads=True)
+            return losses.detach(), grads
 
     def local_train(params, batch):
         keys = sorted(params)
@@ -147,11 +203,9 @@ def make_local_train(loss_fn: LossFn, spec: RoundSpec):
         losses = torch.zeros(spec.n_clients, device=p[0].device)
         for _ in range(spec.tau):
             leaves = [w.detach().requires_grad_(True) for w in p]
-            with torch.enable_grad():
-                losses = loss_fn(dict(zip(keys, leaves)), batch)
-                grads = torch.autograd.grad(losses.sum(), leaves)
+            losses, grads = grad_fn(dict(zip(keys, leaves)), batch)
             p = [w.detach() - spec.eta * g for w, g in zip(leaves, grads)]
-        return dict(zip(keys, p)), losses.detach()
+        return dict(zip(keys, p)), losses
 
     return local_train
 

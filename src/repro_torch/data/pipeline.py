@@ -12,6 +12,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data import synthetic
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -46,7 +47,6 @@ class FLDataSource:
     def static_batch(self) -> Dict[str, torch.Tensor]:
         """The [C, m, ...] batch every round reuses."""
         return self.client_data
-
 
 
 # salts of a CohortDataSource's streams: its class templates, its eval set,
@@ -136,3 +136,67 @@ class CohortDataSource:
         ``round_idx`` is unused, each client trains on its fixed set)."""
         rows = [self.client_batch(i) for i in np.asarray(cohort_idx)]
         return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _upload(batch: Dict[str, torch.Tensor], dev: torch.device
+            ) -> Dict[str, torch.Tensor]:
+    if dev.type == "cpu":
+        return batch
+    return {k: v.pin_memory().to(dev, non_blocking=True)
+            for k, v in batch.items()}
+
+
+class LMDataSource:
+    """Synthetic token streams for the LM archs' training runs (the JAX
+    package's ``LMDataSource``), stacked on a leading client axis: each
+    round's batch ``[C, m, ...]`` with m = ``shape.global_batch / C``.
+
+    Round k's batch is drawn on the CPU from a generator seeded with
+    ``seed * 100003 + k`` (the reference's key) and moved to ``device``, so
+    the card and the CPU see the same data: for a VLM ``{"patches": [C, m,
+    P, D] ~ N(0, 1), "tokens": [C, m, S - P]}``, for the audio encoder
+    ``{"frames": [C, m, S, D], "mask_positions": [C, m, S] bool (p 0.08),
+    "targets": [C, m, S]}``, else ``{"tokens": [C, m, S]}``; tokens from
+    ``synthetic.lm_token_stream`` (the audio targets uniform)."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, n_clients: int,
+                 seed: int = 0, device: DeviceLike = "cuda"):
+        if shape.global_batch % n_clients:
+            raise ValueError(f"global_batch={shape.global_batch} must "
+                             f"divide evenly over n_clients={n_clients}")
+        self.cfg, self.shape, self.n_clients = cfg, shape, n_clients
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def _draw(self, k: int) -> Dict[str, torch.Tensor]:
+        cfg, s = self.cfg, self.shape.seq_len
+        c = self.n_clients
+        m = self.shape.global_batch // c
+        gen = torch.Generator().manual_seed(self.seed * 100_003 + k)
+        if cfg.family == "vlm":
+            p = cfg.vlm_prefix_len
+            patches = torch.randn((c, m, p, cfg.d_model), generator=gen)
+            return {"patches": patches,
+                    "tokens": synthetic.lm_token_stream(
+                        gen, c * m, s - p, cfg.vocab).reshape(c, m, s - p)}
+        if cfg.audio_frontend:
+            frames = torch.randn((c, m, s, cfg.d_model), generator=gen)
+            mask = torch.rand((c, m, s), generator=gen) < 0.08
+            return {"frames": frames, "mask_positions": mask,
+                    "targets": torch.randint(0, cfg.vocab, (c, m, s),
+                                             generator=gen)}
+        return {"tokens": synthetic.lm_token_stream(
+            gen, c * m, s, cfg.vocab).reshape(c, m, s)}
+
+    def round_batch(self, k: int) -> Dict[str, torch.Tensor]:
+        """Round k's ``[C, m, ...]`` batch on the device."""
+        return _upload(self._draw(k), self.device)
+
+    def stacked_batches(self, n_rounds: int) -> Dict[str, torch.Tensor]:
+        """All K round batches stacked on a leading axis, ``[K, C, m,
+        ...]``, on the device (one upload): the static batch the graph
+        driver replays over (``rounds.run_blade_fl(..., stacked=True)``).
+        Round k's slice is :meth:`round_batch`'s."""
+        rounds = [self._draw(k) for k in range(int(n_rounds))]
+        return _upload({k: torch.stack([r[k] for r in rounds])
+                        for k in rounds[0]}, self.device)

@@ -7,6 +7,9 @@ and the loss curves decrease non-trivially.
 
 ``dirichlet_partition``: non-IID label split across N clients (Dir(alpha)).
 It is seeded with numpy, so it gives the JAX package's partition exactly.
+
+``lm_token_stream``: synthetic token streams (Zipf-ish, with a bigram
+structure) for the LM archs' training runs.
 """
 from __future__ import annotations
 
@@ -75,3 +78,21 @@ def client_batches(data: Dict[str, torch.Tensor], partition: np.ndarray
         idx = torch.as_tensor(partition, dtype=torch.int64, device=v.device)
         out[k] = v[idx]
     return out
+
+
+def lm_token_stream(generator: torch.Generator, batch: int, seq_len: int,
+                    vocab: int, zipf_a: float = 1.2) -> torch.Tensor:
+    """[batch, seq_len] int64 tokens on the generator's device, the
+    reference's stream: token r drawn with probability proportional to
+    (r + 1)^-zipf_a, then each position, with probability 0.3, replaced by
+    its left neighbour's draw + 1 (mod vocab; position 0's left neighbour
+    is the row's last), so an LM has something to learn."""
+    dev = generator.device
+    probs = torch.arange(1, vocab + 1, dtype=torch.float32,
+                         device=dev) ** (-zipf_a)
+    probs = probs / probs.sum()
+    toks = torch.multinomial(probs, batch * seq_len, replacement=True,
+                             generator=generator).reshape(batch, seq_len)
+    rep = torch.rand((batch, seq_len), generator=generator, device=dev) < 0.3
+    shifted = torch.roll(toks, 1, dims=1)
+    return torch.where(rep, (shifted + 1) % vocab, toks)

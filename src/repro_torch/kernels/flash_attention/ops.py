@@ -3,7 +3,9 @@
 ``flash_attention`` takes the TPU kernel's ``[B, H, S, D]`` layout with kv
 already at H heads; ``mha`` takes the model's ``[B, S, H, D]`` layout with
 kv at ``Hkv`` heads (GQA). On a CUDA tensor both launch the kernel (or
-raise), reading q, k and v through their strides: ``mha`` needs neither a
+raise: also when grad mode is on and an input requires grad, since the
+kernel has no backward yet, ``_build.refuse_grad``), reading q, k and v
+through their strides: ``mha`` needs neither a
 transpose nor a repeat of kv. On a CPU tensor they run the plain version
 (``ref.attention_ref``, ``ref.mha_ref``: the JAX package's transposes and
 ``repeat`` of kv around it). Both take any S >= 1 and any head dim D <= 256 that is a
@@ -114,6 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, prefix_len=prefix_len)
+    _build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _launch(q, k, v, out, seq_axis=2, head_axis=1, causal=causal,
                    window=window, scale=scale, prefix_len=prefix_len)
@@ -138,6 +141,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window,
                        prefix_len=prefix_len)
+    _build.refuse_grad("flash_attention (mha)", q, k, v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     return _launch(q, k, v, out, seq_axis=1, head_axis=2, causal=causal,
                    window=window, scale=1.0 / math.sqrt(d),

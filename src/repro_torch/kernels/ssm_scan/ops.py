@@ -1,7 +1,9 @@
 """Wrapper of the CUDA selective-scan kernel (``csrc/ssm_scan.cu``).
 
-On a CUDA tensor ``ssm_scan`` launches the kernel (or raises); on a CPU
-tensor it runs the plain version (``ref.ssm_scan_ref``). As the JAX
+On a CUDA tensor ``ssm_scan`` launches the kernel (or raises: also when
+grad mode is on and an input requires grad, since the kernel has no
+backward yet, ``_build.refuse_grad``); on a CPU tensor it runs the plain
+version (``ref.ssm_scan_ref``), which autograd follows. As the JAX
 package's wrapper does, it hands the kernel fp32 copies of its inputs
 (and contiguous ones: B_t and C_t arrive as slices of one projection), so
 the inputs may be any float dtype; y comes back in u's dtype. Any T, d_in
@@ -58,6 +60,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
                          f"device, not {devices}")
     if u.device.type == "cpu":
         return ssm_scan_ref(u, dt, bmat, cmat, a, d_skip)
+    _build.refuse_grad("ssm_scan", u, dt, bmat, cmat, a, d_skip)
     f32 = [x.to(torch.float32).contiguous()
            for x in (u, dt, bmat, cmat, a, d_skip)]
     y = torch.empty((bsz, t, d_in), dtype=torch.float32, device=u.device)

@@ -1,9 +1,15 @@
-"""End-to-end BLADE-FL trainer of the port (paper-scale MLP).
+"""End-to-end BLADE-FL trainer of the port.
 
-Runs the paper's §7 substrate: C clients train the 784-256-10 MLP on the
-Dirichlet-split MNIST proxy for K integrated rounds (training, lazy
-clients, attacks, digest, the topology's mix, mining, ledger), on the GPU
-by default.
+Runs real integrated rounds (training, lazy clients, attacks, digest, the
+topology's mix, mining, ledger), on the GPU by default, either:
+  * paper-scale: ``--arch mlp``, the paper's §7 substrate: C clients train
+    the 784-256-10 MLP on the Dirichlet-split MNIST proxy for K rounds;
+  * arch-scale: ``--arch <LM arch id>``, an arch of the LM zoo trained by
+    ``--clients`` clients for ``--rounds`` rounds on synthetic token
+    streams (``data/pipeline.py::LMDataSource``), at ``--size smoke`` (the
+    arch's CPU-test config, the JAX package's ``run_arch_smoke``) or
+    ``--size one-h100`` (the arch's ``ONE_H100`` config: xlstm-125m whole
+    at its published widths).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mlp
@@ -14,6 +20,16 @@ It prints the JSON keys of the JAX package's ``launch/train.py::run_mlp``
 except ``fast_allreduce`` (the port runs on one device). ``--out-dir DIR``
 appends each round's history entry to ``DIR/blade_mlp.jsonl``, as the JAX
 package's trainer does.
+
+An arch run prints the JAX package's ``run_arch_smoke`` keys (``arch``,
+``rounds``, ``loss_curve``, ``chain_valid``, ``dispatch``, ``wall_s``, the
+spectral fields) plus the kernels' ``launches`` and ``peak_mem_gb``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --rounds 2 --clients 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --size one-h100 --clients 4 --per-client 2 --seq 256 --rounds 3 \\
+      --lazy 1 --sigma2 1e-4
 
 ``--enrolled N`` runs the cohort-sampled population instead (the JAX
 package's ``run_cohort``): N enrolled clients, of which a cohort of
@@ -31,13 +47,19 @@ import time
 
 import torch
 
-from repro_torch.configs import BladeConfig
+from repro_torch import kernels, tree
+from repro_torch.configs import (BladeConfig, ShapeConfig, arch_ids,
+                                 get_one_h100_arch, get_smoke_arch)
 from repro_torch.core import aggregation, allocation, attacks, rounds, \
     spectral, topology
-from repro_torch.data.pipeline import CohortDataSource, FLDataSource
+from repro_torch.data.pipeline import CohortDataSource, FLDataSource, \
+    LMDataSource
 from repro_torch.device import resolve_device
+from repro_torch.models import registry
 from repro_torch.models.mlp import init_mlp, mlp_client_losses, mlp_loss
 from repro_torch.training.metrics import MetricLogger
+
+SIZES = ("smoke", "one-h100")
 
 
 def spec_of(blade: BladeConfig, eval_every: int = 1,
@@ -203,12 +225,95 @@ def run_cohort(args) -> dict:
     return result
 
 
+def prepare_arch(args):
+    """Config, round spec, data source and initial model (flattened leaves,
+    ``tree.flatten``) of an LM arch run. The round is the reference's
+    ``run_arch_smoke`` round (tau 2, eta 1e-2, 256 attempts, difficulty
+    2). The model is drawn on the CPU from the seed and moved to the
+    device, and the data source draws on the CPU too, so a seed gives the
+    same inputs on every device."""
+    dev = resolve_device(args.device)
+    cfg = (get_smoke_arch(args.arch) if args.size == "smoke"
+           else get_one_h100_arch(args.arch))
+    shape = ShapeConfig("smoke", args.seq, args.clients * args.per_client,
+                        "train")
+    spec = rounds.RoundSpec(
+        n_clients=args.clients, tau=2, eta=1e-2, n_lazy=args.lazy,
+        sigma2=args.sigma2, mine_attempts=256, difficulty_bits=2,
+        eval_every=args.eval_every, microbatches=args.microbatches,
+        topology=topology.from_name(args.schedule or args.topology),
+        fused_mix=args.fused_mix, **adversary_fields(args))
+    src = LMDataSource(cfg, shape, args.clients, seed=args.seed, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(args.seed)
+    params = {k: v.to(dev) for k, v in
+              tree.flatten(registry.init_model(gen, cfg)).items()}
+    return cfg, spec, src, params, dev
+
+
+def train_arch(args, jit: bool = True):
+    """Run an LM arch; returns (result dict, final RoundState, history).
+    The ``[K, C, ...]`` token streams are one static batch, so on the card
+    ``rounds.dispatch_plan`` picks the graph driver; ``jit=False`` keeps
+    the rounds in the loop (``result["dispatch"]`` says which)."""
+    cfg, spec, src, params, dev = prepare_arch(args)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    log = MetricLogger(args.out_dir, "blade_arch")
+    seed = args.seed + 2
+    table = topology.round_table(spec.topology, spec.n_clients, args.rounds,
+                                 topology.topology_generator(seed))
+    before = kernels.launch_counts()
+    t0 = time.time()
+    state, hist, ledger = rounds.run_blade_fl(
+        registry.client_losses(cfg), spec, params,
+        src.stacked_batches(args.rounds), args.rounds, seed=seed,
+        device=dev, stacked=True, topology_matrices=table, jit=jit)
+    wall_s = time.time() - t0
+    after = kernels.launch_counts()
+    for i, h in enumerate(hist):
+        log.log(i, **h)
+    result = {
+        "arch": cfg.name, "rounds": args.rounds,
+        "loss_curve": [h["global_loss"] for h in hist],
+        "chain_valid": ledger.validate_chain(), "blocks": len(ledger.blocks),
+        "devices": 1,
+        "dispatch": dict(rounds.LAST_DISPATCH),
+        "wall_s": wall_s,
+        "launches": {k: after[k] - before[k] for k in after},
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else None),
+        **spectral_fields(spec, args.rounds, table),
+    }
+    return result, state, hist
+
+
+def run_arch(args) -> dict:
+    result, _, _ = train_arch(args)
+    print(json.dumps(result, indent=1))
+    return result
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="mlp", choices=["mlp"],
-                    help="only the paper's MLP is ported so far")
-    ap.add_argument("--k", type=int, default=5)
+    ap.add_argument("--arch", default="mlp",
+                    help="mlp (the paper's substrate) or an LM arch id "
+                         "(configs.arch_ids)")
+    ap.add_argument("--size", choices=SIZES, default="smoke",
+                    help="LM arch: its CPU-test config, or its one-H100 "
+                         "config (configs.get_one_h100_arch)")
+    ap.add_argument("--k", type=int, default=5,
+                    help="rounds of the mlp and cohort runs")
+    ap.add_argument("--rounds", type=int, default=5,
+                    help="rounds of an LM arch run")
     ap.add_argument("--clients", type=int, default=20)
+    ap.add_argument("--per-client", type=int, default=2,
+                    help="LM arch: sequences a client trains on a round")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="LM arch: tokens a sequence")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="LM arch: gradient accumulation over this many "
+                         "microbatches a local iteration "
+                         "(RoundSpec.microbatches)")
     ap.add_argument("--lazy", type=int, default=0)
     ap.add_argument("--sigma2", type=float, default=0.0)
     ap.add_argument("--dp-sigma", type=float, default=0.0)
@@ -258,18 +363,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out-dir", default=None,
                     help="append each round's metrics to "
                          "OUT_DIR/blade_mlp.jsonl (blade_cohort.jsonl with "
-                         "--enrolled)")
+                         "--enrolled, blade_arch.jsonl for an LM arch)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.arch != "mlp" and args.arch not in arch_ids():
+        ap.error(f"unknown --arch {args.arch!r}: mlp or one of "
+                 f"{', '.join(arch_ids())}")
     if args.enrolled > 0:
+        if args.arch != "mlp":
+            ap.error("--enrolled cohort mode runs the mlp substrate")
         run_cohort(args)
-    else:
+    elif args.arch == "mlp":
         run_mlp(args)
+    else:
+        run_arch(args)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Model init and prompt batches for the LM zoo (the serving part of the
-JAX package's ``models/registry.py``).
+"""Uniform model API over the LM zoo (the JAX package's
+``models/registry.py``): init, the training loss, the loss of a
+client-stacked model for the round engine, and training and prompt
+batches.
 
-Both draw from an explicit ``torch.Generator`` on the target device: at
-full width the weights are drawn on the card, never copied up from the
-host. The draws differ from ``jax.random``'s; tests carry the reference's
-params across with ``weights.lm_params_from_jax`` instead.
+Init and batches draw from an explicit ``torch.Generator`` on the target
+device: at full width the weights are drawn on the card, never copied up
+from the host. The draws differ from ``jax.random``'s; tests carry the
+reference's params and batches across (``weights.lm_params_from_jax``)
+instead.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer
 
@@ -21,29 +25,88 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
     return transformer.init_lm(generator, cfg, dtype)
 
 
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
+            loss_chunk: int = 0):
+    """(loss, {"ce", "aux"}) of one model on ``batch``
+    (``transformer.train_loss``)."""
+    return transformer.train_loss(params, cfg, batch, remat=remat,
+                                  loss_chunk=loss_chunk)
+
+
+def client_losses(cfg: ModelConfig, remat: bool = False):
+    """The round engine's loss (``core.rounds.LossFn``) of an LM:
+    ``losses(params, batch) -> [C]``, with ``params`` the model's flattened
+    leaves (``tree.flatten``: path -> ``[C, ...]``) and ``batch`` leaves
+    ``[C, m, ...]``. Client c's loss is :func:`loss_fn` of the tree of
+    views ``params[path][c]`` on ``batch[name][c]``, the clients in a
+    Python loop (where the reference vmaps its loss over the client axis:
+    the kernels' wrappers and the in-place writes of the MoE dispatch do
+    not run under ``torch.func.vmap``)."""
+
+    def losses(params: Dict[str, torch.Tensor],
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        n = next(iter(params.values())).shape[0]
+        out = []
+        for c in range(n):
+            one = tree_lib.unflatten({k: v[c] for k, v in params.items()})
+            loss, _ = loss_fn(one, cfg, {k: v[c] for k, v in batch.items()},
+                              remat=remat)
+            out.append(loss)
+        return torch.stack(out)
+
+    return losses
+
+
+def _draws(generator: torch.Generator, cfg: ModelConfig):
+    dev = generator.device
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=generator,
+                             device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    return tokens, normal
+
+
+def make_train_batch(generator: torch.Generator, cfg: ModelConfig,
+                     shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """A training batch of ``shape`` on the generator's device, laid out as
+    the reference's ``make_train_batch``: for a VLM ``{"patches": [B, P,
+    D], "tokens": [B, S - P]}``, for the audio encoder ``{"frames": [B, S,
+    D], "mask_positions": [B, S] bool (p 0.08), "targets": [B, S]}``, else
+    ``{"tokens": [B, S]}``; normals N(0, 1), tokens uniform int64."""
+    b, s = shape.global_batch, shape.seq_len
+    tokens, normal = _draws(generator, cfg)
+    if cfg.family == "vlm":
+        return {"patches": normal(b, cfg.vlm_prefix_len, cfg.d_model),
+                "tokens": tokens(b, s - cfg.vlm_prefix_len)}
+    if cfg.audio_frontend:
+        mask = torch.rand((b, s), generator=generator,
+                          device=generator.device) < 0.08
+        return {"frames": normal(b, s, cfg.d_model), "mask_positions": mask,
+                "targets": tokens(b, s)}
+    return {"tokens": tokens(b, s)}
+
+
 def make_prefill_batch(generator: torch.Generator, cfg: ModelConfig,
                        shape: ShapeConfig) -> Dict[str, torch.Tensor]:
     """A prompt batch of S = ``shape.seq_len`` positions on the generator's
     device, as the reference's ``make_prefill_batch`` lays it out: for a
     VLM ``{"patches": [B, P, D] ~ N(0, 1), "tokens": [B, S - P]}`` (P =
-    ``cfg.vlm_prefix_len``; ``ValueError`` unless S > P), for the audio
-    encoder ``{"frames": [B, S, D] ~ N(0, 1)}``, else ``{"tokens": [B,
-    S]}``; tokens uniform int64."""
-    b, s, dev = shape.global_batch, shape.seq_len, generator.device
-
-    def tokens(n):
-        return torch.randint(0, cfg.vocab, (b, n), generator=generator,
-                             device=dev)
-
+    ``cfg.vlm_prefix_len``; S = P gives ``tokens`` [B, 0], S < P raises
+    ``ValueError``), for the audio encoder ``{"frames": [B, S, D] ~ N(0,
+    1)}``, else ``{"tokens": [B, S]}``; tokens uniform int64."""
+    b, s = shape.global_batch, shape.seq_len
+    tokens, normal = _draws(generator, cfg)
     if cfg.family == "vlm":
         p = cfg.vlm_prefix_len
-        if s <= p:
-            raise ValueError(f"{cfg.name}: a prompt of {s} positions leaves "
-                             f"no text after the {p} image patches")
-        return {"patches": torch.randn((b, p, cfg.d_model),
-                                       generator=generator, device=dev),
-                "tokens": tokens(s - p)}
+        if s < p:
+            raise ValueError(f"{cfg.name}: a prompt of {s} positions is "
+                             f"shorter than the {p} image patches")
+        return {"patches": normal(b, p, cfg.d_model),
+                "tokens": tokens(b, s - p)}
     if cfg.audio_frontend:
-        return {"frames": torch.randn((b, s, cfg.d_model),
-                                      generator=generator, device=dev)}
-    return {"tokens": tokens(s)}
+        return {"frames": normal(b, s, cfg.d_model)}
+    return {"tokens": tokens(b, s)}

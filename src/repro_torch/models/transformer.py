@@ -1,6 +1,6 @@
-"""The serving part of the JAX package's ``models/transformer.py``: decoder
-LMs (dense, MoE, MLA), the hybrid Mamba/attention stack, xLSTM, the
-prefix-LM VLM and the audio encoder, with a full forward, prefill and a
+"""The JAX package's ``models/transformer.py``: decoder LMs (dense, MoE,
+MLA), the hybrid Mamba/attention stack, xLSTM, the prefix-LM VLM and the
+audio encoder, with a full forward, the training loss, prefill and a
 cached decode step.
 
 Layer layout and params are the reference's: ``n_dense_prefix`` unrolled
@@ -9,7 +9,10 @@ periods of ``cfg.pattern``, each pattern position ``j`` holding its blocks'
 params stacked over periods (``params["period"]["j<j>"]``, leaves
 ``[n_per, ...]``), so weights carry across leaf for leaf
 (``weights.lm_params_from_jax``). Where the reference scans over periods,
-the port runs a Python loop and indexes period ``p`` of every leaf (a view).
+the port runs a Python loop and indexes period ``p`` of every leaf (a view);
+where it wraps the period body in ``jax.checkpoint`` (``remat``), the port
+wraps it in ``torch.utils.checkpoint`` (non-reentrant), which recomputes
+the period in the backward pass.
 
 Block kinds ``attn`` (GQA or MLA), ``ssm``, ``mlstm`` and ``slstm``, each
 with a dense or an MoE MLP (or none, ``d_ff = 0``), as the reference's
@@ -20,28 +23,37 @@ image's patch embeddings ``[B, P, D]`` before the text tokens, under the
 prefix-LM mask (``prefix_len = cfg.vlm_prefix_len``); for the audio
 encoder frame embeddings ``[B, S, D]``, optionally blended with
 ``mask_emb`` at ``mask_positions``, plus the positional conv. The forward
-drops MoE's load-balance loss, which only training reads.
+returns the sum of the MoE layers' load-balance losses (``aux``), which
+``train_loss`` adds to the cross-entropy.
 
 Public API:
   init_lm(generator, cfg, dtype)                   -> params
-  forward(params, cfg, x, want_cache=...)          -> (hidden, caches)
+  forward(params, cfg, x, want_cache=..., remat=...) -> (hidden, aux, caches)
+  train_loss(params, cfg, batch, remat=...)        -> (loss, metrics)
   prefill(params, cfg, batch, max_len=...)         -> (logits_last, state)
   decode_step(params, cfg, state, token, pos)      -> (logits, state)
   init_decode_state(cfg, batch, max_len, ...)      -> state
 
 ``decode_step`` updates ``state`` in place (the attention caches by slice
 assignment, the recurrent states by ``copy_``) and returns it.
+
+On the card the GQA forward launches the flash kernel and the Mamba forward
+the scan kernel, neither of which has a backward yet: under grad they raise
+(``kernels._build.refuse_grad``), so on the card only archs that launch
+neither (xLSTM) train; on the CPU every arch does.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention, layers, moe as moe_lib, \
     ssm as ssm_lib, xlstm as xlstm_lib
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
@@ -89,24 +101,17 @@ def _check_static_period(cfg: ModelConfig) -> None:
                          f"{len(cfg.pattern)}")
 
 
-def _tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
-
-
 def _period(tree: Params, p: int) -> Params:
     """Period p of a period-stacked tree (views)."""
-    return _tree_map(lambda x: x[p], tree)
+    return tree_map(lambda x: x[p], tree)
 
 
 def _stack(trees: List[Params]) -> Params:
     """Stack trees (caches) leaf by leaf on a new leading period axis; one
     period becomes a view, with no copy."""
     if len(trees) == 1:
-        return _tree_map(lambda x: x.unsqueeze(0), trees[0])
-    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+        return tree_map(lambda x: x.unsqueeze(0), trees[0])
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 # ---------------------------------------------------------------------------
@@ -130,20 +135,21 @@ def _init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
 
 
 def _mlp_half(p: Params, cfg: ModelConfig, x, moe_drops=None):
-    """x + the block's MLP (dense or MoE) of norm2(x), x: [..., D]; every
-    token of x is one of the MoE's T (the reference's [B, S, D] and, in
-    decode, [B, 1, D])."""
+    """(x + the block's MLP (dense or MoE) of norm2(x), the MoE's
+    load-balance loss or None), x: [..., D]; every token of x is one of the
+    MoE's T (the reference's [B, S, D] and, in decode, [B, 1, D])."""
     h2 = layers.rms_norm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        out, _ = moe_lib.moe_apply(p["moe"], cfg,
-                                   h2.reshape(-1, 1, cfg.d_model), moe_drops)
-        return x + out.reshape(x.shape)
-    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp)
+        out, aux = moe_lib.moe_apply(p["moe"], cfg,
+                                     h2.reshape(-1, 1, cfg.d_model),
+                                     moe_drops)
+        return x + out.reshape(x.shape), aux
+    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp), None
 
 
 def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
                    mask: dict, moe_drops=None):
-    """Full-sequence block. Returns (x, cache)."""
+    """Full-sequence block. Returns (x, aux or None, cache)."""
     h = layers.rms_norm(p["norm1"], x, cfg.norm_eps)
     if kind == "attn":
         out, cache = attention.attn_forward(p["mixer"], cfg, h, positions,
@@ -152,9 +158,10 @@ def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
         with torch.profiler.record_function(MIXER_RANGE + kind):
             out, cache = _FORWARD[kind](p["mixer"], cfg, h)
     x = x + out
+    aux = None
     if "norm2" in p:
-        x = _mlp_half(p, cfg, x, moe_drops)
-    return x, cache
+        x, aux = _mlp_half(p, cfg, x, moe_drops)
+    return x, aux, cache
 
 
 def _block_decode(p: Params, cfg: ModelConfig, kind: str, x_t, pos: int,
@@ -166,7 +173,7 @@ def _block_decode(p: Params, cfg: ModelConfig, kind: str, x_t, pos: int,
         out, cache = _DECODE[kind](p["mixer"], cfg, h, cache)
     x_t = x_t + out
     if "norm2" in p:
-        x_t = _mlp_half(p, cfg, x_t)
+        x_t, _ = _mlp_half(p, cfg, x_t)
     return x_t, cache
 
 
@@ -212,65 +219,170 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
-                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The model's input [B, S, D], as the reference's ``_embed_inputs``
-    builds it for serving: for a VLM ``patches`` [B, P, D] then the
-    embeddings of ``tokens`` [B, S - P]; for the audio encoder ``frames``
-    [B, S, D], with ``mask_emb`` in place of the frames at
-    ``mask_positions`` [B, S] (0/1) when given, plus the positional conv
-    of the result; else the embeddings of ``tokens``."""
+                  batch: Dict[str, torch.Tensor]):
+    """(the model's input [B, S, D], labels or None, loss mask or None), as
+    the reference's ``_embed_inputs`` builds them: for a VLM ``patches``
+    [B, P, D] then the embeddings of ``tokens`` [B, S - P] (P may be all of
+    S: ``tokens`` [B, 0]), with ``labels`` [B, S - P], when given, padded
+    by 0 over the P patches and the mask 0 there and 1 on the text; for the
+    audio encoder ``frames`` [B, S, D], with ``mask_emb`` in place of the
+    frames at ``mask_positions`` [B, S] (0/1) when given, plus the
+    positional conv of the result, the labels ``targets`` and the mask
+    ``mask_positions`` as float; else the embeddings of ``tokens``, with
+    ``labels`` and ``loss_mask`` as given."""
     emb = params["embed"]
     if cfg.family == "vlm":
-        return torch.cat([batch["patches"].to(emb.dtype),
-                          emb[batch["tokens"]]], dim=1)
+        patches = batch["patches"].to(emb.dtype)
+        x = torch.cat([patches, emb[batch["tokens"]]], dim=1)
+        labels = batch.get("labels")
+        if labels is None:
+            return x, None, None
+        b, p = patches.shape[:2]
+        labels = torch.cat([labels.new_zeros((b, p)), labels], dim=1)
+        mask = torch.cat([
+            torch.zeros((b, p), dtype=torch.float32, device=x.device),
+            torch.ones(batch["labels"].shape, dtype=torch.float32,
+                       device=x.device)], dim=1)
+        return x, labels, mask
     if cfg.audio_frontend:
         frames = batch["frames"].to(emb.dtype)
-        if "mask_positions" in batch:
-            m = batch["mask_positions"][..., None].to(emb.dtype)
+        mask = batch.get("mask_positions")
+        if mask is not None:
+            m = mask[..., None].to(emb.dtype)
             frames = frames * (1 - m) + params["mask_emb"] * m
-        return frames + layers.causal_conv_apply(params["pos_conv"], frames)
-    return emb[batch["tokens"]]
+            mask = mask.to(torch.float32)
+        x = frames + layers.causal_conv_apply(params["pos_conv"], frames)
+        return x, batch.get("targets"), mask
+    return emb[batch["tokens"]], batch.get("labels"), batch.get("loss_mask")
 
 
 def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
-            want_cache: bool = False,
+            want_cache: bool = False, remat: bool = True,
             moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None):
-    """x: [B, S, D] embeddings -> (hidden [B, S, D], caches). ``caches``
-    is ``{"prefix": [...], "period": {"j<j>": leaves [n_per, ...]}}`` when
-    ``want_cache``, else None. With ``moe_drops`` given, each MoE layer
-    appends its (assignments, dropped count) to it
-    (``moe.moe_apply``)."""
+    """x: [B, S, D] embeddings -> (hidden [B, S, D], aux, caches). ``aux``
+    is the sum of the MoE layers' load-balance losses (a 0-dim fp32
+    tensor, 0 without MoE). ``caches`` is ``{"prefix": [...], "period":
+    {"j<j>": leaves [n_per, ...]}}`` when ``want_cache``, else None.
+    ``remat`` recomputes each period in the backward pass
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    its period body) when the forward is differentiated (grad mode on, x
+    requiring grad); it changes no value. With
+    ``moe_drops`` given, each MoE layer appends its (assignments, dropped
+    count) to it (``moe.moe_apply``)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     mask = {"causal": cfg.causal,
             "prefix_len": cfg.vlm_prefix_len if cfg.family == "vlm" else 0,
             "window": cfg.sliding_window}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix_caches = []
     for blk in params.get("prefix", []):
-        x, c = _block_forward(blk, cfg, "attn", x, positions, mask,
-                              moe_drops)
+        x, aux, c = _block_forward(blk, cfg, "attn", x, positions, mask,
+                                   moe_drops)
+        if aux is not None:
+            aux_total = aux_total + aux
         prefix_caches.append(c)
+
+    def period_body(x, aux_acc, blocks):
+        caches = {}
+        for j, kind in enumerate(cfg.pattern):
+            x, aux, c = _block_forward(blocks[f"j{j}"], cfg, kind, x,
+                                       positions, mask, moe_drops)
+            if aux is not None:
+                aux_acc = aux_acc + aux
+            if want_cache:
+                caches[f"j{j}"] = c
+        return x, aux_acc, caches
+
     per_period = []
     for p in range(_n_periods(cfg)):
         blocks = _period(params["period"], p)
-        caches = {}
-        for j, kind in enumerate(cfg.pattern):
-            x, c = _block_forward(blocks[f"j{j}"], cfg, kind, x, positions,
-                                  mask, moe_drops)
-            if want_cache:
-                caches[f"j{j}"] = c
+        if remat and torch.is_grad_enabled() and x.requires_grad:
+            x, aux_total, caches = checkpoint(
+                period_body, x, aux_total, blocks, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, aux_total, caches = period_body(x, aux_total, blocks)
         per_period.append(caches)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if not want_cache:
-        return x, None
-    return x, {"prefix": prefix_caches, "period": _stack(per_period)}
+        return x, aux_total, None
+    return x, aux_total, {"prefix": prefix_caches,
+                          "period": _stack(per_period)}
 
 
 def _lm_head(params: Params, cfg: ModelConfig, h: torch.Tensor
              ) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w
+
+
+def ce_chunk(batch: int, seq: int, vocab: int, chunk: int = 0) -> int:
+    """The sequence chunk :func:`chunked_ce_loss` takes: ``chunk`` when
+    given (it must divide ``seq``), else the reference's rule, about 256 MB
+    of fp32 logits a chunk (256e6 / (B V 4) positions, at most S), stepped
+    down until it divides S."""
+    if chunk <= 0:
+        chunk = max(1, min(seq, int(256e6 / max(batch * vocab * 4, 1))))
+        while seq % chunk:
+            chunk -= 1
+    elif seq % chunk:
+        raise ValueError(f"a loss chunk of {chunk} does not divide the "
+                         f"sequence of {seq}")
+    return chunk
+
+
+def chunked_ce_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                    labels: torch.Tensor, loss_mask: Optional[torch.Tensor],
+                    chunk: int = 0) -> torch.Tensor:
+    """Mean cross-entropy of the LM head on h [B, S, D] against labels
+    [B, S] under loss_mask [B, S] (all ones when None), without the whole
+    [B, S, V] logits: the sequence runs in chunks (:func:`ce_chunk`), one
+    at a time, in a Python loop (the reference's ``lax.scan``). The mean
+    is over the mask's sum (at least 1); no host sync."""
+    b, s, _ = h.shape
+    chunk = ce_chunk(b, s, cfg.vocab, chunk)
+    if loss_mask is None:
+        loss_mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        logits = _lm_head(params, cfg, h[:, c0:c0 + chunk]).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
+        mc = loss_mask[:, c0:c0 + chunk].to(torch.float32)
+        tot = tot + ((logz - gold) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor], *, remat: bool = True,
+               loss_chunk: int = 0):
+    """The reference's loss by family: causal LM (``tokens`` [B, S]: the
+    first S - 1 positions predict the next token, under ``loss_mask``'s
+    last S - 1 columns when given); prefix LM for a VLM (``patches`` and
+    ``tokens``: the text's next-token loss, the patches unscored); masked
+    prediction for the audio encoder (``targets`` at ``mask_positions``).
+    Returns (ce + aux, {"ce": ce, "aux": aux}), 0-dim tensors."""
+    if cfg.family == "vlm":
+        tokens = batch["tokens"]
+        x, labels, mask = _embed_inputs(params, cfg, {
+            "patches": batch["patches"], "tokens": tokens[:, :-1],
+            "labels": tokens[:, 1:]})
+    elif cfg.audio_frontend:
+        x, labels, mask = _embed_inputs(params, cfg, batch)
+    else:
+        tokens = batch["tokens"]
+        x, _, _ = _embed_inputs(params, cfg, {"tokens": tokens[:, :-1]})
+        labels = tokens[:, 1:]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask[:, 1:]
+    h, aux, _ = forward(params, cfg, x, remat=remat)
+    ce = chunked_ce_loss(params, cfg, h, labels, mask, loss_chunk)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +431,7 @@ def _fill_attn_cache(cfg: ModelConfig, kv: Params, max_len: int,
             pad = [0, 0] * (x.dim() - seq_axis - 1) + [0, max_len - s]
             return torch.nn.functional.pad(x, pad)
         return x
-    return _tree_map(fill, kv)
+    return tree_map(fill, kv)
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -328,9 +440,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Run the full prompt (a batch as :func:`_embed_inputs` takes it);
     return (last-token logits [B, V], decode state). ``moe_drops`` as in
     :func:`forward`."""
-    x = _embed_inputs(params, cfg, batch)
+    x, _, _ = _embed_inputs(params, cfg, batch)
     max_len = max_len or x.shape[1]
-    h, caches = forward(params, cfg, x, want_cache=True, moe_drops=moe_drops)
+    h, _, caches = forward(params, cfg, x, want_cache=True, remat=False,
+                           moe_drops=moe_drops)
     logits = _lm_head(params, cfg, h[:, -1, :])
     state: Params = {}
     if caches["prefix"]:

@@ -23,6 +23,7 @@ from repro.core import topology as jtopology
 from repro_torch.core import aggregation, attacks, detection, rounds, \
     topology
 from torch_runs import assert_runs_close, run_pair, specs
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 RTOL, ATOL = 1e-5, 1e-6
 ATTACK_SPECS = ["signflip", "signflip:2.5", "noise", "noise:0.5:2",

@@ -35,6 +35,7 @@ from repro_torch.launch import train
 from repro_torch.models.mlp import mlp_client_losses
 from repro_torch.weights import params_from_jax
 from torch_runs import ATOL, RTOL
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _tiny_params(seed=0):

@@ -31,6 +31,7 @@ from repro_torch.models import layers
 from repro_torch.models.mlp import (init_mlp, mlp_client_losses, mlp_logits,
                                     mlp_loss)
 from repro_torch.weights import batch_from_numpy, params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.mark.parametrize("n_clients,alpha,m,seed",

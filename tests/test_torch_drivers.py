@@ -25,6 +25,8 @@ from repro_torch.core import attacks, rounds, topology
 from repro_torch.models.mlp import mlp_client_losses
 from repro_torch.weights import batch_from_numpy, params_from_jax
 
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
 C, K = 4, 3
 
 

@@ -20,6 +20,7 @@ from repro.kernels.fedavg.ref import fedavg_flat_ref as jfedavg_flat_ref
 from repro_torch.core import aggregation, mining
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.fedavg.ref import digest_div_flat_ref
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 RTOL, ATOL = 1e-5, 1e-6
 # the MLP's leaf widths at hidden 32 plus a width the 2048-column Pallas

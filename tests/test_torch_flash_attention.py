@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_tf32, mha_ref,
                                                      tf32_round)
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 RTOL = ATOL = 3e-5
 BF16_ATOL = 3e-2

@@ -5,7 +5,8 @@ versions (``attention_ref``, ``mha_ref``, the 3xTF32 emulation
 ``build_mask`` + ``_sdpa``; GQA and MLA forwards with the prefix; the
 paligemma-3b smoke model's prefill and cached decode; the hubert-xlarge
 smoke encoder's forward and prefill with and without ``mask_positions``;
-the serve entry point and the prompt batches. Params carried across by
+the serve entry point and the prompt batches (a VLM prompt of the patches
+alone among them). Params carried across by
 ``weights.lm_params_from_jax``.
 
 Tolerance: rtol / atol 3e-5 on attention outputs (fp32 sums in another
@@ -31,6 +32,7 @@ import jax.numpy as jnp
 from repro import configs as jconfigs
 from repro.launch import serve as jserve
 from repro.models import attention as jattention
+from repro.models import registry as jregistry
 from repro.models import transformer as jtransformer
 from repro_torch import configs, kernels
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -38,6 +40,8 @@ from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.launch import serve
 from repro_torch.models import attention, registry, transformer
 from repro_torch.weights import lm_params_from_jax
+
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 ATTN_TOL = 3e-5
 LAYER_TOL = 1e-5
@@ -223,15 +227,15 @@ def test_paligemma_forward_matches_reference_at_every_position():
     jbatch = {"patches": jnp.asarray(patches), "tokens": jnp.asarray(toks)}
     jx, _, _ = jtransformer._embed_inputs(jparams, jcfg, jbatch)
     want, _, _ = jtransformer.forward(jparams, jcfg, jx, remat=False)
-    x = transformer._embed_inputs(
+    x, _, _ = transformer._embed_inputs(
         params, cfg, {"patches": torch.from_numpy(patches),
                       "tokens": torch.from_numpy(toks).long()})
     _close(x, jx, LAYER_TOL)
-    got, _ = transformer.forward(params, cfg, x)
+    got, _, _ = transformer.forward(params, cfg, x)
     _close(got, want, LOGIT_TOL)
     # the prefix matters: the same stack without it gives other states
     plain = dataclasses.replace(cfg, family="dense")
-    other, _ = transformer.forward(params, plain, x)
+    other, _, _ = transformer.forward(params, plain, x)
     assert float((other[:, :cfg.vlm_prefix_len] - got[:, :cfg.vlm_prefix_len])
                  .abs().max()) > 1e-3
 
@@ -245,8 +249,8 @@ def test_paligemma_decode_matches_forward():
     batch = registry.make_prefill_batch(
         torch.Generator().manual_seed(1), cfg,
         configs.ShapeConfig("t", p + n, 2, "prefill"))
-    h, _ = transformer.forward(params, cfg,
-                               transformer._embed_inputs(params, cfg, batch))
+    h, _, _ = transformer.forward(
+        params, cfg, transformer._embed_inputs(params, cfg, batch)[0])
     full = transformer._lm_head(params, cfg, h)
     toks = batch["tokens"]
     logits, state = transformer.prefill(
@@ -285,10 +289,10 @@ def test_hubert_forward_and_prefill_match_reference(masked):
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     jx, _, _ = jtransformer._embed_inputs(jparams, jcfg, jbatch)
-    x = transformer._embed_inputs(params, cfg, tbatch)
+    x, _, _ = transformer._embed_inputs(params, cfg, tbatch)
     _close(x, jx, LAYER_TOL)
     jh, _, _ = jtransformer.forward(jparams, jcfg, jx, remat=False)
-    h, _ = transformer.forward(params, cfg, x)
+    h, _, _ = transformer.forward(params, cfg, x)
     _close(h, jh, LOGIT_TOL)
     _close(transformer._lm_head(params, cfg, h),
            jtransformer._lm_head(jparams, jcfg, jh), LOGIT_TOL)
@@ -299,8 +303,8 @@ def test_hubert_forward_and_prefill_match_reference(masked):
         _close(state["period"]["j0"][key], jstate["period"]["j0"][key],
                LOGIT_TOL)
     if masked:   # the mask embedding took the masked frames' place
-        plain = transformer._embed_inputs(params, cfg,
-                                          {"frames": tbatch["frames"]})
+        plain, _, _ = transformer._embed_inputs(
+            params, cfg, {"frames": tbatch["frames"]})
         assert not torch.allclose(plain, x)
 
 
@@ -332,9 +336,37 @@ def test_make_prefill_batch_lays_out_the_references_inputs():
     batch = registry.make_prefill_batch(gen, audio, shape)
     assert set(batch) == {"frames"}
     assert batch["frames"].shape == (3, 40, audio.d_model)
-    with pytest.raises(ValueError, match="no text"):
+    # a prompt of the patches alone (S = P) has an empty token block, as
+    # the reference builds it; a shorter one raises in both packages
+    batch = registry.make_prefill_batch(
+        gen, vlm, configs.ShapeConfig("t", 16, 3, "prefill"))
+    assert batch["patches"].shape == (3, 16, vlm.d_model)
+    assert batch["tokens"].shape == (3, 0)
+    with pytest.raises(ValueError, match="shorter than"):
         registry.make_prefill_batch(
-            gen, vlm, configs.ShapeConfig("t", 16, 1, "prefill"))
+            gen, vlm, configs.ShapeConfig("t", 15, 1, "prefill"))
+
+
+def test_vlm_prompt_of_only_patches_serves_as_the_reference():
+    """S = P: the reference's prompt batch of the patches and ``tokens
+    [B, 0]`` through ``_embed_inputs``, the prefix mask and ``prefill``:
+    finite last-position logits [B, V] equal to the JAX package's at the
+    whole-model tolerance, and a cache of P positions."""
+    jcfg, cfg = _pair("paligemma-3b")
+    p = cfg.vlm_prefix_len
+    jparams = jtransformer.init_lm(jax.random.key(4), jcfg)
+    params = _to_torch(jparams)
+    jbatch = jregistry.make_prefill_batch(
+        jax.random.key(5), jcfg, jconfigs.ShapeConfig("t", p, 2, "prefill"))
+    assert jbatch["tokens"].shape == (2, 0)
+    jlogits, _ = jtransformer.prefill(jparams, jcfg, jbatch)
+    batch = {"patches": torch.from_numpy(np.array(jbatch["patches"])),
+             "tokens": torch.zeros((2, 0), dtype=torch.int64)}
+    logits, state = transformer.prefill(params, cfg, batch)
+    assert logits.shape == (2, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    _close(logits, jlogits, LOGIT_TOL)
+    assert state["period"]["j0"]["k"].shape[2] == p
 
 
 @pytest.mark.parametrize("arch", ["paligemma-3b", "hubert-xlarge"])

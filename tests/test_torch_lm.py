@@ -38,6 +38,8 @@ from repro_torch.models import (attention, layers, registry, ssm,
                                  transformer)
 from repro_torch.weights import lm_params_from_jax
 
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
 RTOL = ATOL = 1e-5
 # the five smoke configs the serve slice covers, plus kimi's (a dense
 # prefix block), each without MoE on both sides
@@ -374,8 +376,8 @@ def test_uncapped_moe_decode_from_empty_state_matches_forward(arch):
         torch.Generator().manual_seed(1), cfg,
         configs.ShapeConfig("t", s, b, "prefill"))
     drops = []
-    h, _ = transformer.forward(
-        params, cfg, transformer._embed_inputs(params, cfg, batch),
+    h, _, _ = transformer.forward(
+        params, cfg, transformer._embed_inputs(params, cfg, batch)[0],
         moe_drops=drops)
     assert drops and all(int(n) == 0 for _, n in drops)
     full = transformer._lm_head(params, cfg, h)
@@ -397,9 +399,9 @@ def test_decode_from_empty_state_matches_forward(arch):
     batch = registry.make_prefill_batch(
         torch.Generator().manual_seed(1), cfg,
         configs.ShapeConfig("t", s, b, "prefill"))
-    h, caches = transformer.forward(
-        params, cfg, transformer._embed_inputs(params, cfg, batch))
-    assert caches is None
+    h, aux, caches = transformer.forward(
+        params, cfg, transformer._embed_inputs(params, cfg, batch)[0])
+    assert caches is None and float(aux) == 0.0
     full = transformer._lm_head(params, cfg, h)
     state = transformer.init_decode_state(cfg, b, s, device="cpu")
     for t in range(s):

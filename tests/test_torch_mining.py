@@ -17,6 +17,7 @@ from repro.kernels.pow_hash.kernel import pow_race_kernel, pow_search_kernel
 from repro_torch.core import chain, mining
 from repro_torch.kernels.pow_hash import ops as pow_ops
 from repro_torch.kernels.pow_hash import ref as pow_ref
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 # the budgets pinned by tests/test_kernels.py (POW_GRID_CASES): divisible,
 # non-divisible tails, chunk larger than the budget, odd chunk

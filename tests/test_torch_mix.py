@@ -22,6 +22,8 @@ from repro_torch.core import aggregation, rounds, topology
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.fedavg.ref import mix_rows_flat_ref
 
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -28,6 +28,7 @@ from repro.models import moe as jmoe
 from repro_torch import configs
 from repro_torch.models import moe
 from repro_torch.weights import lm_params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 RTOL = ATOL = 1e-5
 MOE_ARCHS = ["jamba-1.5-large-398b", "kimi-k2-1t-a32b", "deepseek-v2-236b"]

@@ -31,6 +31,7 @@ from repro_torch.core import bounds
 from repro_torch.launch import train
 from repro_torch.weights import batch_from_numpy, params_from_jax
 from torch_runs import ATOL, RTOL
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 # a sweep small enough for the CPU: C 4, 16 samples a client, tau 20 / 8 / 4
 SWEEP = dict(n_clients=4, samples=16, t_sum=24.0, beta=4.0, eta=0.05)

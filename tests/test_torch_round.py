@@ -29,6 +29,7 @@ from repro_torch.kernels.pow_hash import ref as pow_ref
 from repro_torch.launch import train
 from repro_torch.models.mlp import mlp_client_losses
 from repro_torch.weights import batch_from_numpy, params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 RTOL, ATOL = 1e-4, 1e-5
 C, HIDDEN, M, TAU, K = 4, 32, 16, 2, 3

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 

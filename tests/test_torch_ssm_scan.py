@@ -27,6 +27,7 @@ from repro_torch.kernels.ssm_scan.ref import (ssm_scan_exp2,
                                               ssm_scan_ref, state_bucket)
 from repro_torch.models import ssm
 from repro_torch.weights import lm_params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 ATOL = 2e-5
 BLOCK_RTOL = BLOCK_ATOL = 1e-5

@@ -23,6 +23,7 @@ from repro.core import topology as jtopology
 from repro_torch.core import rounds, spectral, topology
 from repro_torch.launch import train
 from torch_runs import assert_runs_close, run_pair, specs
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 # every from_name spelling family, with and without arguments
 NAMES = ["full", "mesh", "ring", "ring:2", "partial:2", "shift", "shift:3",

@@ -32,6 +32,8 @@ from repro_torch.launch import serve
 from repro_torch.models import registry, transformer, xlstm
 from repro_torch.weights import lm_params_from_jax
 
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
 ARCH = "xlstm-125m"
 ATOL, RTOL = 3e-5, 1e-4
 LOGIT_TOL = 2e-4
@@ -234,8 +236,8 @@ def test_xlstm_decode_from_empty_state_matches_forward():
     batch = registry.make_prefill_batch(
         torch.Generator().manual_seed(1), cfg,
         configs.ShapeConfig("t", s, b, "prefill"))
-    h, _ = transformer.forward(
-        params, cfg, transformer._embed_inputs(params, cfg, batch))
+    h, _, _ = transformer.forward(
+        params, cfg, transformer._embed_inputs(params, cfg, batch)[0])
     full = transformer._lm_head(params, cfg, h)
     state = transformer.init_decode_state(cfg, b, s, device="cpu")
     for t in range(s):

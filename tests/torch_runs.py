@@ -125,3 +125,79 @@ def assert_runs_bitwise(want, got):
                                       np.array(list(wh.values())))
     assert ledger.validate_chain()
     assert ledger.blocks == wledger.blocks
+
+
+# ---------------------------------------------------------------------------
+# LM training: the loss and its gradients of one smoke arch
+# ---------------------------------------------------------------------------
+
+# rtol / atol on the loss and on non-recurrent archs' gradients: the same
+# fp32 ops summed in another order; the recurrent archs' gradients (the
+# xLSTM and Mamba time loops) at tests/test_torch_xlstm.py's atol 3e-5 /
+# rtol 1e-4
+LM_TOL = 1e-5
+RECURRENT_ATOL, RECURRENT_RTOL = 3e-5, 1e-4
+RECURRENT_ARCHS = ("xlstm-125m", "jamba-1.5-large-398b")
+LM_SHAPE = (24, 2)   # (seq, batch) of the loss tests
+
+
+def lm_batch_to_torch(batch):
+    """A reference LM batch (numpy or jax leaves) as port tensors: floats
+    as float32, bools as bool, integers as int64; any leading axes."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        if v.dtype == np.bool_:
+            out[k] = torch.from_numpy(v.copy())
+        elif np.issubdtype(v.dtype, np.integer):
+            out[k] = torch.from_numpy(v.astype(np.int64))
+        else:
+            out[k] = torch.from_numpy(np.array(v, np.float32))
+    return out
+
+
+def assert_loss_and_grads_match(arch, seed=0):
+    """``train_loss`` and its gradient with respect to every leaf, of the
+    arch's smoke config on the reference's params and batch, against the
+    JAX package's ``value_and_grad`` of its ``train_loss``; the metrics
+    (``ce``, ``aux``) too. The port runs with remat (recomputing each
+    period in the backward pass), the reference without."""
+    from repro import configs as jconfigs
+    from repro.models import registry as jregistry
+    from repro.models import transformer as jtransformer
+    from repro_torch import configs, tree
+    from repro_torch.models import transformer
+    from repro_torch.weights import lm_params_from_jax
+
+    jcfg, cfg = jconfigs.get_smoke_arch(arch), configs.get_smoke_arch(arch)
+    jparams = jtransformer.init_lm(jax.random.key(seed), jcfg)
+    seq, b = LM_SHAPE
+    jbatch = jregistry.make_train_batch(
+        jax.random.key(seed + 1), jcfg,
+        jconfigs.ShapeConfig("t", seq, b, "train"))
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtransformer.train_loss(p, jcfg, jbatch, remat=False),
+        has_aux=True))(jparams)
+    flat = tree.flatten(lm_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                           "cpu"))
+    leaves = {k: v.requires_grad_(True) for k, v in flat.items()}
+    loss, metrics = transformer.train_loss(
+        tree.unflatten(leaves), cfg, lm_batch_to_torch(jbatch), remat=True)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                materialize_grads=True)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=LM_TOL, atol=LM_TOL)
+    for name in ("ce", "aux"):
+        np.testing.assert_allclose(float(metrics[name].detach()),
+                                   float(jmetrics[name]), rtol=LM_TOL,
+                                   atol=LM_TOL, err_msg=name)
+    if arch in RECURRENT_ARCHS:
+        rtol, atol = RECURRENT_RTOL, RECURRENT_ATOL
+    else:
+        rtol = atol = LM_TOL
+    jflat = tree.flatten(jax.tree.map(np.asarray, jgrads))
+    assert set(jflat) == set(leaves)
+    for name, g in zip(leaves, grads):
+        np.testing.assert_allclose(g.numpy(), jflat[name], rtol=rtol,
+                                   atol=atol, err_msg=f"{arch} grad {name}")
+    return float(metrics["aux"].detach())
