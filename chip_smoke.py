@@ -138,23 +138,39 @@ prints its seconds:
    COHORT_PEAK_GB, each round's host-clock split and a profiled busy
    share; 6c the degenerate cohort (20 of 20, ``prefix``) bitwise equal
    to the loop driver; 6d 1 000 enrolled, cohort 16, card against CPU;
-7. LM training on the card (``launch.train --arch``): 7a ``flash_attention``,
-   ``mha`` and ``ssm_scan`` refuse CUDA inputs that require grad (their
-   kernels have no backward yet) and launch under ``torch.no_grad()``, and
-   a phi4-mini smoke training loss on the card raises naming flash; 7b
-   ``fedavg_flat`` and ``digest_div_flat`` (tolerance) and the seal
-   (bitwise) at C = 4 on every xLSTM-125M leaf (up to 38.6 M floats a
-   row), with their times over a round's leaves and at the widest; 7c
-   xLSTM-125M at its published widths (0.22 G parameters), 4 clients of 2
-   x 256 tokens, K = 3, one lazy client, by both drivers: bitwise equal,
-   launch counts exact (the seal K times, ``fedavg_flat`` and
-   ``digest_div_flat`` once a leaf a round, flash, scan and mix never), no
-   host sync in the loop's rounds nor in the replays, a valid chain,
-   finite losses; the ms a round by each driver and a replay's, the warm
-   round's and the captures' seconds, the peak device memory and, under
-   ``--profile``, the replays' busy share and device operations a round;
-   7d the xLSTM smoke config with 2 microbatches a client at K = 2 by
-   both drivers, bitwise, and card against CPU.
+7. LM training on the card (``launch.train --arch``): 7a the two backward
+   kernels against autograd through their plain twins on the same CUDA
+   inputs with a random cotangent: ``mha`` under grad (``_FlashFn``: the
+   forward with its rows' logsumexp, then ``flash_attention_bwd.cu``) at
+   FLASH_GRAD_CASES (phi4-mini's training shape, MLA's D 192, PaliGemma's
+   prefix-LM MQA at D 256, HuBERT's bidirectional D 80, a window, ragged
+   S, D 36, MQA) and ``ssm_scan`` under grad (``_ScanFn``: the forward
+   with its chunk states, then ``ssm_scan_bwd.cu``) at SSM_GRAD_CASES
+   (Jamba's layer shape with a final-h cotangent, ragged T, ds 1 and 64,
+   an underflowing decay), each gradient within FLASH_GRAD_* / SSM_GRAD_*
+   (the worst share printed), two calls bitwise equal, the forward
+   bitwise the serving launch; 7b the backward kernels' times at those
+   two path shapes beside the plain twins' autograd and SDPA's fp32
+   backward, and ``fedavg_flat`` and ``digest_div_flat`` (tolerance) and
+   the seal (bitwise) at C = 4 on every xLSTM-125M leaf and on phi4-mini's
+   615 M-float embedding, with their times; 7c xLSTM-125M at its
+   published widths cut to one period of its pattern (3 mLSTM + 1 sLSTM,
+   XLSTM_TRAIN_LAYERS), 4 clients of 2 x 256 tokens, K = 3, one lazy
+   client, by both drivers: bitwise equal, launch counts exact (the seal
+   K times, ``fedavg_flat`` and ``digest_div_flat`` once a leaf a round,
+   flash, scan and mix never), no host sync in the loop's rounds nor in
+   the replays, a valid chain, finite losses; the ms a round by each
+   driver and a replay's, the warm round's and the captures' seconds,
+   the peak device memory and, under ``--profile``, the replays' busy
+   share and device operations a round; 7d the xLSTM smoke config with 2
+   microbatches a client at K = 2 by both drivers, bitwise, and card
+   against CPU; 7e phi4-mini-3.8B at its published widths cut to 2
+   layers (0.816 G parameters), 2 clients of 2 x 512 tokens, K = 2, by
+   both drivers in the same way, flash forward and backward launch counts
+   exact, its peak under PHI4_PEAK_GB; 7f every smoke arch with attention
+   or Mamba (SMOKE_TRAIN_ARCHS) trained on the card by the graph driver,
+   its flash and scan launches (forward and backward) as its layer
+   pattern gives them, held to its CPU run.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -420,21 +436,32 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:82 "
                        "flash_attention",
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:49 ssm_scan",
+    # no TPU counterpart: the gradients of the two kernels above
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:82 "
+                           "flash_attention (its gradient; no TPU kernel)",
+    "ssm_scan_bwd": "src/repro/kernels/ssm_scan/kernel.py:49 ssm_scan (its "
+                    "gradient; no TPU kernel)",
 }
 # kernel -> the shared library (kernels/_build.py SOURCES) that holds it
 LIBRARY = {"pow_race": "pow_race", "fedavg_flat": "fedavg",
            "digest_div_flat": "fedavg", "mix_rows_flat": "fedavg",
-           "flash_attention": "flash_attention", "ssm_scan": "ssm_scan"}
+           "flash_attention": "flash_attention",
+           "flash_attention_bwd": "flash_attention_bwd",
+           "ssm_scan": "ssm_scan", "ssm_scan_bwd": "ssm_scan_bwd"}
 # kernel -> the path whose run gives its launch count in the table (flash:
-# the DeepSeek serve path, at whose shape its row is timed)
+# the DeepSeek serve path, at whose shape its row is timed; the flash
+# backward: phi4-mini's training path; the scan backward: Jamba smoke's)
 MAIN_PATH_OF = {"pow_race": "paper", "fedavg_flat": "paper",
                 "digest_div_flat": "paper", "mix_rows_flat": "topology",
-                "flash_attention": "mla serve", "ssm_scan": "serve"}
+                "flash_attention": "mla serve", "ssm_scan": "serve",
+                "flash_attention_bwd": "phi4 train",
+                "ssm_scan_bwd": "jamba-1.5-large-398b smoke train"}
 # path -> what launched its kernels in the counted run: the FL paths' static
 # batch runs on the graph driver (a warm round and K - 1 replays, the
 # replays' launches added by the driver); the serve paths call the wrappers
 LAUNCHED_BY = {"paper": "graph driver", "topology": "graph driver",
-               "xlstm train": "graph driver",
+               "xlstm train": "graph driver", "phi4 train": "graph driver",
+               "jamba-1.5-large-398b smoke train": "graph driver",
                "serve": "eager calls", "mla serve": "eager calls",
                "xlstm serve": "eager calls", "vlm serve": "eager calls",
                "audio encoder": "eager calls"}
@@ -494,6 +521,9 @@ XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--size", "one-h100",
                     "--clients", str(TRAIN_CLIENTS), "--per-client", "2",
                     "--seq", "256", "--rounds", str(K_TRAIN), "--lazy", "1",
                     "--sigma2", "1e-4"]
+# 7c runs the published widths at one period of the pattern (3 mLSTM + 1
+# sLSTM, the first 4 of the 12 layers): one sLSTM time loop, not three
+XLSTM_TRAIN_LAYERS = 4
 # 7d: the smoke config, each client's batch in 2 microbatches, by both
 # drivers and against the CPU
 K_TRAIN_SMOKE = 2
@@ -501,8 +531,55 @@ XLSTM_MB_ARGS = ["--arch", "xlstm-125m", "--size", "smoke", "--clients",
                  str(TRAIN_CLIENTS), "--per-client", "2", "--seq", "32",
                  "--rounds", str(K_TRAIN_SMOKE), "--lazy", "1", "--sigma2",
                  "1e-4", "--microbatches", "2"]
-# 7a: an arch whose forward launches flash (GQA), trained on the card
-GUARD_ARCH = "phi4-mini-3.8b"
+# 7a: each backward kernel held to autograd through its plain twin on the
+# same CUDA inputs with a random cotangent, each gradient tensor at
+# |got - want| <= rtol |want| + atol max|want|: flash's lse and D come from
+# the forward's 3xTF32 products (held at 3e-5), the scan recomputes its
+# decays with ex2.approx as the forward does (held at SSM_ATOL)
+FLASH_GRAD_RTOL, FLASH_GRAD_ATOL = 1e-4, 1e-4
+SSM_GRAD_RTOL, SSM_GRAD_ATOL = 1e-4, 2e-5
+# flash (B, H, Hkv, S, D, causal, window, prefix): phi4-mini's training
+# shape (2 x 512 tokens a client); MLA's D 192; PaliGemma's prefix-LM MQA
+# at D 256 (prefix 256, its patches); HuBERT's bidirectional D 80; a
+# window; ragged S (100, 300); minicpm's D 36; MQA
+FLASH_TRAIN_PATH = (2, 24, 8, 512, 128)
+FLASH_GRAD_CASES = [
+    FLASH_TRAIN_PATH + (True, 0, 0), (1, 16, 16, 512, 192, True, 0, 0),
+    (1, 8, 1, 512, 256, True, 0, 256), (1, 16, 16, 512, 80, False, 0, 0),
+    (1, 8, 2, 384, 64, True, 96, 0), (1, 4, 2, 100, 64, True, 0, 0),
+    (1, 4, 2, 300, 64, True, 0, 0), (2, 4, 2, 256, 36, True, 0, 0),
+    (1, 8, 1, 256, 64, True, 0, 0)]
+# scan (B, T, d_in, ds, dt scale), each with a non-zero final-h
+# cotangent: Jamba's layer shape; ragged T (off the 16-step chunks); ds 1
+# and 64; dt large enough that exp(dt a) underflows to 0 (a as Jamba's
+# -exp(a_log), a_log = log(1..ds))
+SSM_TRAIN_PATH = (2, 512, 16384, 16)
+SSM_GRAD_CASES = [SSM_TRAIN_PATH + (1.0,), (2, 100, 256, 16, 1.0),
+                  (1, 64, 512, 1, 1.0), (1, 64, 512, 64, 1.0),
+                  (1, 64, 256, 16, 60.0)]
+# 7e: phi4-mini-3.8B at its published widths cut to 2 layers
+# (configs/phi4_mini_3_8b.py ONE_H100: 0.816 G parameters), C = 2 clients
+# of 2 sequences of 512 tokens, K = 2 rounds, one lazy client, the same
+# round. At C = 4 the warm round ran out of the card's 80 GB (on an H100,
+# 66 GiB allocated when the embedding's 9.2 GiB [4, 200 064, 3072]
+# gradient was asked for), so the cut is in clients, never a width; a peak
+# of allocated memory above PHI4_PEAK_GB fails the phase
+K_PHI4 = 2
+PHI4_CLIENTS = 2
+PHI4_TRAIN_ARGS = ["--arch", "phi4-mini-3.8b", "--size", "one-h100",
+                   "--clients", str(PHI4_CLIENTS), "--per-client", "2",
+                   "--seq", "512", "--rounds", str(K_PHI4), "--lazy", "1",
+                   "--sigma2", "1e-4"]
+PHI4_PEAK_GB = 70.0
+PHI4_EMBED = 200_064 * 3072   # floats of its widest leaf, the embedding
+# 7f: every smoke arch whose forward launches flash or the scan, trained on
+# the card by the graph driver and held to its CPU run
+SMOKE_TRAIN_ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "nemotron-4-15b",
+                     "minicpm-2b", "jamba-1.5-large-398b", "deepseek-v2-236b",
+                     "kimi-k2-1t-a32b", "paligemma-3b", "hubert-xlarge"]
+SMOKE_TRAIN_ARGS = ["--size", "smoke", "--clients", str(TRAIN_CLIENTS),
+                    "--per-client", "2", "--seq", "32", "--rounds",
+                    str(K_TRAIN_SMOKE), "--lazy", "1", "--sigma2", "1e-4"]
 
 
 class SmokeFailure(RuntimeError):
@@ -2581,89 +2658,253 @@ def phase_audio(torch, dev, profile_dir):
     return launches
 
 
-def phase_train_guard(torch, dev):
-    """Phase 7a: the flash and scan kernels have no backward yet, so on a
-    CUDA input that requires grad, under grad mode, ``flash_attention``,
-    ``mha`` and ``ssm_scan`` raise a RuntimeError naming the kernel, and
-    launch nothing; under ``torch.no_grad()`` the same calls launch once
-    each. A GQA arch's (GUARD_ARCH smoke) training loss on the card
-    raises, naming flash."""
-    from repro_torch import kernels, tree
-    from repro_torch.configs import ShapeConfig, get_smoke_arch
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.ssm_scan import ops as ssm_ops
-    from repro_torch.models import registry
+def _grad_ratio(torch, got, want, rtol, atol):
+    """Largest |got - want| / (rtol |want| + atol max|want|) of one
+    gradient tensor."""
+    got, want = got.double(), want.double()
+    tol = rtol * want.abs() + atol * float(want.abs().max().clamp_min(1e-30))
+    return float(((got - want).abs() / tol).max())
 
-    gen = torch.Generator(device=dev).manual_seed(9753)
+
+def _flash_grad_inputs(torch, gen, case):
+    b, h, hkv, s, d = case[:5]
+    q = torch.randn((b, s, h, d), generator=gen, device=gen.device)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=gen.device)
+            for _ in range(2))
+    do = torch.randn((b, s, h, d), generator=gen, device=gen.device)
+    return [x.requires_grad_() for x in (q, k, v)], do
+
+
+def _ssm_grad_inputs(torch, gen, case):
+    """u, dt, B, C, a, d_skip (requiring grad) and the cotangents dy, dh
+    at (B, T, d_in, ds, dt scale); a as Jamba's -exp(a_log), a_log =
+    log(1..ds), spread."""
+    import torch.nn.functional as F
+
+    bsz, t, d_in, ds, scale = case
+    dev = gen.device
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    k, v = randn(2, 4, 64, 32), randn(2, 4, 64, 32)
-    km, vm = randn(2, 64, 2, 32), randn(2, 64, 2, 32)
-    dt = 0.1 * torch.rand((2, 16, 64), generator=gen, device=dev)
-    bm, cm, d_skip = randn(2, 16, 8), randn(2, 16, 8), randn(64)
-    a = -torch.rand((64, 8), generator=gen, device=dev)
-    cases = [("flash_attention", "flash_attention", randn(2, 4, 64, 32),
-              lambda x: flash_ops.flash_attention(x, k, v)),
-             ("mha", "flash_attention", randn(2, 64, 4, 32),
-              lambda x: flash_ops.mha(x, km, vm)),
-             ("ssm_scan", "ssm_scan", randn(2, 16, 64),
-              lambda x: ssm_ops.ssm_scan(x, dt, bm, cm, a, d_skip))]
-    for what, name, x, call in cases:
-        leaf = x.requires_grad_(True)
-        before = kernels.launch_counts()[name]
-        try:
-            call(leaf)
-        except RuntimeError as err:
-            require(name in str(err) and "10f-2" in str(err),
-                    f"{what} raised, but not naming {name}: {err}")
-        else:
-            raise SmokeFailure(f"{what} ran on a CUDA input that requires "
-                               "grad (its kernel has no backward)")
-        require(kernels.launch_counts()[name] == before,
-                f"{what} counted a launch it refused")
+    u, bm, cm = randn(bsz, t, d_in), randn(bsz, t, ds), randn(bsz, t, ds)
+    dt = scale * F.softplus(randn(bsz, t, d_in) - 2)
+    a = -(torch.arange(1, ds + 1, device=dev, dtype=torch.float32)
+          * torch.exp(0.3 * randn(d_in, ds)))
+    d_skip = randn(d_in)
+    xs = [x.requires_grad_() for x in (u, dt, bm, cm, a, d_skip)]
+    return xs, randn(bsz, t, d_in), randn(bsz, d_in, ds)
+
+
+def phase_train_grads(torch, dev, report):
+    """Phase 7a: each backward kernel against autograd through its plain
+    twin on the same CUDA inputs with a random cotangent. ``mha`` under
+    grad (``_FlashFn``: the forward with lse, then the backward kernel) at
+    FLASH_GRAD_CASES against ``ref.mha_ref``'s autograd, and ``ssm_scan``
+    under grad (``_ScanFn``: the forward with its chunk states, then the
+    backward kernel) at SSM_GRAD_CASES against ``ref.ssm_scan_ref``'s,
+    each gradient within its tolerance; one launch of each kernel a call;
+    two calls bitwise equal; the forward's outputs under grad bitwise those
+    of the serving launch (lse and chunk states off). Fills the backward
+    rows' max_abs_err in ``report``."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9753)
+    worst = {"flash": {}, "scan": {}}
+    errs = {"flash_attention_bwd": 0.0, "ssm_scan_bwd": 0.0}
+
+    def run_twice(fwd, xs, cot, name, what):
+        """fwd(*xs) under grad, its gradients twice (the launch counts and
+        the bits checked); returns (outputs, grads)."""
+        grads = []
+        for _ in range(2):
+            before = kernels.launch_counts()
+            outs = fwd(*xs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            grads.append(torch.autograd.grad(outs, xs, cot))
+            after = kernels.launch_counts()
+            require(after[name] - before[name] == 1
+                    and after[name + "_bwd"] - before[name + "_bwd"] == 1,
+                    f"{what}: launches {before} -> {after}, expected one "
+                    f"{name} and one {name}_bwd")
+        require(all(torch.equal(a, b) for a, b in zip(*grads)),
+                f"{what}: two backward calls differ")
+        return [o.detach() for o in outs], grads[0]
+
+    for case in FLASH_GRAD_CASES:
+        causal, window, prefix = case[5:]
+        mask = dict(causal=causal, window=window, prefix_len=prefix)
+        (q, k, v), do = _flash_grad_inputs(torch, gen, case)
+        outs, got = run_twice(lambda q, k, v: flash_ops.mha(q, k, v, **mask),
+                              [q, k, v], (do,), "flash_attention",
+                              f"flash at {case}")
         with torch.no_grad():
-            out = call(leaf)
-        torch.cuda.synchronize()
-        out = out[0] if isinstance(out, tuple) else out
-        require(kernels.launch_counts()[name] == before + 1
-                and bool(torch.isfinite(out).all()),
-                f"{what} under no_grad did not launch once")
-    cfg = get_smoke_arch(GUARD_ARCH)
-    params = {key: leaf.requires_grad_(True) for key, leaf in tree.flatten(
-        registry.init_model(torch.Generator(device=dev).manual_seed(0),
-                            cfg)).items()}
-    batch = registry.make_train_batch(
-        torch.Generator(device=dev).manual_seed(1), cfg,
-        ShapeConfig("t", 32, 2, "train"))
-    try:
-        loss, _ = registry.loss_fn(tree.unflatten(params), cfg, batch)
-        loss.backward()
-    except RuntimeError as err:
-        require("flash_attention" in str(err),
-                f"{GUARD_ARCH}'s training loss raised, not naming flash: "
-                f"{err}")
-        message = str(err)
-    else:
-        raise SmokeFailure(f"{GUARD_ARCH}'s training loss ran backward on "
-                           "the card through the flash kernel")
-    print(f"phase 7a ok: flash_attention, mha and ssm_scan refuse CUDA "
-          f"inputs that require grad and launch under no_grad; "
-          f"{GUARD_ARCH} smoke's training loss on the card raised: "
-          f"{message[:120]}", flush=True)
+            serve = flash_ops.mha(q, k, v, **mask)
+        require(torch.equal(outs[0], serve),
+                f"flash at {case}: the forward with lse is not bitwise "
+                "the serving launch")
+        want = torch.autograd.grad(flash_ref.mha_ref(q, k, v, **mask),
+                                   [q, k, v], do)
+        ratios = [_grad_ratio(torch, g, w, FLASH_GRAD_RTOL, FLASH_GRAD_ATOL)
+                  for g, w in zip(got, want)]
+        worst["flash"][str(case)] = max(ratios)
+        errs["flash_attention_bwd"] = max(
+            errs["flash_attention_bwd"],
+            *(float((g - w).abs().max()) for g, w in zip(got, want)))
+        require(max(ratios) <= 1,
+                f"flash backward off tolerance at {case}: dq, dk, dv at "
+                f"{ratios} of rtol {FLASH_GRAD_RTOL} |want| + atol "
+                f"{FLASH_GRAD_ATOL} max|want|")
+        del q, k, v, do, outs, got, want, serve
+    for case in SSM_GRAD_CASES:
+        xs, dy, dh = _ssm_grad_inputs(torch, gen, case)
+        if case[4] > 1:
+            require(bool((torch.exp(xs[1][..., None] * xs[4]) == 0).any()),
+                    f"scan case {case}: exp(dt a) never underflows")
+        outs, got = run_twice(ssm_ops.ssm_scan, xs, (dy, dh), "ssm_scan",
+                              f"scan at {case}")
+        with torch.no_grad():
+            serve = ssm_ops.ssm_scan(*xs)
+        require(all(torch.equal(a, b) for a, b in zip(outs, serve)),
+                f"scan at {case}: the forward with chunk states is not "
+                "bitwise the serving launch")
+        want = torch.autograd.grad(ssm_ref.ssm_scan_ref(*xs), xs, (dy, dh))
+        ratios = [_grad_ratio(torch, g, w, SSM_GRAD_RTOL, SSM_GRAD_ATOL)
+                  for g, w in zip(got, want)]
+        worst["scan"][str(case)] = max(ratios)
+        errs["ssm_scan_bwd"] = max(
+            errs["ssm_scan_bwd"],
+            *(float((g - w).abs().max()) for g, w in zip(got, want)))
+        require(max(ratios) <= 1,
+                f"scan backward off tolerance at {case}: du, ddt, dB, dC, "
+                f"da, dd_skip at {ratios} of rtol {SSM_GRAD_RTOL} |want| + "
+                f"atol {SSM_GRAD_ATOL} max|want|")
+        del xs, dy, dh, outs, got, want, serve
+    _free(torch)
+    for name, err in errs.items():
+        report[name] = {"max_abs_err": err}
+    print("phase 7a ok: backward kernels against autograd through the "
+          "plain twins, two calls bitwise equal, the forward bitwise the "
+          "serving launch; worst share of the tolerance by case "
+          + json.dumps(worst), flush=True)
 
 
-def train_leaf_widths(torch, dev):
-    """{leaf path: width} of xLSTM-125M's ONE_H100 params, as the round
-    engine flattens them (``tree.flatten``), drawn on the card."""
+def phase_bwd_times(torch, dev, report):
+    """Phase 7b (backward kernels): the flash backward at phi4-mini's
+    training shape and the scan backward at Jamba's layer shape, each call
+    alone (its wrapper on the saved tensors, by the profiler and CUDA
+    events), beside the plain twin's autograd backward and, for flash,
+    SDPA's fp32 backward (and its forward + backward), timed only; their
+    bounds. Adds the rows' times to ``report``."""
+    import torch.nn.functional as F
+
+    from repro_torch.benchmarks import timing
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    b, h, hkv, s, d = FLASH_TRAIN_PATH
+    (q, k, v), do = _flash_grad_inputs(torch, gen, FLASH_TRAIN_PATH)
+    mask = dict(seq_axis=1, head_axis=2, causal=True, window=0,
+                scale=1.0 / math.sqrt(d), prefix_len=0)
+    with torch.no_grad():
+        o, lse = flash_ops._forward_lse(q, k, v, **mask)
+    plain = flash_ref.mha_ref(q, k, v, causal=True)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():   # timed only: the port never calls it
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    pairs = _flash_work(b, h, hkv, s, d, True, 0)[2]
+    # q, k, v, o, dO and lse read; dq, dk, dv written; 10 D flops a kept
+    # pair (S, dP, dV, dK, dQ) as three TF32 passes, the card's fastest
+    # fp32-faithful products (row 6's arithmetic), one exp a pair; and,
+    # for the phase's line, the same flops as one pass of fp32 FMAs (the
+    # kernel's arithmetic)
+    bwd_work = (4 * (4 * b * s * h * d + 2 * b * s * hkv * d + b * h * s
+                     + b * s * h * d + 2 * b * s * hkv * d),
+                10 * d * pairs, pairs)
+    bound, by = _bound(*bwd_work, tf32_passes=FLASH_TF32_PASSES)
+    bound_fp32_ms = _bound(*bwd_work)[0]
+    report["flash_attention_bwd"].update(
+        ms=timing.kernel_ms(lambda: flash_ops.flash_attention_bwd(
+            q.detach(), k.detach(), v.detach(), o, lse, do, **mask),
+            "flash_attention_bwd", reps=10, ops=3),   # D, dK/dV, dQ
+        plain_ms=timing.kernel_ms(lambda: torch.autograd.grad(
+            plain, (q, k, v), do, retain_graph=True),
+            "flash_attention_bwd plain (autograd of mha_ref)", reps=5),
+        library_ms=timing.kernel_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True),
+            "flash_attention_bwd library (SDPA backward, fp32)", reps=10),
+        library_fwd_bwd_ms=timing.kernel_ms(
+            sdpa_fwd_bwd, "flash_attention_bwd library (SDPA forward + "
+            "backward, fp32)", reps=10),
+        bound_ms=bound, bound_by=by, kept_pairs=pairs,
+        shape=FLASH_TRAIN_PATH)
+    report["flash_attention_bwd"]["events_ms"] = \
+        timing.READINGS["flash_attention_bwd"]["events_ms"]
+    del q, k, v, do, o, lse, plain, qt, kt, vt, lib_out, dot
+    _free(torch)
+
+    xs, dy, dh = _ssm_grad_inputs(torch, gen, SSM_TRAIN_PATH + (1.0,))
+    f32 = [x.detach() for x in xs]
+    with torch.no_grad():
+        _, _, h_chunks = ssm_ops._launch(*f32, chunks=True)
+    plain = ssm_ref.ssm_scan_ref(*xs)
+    bsz, t, d_in, ds = SSM_TRAIN_PATH
+    n = bsz * t * d_in
+    # the gradient's own inputs read once and outputs written once: u, dt,
+    # dy read, du, ddt written; B, C read, dB, dC written; a, d_skip read
+    # and their grads written; dh read (not the chunk states, which are
+    # the algorithm's); one exp(dt a) a (b, t, channel, state) and twice
+    # the forward's flops (_ssm_work)
+    scan_bytes = 4 * (5 * n + 4 * bsz * t * ds + 4 * d_in * ds + 2 * d_in
+                      + bsz * d_in * ds)
+    fwd_flops = _ssm_work(bsz, t, d_in, ds)[1]
+    bound, by = _bound(scan_bytes, 2 * fwd_flops, n * ds)
+    report["ssm_scan_bwd"].update(
+        ms=timing.kernel_ms(lambda: ssm_ops.ssm_scan_bwd(
+            *f32, h_chunks, dy, dh), "ssm_scan_bwd", reps=10,
+            ops=5),   # the sweep, then the sums of dB, dC, da, dd_skip
+        plain_ms=timing.kernel_ms(lambda: torch.autograd.grad(
+            plain, xs, (dy, dh), retain_graph=True),
+            "ssm_scan_bwd plain (autograd of ssm_scan_ref)", reps=1),
+        library_ms=None, bound_ms=bound, bound_by=by, shape=SSM_TRAIN_PATH)
+    report["ssm_scan_bwd"]["events_ms"] = \
+        timing.READINGS["ssm_scan_bwd"]["events_ms"]
+    del xs, f32, dy, dh, h_chunks, plain
+    _free(torch)
+    print("phase 7b ok (backward kernels): " + json.dumps(
+        {name: {key: report[name][key] for key in
+                ("shape", "ms", "events_ms", "plain_ms", "library_ms",
+                 "bound_ms", "bound_by")}
+         for name in ("flash_attention_bwd", "ssm_scan_bwd")}
+        | {"sdpa_fwd_bwd_ms": report["flash_attention_bwd"][
+            "library_fwd_bwd_ms"],
+           "flash_attention_bwd_bound_fp32_ms": bound_fp32_ms}),
+        flush=True)
+
+
+def train_leaf_widths(torch, dev, cfg):
+    """{leaf path: width} of the params of ``cfg``, as the round engine
+    flattens them (``tree.flatten``), drawn on the card."""
     from repro_torch import tree
-    from repro_torch.configs import get_one_h100_arch
     from repro_torch.models import registry
 
     params = tree.flatten(registry.init_model(
-        torch.Generator(device=dev).manual_seed(0),
-        get_one_h100_arch("xlstm-125m")))
+        torch.Generator(device=dev).manual_seed(0), cfg))
     widths = {k: v.numel() for k, v in params.items()}
     del params
     _free(torch)
@@ -2674,11 +2915,14 @@ def phase_train_kernels(torch, dev, report):
     """Phase 7b: the FL kernels at the shapes the LM training path gives
     them: ``fedavg_flat`` (uniform and weighted, with and without noise)
     and ``digest_div_flat`` within their tolerances at C = TRAIN_CLIENTS
-    on every leaf of xLSTM-125M (up to the 50 304 x 768 embedding, 38.6 M
+    on every leaf of xLSTM-125M as phase 7c cuts it (``xlstm_one_period``;
+    up to the 50 304 x 768 embedding, 38.6 M
     floats a row), the mine kernel in seal mode bitwise at C =
     TRAIN_CLIENTS and 256 attempts at two offsets; then the times of one
     round's calls (every leaf) and of one call at the embedding, with
-    their bounds, added to ``report``'s rows under ``at_lm_train``."""
+    their bounds, and the same two kernels held and timed at phi4-mini's
+    embedding (PHI4_EMBED floats a client), added to ``report``'s rows
+    under ``at_lm_train``."""
     from repro_torch.benchmarks import timing
     from repro_torch.core import mining
     from repro_torch.kernels.fedavg import ops as fedavg_ops
@@ -2687,7 +2931,7 @@ def phase_train_kernels(torch, dev, report):
     from repro_torch.kernels.pow_hash import ref as pow_ref
 
     c, attempts = TRAIN_CLIENTS, 256
-    widths = train_leaf_widths(torch, dev)
+    widths = train_leaf_widths(torch, dev, xlstm_one_period())
     gen = torch.Generator(device=dev).manual_seed(8643)
     uniform = torch.full((c,), 1.0 / c, device=dev)
     w = torch.rand(c, generator=gen, device=dev) + 0.5
@@ -2759,18 +3003,46 @@ def phase_train_kernels(torch, dev, report):
             prev, digest, c, attempts, nonce_offset=offset,
             difficulty_bits=2), f"mine_seal C={c} x {attempts}"),
         bound_ms=1e3 * OPS_PER_HASH * c * attempts / PEAK_ALU_OPS_S)
-    for name, rows in timed.items():
-        report[name]["at_lm_train"] = rows
     del xs, x_big
     _free(torch)
-    print(f"phase 7b ok: at C = {c} on the {len(widths)} xLSTM-125M leaves "
-          f"({elems} floats a client, the widest {widest} of {big}), "
+    # phi4-mini's tied embedding (200 064 x 3072, 615 M floats a client),
+    # the widest leaf of the phase-7e path: held, then timed
+    n = PHI4_EMBED
+    x = torch.randn((c, n), generator=gen, device=dev)
+    want = fedavg_ref.fedavg_flat_ref(x, uniform)
+    err = (fedavg_ops.fedavg_flat(x, uniform) - want).abs()
+    require(bool((err <= FLOAT_ATOL + FLOAT_RTOL * want.abs()).all()),
+            f"fedavg_flat off tolerance at C={c} on phi4's embedding")
+    fed_err = max(fed_err, float(err.max()))
+    del err, want
+    dig_err = max(dig_err, check_digest(torch, x, f"C={c} phi4 embedding"))
+    tag = f"phi4_leaf_{n}"
+    timed["fedavg_flat"][tag] = dict(
+        ms=timing.kernel_ms(lambda: fedavg_ops.fedavg_flat(x, uniform),
+                            f"fedavg_flat C={c} {tag}", reps=5),
+        bound_ms=1e3 * max((8 * c * n + 16 * c) / PEAK_BYTES_S,
+                           2 * c * n / PEAK_ALU_OPS_S),
+        library_ms=timing.kernel_ms(lambda: torch.mm(uniform[None], x),
+                                    f"fedavg_flat library (torch.mm) C={c} "
+                                    f"{tag}", reps=5))
+    timed["digest_div_flat"][tag] = dict(
+        ms=timing.kernel_ms(lambda: fedavg_ops.digest_div_flat(x),
+                            f"digest_div_flat C={c} {tag}", reps=5),
+        bound_ms=1e3 * max((4 * c * n + 16 * (c + 1)) / PEAK_BYTES_S,
+                           4 * c * n / PEAK_ALU_OPS_S))
+    del x
+    _free(torch)
+    for name, rows in timed.items():
+        report[name]["at_lm_train"] = rows
+    print(f"phase 7b ok: at C = {c} on the {len(widths)} leaves of "
+          f"xLSTM-125M at {XLSTM_TRAIN_LAYERS} layers "
+          f"({elems} floats a client, the widest {widest} of {big}) and "
+          f"phi4-mini's embedding ({PHI4_EMBED} floats), "
           f"fedavg_flat (uniform and weighted, with and without noise) "
           f"within rtol {FLOAT_RTOL} (largest deviation {fed_err:.3g}), "
           f"digest_div_flat within its tolerance (largest deviation "
           f"{dig_err:.3g}), mine_seal x {attempts} bitwise at two offsets; "
           f"times " + json.dumps(timed), flush=True)
-    return len(widths)
 
 
 def lm_ledger_head(hist):
@@ -2782,10 +3054,12 @@ def lm_ledger_head(hist):
           for key in ("digest", "winner", "nonce", "pow_hash"))).head_hash
 
 
-def drive_lm_path(torch, dev, flags, want, what):
-    """An LM arch run of ``launch.train`` by the graph driver and by the
-    loop driver (``jit=False``): each run's launch counts exactly ``want``
-    (every other kernel 0), the two bitwise equal (params, every
+def drive_lm_path(torch, dev, flags, want, what, cfg=None):
+    """An LM arch run of ``launch.train`` (of ``cfg`` if given, else the
+    config ``flags`` name) by the graph driver and by the loop driver
+    (``jit=False``; the graphs' memory pool released between the two,
+    ``rounds.release_graphs``): each run's launch counts exactly
+    ``want`` (every other kernel 0), the two bitwise equal (params, every
     per-round metric, the ledger's head), the ledger valid with a block a
     round, finite losses and params. Returns (args, (result, state,
     history, launches, LAST_GRAPH) of the graph run, the loop run's
@@ -2796,11 +3070,15 @@ def drive_lm_path(torch, dev, flags, want, what):
 
     args = train.build_parser().parse_args(flags + ["--device", str(dev)])
     want = {**{name: 0 for name in kernels.WRAPPERS}, **want}
-    result, state, hist, launches = counted_run(torch, args, True,
-                                                train.train_arch)
+
+    def run(args, jit):
+        return train.train_arch(args, jit, cfg)
+
+    result, state, hist, launches = counted_run(torch, args, True, run)
     graph = dict(rounds.LAST_GRAPH)
-    lresult, lstate, lhist, llaunches = counted_run(torch, args, False,
-                                                    train.train_arch)
+    rounds.release_graphs(dev)
+    _free(torch)
+    lresult, lstate, lhist, llaunches = counted_run(torch, args, False, run)
     for driver, res, counts in (("graph", result, launches),
                                 ("loop", lresult, llaunches)):
         require(res["dispatch"]["driver"] == driver,
@@ -2826,10 +3104,11 @@ def drive_lm_path(torch, dev, flags, want, what):
     return args, (result, state, hist, launches, graph), lresult
 
 
-def profile_lm_replays(torch, args, profile_dir):
+def profile_lm_replays(torch, args, profile_dir, name, cfg=None):
     """Profile the K - 1 replays of a fresh capture of the LM arch path
-    ``args`` selects: the device's busy share and its operations a round;
-    the table goes to ``profile_rounds_xlstm_train.txt``."""
+    ``args`` selects (of ``cfg`` if given): the device's busy share and
+    its operations a round; the table goes to
+    ``profile_rounds_<name>.txt``."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     from repro_torch.benchmarks import timing
@@ -2837,7 +3116,7 @@ def profile_lm_replays(torch, args, profile_dir):
     from repro_torch.launch import train
     from repro_torch.models import registry
 
-    cfg, spec, src, params, dev = train.prepare_arch(args)
+    cfg, spec, src, params, dev = train.prepare_arch(args, cfg)
     captured = rounds.CapturedRounds(rounds.RoundRunner(
         registry.client_losses(cfg), spec, params, args.rounds,
         seed=args.seed + 2, device=dev, stacked=True),
@@ -2852,7 +3131,7 @@ def profile_lm_replays(torch, args, profile_dir):
     n = args.rounds - 1
     busy_ms = timing.device_us(p) / 1e3
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "profile_rounds_xlstm_train.txt")
+    path = os.path.join(profile_dir, f"profile_rounds_{name}.txt")
     with open(path, "w") as f:
         f.write(p.key_averages().table(sort_by="cuda_time_total",
                                        row_limit=40))
@@ -2861,28 +3140,46 @@ def profile_lm_replays(torch, args, profile_dir):
             "device_ops_a_round": timing.device_ops(p) / n, "table": path}
 
 
-def phase_lm_train(torch, dev, n_leaves, profile_dir):
+def xlstm_one_period():
+    """``configs/xlstm_125m.py``'s ONE_H100 (the published 12 layers) cut
+    to its first XLSTM_TRAIN_LAYERS, one period of its pattern, every
+    width kept: the config phase 7c trains."""
+    import dataclasses
+
+    from repro_torch.configs import get_one_h100_arch
+
+    return dataclasses.replace(get_one_h100_arch("xlstm-125m"),
+                               name=f"xlstm-125m-{XLSTM_TRAIN_LAYERS}l",
+                               n_layers=XLSTM_TRAIN_LAYERS)
+
+
+def phase_lm_train(torch, dev, profile_dir):
     """Phase 7c: ``launch.train --arch xlstm-125m --size one-h100`` at
-    XLSTM_TRAIN_ARGS by both drivers (``drive_lm_path``): the seal K
-    times, ``fedavg_flat`` and ``digest_div_flat`` once a leaf a round,
+    XLSTM_TRAIN_ARGS, its config cut to one period of its pattern
+    (``xlstm_one_period``), by both drivers (``drive_lm_path``): the seal
+    K times, ``fedavg_flat`` and ``digest_div_flat`` once a leaf a round,
     flash, the scan and the mix never; no host sync in the loop's rounds
     nor in the replays of those two runs (``watched_rounds``). Prints the
     ms a round by each driver and of a replay, the warm round's and the
     captures' seconds and the peak of allocated device memory; with
     ``profile_dir``, the replays' busy share (``profile_lm_replays``).
     Returns the graph run's launches."""
-    what = "xLSTM-125M training path"
+    what = (f"xLSTM-125M training path ({XLSTM_TRAIN_LAYERS} of 12 "
+            "layers)")
+    cfg = xlstm_one_period()
+    n_leaves = len(train_leaf_widths(torch, dev, cfg))
     want = {"pow_race": K_TRAIN, "fedavg_flat": n_leaves * K_TRAIN,
             "digest_div_flat": n_leaves * K_TRAIN}
     with watched_rounds(torch) as syncs:
         args, (result, state, hist, launches, graph), lresult = \
-            drive_lm_path(torch, dev, XLSTM_TRAIN_ARGS, want, what)
+            drive_lm_path(torch, dev, XLSTM_TRAIN_ARGS, want, what, cfg)
     n_params = sum(v[0].numel() for v in state.params.values())
     del state
     _free(torch)
-    replay_ms = 1e3 * syncs["seconds"]["replays"] / (K_TRAIN - 1)
-    profiled = (profile_lm_replays(torch, args, profile_dir)
+    profiled = (profile_lm_replays(torch, args, profile_dir, "xlstm_train",
+                                   cfg)
                 if profile_dir else None)
+    replay_ms = 1e3 * syncs["seconds"]["replays"] / (K_TRAIN - 1)
     for key in ("loop", "replays"):
         require(not syncs[key], f"{len(syncs[key])} host syncs in the "
                                 f"{key} of the {what}: {syncs[key][:3]}")
@@ -2905,26 +3202,15 @@ def phase_lm_train(torch, dev, n_leaves, profile_dir):
     return launches
 
 
-def phase_lm_microbatches(torch, dev):
-    """Phase 7d: XLSTM_MB_ARGS (xlstm-125m smoke, each client's batch in 2
-    microbatches under activation checkpointing) by both drivers, bitwise
-    equal with exact launch counts; then the same run on the CPU: every
-    per-round metric and the aggregate within rtol CARD_CPU_RTOL / atol
-    CARD_CPU_ATOL, each client's params within CLIENT_SPREAD_LIMIT times
-    it."""
+def held_to_cpu(torch, args, state, hist, what):
+    """The run ``args`` made on the card (``state``, ``hist``) made again
+    on the CPU: every per-round metric and the aggregate within rtol
+    CARD_CPU_RTOL / atol CARD_CPU_ATOL, each client's params within
+    CLIENT_SPREAD_LIMIT times it. Returns (the worst share of the
+    tolerance by key, the per-client params' worst)."""
     from repro_torch.core import aggregation
     from repro_torch.launch import train
 
-    args = train.build_parser().parse_args(XLSTM_MB_ARGS
-                                           + ["--device", str(dev)])
-    _, _, _, params, _ = train.prepare_arch(args)
-    n = len(params)
-    del params
-    want = {"pow_race": K_TRAIN_SMOKE, "fedavg_flat": n * K_TRAIN_SMOKE,
-            "digest_div_flat": n * K_TRAIN_SMOKE}
-    what = "xLSTM smoke path with 2 microbatches"
-    args, (result, state, hist, launches, _), _ = drive_lm_path(
-        torch, dev, XLSTM_MB_ARGS, want, what)
     cpu_args = argparse.Namespace(**{**vars(args), "device": "cpu"})
     _, cpu_state, cpu_hist = train.train_arch(cpu_args)
 
@@ -2945,11 +3231,152 @@ def phase_lm_microbatches(torch, dev):
             and clients <= CLIENT_SPREAD_LIMIT,
             f"the {what} differs between card and cpu: {gated}, per-client "
             f"params {clients:.3g} (limit {CLIENT_SPREAD_LIMIT})")
+    return gated, clients
+
+
+def phase_lm_microbatches(torch, dev):
+    """Phase 7d: XLSTM_MB_ARGS (xlstm-125m smoke, each client's batch in 2
+    microbatches under activation checkpointing) by both drivers, bitwise
+    equal with exact launch counts; then the same run on the CPU
+    (``held_to_cpu``)."""
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(XLSTM_MB_ARGS
+                                           + ["--device", str(dev)])
+    _, _, _, params, _ = train.prepare_arch(args)
+    n = len(params)
+    del params
+    want = {"pow_race": K_TRAIN_SMOKE, "fedavg_flat": n * K_TRAIN_SMOKE,
+            "digest_div_flat": n * K_TRAIN_SMOKE}
+    what = "xLSTM smoke path with 2 microbatches"
+    args, (result, state, hist, launches, _), _ = drive_lm_path(
+        torch, dev, XLSTM_MB_ARGS, want, what)
+    gated, clients = held_to_cpu(torch, args, state, hist, what)
     print("phase 7d ok: " + json.dumps(
         {"path": what, "launches": launches, "drivers_bitwise_equal": True,
          "card_vs_cpu_worst_of_tolerance": gated,
          "per_client_params_worst": clients,
          "loss_curve": result["loss_curve"]}), flush=True)
+
+
+def arch_train_launches(cfg, n_leaves, k, c, tau=2):
+    """The launches of K rounds of an LM arch on the FullMesh round with
+    eval every round: the seal once a round, ``fedavg_flat`` and
+    ``digest_div_flat`` once a leaf a round; each attention (flash) and
+    Mamba (scan) layer one forward a client a local step and one for the
+    round's global loss, one backward a client a local step."""
+    kinds = cfg.layer_kinds()
+    fwd, bwd = k * c * (tau + 1), k * c * tau
+    return {"pow_race": k, "fedavg_flat": n_leaves * k,
+            "digest_div_flat": n_leaves * k,
+            "flash_attention": kinds.count("attn") * fwd,
+            "flash_attention_bwd": kinds.count("attn") * bwd,
+            "ssm_scan": kinds.count("ssm") * fwd,
+            "ssm_scan_bwd": kinds.count("ssm") * bwd}
+
+
+def phase_phi4_train(torch, dev, profile_dir):
+    """Phase 7e: ``launch.train --arch phi4-mini-3.8b --size one-h100`` at
+    PHI4_TRAIN_ARGS (the published widths, 2 layers) by both drivers
+    (``drive_lm_path``), bitwise equal: the launches exact
+    (``arch_train_launches``: flash forward and backward, the FL kernels
+    once a leaf a round), no host sync in the loop's rounds nor in the
+    replays, the peak of allocated memory under PHI4_PEAK_GB. Prints the
+    ms a round by each driver and of a replay, the warm round's and the
+    capture's seconds and the peaks; with ``profile_dir`` the replays'
+    busy share. Returns the graph run's launches."""
+    from repro_torch import tree
+    from repro_torch.configs import get_one_h100_arch, get_smoke_arch
+    from repro_torch.core import rounds
+    from repro_torch.models import registry
+
+    cfg = get_one_h100_arch("phi4-mini-3.8b")
+    what = "phi4-mini-3.8B training path (2 of 32 layers)"
+    # the leaves of the smoke config, whose layers and kinds are the cut's
+    smoke = get_smoke_arch("phi4-mini-3.8b")
+    require(smoke.layer_kinds() == cfg.layer_kinds(),
+            "phi4-mini's smoke and one-H100 configs differ in layers")
+    n_leaves = len(tree.flatten(registry.init_model(
+        torch.Generator().manual_seed(0), smoke)))
+    want = arch_train_launches(cfg, n_leaves, K_PHI4, PHI4_CLIENTS)
+    # the earlier phases' graph pool goes back first
+    rounds.release_graphs(dev)
+    _free(torch)
+    with watched_rounds(torch) as syncs:
+        args, (result, state, hist, launches, graph), lresult = \
+            drive_lm_path(torch, dev, PHI4_TRAIN_ARGS, want, what)
+    n_params = sum(v[0].numel() for v in state.params.values())
+    del state
+    _free(torch)
+    for key in ("loop", "replays"):
+        require(not syncs[key], f"{len(syncs[key])} host syncs in the "
+                                f"{key} of the {what}: {syncs[key][:3]}")
+    peaks = {"graph": result["peak_mem_gb"], "loop": lresult["peak_mem_gb"]}
+    require(max(peaks.values()) <= PHI4_PEAK_GB,
+            f"the {what} peaked at {peaks} GB (limit {PHI4_PEAK_GB})")
+    profiled = (profile_lm_replays(torch, args, profile_dir, "phi4_train")
+                if profile_dir else None)
+    print("phase 7e ok: " + json.dumps(
+        {"path": what, "parameters": n_params, "leaves": n_leaves,
+         "launches": launches, "dispatch": result["dispatch"],
+         "drivers_bitwise_equal": True,
+         "loss_curve": result["loss_curve"],
+         "local_loss_mean": [h["local_loss_mean"] for h in hist],
+         "round_ms": {"graph": 1e3 * result["wall_s"] / K_PHI4,
+                      "loop": 1e3 * lresult["wall_s"] / K_PHI4,
+                      "replay": 1e3 * syncs["seconds"]["replays"]
+                      / (K_PHI4 - 1)},
+         "graph_setup_s": {key: graph[key] for key in
+                           ("warm_s", "capture_s", "graphs", "replays")},
+         "peak_mem_gb": peaks,
+         "host_syncs": {key: len(syncs[key])
+                        for key in ("loop", "setup", "replays")},
+         "profile_replays": profiled}), flush=True)
+    return launches
+
+
+def phase_smoke_archs_train(torch, dev):
+    """Phase 7f: each of SMOKE_TRAIN_ARCHS at its smoke config
+    (SMOKE_TRAIN_ARGS) trained on the card by the graph driver: its
+    launches exactly ``arch_train_launches`` (flash and the scan, forward
+    and backward, as its layer pattern gives them), a valid chain, finite
+    losses; then held to its CPU run (``held_to_cpu``). Returns {arch:
+    launches}."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.launch import train
+
+    out, summary = {}, {}
+    for arch in SMOKE_TRAIN_ARCHS:
+        what = f"{arch} smoke training path"
+        args = train.build_parser().parse_args(
+            ["--arch", arch] + SMOKE_TRAIN_ARGS + ["--device", str(dev)])
+        n_leaves = len(train.prepare_arch(args)[3])
+        want = {**{name: 0 for name in kernels.WRAPPERS},
+                **arch_train_launches(get_smoke_arch(arch), n_leaves,
+                                      K_TRAIN_SMOKE, TRAIN_CLIENTS)}
+        result, state, hist, launches = counted_run(torch, args, True,
+                                                    train.train_arch)
+        require(result["dispatch"]["driver"] == "graph",
+                f"the {what} ran on {result['dispatch']}")
+        require(launches == want and result["launches"] == want,
+                f"launch counts {launches} on the {what}, expected {want}")
+        require(result["chain_valid"] and result["blocks"] == args.rounds,
+                f"ledger not valid on the {what}: {result}")
+        require(all(math.isfinite(h[key]) for h in hist
+                    for key in ("local_loss_mean", "global_loss")),
+                f"non-finite losses on the {what}: {hist}")
+        gated, clients = held_to_cpu(torch, args, state, hist, what)
+        out[arch] = launches
+        summary[arch] = {
+            "launches": {k: v for k, v in launches.items() if v},
+            "card_vs_cpu_worst_of_tolerance": max(gated.values()),
+            "per_client_params_worst": clients,
+            "loss_curve": result["loss_curve"]}
+        del state
+        _free(torch)
+    print("phase 7f ok: " + json.dumps(summary), flush=True)
+    return out
 
 
 def _leaves(tree):
@@ -3172,21 +3599,30 @@ def main(argv=None) -> int:
     lap("phase 5")
     clau, dclau = phase_cohort(torch, dev, report, opts.profile)
     lap("phase 6")
-    phase_train_guard(torch, dev)
-    n_leaves = phase_train_kernels(torch, dev, report)
-    lap("phases 7a-7b")
-    tlaunches7 = phase_lm_train(torch, dev, n_leaves, opts.profile)
+    phase_train_grads(torch, dev, report)
+    lap("phase 7a")
+    phase_bwd_times(torch, dev, report)
+    phase_train_kernels(torch, dev, report)
+    lap("phase 7b")
+    tlaunches7 = phase_lm_train(torch, dev, opts.profile)
     _free(torch)
     lap("phase 7c")
     phase_lm_microbatches(torch, dev)
     _free(torch)
     lap("phase 7d")
+    plaunches = phase_phi4_train(torch, dev, opts.profile)
+    _free(torch)
+    lap("phase 7e")
+    smoke_trains = phase_smoke_archs_train(torch, dev)
+    lap("phase 7f")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
                "vlm serve": vlaunches, "audio encoder": alaunches,
                "cohort": clau, "dense cohort": dclau,
-               "xlstm train": tlaunches7}
+               "xlstm train": tlaunches7, "phi4 train": plaunches,
+               **{f"{arch} smoke train": counts
+                  for arch, counts in smoke_trains.items()}}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

@@ -17,12 +17,13 @@ reading and the card's name and power limit.
   PYTHONPATH=src python -m repro_torch.benchmarks.bench_kernels [--quick]
 
 ``--against DIR`` also times ``mix_rows_flat`` at R = K = 20 and 64 over
-the paper's leaves, and ``flash_attention`` (causal, no prefix) at
-Jamba's and DeepSeek's attention shapes, with the kernels built from
-another tree's ``src`` (an unpacked parent commit), each held bitwise to
-this tree's and timed in the order other, this, this, other, by the
-profiler and by CUDA events (``timing.kernel_ms``). The other tree's
-flash source must take the prefix-LM form's ``prefix_len``.
+the paper's leaves, ``flash_attention`` at the four serve paths' shapes
+(Jamba's and DeepSeek's causal ones, PaliGemma's prefix-LM form, HuBERT's
+bidirectional one) and ``ssm_scan`` at Jamba's, with the kernels built
+from another tree's ``src`` (an unpacked parent commit), each held bitwise
+to this tree's serving launch and timed in the order other, this, this,
+other, by the profiler and by CUDA events (``timing.kernel_ms``). The
+other tree's flash source must take the prefix-LM form's ``prefix_len``.
 
 It needs the card: ``--device cpu`` is refused, since a CPU run times
 PyTorch's CPU kernels and not these.
@@ -196,8 +197,8 @@ def _alternate(fns: dict, label: str, csv_name: str, out: dict, **kw):
 
 
 def _flash_of(src_dir: str):
-    """``repro_flash_attention`` built from ``src_dir``'s source, as a
-    causal ``mha`` ``(q, k, v) -> out`` (prefix 0) on [B, S, H, D]
+    """``repro_flash_attention`` built from ``src_dir``'s source, as an
+    ``mha`` ``(q, k, v, causal, prefix_len) -> out`` on [B, S, H, D]
     contiguous fp32 tensors on the current stream."""
     from repro_torch.kernels import _build
 
@@ -209,13 +210,14 @@ def _flash_of(src_dir: str):
                                                     p]
     fn.restype = ctypes.c_int
 
-    def mha(q, k, v):
+    def mha(q, k, v, causal, prefix_len):
         b, s, h, d = q.shape
         out = torch.empty_like(q)
         strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0,
-                 b, h, k.shape[2], s, d, *strides, 1.0 / math.sqrt(d), 1, 0,
-                 0, torch.cuda.current_stream(q.device).cuda_stream)
+                 b, h, k.shape[2], s, d, *strides, 1.0 / math.sqrt(d),
+                 int(causal), 0, prefix_len,
+                 torch.cuda.current_stream(q.device).cuda_stream)
         if err:
             raise RuntimeError(f"flash_attention of {src_dir}: CUDA error "
                                f"{err}")
@@ -224,28 +226,96 @@ def _flash_of(src_dir: str):
     return mha
 
 
+def _ssm_scan_of(src_dir: str):
+    """``repro_ssm_scan`` built from ``src_dir``'s source, as a function
+    ``(u, dt, bmat, cmat, a, d_skip) -> (y, h)`` on contiguous fp32 tensors
+    on the current stream."""
+    from repro_torch.kernels import _build
+
+    cu = Path(src_dir) / "repro_torch" / "kernels" / "ssm_scan" / "csrc" \
+        / "ssm_scan.cu"
+    fn = _build.load_file(cu, "ssm_scan-against").repro_ssm_scan
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def scan(u, dt, bmat, cmat, a, d_skip):
+        bsz, t, d_in = u.shape
+        y = torch.empty_like(u)
+        h = torch.empty((bsz, d_in, a.shape[1]), device=u.device)
+        err = fn(*(x.data_ptr() for x in (u, dt, bmat, cmat, a, d_skip, y,
+                                          h)),
+                 bsz, t, d_in, a.shape[1],
+                 torch.cuda.current_stream(u.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"ssm_scan of {src_dir}: CUDA error {err}")
+        return y, h
+
+    return scan
+
+
+# (label, (B, H, Hkv, S, D), causal, prefix_len): the serve paths' shapes
+FLASH_SERVE_SHAPES = (("gqa", (4, 64, 8, 2048, 128), True, 0),
+                      ("mla", (4, 128, 128, 2048, 192), True, 0),
+                      ("vlm prefix", (4, 8, 1, 2048, 256), True, 256),
+                      ("audio bidirectional", (4, 16, 16, 2048, 80), False,
+                       0))
+
+
 def compare_flash(against: str, dev) -> dict:
-    """``flash_attention`` (causal, no prefix) of this tree against the one
-    of ``against`` at Jamba's and DeepSeek's attention shapes, bitwise
-    equal, timed in the order other, this, this, other."""
+    """``flash_attention`` of this tree against the one of ``against`` at
+    the serve paths' shapes and masks (FLASH_SERVE_SHAPES), bitwise equal,
+    timed in the order other, this, this, other."""
     from repro_torch.kernels.flash_attention import ops
 
     other = _flash_of(against)
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
-    for label, (b, h, hkv, s, d) in (("gqa", (4, 64, 8, 2048, 128)),
-                                     ("mla", (4, 128, 128, 2048, 192))):
+    for label, (b, h, hkv, s, d), causal, prefix in FLASH_SERVE_SHAPES:
         q = torch.randn((b, s, h, d), generator=gen, device=dev)
         k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
                 for _ in range(2))
-        if not torch.equal(other(q, k, v), ops.mha(q, k, v, causal=True)):
+        if not torch.equal(other(q, k, v, causal, prefix),
+                           ops.mha(q, k, v, causal=causal,
+                                   prefix_len=prefix)):
             raise RuntimeError(f"flash_attention differs from {against}'s "
-                               f"at {(b, h, hkv, s, d)}")
-        _alternate({"other": lambda: other(q, k, v),
-                    "this": lambda: ops.mha(q, k, v, causal=True)},
-                   f"flash_attention {label}", f"flash_attention_{label}",
-                   out, reps=10)
+                               f"at {(b, h, hkv, s, d)} ({label})")
+        _alternate({"other": lambda: other(q, k, v, causal, prefix),
+                    "this": lambda: ops.mha(q, k, v, causal=causal,
+                                            prefix_len=prefix)},
+                   f"flash_attention {label}",
+                   "flash_attention_" + label.replace(" ", "_"), out,
+                   reps=10)
         del q, k, v
+    return out
+
+
+def compare_scan(against: str, dev) -> dict:
+    """``ssm_scan`` of this tree against the one of ``against`` at Jamba's
+    serve shape (B 4, T 2048, d_in 16 384, ds 16), y and the final state
+    bitwise equal, timed in the order other, this, this, other."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssm_scan import ops
+
+    other = _ssm_scan_of(against)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bsz, t, d_in, ds = 4, 2048, 16384, 16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    u, bm, cm = randn(bsz, t, d_in), randn(bsz, t, ds), randn(bsz, t, ds)
+    xs = (u, F.softplus(randn(bsz, t, d_in) - 2), bm, cm,
+          -torch.exp(0.3 * randn(d_in, ds)), randn(d_in))
+    if not all(torch.equal(a, b) for a, b in zip(other(*xs),
+                                                 ops.ssm_scan(*xs))):
+        raise RuntimeError(f"ssm_scan differs from {against}'s at "
+                           f"{(bsz, t, d_in, ds)}")
+    out = {}
+    _alternate({"other": lambda: other(*xs),
+                "this": lambda: ops.ssm_scan(*xs)},
+               "ssm_scan jamba", "ssm_scan_jamba", out, reps=10)
     return out
 
 
@@ -285,8 +355,8 @@ def card_name() -> str:
 def bench(device="cuda", quick: bool = False,
           against: Optional[str] = None) -> dict:
     """Time every case; ``quick`` leaves out the serve path's kernels;
-    ``against`` adds :func:`compare_mix` and :func:`compare_flash` with
-    that tree."""
+    ``against`` adds :func:`compare_mix`, :func:`compare_flash` and
+    :func:`compare_scan` with that tree."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"bench_kernels times the CUDA kernels on the "
@@ -313,7 +383,8 @@ def bench(device="cuda", quick: bool = False,
                         f"library_us={lib}")
     if against:
         out["against"] = {**compare_mix(against, dev),
-                          **compare_flash(against, dev)}
+                          **compare_flash(against, dev),
+                          **compare_scan(against, dev)}
     out["device"] = card_name()
     print(json.dumps(out))
     return out
@@ -324,8 +395,9 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="the FL kernels only")
     ap.add_argument("--against", metavar="SRC", default=None,
-                    help="also compare mix_rows_flat and flash_attention "
-                         "with those of another tree's src directory")
+                    help="also compare mix_rows_flat, flash_attention and "
+                         "ssm_scan with those of another tree's src "
+                         "directory")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default); cpu is refused")
     args = ap.parse_args(argv)

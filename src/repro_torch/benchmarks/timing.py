@@ -83,13 +83,14 @@ def events_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps, hidden
 
 
-def kernel_ms(fn, label, reps=20):
+def kernel_ms(fn, label, reps=20, ops=None):
     """Device time per call of ``fn``, read two ways: the GPU activity
     torch.profiler records over ``reps`` calls, and CUDA events over
     back-to-back calls (:func:`events_ms`). Each call launches the same
     operations, so a profile whose count is not a positive multiple of
-    ``reps`` dropped activities: it is taken again, up to PROFILE_ATTEMPTS
-    times.
+    ``reps`` (with ``ops``, the operations a call is known to launch: not
+    ``ops * reps``) dropped activities: it is taken again, up to
+    PROFILE_ATTEMPTS times.
     Prints both readings and keeps them in READINGS under ``label``, with
     the operations counted (``whole``: from a whole profile, else the
     largest count seen). Returns the profiler's reading of a whole
@@ -106,7 +107,8 @@ def kernel_ms(fn, label, reps=20):
             torch.cuda.synchronize()
         count = device_ops(prof)
         # a profile that recorded nothing dropped everything
-        whole = count > 0 and count % reps == 0
+        whole = (count == ops * reps if ops is not None
+                 else count > 0 and count % reps == 0)
         if whole or count > n_ops:
             n_ops, dev_us = count, device_us(prof)
         if whole:

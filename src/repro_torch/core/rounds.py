@@ -301,7 +301,8 @@ def draw_noise(spec: RoundSpec, params: Tree, n_rounds: int,
     what the stages drawing for themselves would, on the CPU and on the
     card alike. The table is uploaded once, like the mixing matrices.
 
-    Its cost is memory, not time: ``n_rounds * rows`` model-sized slices a
+    Its cost is memory, and host time for a large model (the draws are
+    serial on the CPU's generator): ``n_rounds * rows`` model-sized slices a
     stage, O(K·C·N) floats for a model of N parameters, held pinned on the
     host and again on the device for the whole run (about 230 MB each for
     Fig. 10's DP sweep at K = 14, C = 20 and the 203 530-parameter MLP),
@@ -316,20 +317,23 @@ def draw_noise(spec: RoundSpec, params: Tree, n_rounds: int,
     if atk is not None and atk.active and atk.draws_noise:
         rows["attack"] = c
     keys = sorted(params)
-    cpu = torch.device("cpu")
+    dev = resolve_device(device)
+    # drawn straight into the table, made pinned for an upload: at a
+    # billion parameters a copy of it takes seconds
     table = {stage: {k: torch.empty((int(n_rounds), r)
-                                    + tuple(params[k].shape[1:]))
+                                    + tuple(params[k].shape[1:]),
+                                    pin_memory=dev.type == "cuda")
                      for k in keys}
              for stage, r in rows.items()}
     for t in range(int(n_rounds)):
         for stage, leaves in table.items():
             for k in keys:
-                leaves[k][t] = lazy_lib.standard_normal(
-                    leaves[k].shape[1:], generator, cpu)
-    dev = resolve_device(device)
+                # the numbers lazy_lib.standard_normal draws
+                torch.randn(tuple(leaves[k].shape[1:]), generator=generator,
+                            dtype=torch.float32, out=leaves[k][t])
     if dev.type == "cpu":
         return table
-    return {stage: {k: v.pin_memory().to(dev, non_blocking=True)
+    return {stage: {k: v.to(dev, non_blocking=True)
                     for k, v in leaves.items()}
             for stage, leaves in table.items()}
 
@@ -716,6 +720,16 @@ class _CaptureHome:
 _HOMES: Dict[int, _CaptureHome] = {}
 
 
+def release_graphs(device: DeviceLike) -> None:
+    """Drop the graph driver's home on ``device``: its side stream, its
+    pool and the last run's graphs, so that the pool's memory goes back to
+    the card at the next ``torch.cuda.empty_cache()`` once no graph of it
+    is left; the next run makes a new home. For a run that needs the
+    memory earlier runs' graphs hold (a model near the card's size after
+    smaller ones); call it between runs, never while a run may replay."""
+    _HOMES.pop(resolve_device(device).index, None)
+
+
 class CapturedRounds:
     """The graph driver's rounds of a :class:`RoundRunner` on the card.
 
@@ -745,6 +759,10 @@ class CapturedRounds:
             t0 = time.perf_counter()
             runner.step(0, batch)
             self.stream.synchronize()
+            # a capture allocates from the graph pool and cannot free the
+            # blocks the allocator caches: hand back what the warm round
+            # left cached, so that a model near the card's memory fits
+            torch.cuda.empty_cache()
             self.warm_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             for k in range(1, runner.n_rounds):

@@ -5,7 +5,9 @@ Each kernel's wrapper counts its launches in a plain integer attribute
 the counts and read them back to show which kernels it went through. A
 CUDA graph's replay launches what it captured without calling a wrapper:
 the graph driver (``core/rounds.py``) takes back the counts its captures
-made and adds them again at each replay (:func:`add_launch_counts`).
+made and adds them again at each replay (:func:`add_launch_counts`). The
+two backward kernels (``flash_attention_bwd``, ``ssm_scan_bwd``) count one
+a backward call, however many CUDA launches the call makes.
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ WRAPPERS = {
     "mix_rows_flat": fedavg_ops.mix_rows_flat,
     "digest_div_flat": fedavg_ops.digest_div_flat,
     "flash_attention": flash_ops.flash_attention,
+    "flash_attention_bwd": flash_ops.flash_attention_bwd,
     "ssm_scan": ssm_ops.ssm_scan,
+    "ssm_scan_bwd": ssm_ops.ssm_scan_bwd,
 }
 
 

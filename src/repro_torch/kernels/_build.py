@@ -30,7 +30,10 @@ SOURCES: Dict[str, Path] = {
     "fedavg": _KERNELS / "fedavg" / "csrc" / "fedavg.cu",
     "flash_attention": _KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    "flash_attention_bwd": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_bwd.cu",
     "ssm_scan": _KERNELS / "ssm_scan" / "csrc" / "ssm_scan.cu",
+    "ssm_scan_bwd": _KERNELS / "ssm_scan" / "csrc" / "ssm_scan_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -136,24 +139,6 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
-
-
-def refuse_grad(what: str, *inputs) -> None:
-    """Raise ``RuntimeError`` when grad mode is on and any of ``inputs``
-    requires grad: the kernel ``what`` writes its output through ctypes and
-    has no backward, so autograd would lose the gradients of its inputs.
-    The wrappers call it before each launch on the card; their plain
-    versions, which autograd follows, serve CPU tensors."""
-    import torch
-
-    if torch.is_grad_enabled() and any(
-            isinstance(x, torch.Tensor) and x.requires_grad
-            for x in inputs):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet (ROADMAP 10f-2); "
-            "an input requires grad, so its gradient would be lost. Run it "
-            "under torch.no_grad(), or on the CPU, whose plain version "
-            "autograd follows")
 
 
 def stream_ticket(dev, name: str):

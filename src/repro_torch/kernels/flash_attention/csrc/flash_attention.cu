@@ -62,6 +62,12 @@
 // most). Heads are read through strides, and head h reads kv head h / rep,
 // so GQA needs neither a transpose nor a repeat of K and V. TF32 wgmma would need V transposed in shared memory
 // (it takes K-major operands only): later work.
+//
+// For training the forward also writes each query row's logsumexp, lse =
+// m + log(l) in natural units ([B, H, S] fp32), which the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from. It is written
+// only when its pointer is non-null; serving passes null, and the output's
+// arithmetic is the same either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +90,7 @@ __host__ __device__ constexpr int block_q() {
 }
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -195,10 +202,10 @@ __device__ __forceinline__ float fast_exp2(float x) {
 template <typename T, int NC, bool ASYNC>
 __global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
-          Strides sv, Strides so, int n_heads, int rep, int seq, int dim,
-          int dpad, int stride, float scale_log2, int causal, int window,
-          int prefix) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          Strides sq, Strides sk, Strides sv, Strides so, int n_heads,
+          int rep, int seq, int dim, int dpad, int stride, float scale_log2,
+          int causal, int window, int prefix) {
   constexpr int MT = m_tiles<NC>();
   constexpr int kBQ = block_q<NC>();
   extern __shared__ __align__(16) float smem[];
@@ -433,6 +440,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int row = row_a[i] + 8 * r;
       if (row >= seq) continue;
       const float denom = fmaxf(li, 1e-30f);
+      if (lse != nullptr && tq == 0)   // m is in log2 units
+        lse[static_cast<long long>(bh) * seq + row] =
+            (m[i][r] + log2f(denom)) * kLn2;
       T* orow = ob + row * so.s;
 #pragma unroll
       for (int n = 0; n < 8 * NC; ++n) {
@@ -451,10 +461,10 @@ int tile_stride(int dpad) { return (dpad + 27) / 32 * 32 + 4; }
 
 template <typename T, int NC, bool ASYNC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   Strides sq, Strides sk, Strides sv, Strides so, int batch,
-                   int n_heads, int rep, int seq, int dim, int dpad,
-                   float scale, int causal, int window, int prefix,
-                   cudaStream_t stream) {
+                   float* lse, Strides sq, Strides sk, Strides sv,
+                   Strides so, int batch, int n_heads, int rep, int seq,
+                   int dim, int dpad, float scale, int causal, int window,
+                   int prefix, cudaStream_t stream) {
   constexpr int kBQ = block_q<NC>();
   const int stride = tile_stride(dpad);
   const size_t smem = sizeof(float) * (kBQ + 2 * kBK) * stride;
@@ -465,35 +475,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((seq + kBQ - 1) / kBQ, batch * n_heads);
   flash_fwd<T, NC, ASYNC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, n_heads,
-      rep, seq, dim, dpad, stride, scale * kLog2e, causal, window, prefix);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, sv, so,
+      n_heads, rep, seq, dim, dpad, stride, scale * kLog2e, causal, window,
+      prefix);
   return cudaGetLastError();
 }
 
 template <typename T, bool ASYNC>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     Strides sq, Strides sk, Strides sv, Strides so, int batch,
-                     int n_heads, int rep, int seq, int dim, float scale,
-                     int causal, int window, int prefix,
+                     float* lse, Strides sq, Strides sk, Strides sv,
+                     Strides so, int batch, int n_heads, int rep, int seq,
+                     int dim, float scale, int causal, int window, int prefix,
                      cudaStream_t stream) {
   const int dpad = (dim + 7) / 8 * 8;   // the mma depth
   switch ((dpad + 63) / 64) {
     case 1:
-      return launch<T, 1, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                 rep, seq, dim, dpad, scale, causal, window,
-                                 prefix, stream);
+      return launch<T, 1, ASYNC>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                 n_heads, rep, seq, dim, dpad, scale, causal,
+                                 window, prefix, stream);
     case 2:
-      return launch<T, 2, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                 rep, seq, dim, dpad, scale, causal, window,
-                                 prefix, stream);
+      return launch<T, 2, ASYNC>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                 n_heads, rep, seq, dim, dpad, scale, causal,
+                                 window, prefix, stream);
     case 3:
-      return launch<T, 3, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                 rep, seq, dim, dpad, scale, causal, window,
-                                 prefix, stream);
+      return launch<T, 3, ASYNC>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                 n_heads, rep, seq, dim, dpad, scale, causal,
+                                 window, prefix, stream);
     default:
-      return launch<T, 4, ASYNC>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                 rep, seq, dim, dpad, scale, causal, window,
-                                 prefix, stream);
+      return launch<T, 4, ASYNC>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                 n_heads, rep, seq, dim, dpad, scale, causal,
+                                 window, prefix, stream);
   }
 }
 
@@ -502,6 +513,30 @@ bool aligned16(const void* p) {
 }
 
 bool rows_aligned(Strides s) { return (s.b | s.s | s.h) % 4 == 0; }
+
+int run(const void* q, const void* k, const void* v, void* o, float* lse,
+        int is_bf16, int batch, int n_heads, int n_kv_heads, int seq,
+        int dim, Strides sq, Strides sk, Strides sv, Strides so, float scale,
+        int causal, int window, int prefix_len, void* stream) {
+  const int rep = n_heads / n_kv_heads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_bf16) {
+    err = dispatch<__nv_bfloat16, false>(q, k, v, o, lse, sq, sk, sv, so,
+                                         batch, n_heads, rep, seq, dim, scale,
+                                         causal, window, prefix_len, s);
+  } else if (aligned16(q) && aligned16(k) && aligned16(v) &&
+             rows_aligned(sq) && rows_aligned(sk) && rows_aligned(sv)) {
+    err = dispatch<float, true>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                n_heads, rep, seq, dim, scale, causal, window,
+                                prefix_len, s);
+  } else {
+    err = dispatch<float, false>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                 n_heads, rep, seq, dim, scale, causal,
+                                 window, prefix_len, s);
+  }
+  return static_cast<int>(err);
+}
 
 }  // namespace
 
@@ -524,24 +559,24 @@ extern "C" int repro_flash_attention(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale, int causal, int window, int prefix_len, void* stream) {
-  const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
-      sv{v_sb, v_ss, v_sh}, so{o_sb, o_ss, o_sh};
-  const int rep = n_heads / n_kv_heads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    err = dispatch<__nv_bfloat16, false>(q, k, v, o, sq, sk, sv, so, batch,
-                                         n_heads, rep, seq, dim, scale,
-                                         causal, window, prefix_len, s);
-  } else if (aligned16(q) && aligned16(k) && aligned16(v) &&
-             rows_aligned(sq) && rows_aligned(sk) && rows_aligned(sv)) {
-    err = dispatch<float, true>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                rep, seq, dim, scale, causal, window,
-                                prefix_len, s);
-  } else {
-    err = dispatch<float, false>(q, k, v, o, sq, sk, sv, so, batch, n_heads,
-                                 rep, seq, dim, scale, causal, window,
-                                 prefix_len, s);
-  }
-  return static_cast<int>(err);
+  return run(q, k, v, o, nullptr, is_bf16, batch, n_heads, n_kv_heads, seq,
+             dim, Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
+             Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh}, scale,
+             causal, window, prefix_len, stream);
+}
+
+// The same, also writing each query row's logsumexp into lse, a contiguous
+// fp32 [batch, n_heads, seq] (the training forward).
+extern "C" int repro_flash_attention_lse(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int is_bf16, int batch, int n_heads, int n_kv_heads, int seq, int dim,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    float scale, int causal, int window, int prefix_len, void* stream) {
+  return run(q, k, v, o, static_cast<float*>(lse), is_bf16, batch, n_heads,
+             n_kv_heads, seq, dim, Strides{q_sb, q_ss, q_sh},
+             Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh},
+             Strides{o_sb, o_ss, o_sh}, scale, causal, window, prefix_len,
+             stream);
 }

@@ -1,19 +1,24 @@
-"""Wrappers of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``,
+the forward, and ``csrc/flash_attention_bwd.cu``, its gradient).
 
 ``flash_attention`` takes the TPU kernel's ``[B, H, S, D]`` layout with kv
 already at H heads; ``mha`` takes the model's ``[B, S, H, D]`` layout with
-kv at ``Hkv`` heads (GQA). On a CUDA tensor both launch the kernel (or
-raise: also when grad mode is on and an input requires grad, since the
-kernel has no backward yet, ``_build.refuse_grad``), reading q, k and v
-through their strides: ``mha`` needs neither a
-transpose nor a repeat of kv. On a CPU tensor they run the plain version
-(``ref.attention_ref``, ``ref.mha_ref``: the JAX package's transposes and
-``repeat`` of kv around it). Both take any S >= 1 and any head dim D <= 256 that is a
-multiple of 4; fp32 or bf16, fp32 inside; the causal, window and
+kv at ``Hkv`` heads (GQA). On a CUDA tensor both launch the forward kernel
+(or raise), reading q, k and v through their strides: ``mha`` needs
+neither a transpose nor a repeat of kv. When grad mode is on and an input
+requires grad they go through :class:`_FlashFn`, whose forward also has
+the kernel write each row's logsumexp and whose backward launches the
+backward kernel (:func:`flash_attention_bwd`), fp32 only. On a CPU tensor
+they run the plain version (``ref.attention_ref``, ``ref.mha_ref``: the
+JAX package's transposes and ``repeat`` of kv around it), which autograd
+follows. Both take any S >= 1 and any head dim D <= 256 that is a multiple
+of 4; fp32 or bf16 (fp32 under grad), fp32 inside; the causal, window and
 prefix-LM masks (``ref.keep_mask``; the TPU kernel has no prefix form,
-the JAX model builds that mask in ``attention.build_mask``). The kernel computes both
-products on the tensor cores in 3xTF32, which holds the fp32 tolerance;
-``ref.attention_tf32`` emulates that arithmetic on the CPU for the tests.
+the JAX model builds that mask in ``attention.build_mask``). The forward
+computes both products on the tensor cores in 3xTF32, which holds the
+fp32 tolerance; ``ref.attention_tf32`` emulates that arithmetic on the CPU
+for the tests. The backward is fp32 FMAs (``ref.attention_bwd_ref`` is its
+algorithm in plain torch).
 """
 from __future__ import annotations
 
@@ -27,17 +32,30 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref, mha_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 \
-    + [ctypes.c_float, _I, _I, _I, _P]
+# repro_flash_attention_lse (the serving entry takes the same less lse)
+_SIGNATURE = [_P] * 5 + [_I] * 6 + [_L] * 12 + [ctypes.c_float, _I, _I, _I,
+                                                _P]
+_SIGNATURE_BWD = [_P] * 10 + [_I] * 5 + [_L] * 24 + [ctypes.c_float, _I, _I,
+                                                     _I, _P]
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention
+    if lib.repro_flash_attention.argtypes is None:
+        lib.repro_flash_attention.argtypes = _SIGNATURE[:4] + _SIGNATURE[5:]
+        lib.repro_flash_attention_lse.argtypes = _SIGNATURE
+        for fn in (lib.repro_flash_attention, lib.repro_flash_attention_lse):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURE
+        fn.argtypes = _SIGNATURE_BWD
         fn.restype = ctypes.c_int
     return lib
 
@@ -74,9 +92,12 @@ def _d_contiguous(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q, k, v, out, *, seq_axis: int, head_axis: int, causal: bool,
-            window: int, scale: float, prefix_len: int) -> torch.Tensor:
-    """Launch the kernel on 4-D q, k, v, out whose axes are (batch,
-    ``seq_axis``, ``head_axis``, dim) with a head_dim stride of 1."""
+            window: int, scale: float, prefix_len: int,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the forward kernel on 4-D q, k, v, out whose axes are (batch,
+    ``seq_axis``, ``head_axis``, dim) with a head_dim stride of 1; with
+    ``lse`` (contiguous fp32 [B, H, S]) it also writes each row's
+    logsumexp."""
     q, k, v = _d_contiguous(q), _d_contiguous(k), _d_contiguous(v)
     b, s, h, hkv, d = (q.shape[0], q.shape[seq_axis], q.shape[head_axis],
                        k.shape[head_axis], q.shape[-1])
@@ -89,14 +110,101 @@ def _launch(q, k, v, out, *, seq_axis: int, head_axis: int, causal: bool,
 
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, h, hkv, s, d, *strides(q),
-        *strides(k), *strides(v), *strides(out), scale, int(causal),
-        int(window), _prefix(prefix_len, s), stream)
+    common = (int(q.dtype == torch.bfloat16), b, h, hkv, s, d, *strides(q),
+              *strides(k), *strides(v), *strides(out), scale, int(causal),
+              int(window), _prefix(prefix_len, s), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if lse is None:
+        err = lib.repro_flash_attention(*ptrs, *common)
+    else:
+        err = lib.repro_flash_attention_lse(*ptrs, lse.data_ptr(), *common)
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def _forward_lse(q, k, v, *, seq_axis: int, head_axis: int, causal: bool,
+                 window: int, scale: float, prefix_len: int):
+    """The training forward on the card: (out in q's layout, lse [B, H,
+    S] fp32)."""
+    b, s, h = q.shape[0], q.shape[seq_axis], q.shape[head_axis]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, out, seq_axis=seq_axis, head_axis=head_axis,
+            causal=causal, window=window, scale=scale, prefix_len=prefix_len,
+            lse=lse)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, *, seq_axis: int,
+                        head_axis: int, causal: bool, window: int,
+                        scale: float, prefix_len: int):
+    """Launch the backward kernel (one call, three launches: the rows'
+    dO . O, the kv-tile-major dK/dV pass, the q-tile-major dQ pass) on fp32
+    CUDA tensors in the layout (batch, ``seq_axis``, ``head_axis``, dim):
+    q, o, dout at H heads, k, v at Hkv; lse the forward's [B, H, S].
+    Returns (dq, dk, dv), each in its input's shape, dk and dv at Hkv
+    heads. Counts one launch a call (``flash_attention_bwd.launches``)."""
+    q, k, v, o, dout = (_d_contiguous(x) for x in (q, k, v, o, dout))
+    b, s, h, hkv, d = (q.shape[0], q.shape[seq_axis], q.shape[head_axis],
+                       k.shape[head_axis], q.shape[-1])
+    dq, dk, dv = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+                  for x in (q, k, v))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+
+    def strides(x):
+        return x.stride(0), x.stride(seq_axis), x.stride(head_axis)
+
+    lib = _lib_bwd()
+    err = lib.repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.contiguous().data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, d,
+        *(st for x in (q, k, v, o, dout, dq, dk, dv) for st in strides(x)),
+        scale, int(causal), int(window), _prefix(prefix_len, s),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashFn(torch.autograd.Function):
+    """The kernels under autograd: ``forward`` launches the forward with
+    the rows' logsumexp and saves q, k, v, the output and lse; ``backward``
+    launches :func:`flash_attention_bwd` and returns dq, dk and dv in the
+    inputs' own layouts (dk and dv at Hkv heads), None for the rest."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seq_axis, head_axis, causal, window, scale,
+                prefix_len):
+        mask = dict(seq_axis=seq_axis, head_axis=head_axis, causal=causal,
+                    window=window, scale=scale, prefix_len=prefix_len)
+        out, lse = _forward_lse(q, k, v, **mask)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _under_grad(what: str, q, k, v) -> bool:
+    """Whether a CUDA call must go through :class:`_FlashFn` (grad mode on
+    and an input that requires grad); raises TypeError for a bf16 input
+    then, as the backward kernel takes fp32 only."""
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (q, k, v))):
+        return False
+    if q.dtype != torch.float32:
+        raise TypeError(f"{what}: the backward kernel takes fp32 inputs "
+                        f"only, not {q.dtype}; train in fp32")
+    return True
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -116,7 +224,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, prefix_len=prefix_len)
-    _build.refuse_grad("flash_attention", q, k, v)
+    if _under_grad("flash_attention", q, k, v):
+        return _FlashFn.apply(_d_contiguous(q), _d_contiguous(k),
+                              _d_contiguous(v), 2, 1, causal, window, scale,
+                              prefix_len)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _launch(q, k, v, out, seq_axis=2, head_axis=1, causal=causal,
                    window=window, scale=scale, prefix_len=prefix_len)
@@ -141,7 +252,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window,
                        prefix_len=prefix_len)
-    _build.refuse_grad("flash_attention (mha)", q, k, v)
+    if _under_grad("flash_attention (mha)", q, k, v):
+        return _FlashFn.apply(_d_contiguous(q), _d_contiguous(k),
+                              _d_contiguous(v), 1, 2, causal, window,
+                              1.0 / math.sqrt(d), prefix_len)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     return _launch(q, k, v, out, seq_axis=1, head_axis=2, causal=causal,
                    window=window, scale=1.0 / math.sqrt(d),

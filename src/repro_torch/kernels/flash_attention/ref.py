@@ -105,3 +105,69 @@ def attention_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    device=q.device)
     probs = torch.softmax(torch.where(ok, logits, NEG_INF), dim=-1)
     return tf32_matmul(probs, v, passes).to(q.dtype)
+
+
+def _gqa_logits(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                window: int, scale: Optional[float], prefix_len: int):
+    """(masked logits [B, H, S, S], the mask, k repeated to H heads, scale)
+    of q [B, H, S, D] against k [B, Hkv, S, D] (head h reads kv head h //
+    (H / Hkv)), in q's precision, fp32 at least."""
+    dtype = torch.promote_types(q.dtype, torch.float32)
+    s, d = q.shape[2], q.shape[3]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kr = k.to(dtype).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.to(dtype), kr) * scale
+    ok = keep_mask(s, causal=causal, window=window, prefix_len=prefix_len,
+                   device=q.device)
+    return torch.where(ok, logits, NEG_INF), ok, kr, scale
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None,
+                      prefix_len: int = 0) -> torch.Tensor:
+    """The row logsumexp the forward kernel writes for training: q [B, H,
+    S, D], k [B, Hkv, S, D] -> [B, H, S], the log of each query row's
+    softmax denominator over its kept keys (``keep_mask``), in natural
+    units, in q's precision (fp32 at least)."""
+    logits, _, _, _ = _gqa_logits(q, k, causal=causal, window=window,
+                                  scale=scale, prefix_len=prefix_len)
+    return torch.logsumexp(logits, dim=-1)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None, prefix_len: int = 0):
+    """The backward kernel's algorithm (``csrc/flash_attention_bwd.cu``) in
+    plain torch: q, o, do [B, H, S, D]; k, v [B, Hkv, S, D]; lse [B, H, S]
+    the forward's. Returns (dq [B, H, S, D], dk, dv [B, Hkv, S, D]).
+
+    The probabilities are recomputed from lse, P = exp(scale Q K^T - lse)
+    and 0 where ``keep_mask`` drops a pair; D = rowsum(dO * O); dV = P^T
+    dO, dS = P (dO V^T - D), dK = scale dS^T Q, dQ = scale dS K. A kv head's
+    dK and dV are its group's query heads summed in order, head 0 first, as
+    the kernel's kv-tile-major pass adds them. In q's precision (fp32 at
+    least)."""
+    logits, ok, kr, scale = _gqa_logits(q, k, causal=causal, window=window,
+                                        scale=scale, prefix_len=prefix_len)
+    dtype = logits.dtype
+    q, v, o, do = (x.to(dtype) for x in (q, v, o, do))
+    rep = q.shape[1] // k.shape[1]
+    vr = v.repeat_interleave(rep, dim=1)
+    p = torch.where(ok, torch.exp(logits - lse.to(dtype)[..., None]), 0.0)
+    delta = (do * o).sum(dim=-1)
+    dp = torch.einsum("bhsd,bhtd->bhst", do, vr)
+    ds = p * (dp - delta[..., None])
+    dq = scale * torch.einsum("bhst,bhtd->bhsd", ds, kr)
+    dk_h = scale * torch.einsum("bhst,bhsd->bhtd", ds, q)
+    dv_h = torch.einsum("bhst,bhsd->bhtd", p, do)
+
+    def group_sum(x):   # [B, H, S, D] -> [B, Hkv, S, D], heads in order
+        x = x.unflatten(1, (k.shape[1], rep))
+        acc = x[:, :, 0]
+        for r in range(1, rep):
+            acc = acc + x[:, :, r]
+        return acc
+
+    return dq, group_sum(dk_h), group_sum(dv_h)

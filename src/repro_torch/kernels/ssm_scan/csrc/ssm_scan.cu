@@ -42,6 +42,11 @@
 //   Any T and d_in are taken: channels past d_in and steps past T are
 //   zero-filled in the stage and never written out. The TPU's sequential
 //   grid axis over time tiles becomes the in-block loop over chunks.
+// - For training, the state entering each chunk (h before step k kChunk,
+//   zero for chunk 0) is written to h_chunks [B, ceil(T / kChunk), d_in,
+//   ds] when that pointer is non-null: the backward kernel
+//   (ssm_scan_bwd.cu) recomputes each chunk's states from it. Serving
+//   passes null; y and h take the same arithmetic either way.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -181,8 +186,8 @@ __global__ void __launch_bounds__(Shape<DS>::kThreads, Shape<DS>::kMinBlocks)
 ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                 const float* __restrict__ bmat, const float* __restrict__ cmat,
                 const float* __restrict__ a, const float* __restrict__ d_skip,
-                float* __restrict__ y, float* __restrict__ h_out, int T,
-                int d_in, int ds) {
+                float* __restrict__ y, float* __restrict__ h_out,
+                float* __restrict__ h_chunks, int T, int d_in, int ds) {
   using S = Shape<DS>;
   constexpr int kSpl = S::kSpl;
   constexpr int kLanes = S::kLanes;
@@ -225,6 +230,13 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
     const float* sb = sdt + kChunk * kChannels;
     const float* sc = sb + kChunk * DS;
     const int tc = min(kChunk, T - t0);
+    if (h_chunks != nullptr && live) {
+      float* hc = h_chunks + ((static_cast<long long>(b) * n_chunks + k)
+                              * d_in + ch) * ds;
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j)
+        if (s0 + j < ds) hc[s0 + j] = h[j];
+    }
 #pragma unroll 4
     for (int tt = 0; tt < tc; ++tt) {
       const float ut = su[tt * kChannels + cl];
@@ -264,8 +276,8 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
 template <int DS, bool VEC_U, bool VEC_BC>
 cudaError_t launch3(const float* u, const float* dt, const float* bmat,
                     const float* cmat, const float* a, const float* d_skip,
-                    float* y, float* h_out, int batch, int T, int d_in,
-                    int ds, cudaStream_t stream) {
+                    float* y, float* h_out, float* h_chunks, int batch,
+                    int T, int d_in, int ds, cudaStream_t stream) {
   using S = Shape<DS>;
   auto kernel = ssm_scan_kernel<DS, VEC_U, VEC_BC>;
   if (S::kSmemBytes > 48 * 1024) {
@@ -275,7 +287,7 @@ cudaError_t launch3(const float* u, const float* dt, const float* bmat,
   }
   const dim3 grid((d_in + kChannels - 1) / kChannels, batch);
   kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(
-      u, dt, bmat, cmat, a, d_skip, y, h_out, T, d_in, ds);
+      u, dt, bmat, cmat, a, d_skip, y, h_out, h_chunks, T, d_in, ds);
   return cudaGetLastError();
 }
 
@@ -286,21 +298,54 @@ bool aligned16(const void* p) {
 template <int DS>
 cudaError_t launch(const float* u, const float* dt, const float* bmat,
                    const float* cmat, const float* a, const float* d_skip,
-                   float* y, float* h_out, int batch, int T, int d_in, int ds,
-                   cudaStream_t stream) {
+                   float* y, float* h_out, float* h_chunks, int batch, int T,
+                   int d_in, int ds, cudaStream_t stream) {
   const bool vec_u = d_in % 4 == 0 && aligned16(u) && aligned16(dt);
   const bool vec_bc = ds % 4 == 0 && aligned16(bmat) && aligned16(cmat);
   if (vec_u && vec_bc)
     return launch3<DS, true, true>(u, dt, bmat, cmat, a, d_skip, y, h_out,
-                                   batch, T, d_in, ds, stream);
+                                   h_chunks, batch, T, d_in, ds, stream);
   if (vec_u)
     return launch3<DS, true, false>(u, dt, bmat, cmat, a, d_skip, y, h_out,
-                                    batch, T, d_in, ds, stream);
+                                    h_chunks, batch, T, d_in, ds, stream);
   if (vec_bc)
     return launch3<DS, false, true>(u, dt, bmat, cmat, a, d_skip, y, h_out,
-                                    batch, T, d_in, ds, stream);
+                                    h_chunks, batch, T, d_in, ds, stream);
   return launch3<DS, false, false>(u, dt, bmat, cmat, a, d_skip, y, h_out,
-                                   batch, T, d_in, ds, stream);
+                                   h_chunks, batch, T, d_in, ds, stream);
+}
+
+int run(const void* u, const void* dt, const void* bmat, const void* cmat,
+        const void* a, const void* d_skip, void* y, void* h_out,
+        void* h_chunks, int batch, int T, int d_in, int ds, void* stream) {
+  const float* pu = static_cast<const float*>(u);
+  const float* pdt = static_cast<const float*>(dt);
+  const float* pb = static_cast<const float*>(bmat);
+  const float* pc = static_cast<const float*>(cmat);
+  const float* pa = static_cast<const float*>(a);
+  const float* pd = static_cast<const float*>(d_skip);
+  float* py = static_cast<float*>(y);
+  float* ph = static_cast<float*>(h_out);
+  float* pk = static_cast<float*>(h_chunks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (ds <= 4) {
+    err = launch<4>(pu, pdt, pb, pc, pa, pd, py, ph, pk, batch, T, d_in, ds,
+                    s);
+  } else if (ds <= 8) {
+    err = launch<8>(pu, pdt, pb, pc, pa, pd, py, ph, pk, batch, T, d_in, ds,
+                    s);
+  } else if (ds <= 16) {
+    err = launch<16>(pu, pdt, pb, pc, pa, pd, py, ph, pk, batch, T, d_in, ds,
+                     s);
+  } else if (ds <= 32) {
+    err = launch<32>(pu, pdt, pb, pc, pa, pd, py, ph, pk, batch, T, d_in, ds,
+                     s);
+  } else {
+    err = launch<64>(pu, pdt, pb, pc, pa, pd, py, ph, pk, batch, T, d_in, ds,
+                     s);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -317,26 +362,21 @@ extern "C" int repro_ssm_scan(const void* u, const void* dt, const void* bmat,
                               const void* d_skip, void* y, void* h_out,
                               int batch, int T, int d_in, int ds,
                               void* stream) {
-  const float* pu = static_cast<const float*>(u);
-  const float* pdt = static_cast<const float*>(dt);
-  const float* pb = static_cast<const float*>(bmat);
-  const float* pc = static_cast<const float*>(cmat);
-  const float* pa = static_cast<const float*>(a);
-  const float* pd = static_cast<const float*>(d_skip);
-  float* py = static_cast<float*>(y);
-  float* ph = static_cast<float*>(h_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (ds <= 4) {
-    err = launch<4>(pu, pdt, pb, pc, pa, pd, py, ph, batch, T, d_in, ds, s);
-  } else if (ds <= 8) {
-    err = launch<8>(pu, pdt, pb, pc, pa, pd, py, ph, batch, T, d_in, ds, s);
-  } else if (ds <= 16) {
-    err = launch<16>(pu, pdt, pb, pc, pa, pd, py, ph, batch, T, d_in, ds, s);
-  } else if (ds <= 32) {
-    err = launch<32>(pu, pdt, pb, pc, pa, pd, py, ph, batch, T, d_in, ds, s);
-  } else {
-    err = launch<64>(pu, pdt, pb, pc, pa, pd, py, ph, batch, T, d_in, ds, s);
-  }
-  return static_cast<int>(err);
+  return run(u, dt, bmat, cmat, a, d_skip, y, h_out, nullptr, batch, T, d_in,
+             ds, stream);
+}
+
+// The same, also writing the state entering each chunk of `chunk` steps
+// into h_chunks, contiguous fp32 [batch, ceil(T / chunk), d_in, ds] (the
+// training forward). Returns cudaErrorInvalidValue unless chunk is the
+// kernel's kChunk.
+extern "C" int repro_ssm_scan_chunks(const void* u, const void* dt,
+                                     const void* bmat, const void* cmat,
+                                     const void* a, const void* d_skip,
+                                     void* y, void* h_out, void* h_chunks,
+                                     int chunk, int batch, int T, int d_in,
+                                     int ds, void* stream) {
+  if (chunk != kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  return run(u, dt, bmat, cmat, a, d_skip, y, h_out, h_chunks, batch, T,
+             d_in, ds, stream);
 }

@@ -1,13 +1,17 @@
-"""Wrapper of the CUDA selective-scan kernel (``csrc/ssm_scan.cu``).
+"""Wrappers of the CUDA selective-scan kernels (``csrc/ssm_scan.cu``, the
+forward, and ``csrc/ssm_scan_bwd.cu``, its gradient).
 
-On a CUDA tensor ``ssm_scan`` launches the kernel (or raises: also when
-grad mode is on and an input requires grad, since the kernel has no
-backward yet, ``_build.refuse_grad``); on a CPU tensor it runs the plain
-version (``ref.ssm_scan_ref``), which autograd follows. As the JAX
-package's wrapper does, it hands the kernel fp32 copies of its inputs
-(and contiguous ones: B_t and C_t arrive as slices of one projection), so
-the inputs may be any float dtype; y comes back in u's dtype. Any T, d_in
-and d_state <= 64.
+On a CUDA tensor ``ssm_scan`` launches the forward kernel (or raises).
+When grad mode is on and an input requires grad it goes through
+:class:`_ScanFn`, whose forward also has the kernel write the state
+entering every chunk of ``ref.CHUNK`` steps and whose backward launches
+the backward kernel (:func:`ssm_scan_bwd`), which recomputes each chunk's
+states from them. On a CPU tensor it runs the plain version
+(``ref.ssm_scan_ref``), which autograd follows. As the JAX package's
+wrapper does, it hands the kernels fp32 copies of its inputs (and
+contiguous ones: B_t and C_t arrive as slices of one projection), so the
+inputs may be any float dtype, and autograd takes the copies back to
+them; y comes back in u's dtype. Any T, d_in and d_state <= 64.
 """
 from __future__ import annotations
 
@@ -17,20 +21,106 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import CHUNK, ssm_scan_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P] * 8 + [_I] * 4 + [_P]
+# repro_ssm_scan_chunks, repro_ssm_scan_bwd
+_SIGNATURE_CHUNKS = [_P] * 9 + [_I] * 5 + [_P]
+_SIGNATURE_BWD = [_P] * 16 + [_I] * 5 + [_P]
 MAX_D_STATE = 64
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssm_scan")
-    fn = lib.repro_ssm_scan
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURE
-        fn.restype = ctypes.c_int
+    if lib.repro_ssm_scan.argtypes is None:
+        lib.repro_ssm_scan.argtypes = _SIGNATURE
+        lib.repro_ssm_scan_chunks.argtypes = _SIGNATURE_CHUNKS
+        for fn in (lib.repro_ssm_scan, lib.repro_ssm_scan_chunks):
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("ssm_scan_bwd")
+    if lib.repro_ssm_scan_bwd.argtypes is None:
+        lib.repro_ssm_scan_bwd.argtypes = _SIGNATURE_BWD
+        lib.repro_ssm_scan_bwd.restype = ctypes.c_int
+        lib.repro_ssm_scan_bwd_workspace.argtypes = [_I] * 4
+        lib.repro_ssm_scan_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def _launch(u, dt, bmat, cmat, a, d_skip, chunks: bool):
+    """The forward kernel on fp32 contiguous CUDA inputs: (y, final h,
+    the states entering each chunk or None)."""
+    bsz, t, d_in = u.shape
+    ds = a.shape[1]
+    y = torch.empty((bsz, t, d_in), dtype=torch.float32, device=u.device)
+    h = torch.empty((bsz, d_in, ds), dtype=torch.float32, device=u.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    ptrs = [x.data_ptr() for x in (u, dt, bmat, cmat, a, d_skip, y, h)]
+    if chunks:
+        h_chunks = torch.empty((bsz, -(-t // CHUNK), d_in, ds),
+                               dtype=torch.float32, device=u.device)
+        err = lib.repro_ssm_scan_chunks(*ptrs, h_chunks.data_ptr(), CHUNK,
+                                        bsz, t, d_in, ds, stream)
+    else:
+        h_chunks = None
+        err = lib.repro_ssm_scan(*ptrs, bsz, t, d_in, ds, stream)
+    _build.check(lib, err, "ssm_scan")
+    ssm_scan.launches += 1
+    return y, h, h_chunks
+
+
+def ssm_scan_bwd(u, dt, bmat, cmat, a, d_skip, h_chunks, dy, dh=None):
+    """Launch the backward kernel (one call: the reverse sweep, then the
+    fixed-order sums of its partials) on fp32 contiguous CUDA tensors: the
+    forward's inputs, its chunk states, the cotangents of y and (None for
+    zero) of the final h. Returns (du, ddt, dB, dC, da, dd_skip). Counts one
+    launch a call (``ssm_scan_bwd.launches``)."""
+    bsz, t, d_in = u.shape
+    ds = a.shape[1]
+    lib = _lib_bwd()
+    grads = [torch.empty(x.shape, dtype=torch.float32, device=u.device)
+             for x in (u, dt, bmat, cmat, a, d_skip)]
+    work = torch.empty(lib.repro_ssm_scan_bwd_workspace(bsz, t, d_in, ds),
+                       dtype=torch.float32, device=u.device)
+    dy = dy.to(torch.float32).contiguous()
+    dh = None if dh is None else dh.to(torch.float32).contiguous()
+    err = lib.repro_ssm_scan_bwd(
+        *(x.data_ptr() for x in (u, dt, bmat, cmat, a, d_skip, h_chunks,
+                                 dy)),
+        None if dh is None else dh.data_ptr(),
+        *(g.data_ptr() for g in grads), work.data_ptr(), CHUNK, bsz, t,
+        d_in, ds, torch.cuda.current_stream(u.device).cuda_stream)
+    _build.check(lib, err, "ssm_scan_bwd")
+    ssm_scan_bwd.launches += 1
+    return tuple(grads)
+
+
+ssm_scan_bwd.launches = 0
+
+
+class _ScanFn(torch.autograd.Function):
+    """The kernels under autograd, on fp32 contiguous inputs: ``forward``
+    launches the forward with its chunk states and saves them with the
+    inputs; ``backward`` takes the cotangents of y and of the final h
+    (either may be None) and launches :func:`ssm_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, u, dt, bmat, cmat, a, d_skip):
+        y, h, h_chunks = _launch(u, dt, bmat, cmat, a, d_skip, chunks=True)
+        ctx.save_for_backward(u, dt, bmat, cmat, a, d_skip, h_chunks)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        u, dt, bmat, cmat, a, d_skip, h_chunks = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(u)
+        return ssm_scan_bwd(u, dt, bmat, cmat, a, d_skip, h_chunks, dy, dh)
 
 
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
@@ -60,17 +150,13 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
                          f"device, not {devices}")
     if u.device.type == "cpu":
         return ssm_scan_ref(u, dt, bmat, cmat, a, d_skip)
-    _build.refuse_grad("ssm_scan", u, dt, bmat, cmat, a, d_skip)
     f32 = [x.to(torch.float32).contiguous()
            for x in (u, dt, bmat, cmat, a, d_skip)]
-    y = torch.empty((bsz, t, d_in), dtype=torch.float32, device=u.device)
-    h = torch.empty((bsz, d_in, ds), dtype=torch.float32, device=u.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = lib.repro_ssm_scan(*(x.data_ptr() for x in f32), y.data_ptr(),
-                             h.data_ptr(), bsz, t, d_in, ds, stream)
-    _build.check(lib, err, "ssm_scan")
-    ssm_scan.launches += 1
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (u, dt, bmat, cmat, a, d_skip)):
+        y, h = _ScanFn.apply(*f32)
+    else:
+        y, h, _ = _launch(*f32, chunks=False)
     return y.to(u.dtype), h
 
 

@@ -5,7 +5,7 @@ package's ``kernels/ssm_scan/ref.py``, a loop over time); and
 hold to the oracle."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,3 +82,107 @@ def ssm_scan_exp2(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
             acc = acc[..., 0::2] + acc[..., 1::2]
         ys.append(acc[..., 0] + u_t * d32)
     return torch.stack(ys, dim=1).to(u.dtype), h
+
+
+# threads of a block of the backward kernel (csrc/ssm_scan_bwd.cu): a
+# channel's states split over min(bucket, 16) lanes, so a block holds
+# 256 / that many channels, and dB and dC keep one partial a block
+BWD_THREADS = 256
+
+
+def bwd_channel_block(ds: int) -> int:
+    """Channels a block of the backward kernel takes at ``ds``."""
+    return BWD_THREADS // min(state_bucket(ds), 16)
+
+
+def ssm_scan_chunked_ref(u: torch.Tensor, dt: torch.Tensor,
+                         bmat: torch.Tensor, cmat: torch.Tensor,
+                         a: torch.Tensor, d_skip: torch.Tensor,
+                         chunk: int = CHUNK):
+    """``ssm_scan_ref`` that also returns the state entering each chunk of
+    ``chunk`` steps, as the training forward writes it: (y [B, T, d_in], h
+    [B, d_in, ds], h_chunks [B, ceil(T / chunk), d_in, ds], zero for chunk
+    0). In the inputs' precision (fp32 at least), for the gradient
+    checks."""
+    dtype = torch.promote_types(u.dtype, torch.float32)
+    u, dt, bmat, cmat, a, d_skip = (x.to(dtype) for x in (u, dt, bmat, cmat,
+                                                          a, d_skip))
+    bsz, t, d_in = u.shape
+    h = torch.zeros((bsz, d_in, a.shape[1]), dtype=dtype, device=u.device)
+    ys, chunks = [], []
+    for i in range(t):
+        if i % chunk == 0:
+            chunks.append(h)
+        h = (torch.exp(dt[:, i, :, None] * a) * h
+             + (dt[:, i] * u[:, i])[..., None] * bmat[:, i, None, :])
+        ys.append(torch.einsum("bds,bs->bd", h, cmat[:, i])
+                  + u[:, i] * d_skip)
+    return torch.stack(ys, dim=1), h, torch.stack(chunks, dim=1)
+
+
+def ssm_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                     cmat: torch.Tensor, a: torch.Tensor,
+                     d_skip: torch.Tensor, h_chunks: torch.Tensor,
+                     dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
+                     chunk: int = CHUNK):
+    """The backward kernel's algorithm (``csrc/ssm_scan_bwd.cu``) in plain
+    torch. Inputs as ``ssm_scan_ref``'s, ``h_chunks`` the forward's states
+    entering each chunk, ``dy`` [B, T, d_in] and ``dh`` [B, d_in, ds] (None
+    for zero) the cotangents of y and the final h. Returns (du, ddt, dB,
+    dC, da, dd_skip) shaped as (u, dt, bmat, cmat, a, d_skip).
+
+    Chunks last to first: each chunk's states are recomputed from its
+    entering state (never by dividing by the decay), then the adjoint g
+    (from dh) runs backward: g += C_t dy_t; du_t = d_skip dy_t + dt_t sum_s
+    g B_t; ddt_t = sum_s g (a e_t h_{t-1} + u_t B_t); dB_t, dC_t take g
+    dt_t u_t and h_t dy_t; da takes g h_{t-1} dt_t e_t; g *= e_t. As the
+    kernel sums them, dB and dC join the channels of each block of
+    ``bwd_channel_block(ds)`` first and then the blocks in order, da and
+    dd_skip the batch rows in order. In the inputs' precision (fp32 at
+    least)."""
+    dtype = torch.promote_types(u.dtype, torch.float32)
+    u, dt, bmat, cmat, a, d_skip, h_chunks, dy = (
+        x.to(dtype) for x in (u, dt, bmat, cmat, a, d_skip, h_chunks, dy))
+    bsz, t, d_in = u.shape
+    ds = a.shape[1]
+    g = (torch.zeros((bsz, d_in, ds), dtype=dtype, device=u.device)
+         if dh is None else dh.to(dtype).clone())
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    vb = torch.empty((bsz, t, d_in, ds), dtype=dtype, device=u.device)
+    vc = torch.empty_like(vb)
+    da = torch.zeros((bsz, d_in, ds), dtype=dtype, device=u.device)
+    for k in reversed(range(h_chunks.shape[1])):
+        t0, t1 = k * chunk, min(t, (k + 1) * chunk)
+        hs = [h_chunks[:, k]]
+        for i in range(t0, t1):
+            hs.append(torch.exp(dt[:, i, :, None] * a) * hs[-1]
+                      + (dt[:, i] * u[:, i])[..., None] * bmat[:, i, None, :])
+        for i in reversed(range(t0, t1)):
+            e = torch.exp(dt[:, i, :, None] * a)
+            g = g + cmat[:, i, None, :] * dy[:, i, :, None]
+            hp = hs[i - t0]
+            geh = g * e * hp
+            gb = (g * bmat[:, i, None, :]).sum(-1)
+            du[:, i] = d_skip * dy[:, i] + dt[:, i] * gb
+            ddt[:, i] = (geh * a).sum(-1) + u[:, i] * gb
+            da = da + geh * dt[:, i, :, None]
+            vb[:, i] = g * (dt[:, i] * u[:, i])[..., None]
+            vc[:, i] = hs[i - t0 + 1] * dy[:, i, :, None]
+            g = g * e
+
+    def channel_blocks(x):   # [B, T, d_in, ds] -> [B, T, ds]
+        width = bwd_channel_block(ds)
+        acc = None
+        for c0 in range(0, d_in, width):
+            part = x[:, :, c0:c0 + width].sum(2)
+            acc = part if acc is None else acc + part
+        return acc
+
+    def rows_in_order(x):    # [B, ...] -> [...]
+        acc = x[0]
+        for r in range(1, bsz):
+            acc = acc + x[r]
+        return acc
+
+    return (du, ddt, channel_blocks(vb), channel_blocks(vc),
+            rows_in_order(da), rows_in_order((dy * u).sum(1)))

@@ -225,16 +225,18 @@ def run_cohort(args) -> dict:
     return result
 
 
-def prepare_arch(args):
+def prepare_arch(args, cfg=None):
     """Config, round spec, data source and initial model (flattened leaves,
-    ``tree.flatten``) of an LM arch run. The round is the reference's
-    ``run_arch_smoke`` round (tau 2, eta 1e-2, 256 attempts, difficulty
-    2). The model is drawn on the CPU from the seed and moved to the
-    device, and the data source draws on the CPU too, so a seed gives the
-    same inputs on every device."""
+    ``tree.flatten``) of an LM arch run. The config is ``cfg`` if given,
+    else the one ``--arch`` and ``--size`` name. The round is the
+    reference's ``run_arch_smoke`` round (tau 2, eta 1e-2, 256 attempts,
+    difficulty 2). The model is drawn on the CPU from the seed and moved
+    to the device, and the data source draws on the CPU too, so a seed
+    gives the same inputs on every device."""
     dev = resolve_device(args.device)
-    cfg = (get_smoke_arch(args.arch) if args.size == "smoke"
-           else get_one_h100_arch(args.arch))
+    if cfg is None:
+        cfg = (get_smoke_arch(args.arch) if args.size == "smoke"
+               else get_one_h100_arch(args.arch))
     shape = ShapeConfig("smoke", args.seq, args.clients * args.per_client,
                         "train")
     spec = rounds.RoundSpec(
@@ -250,12 +252,13 @@ def prepare_arch(args):
     return cfg, spec, src, params, dev
 
 
-def train_arch(args, jit: bool = True):
-    """Run an LM arch; returns (result dict, final RoundState, history).
-    The ``[K, C, ...]`` token streams are one static batch, so on the card
-    ``rounds.dispatch_plan`` picks the graph driver; ``jit=False`` keeps
-    the rounds in the loop (``result["dispatch"]`` says which)."""
-    cfg, spec, src, params, dev = prepare_arch(args)
+def train_arch(args, jit: bool = True, cfg=None):
+    """Run an LM arch (``cfg``, else the config ``args`` name); returns
+    (result dict, final RoundState, history). The ``[K, C, ...]`` token
+    streams are one static batch, so on the card ``rounds.dispatch_plan``
+    picks the graph driver; ``jit=False`` keeps the rounds in the loop
+    (``result["dispatch"]`` says which)."""
+    cfg, spec, src, params, dev = prepare_arch(args, cfg)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     log = MetricLogger(args.out_dir, "blade_arch")

@@ -37,10 +37,12 @@ Public API:
 ``decode_step`` updates ``state`` in place (the attention caches by slice
 assignment, the recurrent states by ``copy_``) and returns it.
 
-On the card the GQA forward launches the flash kernel and the Mamba forward
-the scan kernel, neither of which has a backward yet: under grad they raise
-(``kernels._build.refuse_grad``), so on the card only archs that launch
-neither (xLSTM) train; on the CPU every arch does.
+On the card the GQA and MLA forwards launch the flash kernel and the Mamba
+forward the scan kernel; under grad both go through their
+``autograd.Function`` (``kernels/flash_attention/ops.py::_FlashFn``,
+``kernels/ssm_scan/ops.py::_ScanFn``), whose backward launches the
+hand-written backward kernel, so every arch trains on the card (fp32); on
+the CPU the plain versions run, which autograd follows.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
 """BLADE-FL rounds around the LM zoo in the port against the JAX package,
 on the CPU: K = 2 rounds of xlstm-125m and deepseek-v2-236b smoke (the
-archs of the reference's ``tests/test_e2e.py``) from the reference's
-params and token streams, the trainer's ``--arch`` run and its keys, the
-example, and the mesh-free ``launch/steps.py``.
+archs of the reference's ``tests/test_e2e.py``), jamba-1.5-large-398b
+(Mamba scan, GQA, MoE) and phi4-mini-3.8b (the slice trained at its
+published widths on the card) from the reference's params and token
+streams, the trainer's ``--arch`` run and its keys, phi4-mini's one-H100
+config, the example, and the mesh-free ``launch/steps.py``.
 
 Tolerance: rtol 1e-4 / atol 1e-5 on per-round losses, divergence and the
 final params, as ``tests/torch_runs.py`` holds the MLP runs: the fp32
@@ -68,7 +70,8 @@ def reference_lazy_noise(jparams, key, n_rounds, n_lazy):
             for path in draws[0]}
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b", "phi4-mini-3.8b"])
 def test_arch_rounds_match_reference(arch, monkeypatch):
     """The reference's ``run_arch_smoke`` round (tau 2, eta 1e-2, 256
     attempts, difficulty 2, one lazy client) at the card run's sigma2
@@ -153,7 +156,29 @@ def test_trainer_refuses_an_unknown_arch_and_cohorts_of_an_lm():
         with pytest.raises(SystemExit):
             train.main(argv + ["--device", "cpu"])
     with pytest.raises(ValueError, match="one-H100"):
-        _train(["--arch", "phi4-mini-3.8b", "--size", "one-h100"])
+        _train(["--arch", "qwen3-32b", "--size", "one-h100"])
+
+
+def test_phi4_one_h100_config_keeps_the_published_widths():
+    """``--size one-h100`` reaches phi4-mini's ONE_H100: the published
+    config less 30 of its 32 layers, 0.816 G parameters (the tied
+    embedding 0.615 G and two layers of 0.101 G), reckoned without
+    allocating them."""
+    cut = configs.get_one_h100_arch("phi4-mini-3.8b")
+    full = configs.get_arch("phi4-mini-3.8b")
+    assert dataclasses.replace(cut, name=full.name, n_layers=32) == full
+    assert (cut.n_layers, cut.d_model, cut.n_heads, cut.n_kv_heads,
+            cut.resolved_head_dim, cut.d_ff, cut.vocab, cut.mlp,
+            cut.tie_embeddings) == (2, 3072, 24, 8, 128, 8192, 200_064,
+                                    "swiglu", True)
+    d = cut.d_model
+    layer = (2 * d + d * 24 * 128 + 2 * d * 8 * 128 + 24 * 128 * d
+             + 3 * d * 8192)
+    assert cut.param_count() == 200_064 * d + d + 2 * layer == 815_938_560
+    parser = train.build_parser()
+    args = parser.parse_args(["--arch", "phi4-mini-3.8b", "--size",
+                              "one-h100"])
+    assert args.size == "one-h100"
 
 
 def test_example_trains_and_chains_at_a_tiny_size():

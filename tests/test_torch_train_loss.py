@@ -3,8 +3,8 @@
 ``transformer.train_loss`` and its gradient with respect to every leaf for
 five smoke archs, from the reference's params and batch; the chunked
 cross-entropy and its chunk rule; remat equal to no remat; the training
-batches; and the check that keeps the flash and scan kernels, which have
-no backward yet, out of autograd on the card.
+batches; and the CPU wrappers of the flash and scan kernels under
+autograd.
 
 Tolerance: rtol / atol 1e-5 on the loss, its metrics and the gradients;
 atol 3e-5 / rtol 1e-4 on the gradients of the recurrent archs (xLSTM,
@@ -23,7 +23,6 @@ from repro import configs as jconfigs
 from repro.models import registry as jregistry
 from repro.models import transformer as jtransformer
 from repro_torch import configs, tree
-from repro_torch.kernels import _build
 from repro_torch.models import registry, transformer
 from repro_torch.weights import lm_params_from_jax
 
@@ -163,24 +162,10 @@ def test_vlm_labels_pad_the_patches_and_mask_them_out():
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jm))
 
 
-def test_refuse_grad_stops_a_kernel_input_that_requires_grad():
-    """The check the flash and scan wrappers make before each launch on
-    the card: grad mode on and an input that requires grad raise, naming
-    the kernel and ROADMAP 10f-2; no_grad, or inputs without grad, pass."""
-    x = torch.ones(3, requires_grad=True)
-    y = torch.ones(3)
-    with pytest.raises(RuntimeError, match=r"ssm_scan.*10f-2"):
-        _build.refuse_grad("ssm_scan", y, x)
-    with torch.no_grad():
-        _build.refuse_grad("ssm_scan", y, x)
-    _build.refuse_grad("flash_attention", y, y, None)
-    with torch.enable_grad():
-        _build.refuse_grad("flash_attention", x.detach(), y)
-
-
 def test_cpu_kernel_wrappers_still_follow_autograd():
     """On the CPU the wrappers run their plain versions, which autograd
-    follows: a GQA arch trains there (the guard is the card's alone)."""
+    follows: a GQA arch trains there (on the card their autograd.Functions
+    launch the backward kernels)."""
     cfg = configs.get_smoke_arch("phi4-mini-3.8b")
     params = tree.flatten(registry.init_model(
         torch.Generator().manual_seed(0), cfg))
