@@ -151,7 +151,9 @@ prints its seconds:
    (the worst share printed), two calls bitwise equal, the forward
    bitwise the serving launch; 7b the backward kernels' times at those
    two path shapes beside the plain twins' autograd and SDPA's fp32
-   backward, and ``fedavg_flat`` and ``digest_div_flat`` (tolerance) and
+   backward, each with its ratio to its bound, flash's to SDPA's
+   backward and each launch's share by name, and ``fedavg_flat`` and
+   ``digest_div_flat`` (tolerance) and
    the seal (bitwise) at C = 4 on every xLSTM-125M leaf and on phi4-mini's
    615 M-float embedding, with their times; 7c xLSTM-125M at its
    published widths cut to one period of its pattern (3 mLSTM + 1 sLSTM,
@@ -2793,6 +2795,32 @@ def phase_train_grads(torch, dev, report):
           + json.dumps(worst), flush=True)
 
 
+def launch_split(torch, fn, reps=10):
+    """Each kernel that ``fn`` launches, by name (its C++ name up to the
+    template arguments): [device ms a launch, launches recorded], the mean
+    over one profile of ``reps`` calls. The profiler drops activities, so
+    a kernel's mean is taken over the launches it recorded."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"::(\w+)[<(]", e.name)
+            name = m.group(1) if m else e.name[:40]
+            ms, n = split.get(name, (0.0, 0))
+            split[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return {name: [ms / n, n] for name, (ms, n) in split.items()}
+
+
 def phase_bwd_times(torch, dev, report):
     """Phase 7b (backward kernels): the flash backward at phi4-mini's
     training shape and the scan backward at Jamba's layer shape, each call
@@ -2830,9 +2858,9 @@ def phase_bwd_times(torch, dev, report):
     pairs = _flash_work(b, h, hkv, s, d, True, 0)[2]
     # q, k, v, o, dO and lse read; dq, dk, dv written; 10 D flops a kept
     # pair (S, dP, dV, dK, dQ) as three TF32 passes, the card's fastest
-    # fp32-faithful products (row 6's arithmetic), one exp a pair; and,
-    # for the phase's line, the same flops as one pass of fp32 FMAs (the
-    # kernel's arithmetic)
+    # fp32-faithful products (the kernel's arithmetic, and row 6's), one
+    # exp a pair; and, for the phase's line, the same flops as one pass of
+    # fp32 FMAs outside the tensor cores
     bwd_work = (4 * (4 * b * s * h * d + 2 * b * s * hkv * d + b * h * s
                      + b * s * h * d + 2 * b * s * hkv * d),
                 10 * d * pairs, pairs)
@@ -2841,7 +2869,9 @@ def phase_bwd_times(torch, dev, report):
     report["flash_attention_bwd"].update(
         ms=timing.kernel_ms(lambda: flash_ops.flash_attention_bwd(
             q.detach(), k.detach(), v.detach(), o, lse, do, **mask),
-            "flash_attention_bwd", reps=10, ops=3),   # D, dK/dV, dQ
+            "flash_attention_bwd", reps=10,
+            # D, dK/dV, the group sum under GQA, dQ
+            ops=flash_ops.launches_a_call(h, hkv)),
         plain_ms=timing.kernel_ms(lambda: torch.autograd.grad(
             plain, (q, k, v), do, retain_graph=True),
             "flash_attention_bwd plain (autograd of mha_ref)", reps=5),
@@ -2852,7 +2882,10 @@ def phase_bwd_times(torch, dev, report):
             sdpa_fwd_bwd, "flash_attention_bwd library (SDPA forward + "
             "backward, fp32)", reps=10),
         bound_ms=bound, bound_by=by, kept_pairs=pairs,
-        shape=FLASH_TRAIN_PATH)
+        shape=FLASH_TRAIN_PATH,
+        launch_split_ms=launch_split(torch, lambda: (
+            flash_ops.flash_attention_bwd(q.detach(), k.detach(),
+                                          v.detach(), o, lse, do, **mask))))
     report["flash_attention_bwd"]["events_ms"] = \
         timing.READINGS["flash_attention_bwd"]["events_ms"]
     del q, k, v, do, o, lse, plain, qt, kt, vt, lib_out, dot
@@ -2877,22 +2910,33 @@ def phase_bwd_times(torch, dev, report):
     report["ssm_scan_bwd"].update(
         ms=timing.kernel_ms(lambda: ssm_ops.ssm_scan_bwd(
             *f32, h_chunks, dy, dh), "ssm_scan_bwd", reps=10,
-            ops=5),   # the sweep, then the sums of dB, dC, da, dd_skip
+            ops=2),   # the sweep, then one launch of the four sums
         plain_ms=timing.kernel_ms(lambda: torch.autograd.grad(
             plain, xs, (dy, dh), retain_graph=True),
             "ssm_scan_bwd plain (autograd of ssm_scan_ref)", reps=1),
-        library_ms=None, bound_ms=bound, bound_by=by, shape=SSM_TRAIN_PATH)
+        library_ms=None, bound_ms=bound, bound_by=by, shape=SSM_TRAIN_PATH,
+        launch_split_ms=launch_split(torch, lambda: ssm_ops.ssm_scan_bwd(
+            *f32, h_chunks, dy, dh)))
     report["ssm_scan_bwd"]["events_ms"] = \
         timing.READINGS["ssm_scan_bwd"]["events_ms"]
     del xs, f32, dy, dh, h_chunks, plain
     _free(torch)
+    flash = report["flash_attention_bwd"]
     print("phase 7b ok (backward kernels): " + json.dumps(
         {name: {key: report[name][key] for key in
                 ("shape", "ms", "events_ms", "plain_ms", "library_ms",
-                 "bound_ms", "bound_by")}
+                 "bound_ms", "bound_by", "launch_split_ms")}
+         | {"over_bound": report[name]["ms"] / report[name]["bound_ms"],
+            "events_over_bound": (report[name]["events_ms"]
+                                  / report[name]["bound_ms"])}
          for name in ("flash_attention_bwd", "ssm_scan_bwd")}
-        | {"sdpa_fwd_bwd_ms": report["flash_attention_bwd"][
-            "library_fwd_bwd_ms"],
+        | {"sdpa_fwd_bwd_ms": flash["library_fwd_bwd_ms"],
+           "flash_attention_bwd_over_sdpa_bwd":
+               flash["ms"] / flash["library_ms"],
+           "flash_attention_bwd_events_over_sdpa_bwd":
+               flash["events_ms"] / timing.READINGS[
+                   "flash_attention_bwd library (SDPA backward, fp32)"][
+                   "events_ms"],
            "flash_attention_bwd_bound_fp32_ms": bound_fp32_ms}),
         flush=True)
 

@@ -21,9 +21,13 @@ the paper's leaves, ``flash_attention`` at the four serve paths' shapes
 (Jamba's and DeepSeek's causal ones, PaliGemma's prefix-LM form, HuBERT's
 bidirectional one) and ``ssm_scan`` at Jamba's, with the kernels built
 from another tree's ``src`` (an unpacked parent commit), each held bitwise
-to this tree's serving launch and timed in the order other, this, this,
-other, by the profiler and by CUDA events (``timing.kernel_ms``). The
-other tree's flash source must take the prefix-LM form's ``prefix_len``.
+to this tree's serving launch, and the two backward kernels,
+``flash_attention_bwd`` at phi4-mini's training shape and ``ssm_scan_bwd``
+at Jamba's training layer, each held to this tree's within
+``chip_smoke.py`` phase 7a's gate; all timed in the order other, this,
+this, other, by the profiler and by CUDA events (``timing.kernel_ms``).
+The other tree's flash source must take the prefix-LM form's
+``prefix_len``.
 
 It needs the card: ``--device cpu`` is refused, since a CPU run times
 PyTorch's CPU kernels and not these.
@@ -319,6 +323,158 @@ def compare_scan(against: str, dev) -> dict:
     return out
 
 
+def _flash_bwd_of(src_dir: str):
+    """``repro_flash_attention_bwd`` built from ``src_dir``'s source, as a
+    causal ``(q, k, v, o, lse, dout) -> (dq, dk, dv)`` on [B, S, H, D]
+    contiguous fp32 tensors on the current stream, with the workspace that
+    source asks for (its ``repro_flash_attention_bwd_workspace``, or the
+    rows' D alone where it has none)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    cu = Path(src_dir) / "repro_torch" / "kernels" / "flash_attention" \
+        / "csrc" / "flash_attention_bwd.cu"
+    lib = _build.load_file(cu, "flash_attention_bwd-against")
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes, fn.restype = ops._SIGNATURE_BWD, ctypes.c_int
+    size = getattr(lib, "repro_flash_attention_bwd_workspace", None)
+    if size is not None:
+        size.argtypes = [ctypes.c_int] * 5
+        size.restype = ctypes.c_longlong
+
+    def bwd(q, k, v, o, lse, dout):
+        b, s, h, d = q.shape
+        hkv = k.shape[2]
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        work = torch.empty(size(b, h, hkv, s, d) if size else b * h * s,
+                           device=q.device)
+        strides = [st for x in (q, k, v, o, dout, *grads)
+                   for st in x.stride()[:3]]
+        err = fn(*(x.data_ptr() for x in (q, k, v, o, dout, lse, work,
+                                          *grads)),
+                 b, h, hkv, s, d, *strides, 1.0 / math.sqrt(d), 1, 0, 0,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention_bwd of {src_dir}: CUDA "
+                               f"error {err}")
+        return grads
+
+    return bwd
+
+
+def _ssm_scan_bwd_of(src_dir: str):
+    """``repro_ssm_scan_bwd`` built from ``src_dir``'s source, as a
+    function ``(u, dt, bmat, cmat, a, d_skip, h_chunks, dy, dh) -> (du,
+    ddt, dB, dC, da, dd_skip)`` on contiguous fp32 tensors on the current
+    stream."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import ops
+
+    cu = Path(src_dir) / "repro_torch" / "kernels" / "ssm_scan" / "csrc" \
+        / "ssm_scan_bwd.cu"
+    lib = _build.load_file(cu, "ssm_scan_bwd-against")
+    fn = lib.repro_ssm_scan_bwd
+    fn.argtypes, fn.restype = ops._SIGNATURE_BWD, ctypes.c_int
+    size = lib.repro_ssm_scan_bwd_workspace
+    size.argtypes, size.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+
+    def bwd(u, dt, bmat, cmat, a, d_skip, h_chunks, dy, dh):
+        bsz, t, d_in = u.shape
+        ds = a.shape[1]
+        grads = [torch.empty_like(x) for x in (u, dt, bmat, cmat, a, d_skip)]
+        work = torch.empty(size(bsz, t, d_in, ds), device=u.device)
+        err = fn(*(x.data_ptr() for x in (u, dt, bmat, cmat, a, d_skip,
+                                          h_chunks, dy, dh, *grads, work)),
+                 ops.CHUNK, bsz, t, d_in, ds,
+                 torch.cuda.current_stream(u.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"ssm_scan_bwd of {src_dir}: CUDA error "
+                               f"{err}")
+        return grads
+
+    return bwd
+
+
+# chip_smoke.py phase 7a's gates on the backward kernels: |a - b| <= rtol
+# |b| + atol max|b| on each gradient
+FLASH_GRAD_TOL = (1e-4, 1e-4)
+SSM_GRAD_TOL = (1e-4, 2e-5)
+
+
+def _within(got, want, rtol, atol) -> float:
+    """Largest |got - want| / (rtol |want| + atol max|want|)."""
+    tol = rtol * want.abs() + atol * want.abs().max().clamp_min(1e-30)
+    return float(((got - want).abs() / tol).max())
+
+
+def compare_flash_bwd(against: str, dev) -> dict:
+    """``flash_attention_bwd`` of this tree against the one of ``against``
+    at phi4-mini's training shape (B 2, H 24, Hkv 8, S 512, D 128, causal)
+    on the same forward's O and lse, each gradient within phase 7a's gate
+    of the other's (the arithmetic differs, so not bitwise), timed in the
+    order other, this, this, other."""
+    from repro_torch.kernels.flash_attention import ops
+
+    other = _flash_bwd_of(against)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, h, hkv, s, d = 2, 24, 8, 512, 128
+    q = torch.randn((b, s, h, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
+            for _ in range(2))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev)
+    mask = dict(seq_axis=1, head_axis=2, causal=True, window=0,
+                scale=1.0 / math.sqrt(d), prefix_len=0)
+    o, lse = ops._forward_lse(q, k, v, **mask)
+    worst = max(_within(a, w, *FLASH_GRAD_TOL) for a, w in zip(
+        ops.flash_attention_bwd(q, k, v, o, lse, dout, **mask),
+        other(q, k, v, o, lse, dout)))
+    if worst > 1:
+        raise RuntimeError(f"flash_attention_bwd differs from {against}'s "
+                           f"at {(b, h, hkv, s, d)}: {worst:.3g} of the "
+                           "gate")
+    out = {"flash_attention_bwd phi4 worst_of_gate": worst}
+    _alternate({"other": lambda: other(q, k, v, o, lse, dout),
+                "this": lambda: ops.flash_attention_bwd(q, k, v, o, lse,
+                                                        dout, **mask)},
+               "flash_attention_bwd phi4", "flash_attention_bwd_phi4", out,
+               reps=10)
+    return out
+
+
+def compare_scan_bwd(against: str, dev) -> dict:
+    """``ssm_scan_bwd`` of this tree against the one of ``against`` at
+    Jamba's training layer (B 2, T 512, d_in 16 384, ds 16) on the same
+    forward's chunk states, each gradient within phase 7a's gate of the
+    other's, timed in the order other, this, this, other."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssm_scan import ops
+
+    other = _ssm_scan_bwd_of(against)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bsz, t, d_in, ds = 2, 512, 16384, 16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    xs = (randn(bsz, t, d_in), F.softplus(randn(bsz, t, d_in) - 2),
+          randn(bsz, t, ds), randn(bsz, t, ds),
+          -torch.exp(0.3 * randn(d_in, ds)), randn(d_in))
+    dy, dh = randn(bsz, t, d_in), randn(bsz, d_in, ds)
+    _, _, h_chunks = ops._launch(*xs, chunks=True)
+    worst = max(_within(a, w, *SSM_GRAD_TOL) for a, w in zip(
+        ops.ssm_scan_bwd(*xs, h_chunks, dy, dh),
+        other(*xs, h_chunks, dy, dh)))
+    if worst > 1:
+        raise RuntimeError(f"ssm_scan_bwd differs from {against}'s at "
+                           f"{(bsz, t, d_in, ds)}: {worst:.3g} of the gate")
+    out = {"ssm_scan_bwd jamba worst_of_gate": worst}
+    _alternate({"other": lambda: other(*xs, h_chunks, dy, dh),
+                "this": lambda: ops.ssm_scan_bwd(*xs, h_chunks, dy, dh)},
+               "ssm_scan_bwd jamba", "ssm_scan_bwd_jamba", out, reps=10)
+    return out
+
+
 def compare_mix(against: str, dev) -> dict:
     """``mix_rows_flat`` of this tree against the one of ``against`` at R
     = K = 20 and 64 over the paper's leaves, bitwise equal, timed in the
@@ -355,8 +511,9 @@ def card_name() -> str:
 def bench(device="cuda", quick: bool = False,
           against: Optional[str] = None) -> dict:
     """Time every case; ``quick`` leaves out the serve path's kernels;
-    ``against`` adds :func:`compare_mix`, :func:`compare_flash` and
-    :func:`compare_scan` with that tree."""
+    ``against`` adds :func:`compare_mix`, :func:`compare_flash`,
+    :func:`compare_scan`, :func:`compare_flash_bwd` and
+    :func:`compare_scan_bwd` with that tree."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"bench_kernels times the CUDA kernels on the "
@@ -384,7 +541,9 @@ def bench(device="cuda", quick: bool = False,
     if against:
         out["against"] = {**compare_mix(against, dev),
                           **compare_flash(against, dev),
-                          **compare_scan(against, dev)}
+                          **compare_scan(against, dev),
+                          **compare_flash_bwd(against, dev),
+                          **compare_scan_bwd(against, dev)}
     out["device"] = card_name()
     print(json.dumps(out))
     return out
@@ -395,9 +554,9 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="the FL kernels only")
     ap.add_argument("--against", metavar="SRC", default=None,
-                    help="also compare mix_rows_flat, flash_attention and "
-                         "ssm_scan with those of another tree's src "
-                         "directory")
+                    help="also compare mix_rows_flat, flash_attention, "
+                         "ssm_scan and the two backward kernels with those "
+                         "of another tree's src directory")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default); cpu is refused")
     args = ap.parse_args(argv)

@@ -17,8 +17,9 @@ prefix-LM masks (``ref.keep_mask``; the TPU kernel has no prefix form,
 the JAX model builds that mask in ``attention.build_mask``). The forward
 computes both products on the tensor cores in 3xTF32, which holds the
 fp32 tolerance; ``ref.attention_tf32`` emulates that arithmetic on the CPU
-for the tests. The backward is fp32 FMAs (``ref.attention_bwd_ref`` is its
-algorithm in plain torch).
+for the tests. The backward runs its five products the same way
+(``ref.attention_bwd_ref`` is its algorithm in plain torch,
+``ref.attention_bwd_tf32`` its 3xTF32 arithmetic).
 """
 from __future__ import annotations
 
@@ -57,6 +58,8 @@ def _lib_bwd() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURE_BWD
         fn.restype = ctypes.c_int
+        lib.repro_flash_attention_bwd_workspace.argtypes = [_I] * 5
+        lib.repro_flash_attention_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -139,26 +142,30 @@ def _forward_lse(q, k, v, *, seq_axis: int, head_axis: int, causal: bool,
 def flash_attention_bwd(q, k, v, o, lse, dout, *, seq_axis: int,
                         head_axis: int, causal: bool, window: int,
                         scale: float, prefix_len: int):
-    """Launch the backward kernel (one call, three launches: the rows'
-    dO . O, the kv-tile-major dK/dV pass, the q-tile-major dQ pass) on fp32
-    CUDA tensors in the layout (batch, ``seq_axis``, ``head_axis``, dim):
-    q, o, dout at H heads, k, v at Hkv; lse the forward's [B, H, S].
-    Returns (dq, dk, dv), each in its input's shape, dk and dv at Hkv
-    heads. Counts one launch a call (``flash_attention_bwd.launches``)."""
+    """Launch the backward kernel (one call: the rows' dO . O, the
+    kv-tile-major dK/dV pass, under GQA the sum of each group's heads, the
+    q-tile-major dQ pass; ``launches_a_call`` of them) on fp32 CUDA
+    tensors in the layout (batch, ``seq_axis``, ``head_axis``, dim): q, o,
+    dout at H heads, k, v at Hkv; lse the forward's [B, H, S]. Returns
+    (dq, dk, dv), each in its input's shape, dk and dv at Hkv heads.
+    Counts one launch a call (``flash_attention_bwd.launches``)."""
     q, k, v, o, dout = (_d_contiguous(x) for x in (q, k, v, o, dout))
     b, s, h, hkv, d = (q.shape[0], q.shape[seq_axis], q.shape[head_axis],
                        k.shape[head_axis], q.shape[-1])
     dq, dk, dv = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
                   for x in (q, k, v))
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _lib_bwd()
+    # the rows' D and, under GQA, each query head's dK and dV
+    work = torch.empty(lib.repro_flash_attention_bwd_workspace(b, h, hkv, s,
+                                                               d),
+                       dtype=torch.float32, device=q.device)
 
     def strides(x):
         return x.stride(0), x.stride(seq_axis), x.stride(head_axis)
 
-    lib = _lib_bwd()
     err = lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        dout.data_ptr(), lse.contiguous().data_ptr(), delta.data_ptr(),
+        dout.data_ptr(), lse.contiguous().data_ptr(), work.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, d,
         *(st for x in (q, k, v, o, dout, dq, dk, dv) for st in strides(x)),
         scale, int(causal), int(window), _prefix(prefix_len, s),
@@ -169,6 +176,12 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, seq_axis: int,
 
 
 flash_attention_bwd.launches = 0
+
+
+def launches_a_call(n_heads: int, n_kv_heads: int) -> int:
+    """Device launches one :func:`flash_attention_bwd` call makes: D, dK/dV
+    and dQ, and under GQA (``n_heads > n_kv_heads``) the group sum."""
+    return 3 + (n_heads != n_kv_heads)
 
 
 class _FlashFn(torch.autograd.Function):

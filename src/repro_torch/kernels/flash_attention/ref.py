@@ -10,6 +10,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+# log2(e): the kernels take exp(x) as exp2(x log2(e))
+LOG2E = 1.4426950408889634
 
 
 def keep_mask(s: int, *, causal: bool, window: int, prefix_len: int,
@@ -135,6 +137,16 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
     return torch.logsumexp(logits, dim=-1)
 
 
+def _group_sum(x: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """[B, H, S, D] -> [B, Hkv, S, D]: each kv head's group of query heads
+    summed in order, head 0 first, as the backward kernel adds them."""
+    x = x.unflatten(1, (n_kv, x.shape[1] // n_kv))
+    acc = x[:, :, 0]
+    for r in range(1, x.shape[2]):
+        acc = acc + x[:, :, r]
+    return acc
+
+
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       *, causal: bool = True, window: int = 0,
@@ -162,12 +174,40 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = scale * torch.einsum("bhst,bhtd->bhsd", ds, kr)
     dk_h = scale * torch.einsum("bhst,bhsd->bhtd", ds, q)
     dv_h = torch.einsum("bhst,bhsd->bhtd", p, do)
+    return dq, _group_sum(dk_h, k.shape[1]), _group_sum(dv_h, k.shape[1])
 
-    def group_sum(x):   # [B, H, S, D] -> [B, Hkv, S, D], heads in order
-        x = x.unflatten(1, (k.shape[1], rep))
-        acc = x[:, :, 0]
-        for r in range(1, rep):
-            acc = acc + x[:, :, r]
-        return acc
 
-    return dq, group_sum(dk_h), group_sum(dv_h)
+def attention_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                       *, causal: bool = True, window: int = 0,
+                       scale: Optional[float] = None, prefix_len: int = 0,
+                       passes: int = 3):
+    """``attention_bwd_ref`` with its five products as the backward kernel
+    computes them on the tensor cores (``tf32_matmul`` with ``passes``):
+    S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q and dQ = dS K, fp32
+    between them; P = exp2(S (scale log2 e) - lse log2 e), as the kernel
+    takes it with ex2; dK and dQ scaled after the product, a kv head's dK
+    and dV its group's query heads summed in order. Same arguments and
+    returns as ``attention_bwd_ref``, fp32. A test oracle of the kernel's
+    arithmetic; nothing on the main path calls it."""
+    f32 = torch.float32
+    q, k, v, o, do = (x.to(f32) for x in (q, k, v, o, do))
+    s, d = q.shape[2], q.shape[3]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rep = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(rep, dim=1)
+    vr = v.repeat_interleave(rep, dim=1)
+    log2e = torch.tensor(LOG2E, dtype=f32)
+    scale_log2 = torch.tensor(scale, dtype=f32) * log2e
+    logits = tf32_matmul(q, kr.transpose(-1, -2), passes)
+    ok = keep_mask(s, causal=causal, window=window, prefix_len=prefix_len,
+                   device=q.device)
+    p = torch.where(ok, torch.exp2(logits * scale_log2
+                                   - lse.to(f32)[..., None] * log2e), 0.0)
+    delta = (do * o).sum(dim=-1)
+    dp = tf32_matmul(do, vr.transpose(-1, -2), passes)
+    ds = p * (dp - delta[..., None])
+    dq = tf32_matmul(ds, kr, passes) * scale
+    dk_h = tf32_matmul(ds.transpose(-1, -2), q, passes) * scale
+    dv_h = tf32_matmul(p.transpose(-1, -2), do, passes)
+    return dq, _group_sum(dk_h, k.shape[1]), _group_sum(dv_h, k.shape[1])

@@ -84,15 +84,22 @@ def ssm_scan_exp2(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     return torch.stack(ys, dim=1).to(u.dtype), h
 
 
-# threads of a block of the backward kernel (csrc/ssm_scan_bwd.cu): a
-# channel's states split over min(bucket, 16) lanes, so a block holds
-# 256 / that many channels, and dB and dC keep one partial a block
-BWD_THREADS = 256
+# the backward kernel (csrc/ssm_scan_bwd.cu): blocks of BWD_THREADS
+# threads, a channel's states split over lanes of BWD_STATES_PER_LANE
+# (REPRO_SSM_BWD_STATES_PER_LANE), and the BWD_CLUSTER blocks of a thread
+# block cluster summing their dB and dC terms into one partial
+BWD_THREADS = 128
+BWD_STATES_PER_LANE = 4
+BWD_CLUSTER = 8
 
 
 def bwd_channel_block(ds: int) -> int:
-    """Channels a block of the backward kernel takes at ``ds``."""
-    return BWD_THREADS // min(state_bucket(ds), 16)
+    """Channels whose dB and dC terms the backward kernel sums into one
+    partial at ``ds``: a cluster's blocks, each of BWD_THREADS / (lanes a
+    channel) channels (256 at ds 16)."""
+    width = state_bucket(ds)
+    lanes = width // min(width, BWD_STATES_PER_LANE)
+    return BWD_THREADS // lanes * BWD_CLUSTER
 
 
 def ssm_scan_chunked_ref(u: torch.Tensor, dt: torch.Tensor,
@@ -136,8 +143,8 @@ def ssm_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     (from dh) runs backward: g += C_t dy_t; du_t = d_skip dy_t + dt_t sum_s
     g B_t; ddt_t = sum_s g (a e_t h_{t-1} + u_t B_t); dB_t, dC_t take g
     dt_t u_t and h_t dy_t; da takes g h_{t-1} dt_t e_t; g *= e_t. As the
-    kernel sums them, dB and dC join the channels of each block of
-    ``bwd_channel_block(ds)`` first and then the blocks in order, da and
+    kernel sums them, dB and dC join the channels of each slab of
+    ``bwd_channel_block(ds)`` first and then the slabs in order, da and
     dd_skip the batch rows in order. In the inputs' precision (fp32 at
     least)."""
     dtype = torch.promote_types(u.dtype, torch.float32)
@@ -170,7 +177,7 @@ def ssm_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
             vc[:, i] = hs[i - t0 + 1] * dy[:, i, :, None]
             g = g * e
 
-    def channel_blocks(x):   # [B, T, d_in, ds] -> [B, T, ds]
+    def channel_slabs(x):   # [B, T, d_in, ds] -> [B, T, ds]
         width = bwd_channel_block(ds)
         acc = None
         for c0 in range(0, d_in, width):
@@ -184,5 +191,5 @@ def ssm_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
             acc = acc + x[r]
         return acc
 
-    return (du, ddt, channel_blocks(vb), channel_blocks(vc),
+    return (du, ddt, channel_slabs(vb), channel_slabs(vc),
             rows_in_order(da), rows_in_order((dy * u).sum(1)))

@@ -1,8 +1,9 @@
 """The flash backward's algorithm (``ref.attention_bwd_ref``, which the
-CUDA kernel ``csrc/flash_attention_bwd.cu`` follows) and the forward's row
-logsumexp (``ref.attention_lse_ref``) against the JAX package on the CPU;
-the wiring of ``ops._FlashFn`` by a float64 ``gradcheck`` with its two
-launches replaced by the plain algorithms.
+CUDA kernel ``csrc/flash_attention_bwd.cu`` follows), the CPU twin of the
+kernel's 3xTF32 tensor-core arithmetic (``ref.attention_bwd_tf32``) and
+the forward's row logsumexp (``ref.attention_lse_ref``) against the JAX
+package on the CPU; the wiring of ``ops._FlashFn`` by a float64
+``gradcheck`` with its two launches replaced by the plain algorithms.
 
 Inputs come from a numpy seed. The JAX side is ``jax.vjp`` of the
 reference's ``attention_ref`` (kv repeated to H heads inside the
@@ -13,7 +14,9 @@ model's ``_sdpa`` under ``build_mask`` for the prefix-LM mask, which
 Tolerance: |got - want| <= rtol |want| + atol max|want|, rtol = atol =
 1e-5, on each of dq, dk, dv: both sides fp32, the sums over keys, rows and
 a GQA group taken in another order. The lse is held at the same
-tolerance against ``jax.nn.logsumexp`` of the masked logits.
+tolerance against ``jax.nn.logsumexp`` of the masked logits. The 3xTF32
+twin is held at the card's gate for the kernel (``chip_smoke.py`` phase
+7a): rtol = atol = 1e-4, each product's operands carrying about 22 bits.
 """
 import math
 
@@ -30,8 +33,10 @@ from repro.models import attention as jattention
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_bwd_tf32,
                                                      attention_lse_ref,
-                                                     attention_ref, keep_mask)
+                                                     attention_ref,
+                                                     attention_tf32, keep_mask)
 from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 RTOL = ATOL = 1e-5
@@ -52,6 +57,15 @@ EXTRA_CASES = [(2, 4, 2, 64, 32, True, 0), (1, 8, 1, 48, 16, True, 0),
 # causal mask; prefix S the whole square)
 PREFIX_CASES = [(1, 2, 1, 160, 16, 1), (1, 4, 2, 160, 16, 100),
                 (1, 2, 2, 160, 16, 160)]
+# b, h, hkv, s, d, causal, window, prefix: the 3xTF32 twin under GQA
+# (causal, off the kernel's 64-key and 32-row tiles), a window, the
+# prefix-LM mask, minicpm's D 36 (padded to the mma depth 8 in the
+# kernel), HuBERT's bidirectional D 80, MLA's D 192 under MQA (its dK/dV
+# columns split over two blocks)
+TF32_CASES = [(2, 4, 2, 100, 32, True, 0, 0), (1, 2, 2, 96, 16, True, 24, 0),
+              (1, 4, 2, 160, 16, True, 0, 100), (1, 4, 2, 72, 36, True, 0, 0),
+              (1, 2, 2, 48, 80, False, 0, 0), (1, 2, 1, 40, 192, True, 0, 0)]
+TF32_RTOL = TF32_ATOL = 1e-4
 
 
 def _inputs(b, h, hkv, s, d, seed):
@@ -63,10 +77,14 @@ def _inputs(b, h, hkv, s, d, seed):
     return q, k, v, do
 
 
-def _close(got, want, what):
+def _worst(got, want, rtol=RTOL, atol=ATOL):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    tol = RTOL * np.abs(want) + ATOL * np.abs(want).max()
-    worst = float((np.abs(got - want) / tol).max())
+    tol = rtol * np.abs(want) + atol * np.abs(want).max()
+    return float((np.abs(got - want) / tol).max())
+
+
+def _close(got, want, what, rtol=RTOL, atol=ATOL):
+    worst = _worst(got, want, rtol, atol)
     assert worst <= 1, f"{what}: {worst:.3g} of the tolerance"
 
 
@@ -114,13 +132,10 @@ def test_attention_bwd_ref_matches_jax_vjp(case):
            causal, window)
 
 
-@pytest.mark.parametrize("case", PREFIX_CASES, ids=str)
-def test_attention_bwd_ref_matches_jax_vjp_under_a_prefix(case):
-    """The prefix-LM mask against the JAX model's ``_sdpa`` under its
-    ``build_mask`` (heads moved to its [B, S, H, D] layout and back)."""
-    b, h, hkv, s, d, prefix = case
+def _jax_prefix_attention(rep, s, d, prefix):
+    """The JAX model's ``_sdpa`` under its ``build_mask`` (heads moved to
+    its [B, S, H, D] layout and back)."""
     mask = jattention.build_mask(s, causal=True, prefix_len=prefix)
-    rep = h // hkv
 
     def fn(q, k, v):
         out = jattention._sdpa(
@@ -129,8 +144,54 @@ def test_attention_bwd_ref_matches_jax_vjp_under_a_prefix(case):
             jnp.repeat(v, rep, axis=1).transpose(0, 2, 1, 3), mask,
             1.0 / math.sqrt(d))
         return out.transpose(0, 2, 1, 3)
+    return fn
 
-    _check((b, h, hkv, s, d), prefix, fn, True, 0, prefix)
+
+@pytest.mark.parametrize("case", PREFIX_CASES, ids=str)
+def test_attention_bwd_ref_matches_jax_vjp_under_a_prefix(case):
+    """The prefix-LM mask against the JAX model's ``_sdpa`` under its
+    ``build_mask``."""
+    b, h, hkv, s, d, prefix = case
+    _check((b, h, hkv, s, d), prefix,
+           _jax_prefix_attention(h // hkv, s, d, prefix), True, 0, prefix)
+
+
+def _tf32_grads(case, passes):
+    """(the 3xTF32 twin's dq, dk, dv with ``passes``, jax.vjp's) at
+    ``case``: the twin on the forward's own arithmetic (``attention_tf32``
+    for O, ``attention_lse_ref`` for lse), as the kernel gets them."""
+    b, h, hkv, s, d, causal, window, prefix = case
+    q, k, v, do = _inputs(b, h, hkv, s, d, s + d + prefix)
+    rep = h // hkv
+    jfn = (_jax_prefix_attention(rep, s, d, prefix) if prefix
+           else _jax_attention(rep, causal, window))
+    want = jax.jit(lambda q, k, v, do: jax.vjp(jfn, q, k, v)[1](do))(
+        *(jnp.asarray(x) for x in (q, k, v, do)))
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    mask = dict(causal=causal, window=window, prefix_len=prefix)
+    o = attention_tf32(qt, kt.repeat_interleave(rep, 1),
+                       vt.repeat_interleave(rep, 1), **mask)
+    lse = attention_lse_ref(qt, kt, **mask)
+    got = attention_bwd_tf32(qt, kt, vt, o, lse, dot, passes=passes, **mask)
+    return got, want
+
+
+@pytest.mark.parametrize("case", TF32_CASES, ids=str)
+def test_attention_bwd_tf32_matches_jax_vjp(case):
+    """The kernel's 3xTF32 arithmetic holds the card's gradient gate."""
+    got, want = _tf32_grads(case, 3)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        _close(g.numpy(), w, f"{name} at {case}", TF32_RTOL, TF32_ATOL)
+
+
+def test_attention_bwd_one_tf32_pass_misses_the_gate():
+    """One TF32 pass a product (10 bits of each operand) misses the gate
+    the kernel's three passes hold: the split is what carries fp32."""
+    got, want = _tf32_grads(TF32_CASES[0], 1)
+    worst = max(_worst(g.numpy(), w, TF32_RTOL, TF32_ATOL)
+                for g, w in zip(got, want))
+    assert worst > 2, worst
 
 
 @pytest.mark.parametrize("causal,window,prefix", [

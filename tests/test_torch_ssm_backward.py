@@ -23,7 +23,8 @@ import jax.numpy as jnp
 from repro.kernels.ssm_scan import ssm_scan_ref as jssm_scan_ref
 from repro_torch import kernels
 from repro_torch.kernels.ssm_scan import ops
-from repro_torch.kernels.ssm_scan.ref import (CHUNK, ssm_scan_bwd_ref,
+from repro_torch.kernels.ssm_scan.ref import (CHUNK, bwd_channel_block,
+                                              ssm_scan_bwd_ref,
                                               ssm_scan_chunked_ref,
                                               ssm_scan_ref)
 from torch_threads import one_torch_thread  # noqa: F401 (fixture)
@@ -33,12 +34,14 @@ NAMES = ("du", "ddt", "dB", "dC", "da", "dd_skip")
 
 # (B, T, d_in, ds, dt scale, dh_final): the reference's SSM_CASES; ragged T
 # (off the 16-step chunks, and under one chunk); ds 1 and 64; no final-h
-# cotangent; dt large enough that exp(dt a) underflows to 0
+# cotangent; dt large enough that exp(dt a) underflows to 0; d_in over
+# three of the kernel's 256-channel dB/dC slabs, the last ragged
 CASES = [(2, 64, 128, 16, 1.0, True), (1, 128, 256, 8, 1.0, True),
          (2, 32, 64, 4, 1.0, True), (1, 16, 32, 16, 1.0, True),
          (2, 37, 24, 5, 1.0, True), (1, 9, 16, 16, 1.0, True),
          (1, 33, 16, 1, 1.0, True), (1, 20, 8, 64, 1.0, True),
-         (2, 40, 32, 16, 1.0, False), (1, 48, 32, 16, 60.0, True)]
+         (2, 40, 32, 16, 1.0, False), (1, 48, 32, 16, 60.0, True),
+         (1, 20, 600, 16, 1.0, True)]
 
 
 def _inputs(b, t, d_in, ds, dt_scale, seed):
@@ -83,6 +86,14 @@ def test_ssm_scan_bwd_ref_matches_jax_vjp(case):
         assert g.shape == x.shape, name
         assert bool(torch.isfinite(g).all()), name
         _close(g.numpy(), w, f"{name} at {case}")
+
+
+@pytest.mark.parametrize("ds,channels", [(1, 1024), (4, 1024), (5, 512),
+                                         (16, 256), (17, 128), (64, 64)])
+def test_bwd_channel_block_is_a_clusters_channels(ds, channels):
+    """A dB/dC partial covers the 8 blocks of a cluster: 128 threads, a
+    channel's states over lanes of 4 (all of a bucket of 4 or less)."""
+    assert bwd_channel_block(ds) == channels
 
 
 def test_chunked_forward_keeps_each_chunks_entering_state():
