@@ -172,7 +172,29 @@ prints its seconds:
    exact, its peak under PHI4_PEAK_GB; 7f every smoke arch with attention
    or Mamba (SMOKE_TRAIN_ARCHS) trained on the card by the graph driver,
    its flash and scan launches (forward and backward) as its layer
-   pattern gives them, held to its CPU run.
+   pattern gives them, held to its CPU run;
+8. the client-sharded engine (``launch.train --devices``), one process a
+   rank. NCCL refuses two ranks on one card, so several ranks share the
+   card over gloo (CUDA tensors; its sends and receives staged through
+   pinned host buffers) and run the loop driver, their kernels on the
+   card: 8a the paper's path over 2 ranks, gather tier, through the
+   trainer's own spawn, each rank's launches exact (the race at C/D = 10,
+   the FedAvg kernel and the sweep on the gathered 20), held to the
+   one-process loop run, with each rank's round ms, the analytic bytes it
+   received a round and each collective's transport; 8b over the same 2
+   ranks in one world the Ring(1) halo, the rotation's shift halo,
+   ``random:0.5 --fused-mix`` (``mix_rows_flat`` at R = 10, K = 20), the
+   psum tier on FullMesh and on ``random:0.5 --fused-mix``
+   (``mix_rows_flat`` at R = 20, K = 10), the cohort path (64 of 10 000),
+   Jamba smoke trained by ``--arch`` (flash and the scan forward and
+   backward on each rank) against its run over 1 rank, then
+   ``--clusters 2`` on 4 ranks (2 pods of 2); each path held to its
+   one-process run bitwise or, where the local-training GEMMs at C/D
+   clients differ in the last bits, at rtol 1e-4 / atol 1e-5 (per-client
+   params at CLIENT_SPREAD_LIMIT off consensus), which of the two printed;
+   8c the paper's path over 1 NCCL rank on the graph driver, its
+   collectives captured in the CUDA graph, bitwise the one-process graph
+   run. gloo ranks sharing one card measure no multi-GPU communication.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -250,7 +272,11 @@ RACE_CASES = [(N_CLIENTS, MINE_ATTEMPTS, None), (N_CLIENTS, MINE_ATTEMPTS, 1024)
               (N_CLIENTS, 3000, 1024), (N_CLIENTS, 1000, 384),
               (1, MINE_ATTEMPTS, None), (1, MINE_ATTEMPTS, 1024), (7, 4097, 256),
               (7, 40000, None), (N_CLIENTS, 1 << 20, None), (1, 1 << 24, None),
-              (3, 1, None), (100, 20000, None)]
+              (3, 1, None), (100, 20000, None),
+              # phase 8's ranks: C/D = 10 and 5 of the paper's 20, 32 of a
+              # cohort of 64, 2 of the smoke archs' 4 clients at 256
+              (10, MINE_ATTEMPTS, None), (5, MINE_ATTEMPTS, None),
+              (32, MINE_ATTEMPTS, None), (2, 256, None)]
 # (C, n_attempts, chunk, payloads, difficulty bits) for the seal mode:
 # "salt" salts the digest in the kernel, "ties" plants the best payload at
 # TIE_CLIENTS, "max" gives every client one hash of 0xFFFFFFFF
@@ -473,9 +499,12 @@ LAUNCHED_BY = {"paper": "graph driver", "topology": "graph driver",
 FIG3_CONFIG = dict(eta=0.005, alpha=1.0, beta=6.0, t_sum=100.0)
 SWEEP_CARD_CPU_KS = [6, 8, 14]
 # the (R, K) blocks mix_rows_flat is held to its plain version at: the
-# main path's full W, a row block, a column block, the largest it takes
+# main path's full W, a row block, a column block, the largest it takes,
+# and phase 8's two ranks' blocks (the gather tier's rows R = C/D, the
+# psum tier's columns K = C/D)
 MIX_BLOCKS = [(N_CLIENTS, N_CLIENTS), (5, N_CLIENTS), (N_CLIENTS, 5),
-              (64, 64)]
+              (64, 64), (N_CLIENTS // 2, N_CLIENTS),
+              (N_CLIENTS, N_CLIENTS // 2)]
 # widths where the kernel's float4 path cannot run: N = 1, 2, 3 (mod 4), the
 # first at the widest leaf's width; each is also held on a contiguous view
 # whose storage starts one float past an aligned address, as is every leaf
@@ -582,6 +611,43 @@ SMOKE_TRAIN_ARCHS = ["phi4-mini-3.8b", "qwen3-32b", "nemotron-4-15b",
 SMOKE_TRAIN_ARGS = ["--size", "smoke", "--clients", str(TRAIN_CLIENTS),
                     "--per-client", "2", "--seq", "32", "--rounds",
                     str(K_TRAIN_SMOKE), "--lazy", "1", "--sigma2", "1e-4"]
+
+
+# phase 8: the client-sharded engine (launch/train.py --devices) on the
+# card. NCCL refuses two ranks on one device, so several ranks run over
+# gloo (CUDA tensors; gloo's sends and receives staged through pinned host
+# buffers, launch/mesh.py), each rank's kernels on the card; one rank runs
+# over NCCL, whose collectives the graph driver captures
+SHARD_RANKS = 2
+SHARD_GLOO = ["--devices", str(SHARD_RANKS), "--backend", "gloo"]
+# 8b, each over the same 2 gloo ranks (one world): (flags, consensus) and
+# the launches a rank makes a round
+SHARDED_PATHS = {
+    "paper's path (warm ranks)": (MAIN_ARGS, True,
+                                  {"pow_race": 1, "fedavg_flat": 4,
+                                   "digest_div_flat": 4}),
+    "ring halo": (RING_ARGS, False,
+                  {"pow_race": 1, "digest_div_flat": 4}),
+    "rotation shift halo": (MAIN_ARGS + ["--schedule", "rotate"], False,
+                            {"pow_race": 1, "digest_div_flat": 4}),
+    "random:0.5 fused gather (R = C/D, K = C)": (
+        TOPOLOGY_ARGS, False,
+        {"pow_race": 1, "digest_div_flat": 4, "mix_rows_flat": 4}),
+    "psum FullMesh": (MAIN_ARGS + ["--fast-allreduce"], True,
+                      {"pow_race": 1}),
+    "psum random:0.5 fused (R = C, K = C/D)": (
+        TOPOLOGY_ARGS + ["--fast-allreduce"], False,
+        {"pow_race": 1, "mix_rows_flat": 4}),
+}
+# 8b: a cluster topology on 4 ranks as 2 pods of 2 (clusters of 10 clients,
+# 5 a rank)
+CLUSTER_ARGS = MAIN_ARGS + ["--devices", "4", "--clusters", "2",
+                            "--backend", "gloo"]
+# 8b: the cohort path, a cohort of 64 of 10 000 enrolled over the 2 ranks
+SHARD_COHORT_ARGS = COHORT_ARGS
+# 8b: a smoke arch with attention and Mamba layers, over 2 ranks against 1
+SHARD_ARCH = "jamba-1.5-large-398b"
+SHARD_ARCH_ARGS = ["--arch", SHARD_ARCH] + SMOKE_TRAIN_ARGS
 
 
 class SmokeFailure(RuntimeError):
@@ -3423,6 +3489,290 @@ def phase_smoke_archs_train(torch, dev):
     return out
 
 
+def _ratio(torch, a, b):
+    """|a - b| over the card tolerance at b; <= 1 passes."""
+    a = torch.as_tensor(a, dtype=torch.float64).cpu()
+    b = torch.as_tensor(b, dtype=torch.float64).cpu()
+    return float(((a - b).abs() / (CARD_CPU_ATOL + CARD_CPU_RTOL
+                                   * b.abs())).max())
+
+
+# why a gather-tier path may miss bitwise on the card: the rank's work
+# runs at C/D clients, and the card's kernels for a batch of C/D rows
+# (cuBLAS's GEMMs, the reductions of each client's loss) may sum in
+# another order than for C
+ROWS_SPREAD = ("a rank's kernels run on C/D clients' rows, and the card's "
+               "GEMMs and reductions may sum in another order at C/D rows "
+               "than at C")
+PSUM_SPREAD = ("the psum tier sums per-rank partials (fp32 reassociated), "
+               "so params and digests differ in the last bits")
+
+
+def held_to_one_process(torch, what, got, want, consensus,
+                        why=ROWS_SPREAD):
+    """A sharded run (``got``: its result, final params, history) held to
+    the one-process run of the same flags on the card (``want``): bitwise
+    (params, every metric, the ledger), or else within rtol CARD_CPU_RTOL
+    / atol CARD_CPU_ATOL on every per-round metric, the aggregate and the
+    eval loss, each client's params within that (``consensus``) or
+    CLIENT_SPREAD_LIMIT times it. Either way both chains validate, and in
+    each round up to which every digest agreed (so the same ledger head
+    was mined on) the mining integers agree. Returns {"held": "bitwise" |
+    "tolerance", ...}."""
+    from repro_torch.core import aggregation
+
+    (result, params, hist), (wresult, wparams, whist) = got, want
+    require(result["chain_valid"] and wresult["chain_valid"]
+            and result["blocks"] == wresult["blocks"],
+            f"ledger not valid on the {what}: {result}")
+    same_chain = 0   # rounds whose digest, and every earlier one, agree
+    while same_chain < len(hist) and \
+            hist[same_chain]["digest"] == whist[same_chain]["digest"]:
+        same_chain += 1
+    mining_fields = ("winner", "nonce", "pow_hash", "solved")
+    require(all(h[k] == w[k] for h, w in zip(hist[:same_chain],
+                                             whist[:same_chain])
+                for k in mining_fields),
+            f"equal digests but other mining results on the {what}")
+    params_bitwise = all(torch.equal(params[k].cpu(), v.cpu())
+                         for k, v in wparams.items())
+    differ = sorted({key for h, w in zip(hist, whist) for key in h
+                     if json.dumps(h[key]) != json.dumps(w[key])})
+    if params_bitwise and not differ:
+        return {"held": "bitwise"}
+    gated = {key: max(_ratio(torch, h[key], w[key])
+                      for h, w in zip(hist, whist))
+             for key in ("local_loss_mean", "global_loss", "divergence")}
+    if "final_eval_loss" in result:
+        gated["final_eval_loss"] = _ratio(torch, result["final_eval_loss"],
+                                          wresult["final_eval_loss"])
+    agg = aggregation.aggregate_once({k: v.cpu() for k, v in params.items()})
+    wagg = aggregation.aggregate_once({k: v.cpu()
+                                       for k, v in wparams.items()})
+    gated["aggregate"] = max(_ratio(torch, v, wagg[k])
+                             for k, v in agg.items())
+    limit = 1.0 if consensus else CLIENT_SPREAD_LIMIT
+    clients = max(_ratio(torch, v, wparams[k]) for k, v in params.items())
+    require(all(r <= 1 for r in gated.values()) and clients <= limit,
+            f"the {what} differs from its one-process run beyond rtol "
+            f"{CARD_CPU_RTOL} atol {CARD_CPU_ATOL}: {gated}, per-client "
+            f"params {clients:.3g} (limit {limit})")
+    return {"held": "tolerance", "why": why,
+        "params_bitwise": params_bitwise, "metrics_that_differ": differ,
+        "rounds_on_one_chain": same_chain,
+        "worst_of_tolerance": gated, "per_client_params_worst": clients,
+        "per_client_limit": limit}
+
+
+def one_process(torch, flags, dev, run="mlp"):
+    """``launch.train`` with ``flags`` in this process on the card by the
+    loop driver (the driver gloo ranks run): (result, params, history)."""
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(flags + ["--device", str(dev)])
+    if run == "cohort":
+        result, _, hist = train.train_cohort(args)
+        return result, None, hist
+    fn = train.train_mlp if run == "mlp" else train.train_arch
+    result, state, hist = fn(args, jit=False)
+    return result, {k: v.cpu() for k, v in state.params.items()}, hist
+
+
+def check_rank_launches(result, want, what):
+    """Every rank of a sharded run launched exactly ``want``."""
+    from repro_torch import kernels
+
+    want = {**{name: 0 for name in kernels.WRAPPERS}, **want}
+    for stats in result["by_rank"]:
+        require(stats["launches"] == want,
+                f"rank {stats['rank']} of the {what} launched "
+                f"{stats['launches']}, expected {want}")
+
+
+def sharded_paths_rank(paths, device):
+    """One rank of phase 8b's 2-rank gloo world: a warm run of the paper's
+    path (the first collectives, cuBLAS's handles and the kernels' loads
+    happen there), then each of ``paths`` (name -> (flags, run kind))
+    through the trainer's functions on this rank's mesh; returns {name:
+    (result, params on the CPU, history)}."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    out = {}
+    for name, (flags, run) in [("warm", (MAIN_ARGS, "mlp")),
+                               *paths.items()]:
+        args = train.build_parser().parse_args(flags + SHARD_GLOO
+                                               + ["--device", device])
+        mesh = mesh_lib.make_client_mesh(args.devices, device)
+        if run == "cohort":
+            result, _, hist = train.train_cohort(args, mesh=mesh)
+            params = None
+        else:
+            fn = train.train_mlp if run == "mlp" else train.train_arch
+            result, state, hist = fn(args, True, mesh=mesh)
+            params = {k: v.cpu() for k, v in state.params.items()}
+        result["mesh"] = train._mesh_fields(mesh)
+        out[name] = (result, params, hist)
+    del out["warm"]
+    return out
+
+
+def _summary(result):
+    return {"round_ms_by_rank": [r["round_ms"] for r in result["by_rank"]],
+            "launches_by_rank": [{k: v for k, v in r["launches"].items()
+                                  if v} for r in result["by_rank"]],
+            "received_bytes_per_round_by_rank": [
+                r["received_bytes_per_round"] for r in result["by_rank"]],
+            "dispatch": result["dispatch"]}
+
+
+def phase_sharded(torch, dev):
+    """Phase 8: the client-sharded engine on the card. 8a the paper's path
+    (MAIN_ARGS) over SHARD_RANKS gloo ranks, gather tier, through the
+    trainer's own spawn, each rank's launches exact, held to the
+    one-process loop run (``held_to_one_process``), each rank's round ms,
+    analytic bytes received a round and the collectives' transports
+    printed; 8b SHARDED_PATHS, the cohort path and SHARD_ARCH over the same
+    ranks (one world), the cluster layout on 4 ranks, each held to its
+    one-process run (the arch to its run over 1 rank), launches exact on
+    every rank; 8c the paper's path over 1 NCCL rank, on the graph driver
+    with its collectives captured, bitwise the one-process graph run.
+    Returns {path: rank 0's launches}."""
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.core import rounds
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    rounds.release_graphs(dev)
+    _free(torch)
+    by_path = {}
+    fl = {"pow_race": K, "fedavg_flat": 4 * K, "digest_div_flat": 4 * K}
+
+    # 8a: the paper's path over 2 gloo ranks, through the trainer's spawn
+    what = f"paper's path over {SHARD_RANKS} gloo ranks"
+    args = train.build_parser().parse_args(MAIN_ARGS + SHARD_GLOO
+                                           + ["--device", str(dev)])
+    t0 = time.perf_counter()
+    result, state, hist = train.train_mlp(args)
+    spawn_s = time.perf_counter() - t0
+    require(result["dispatch"]["driver"] == "loop",
+            f"the {what} ran on {result['dispatch']}")
+    check_rank_launches(result, fl, what)
+    held = held_to_one_process(torch, what, (result, state.params, hist),
+                               one_process(torch, MAIN_ARGS, dev), True)
+    by_path["sharded paper (rank 0)"] = result["by_rank"][0]["launches"]
+    print("phase 8a ok: " + json.dumps(
+        {"path": what, **_summary(result), "mesh": result["mesh"],
+         "note": "the ranks' first run: its round ms hold their first "
+                 "collectives, cuBLAS's handles and the kernels' loads "
+                 "(8b's paper's path is read on warm ranks)",
+         "trainer_wall_s_with_spawn": spawn_s, **held}), flush=True)
+
+    # 8b: the other paths over the same 2 ranks, in one world
+    n_leaves = len(tree.flatten(registry.init_model(
+        torch.Generator().manual_seed(0), get_smoke_arch(SHARD_ARCH))))
+    arch_want = arch_train_launches(
+        get_smoke_arch(SHARD_ARCH), n_leaves, K_TRAIN_SMOKE,
+        TRAIN_CLIENTS // SHARD_RANKS)
+    paths = {name: (flags, "mlp")
+             for name, (flags, _, _) in SHARDED_PATHS.items()}
+    paths["cohort 64 of 10 000"] = (SHARD_COHORT_ARGS, "cohort")
+    paths[f"{SHARD_ARCH} smoke --arch"] = (SHARD_ARCH_ARGS, "arch")
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(sharded_paths_rank, SHARD_RANKS,
+                               backend="gloo", device=str(dev),
+                               args=(paths, str(dev)))
+    world_s = time.perf_counter() - t0
+    summary = {}
+    for name, (flags, run) in paths.items():
+        result, params, hist = ranks[0][name]
+        result["by_rank"] = [rank[name][0]["rank_stats"] for rank in ranks]
+        for rank in ranks[1:]:
+            require(json.dumps(rank[name][2]) == json.dumps(hist),
+                    f"the ranks' histories differ on the {name} path")
+        if name in SHARDED_PATHS:
+            _, consensus, per_round = SHARDED_PATHS[name]
+            want = {k: v * K for k, v in per_round.items()}
+            held = held_to_one_process(
+                torch, name, (result, params, hist),
+                one_process(torch, flags, dev), consensus,
+                PSUM_SPREAD if "--fast-allreduce" in flags else ROWS_SPREAD)
+        elif run == "cohort":
+            want = fl
+            wresult, _, whist = one_process(torch, flags, dev, "cohort")
+            require([h["cohort"] for h in hist]
+                    == [h["cohort"] for h in whist],
+                    f"the {name} path drew other cohorts")
+            held = held_to_one_process(
+                torch, name, (result, {"_": torch.zeros(1)},
+                              [{k: v for k, v in h.items() if k != "cohort"}
+                               for h in hist]),
+                (wresult, {"_": torch.zeros(1)},
+                 [{k: v for k, v in h.items() if k != "cohort"}
+                  for h in whist]), True)
+        else:
+            want = arch_want
+            one = train.build_parser().parse_args(
+                flags + ["--devices", "1", "--backend", "gloo",
+                         "--device", str(dev)])
+            oresult, ostate, ohist = train.train_arch(one)
+            held = held_to_one_process(
+                torch, name, (result, params, hist),
+                (oresult, ostate.params, ohist), True)
+        check_rank_launches(result, want, name)
+        by_path[f"sharded {name} (rank 0)"] = result["by_rank"][0]["launches"]
+        summary[name] = {**_summary(result), **held}
+    print("phase 8b: " + json.dumps({"world_s_with_spawn": world_s,
+                                     "transport": ranks[0][next(iter(
+                                         paths))][0]["mesh"]["transport"]}),
+          flush=True)
+
+    what = "cluster:2 over 4 gloo ranks (2 pods of 2)"
+    args = train.build_parser().parse_args(CLUSTER_ARGS
+                                           + ["--device", str(dev)])
+    result, state, hist = train.train_mlp(args)
+    require(result["dispatch"]["mix_mode"] == "exec_cluster"
+            and result["mesh"]["shape"] == [2, 2],
+            f"the {what} ran {result['dispatch']} on {result['mesh']}")
+    check_rank_launches(result, {"pow_race": K, "digest_div_flat": 4 * K},
+                        what)
+    held = held_to_one_process(
+        torch, what, (result, state.params, hist),
+        one_process(torch, MAIN_ARGS + ["--topology", "cluster:2"], dev),
+        False)
+    by_path["sharded cluster (rank 0)"] = result["by_rank"][0]["launches"]
+    summary[what] = {**_summary(result), **held}
+    print("phase 8b ok: " + json.dumps(summary), flush=True)
+
+    # 8c: one NCCL rank, the graph driver capturing its collectives
+    what = "paper's path over 1 NCCL rank (graph driver)"
+    args = train.build_parser().parse_args(
+        MAIN_ARGS + ["--devices", "1", "--backend", "nccl",
+                     "--device", str(dev)])
+    result, state, hist = train.train_mlp(args)
+    require(result["dispatch"]["driver"] == "graph",
+            f"the {what} ran on {result['dispatch']}")
+    check_rank_launches(result, fl, what)
+    wargs = train.build_parser().parse_args(MAIN_ARGS
+                                            + ["--device", str(dev)])
+    wresult, wstate, whist = train.train_mlp(wargs)
+    require(wresult["dispatch"]["driver"] == "graph",
+            f"the one-process paper's path ran on {wresult['dispatch']}")
+    require(json.dumps(hist) == json.dumps(whist)
+            and all(torch.equal(state.params[k], v.cpu())
+                    for k, v in wstate.params.items()),
+            f"the {what} is not bitwise the one-process graph run")
+    by_path["sharded nccl paper (rank 0)"] = result["by_rank"][0]["launches"]
+    print("phase 8c ok: " + json.dumps(
+        {"path": what, **_summary(result), "mesh": result["mesh"],
+         "held": "bitwise"}), flush=True)
+    rounds.release_graphs(dev)
+    _free(torch)
+    return by_path
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3659,6 +4009,8 @@ def main(argv=None) -> int:
     lap("phase 7e")
     smoke_trains = phase_smoke_archs_train(torch, dev)
     lap("phase 7f")
+    sharded = phase_sharded(torch, dev)
+    lap("phase 8")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
@@ -3666,7 +4018,8 @@ def main(argv=None) -> int:
                "cohort": clau, "dense cohort": dclau,
                "xlstm train": tlaunches7, "phi4 train": plaunches,
                **{f"{arch} smoke train": counts
-                  for arch, counts in smoke_trains.items()}}
+                  for arch, counts in smoke_trains.items()},
+               **sharded}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

@@ -8,11 +8,11 @@ BLADE-FL run; the table reports the held-out loss and accuracy of the final
 aggregate, the loss gap against the clean run under the same aggregator,
 and the host time a round. A second sweep scales the sign-flip attack: the
 linear mean degrades with its scale, the trimmed mean stays bounded by the
-honest envelope.
-
-Left out: the reference's ``plans.gathered_mix_models_moved`` column, the
-models a device moves a round on a 4-way mesh. The port runs on one
-device; that column comes with its multi-device slice.
+honest envelope. ``models_moved_per_device_4way`` is the price of a
+robust reducer on a 4-way client-sharded mesh: the models each rank
+receives a round for the gathered order statistics
+(``plans.gathered_mix_models_moved``), where the psum tier of a linear
+mix moves one.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.bench_robust [--samples 64]
 """
@@ -27,6 +27,7 @@ from repro_torch.benchmarks import common
 from repro_torch.core import attacks, rounds
 from repro_torch.core.aggregation import aggregate_once
 from repro_torch.models.mlp import mlp_client_losses, mlp_loss
+from repro_torch.sharding import plans
 
 ATTACKS = (
     ("clean", None),
@@ -63,7 +64,9 @@ def bench(samples: int = 64, n_clients: int = 16, k: int = 6, tau: int = 2,
     src, params = common.build_experiment(device, n_clients=n_clients,
                                           samples=samples, seed=seed)
     cell = dict(n_clients=n_clients, k=k, tau=tau, seed=seed, device=device)
-    results = {}
+    # the gathered-mix price every robust aggregator pays on a 4-way mesh
+    results = {"models_moved_per_device_4way":
+               plans.gathered_mix_models_moved(n_clients, 4)}
     print(f"{'attack':>10} {'aggregator':>10} {'eval_loss':>9} "
           f"{'accuracy':>8} {'loss_gap':>9} {'us_per_round':>12}")
     for agg in AGGREGATORS:

@@ -73,10 +73,15 @@ def fold_digest(acc: torch.Tensor, leaf_sum: torch.Tensor) -> torch.Tensor:
     return _avalanche(acc ^ (bits.to(torch.int64) & MASK))
 
 
-def digest_tree(tree) -> torch.Tensor:
+def digest_tree(tree, mesh=None) -> torch.Tensor:
     """uint32 digest of a dict of tensors (the model fingerprint in the
     block header). Leaves fold in sorted key order, which is the JAX
-    package's ``jax.tree.leaves`` order for dict params."""
+    package's ``jax.tree.leaves`` order for dict params.
+
+    With ``mesh`` (a ``launch.mesh.ClientMesh``; the psum tier) the tree
+    holds this rank's client rows and each leaf's sum is all-reduced over
+    the ranks: no gather, but the reassociated fp32 sum forks the digest,
+    and every later ledger hash, from the one-process value."""
     leaves = [tree[k] for k in sorted(tree)]
     acc = as_word(DIGEST_INIT, leaves[0].device)
     for x in leaves:
@@ -84,6 +89,8 @@ def digest_tree(tree) -> torch.Tensor:
             s = x.to(torch.float32).sum()
         else:
             s = x.to(torch.int32).sum(dtype=torch.int32).to(torch.float32)
+        if mesh is not None:
+            s = mesh.all_reduce(s)
         acc = fold_digest(acc, s)
     return acc
 

@@ -54,6 +54,41 @@ A third driver, :func:`run_blade_fl_cohort`, runs the round on a cohort of
 A of C_enrolled clients a round: one :class:`RoundRunner` at size A whose
 carry is loaded from and stored back to a host-side
 :class:`PopulationStore` every round (:class:`CohortRunner`).
+
+Client-sharded execution (``mesh=``)
+------------------------------------
+
+Every driver and stage factory takes ``mesh``, a ``launch.mesh.ClientMesh``
+of this process's rank (the JAX package's ``mesh`` / ``axis_name``): one
+process a rank, the client axis split in rank order
+(``sharding.plans.ScanCarryPlan``). The carry holds the rank's ``C/D``
+client rows; the batch a rank passes is its block of the one-process batch
+(``data/pipeline.py``'s sources give it). Per-client work (local training,
+the race over the rank's clients with their global ids, the global-loss
+eval) runs on the block; every cross-client step goes through the mesh's
+collectives, in one of two tiers:
+
+  gather tier (the default; bitwise with one process): the broadcast set
+      is all-gathered and the one-device math runs on it on every rank
+      (perturb, attack, digest and divergence, detection, the mix), each
+      rank keeping its rows; the halo and cluster mixes shift blocks
+      instead (``core/aggregation.py``). The best hashes and nonces and the
+      per-client losses are gathered too.
+  psum tier (``RoundSpec.fast_allreduce``; tolerance): the dense mixes and
+      the digest and divergence sum per-rank partials, so the ledger forks
+      from the gather tier's while both chains validate.
+
+Every rank draws the run's full noise and matrix tables from the seed,
+identically, and runs the full-width perturb and attack on the gathered
+set, which is what keeps the gather tier bitwise. The metric rows and the
+ledger are replicated; each rank returns them, with the final params
+gathered. :func:`dispatch_plan` picks the graph driver only where the
+mesh's collectives can be captured in a CUDA graph (NCCL); over gloo the
+loop driver runs. The cohort driver's :class:`PopulationStore` is a host
+replica on each rank of every row touched so far: after each round every
+rank gathers the whole cohort and scatters it into its replica, so any
+rank can load any client the next round draws (where the JAX package's
+one controller keeps one host store).
 """
 from __future__ import annotations
 
@@ -72,6 +107,7 @@ from repro_torch.core import aggregation, attacks as attacks_lib, chain, \
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.pow_hash import ops as pow_ops
+from repro_torch.sharding import plans as plans_lib
 
 Tree = Dict[str, torch.Tensor]
 # client-stacked params [C, ...] and batch [C, m, ...] -> per-client loss [C]
@@ -116,6 +152,11 @@ class RoundSpec:
     # robust consensus instead of the linear mix: median | trimmed[:t] |
     # geomed[:iters] (topology.parse_robust); None / "mean" keep the mix
     robust_agg: Optional[str] = None
+    # the psum tier on a mesh: dense mixes and the digest / divergence sum
+    # per-rank partials (aggregation.mix_psum*, mining.digest_tree(mesh=));
+    # fp32 reassociated, so results hold to a tolerance and the ledger
+    # forks from the gather tier's (both chains validate)
+    fast_allreduce: bool = False
 
 
 class RoundState(NamedTuple):
@@ -200,7 +241,7 @@ def make_local_train(loss_fn: LossFn, spec: RoundSpec):
     def local_train(params, batch):
         keys = sorted(params)
         p = [params[k] for k in keys]
-        losses = torch.zeros(spec.n_clients, device=p[0].device)
+        losses = torch.zeros(p[0].shape[0], device=p[0].device)
         for _ in range(spec.tau):
             leaves = [w.detach().requires_grad_(True) for w in p]
             losses, grads = grad_fn(dict(zip(keys, leaves)), batch)
@@ -229,6 +270,7 @@ def make_perturb(spec: RoundSpec):
                                      spec.sigma2, generator, lazy_noise)
         return dp_lib.privatize(params, spec.dp_sigma, generator, dp_noise)
 
+    perturb.active = active
     return perturb
 
 
@@ -249,6 +291,7 @@ def make_attack(spec: RoundSpec):
             return params
         return atk.apply(params, spec.n_clients, generator, noise)
 
+    attack.active = active
     return attack
 
 
@@ -338,9 +381,16 @@ def draw_noise(spec: RoundSpec, params: Tree, n_rounds: int,
             for stage, leaves in table.items()}
 
 
-def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda"):
+def _mesh_axes(mesh):
+    """``resolve_mix_plan``'s ``mesh_axes`` of a mesh (None: one device)."""
+    return None if mesh is None else mesh.axes
+
+
+def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda",
+                     mesh=None):
     """Steps 2+5 stage factory: ``communicate(params, prev_params,
-    round_idx, matrix=None) -> (mixed_params, digest, divergence, extra)``.
+    round_idx, matrix=None, full=None) -> (mixed_params, digest,
+    divergence, extra)``.
 
     One sweep of each leaf of the broadcast set gives the header digest and
     the pre-mix client divergence (Def. 1). With ``spec.detect_lazy`` the
@@ -349,19 +399,30 @@ def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda"):
     the executor of the ``MixPlan`` that one ``topology.resolve_mix_plan``
     call picks; this factory holds no lowering logic of its own, so
     ``dispatch_plan``'s report and the executed mix cannot drift.
-    ``matrix`` is the round's ``W`` on the device (``mix_matrices``), read
-    only by ``EXEC_GATHER``. The plan's weights and edge lists go to
-    ``device`` once, here."""
-    plan = topology_lib.resolve_mix_plan(spec)
+    ``matrix`` is the round's full ``W`` on the device (``mix_matrices``),
+    read by ``EXEC_GATHER`` and ``EXEC_PSUM_DENSE``. The plan's weights and
+    edge lists go to ``device`` once, here.
+
+    With ``mesh`` the params are this rank's rows. In the gather tier the
+    sweep, the detector and the gathered mixes read the broadcast set
+    gathered once (``full``, when the round gathered it already); in the
+    psum tier (``plan.fast_diagnostics``) the digest and divergence sum
+    per-rank partials (``mining.digest_tree``,
+    ``aggregation.client_divergence_psum``) and the detector alone gathers.
+    The same plan without a mesh runs the psum tier's math on one device."""
+    plan = topology_lib.resolve_mix_plan(spec, _mesh_axes(mesh))
     mode = plan.mode
     dev = resolve_device(device)
-    weights = (torch.from_numpy(plan.weights).to(dev)
-               if plan.weights is not None else None)
+
+    def on_device(a, dtype=None):
+        return None if a is None else torch.from_numpy(a).to(dev, dtype)
+
+    weights = on_device(plan.weights)
+    psum_row = on_device(plan.psum_row)
     seg_idx = seg_w = None
     if plan.sparse is not None:
-        seg_idx = torch.from_numpy(plan.sparse.neighbor_idx).to(
-            dev, torch.int64)
-        seg_w = torch.from_numpy(plan.sparse.edge_w).to(dev)
+        seg_idx = on_device(plan.sparse.neighbor_idx, torch.int64)
+        seg_w = on_device(plan.sparse.edge_w)
     # detect_lazy's sketch projection, drawn once per model width
     projections: Dict[int, torch.Tensor] = {}
 
@@ -372,49 +433,75 @@ def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda"):
                 width, device=dev)
         return projections[width]
 
-    def communicate(params, prev_params, round_idx, matrix=None):
-        digest, divergence = fedavg_ops.digest_divergence_tree(params)
+    def need_matrix(matrix):
+        if matrix is None:
+            raise ValueError("the dense mix needs the round's mixing "
+                             "matrix (rounds.mix_matrices)")
+        return matrix
+
+    def communicate(params, prev_params, round_idx, matrix=None, full=None):
         extra = {}
+        if plan.fast_diagnostics:
+            digest = mining.digest_tree(params, mesh)
+            divergence = aggregation.client_divergence_psum(params, mesh)
+        else:
+            if full is None:
+                full = aggregation.client_all_gather(params, mesh)
+            digest, divergence = fedavg_ops.digest_divergence_tree(full)
         if spec.detect_lazy:
+            if full is None:
+                full = aggregation.client_all_gather(params, mesh)
             suspects, _ = detection.detect_lazy_round(
-                params, prev_params, projection(params),
-                threshold_frac=spec.detect_threshold)
+                full, aggregation.client_all_gather(prev_params, mesh),
+                projection(full), threshold_frac=spec.detect_threshold)
             extra["n_suspects"] = suspects.sum().to(torch.int32)
-        if mode == topology_lib.EXEC_FEDAVG:
-            params = aggregation.mix_all_reduce(params, weights)
+        if mode == topology_lib.EXEC_PSUM:
+            params = aggregation.mix_psum(params, psum_row, mesh=mesh)
+        elif mode == topology_lib.EXEC_PSUM_DENSE:
+            params = aggregation.mix_psum_dense(
+                params, need_matrix(matrix), weights, mesh=mesh,
+                use_kernel=plan.use_kernel)
+        elif mode == topology_lib.EXEC_FEDAVG:
+            params = aggregation.mix_all_reduce(params, weights, mesh=mesh,
+                                                full=full)
         elif mode == topology_lib.EXEC_SEGMENT:
-            params = aggregation.mix_segment(params, seg_idx, seg_w)
+            params = aggregation.mix_segment(params, seg_idx, seg_w,
+                                             mesh=mesh, full=full)
         elif mode == topology_lib.EXEC_SHIFT_TABLE:
-            params = aggregation.mix_rolls(
+            params = aggregation.mix_shift_halo(
                 params, plan.offsets_table[round_idx % plan.period],
-                plan.weight)
+                plan.weight, mesh)
         elif mode == topology_lib.EXEC_CLUSTER:
             params = aggregation.mix_cluster(params, plan.n_clusters,
-                                             plan.inter_weight)
+                                             plan.inter_weight, mesh=mesh,
+                                             full=full)
         elif mode == topology_lib.EXEC_HALO:
-            params = aggregation.mix_rolls(params, plan.offsets, plan.weight)
+            params = aggregation.mix_neighbor_halo(params, plan.offsets,
+                                                   plan.weight, mesh)
+        elif mode == topology_lib.EXEC_SHIFT_HALO:
+            params = aggregation.mix_shift_halo(params, plan.offsets,
+                                                plan.weight, mesh)
         elif mode == topology_lib.EXEC_MEDIAN:
-            params = aggregation.robust_median(params)
+            params = aggregation.mix_median(params, mesh=mesh, full=full)
         elif mode == topology_lib.EXEC_TRIMMED:
-            params = aggregation.robust_trimmed(params, plan.trim)
+            params = aggregation.mix_trimmed(params, plan.trim, mesh=mesh,
+                                             full=full)
         elif mode == topology_lib.EXEC_GEOMED:
-            params = aggregation.robust_geomedian(params, plan.robust_iters)
+            params = aggregation.mix_geomedian(params, plan.robust_iters,
+                                               mesh=mesh, full=full)
         elif mode == topology_lib.EXEC_GATHER:
-            if matrix is None:
-                raise ValueError("the gather mix needs the round's mixing "
-                                 "matrix (rounds.mix_matrices)")
-            params = aggregation.mix_gather(params, matrix, weights,
+            params = aggregation.mix_gather(params, need_matrix(matrix),
+                                            weights, mesh=mesh, full=full,
                                             use_kernel=plan.use_kernel)
         else:
-            raise ValueError(f"mix mode {mode!r} has no single-device "
-                             "executor")
+            raise ValueError(f"mix mode {mode!r} has no executor")
         return params, digest, divergence, extra
 
     communicate.plan = plan
     return communicate
 
 
-def make_mine(spec: RoundSpec):
+def make_mine(spec: RoundSpec, mesh=None):
     """Steps 3+4 stage factory: the PoW race and the hash link.
 
     Returns ``mine(prev_hash, digest, round_idx) -> (mine_metrics,
@@ -427,7 +514,15 @@ def make_mine(spec: RoundSpec):
     replay). On the card the stage is the nonce offset's fill (two
     integer ops from a tensor) and one launch of the mine kernel
     (``ops.mine_seal``). Bitwise equal to the JAX package's stage given
-    the same digest."""
+    the same digest.
+
+    With ``mesh`` each rank races its own clients, their ids offset by
+    ``shard * C/D`` so that the salts are the one-process ones
+    (``ops.pow_race``, the flat race), the best hashes and nonces are
+    gathered, and every rank takes the same argmin and ``mining.mix_hash``
+    link: integers, so bitwise the one-process stage."""
+    n_local = spec.n_clients // (1 if mesh is None else mesh.n_shards)
+    threshold = mining.difficulty_threshold(spec.difficulty_bits)
 
     def mine(prev_hash, digest, round_idx):
         if isinstance(round_idx, torch.Tensor):
@@ -436,10 +531,29 @@ def make_mine(spec: RoundSpec):
             nonce_offset = torch.full((), (int(round_idx) << 20)
                                       & mining.MASK, dtype=torch.int64,
                                       device=digest.device)
-        return pow_ops.mine_seal(prev_hash, digest, spec.n_clients,
-                                 spec.mine_attempts,
-                                 nonce_offset=nonce_offset,
-                                 difficulty_bits=spec.difficulty_bits)
+        if mesh is None:
+            return pow_ops.mine_seal(prev_hash, digest, spec.n_clients,
+                                     spec.mine_attempts,
+                                     nonce_offset=nonce_offset,
+                                     difficulty_bits=spec.difficulty_bits)
+        shard = aggregation.client_shard_index(mesh)
+        ids = torch.arange(n_local, dtype=torch.int64,
+                           device=digest.device) + shard * n_local
+        best_h, best_n = pow_ops.pow_race(prev_hash, digest, ids,
+                                          spec.mine_attempts,
+                                          nonce_offset=nonce_offset)
+        best_h = aggregation.client_gather(best_h, mesh)
+        best_n = aggregation.client_gather(best_n, mesh)
+        winner = mining.winner_of(best_h)
+        # index by a device tensor without reading it on the host (a CUDA
+        # graph captures the stage)
+        at = winner.reshape(1)
+        pow_hash = best_h.index_select(0, at).reshape(())
+        nonce = best_n.index_select(0, at).reshape(())
+        metrics = {"winner": winner, "pow_hash": pow_hash, "nonce": nonce,
+                   "solved": pow_hash <= threshold}
+        return metrics, mining.mix_hash(prev_hash.reshape(()), digest,
+                                        nonce)
 
     return mine
 
@@ -455,20 +569,22 @@ def evaluates(spec: RoundSpec, round_idx: int,
 
 
 def make_finalize(loss_fn: LossFn, spec: RoundSpec,
-                  n_rounds: Optional[int] = None):
+                  n_rounds: Optional[int] = None, mesh=None):
     """Closing stage factory: strided global-loss eval + the next carry.
 
     Returns ``finalize(state, params, new_hash, batch, metrics) ->
     (RoundState, metrics)``. The global loss is the per-client loss
-    ``[C]`` of each post-mix model on its own shard; rounds skipped by the
-    ``eval_every`` stride report NaN, and ``n_rounds`` (the horizon) forces
-    an eval on the last round. ``run_blade_fl`` averages it on the host."""
+    ``[C]`` of each post-mix model on its own shard (with ``mesh``, each
+    rank's clients', gathered); rounds skipped by the ``eval_every``
+    stride report NaN, and ``n_rounds`` (the horizon) forces an eval on the
+    last round. ``run_blade_fl`` averages it on the host."""
 
     def finalize(state, params, new_hash, batch, metrics):
         if spec.eval_global_loss:
             if evaluates(spec, state.round_idx, n_rounds):
                 with torch.no_grad():
-                    metrics["global_loss"] = loss_fn(params, batch)
+                    metrics["global_loss"] = aggregation.client_gather(
+                        loss_fn(params, batch), mesh)
             else:
                 metrics["global_loss"] = torch.full(
                     (spec.n_clients,), float("nan"), device=new_hash.device)
@@ -482,7 +598,7 @@ def make_finalize(loss_fn: LossFn, spec: RoundSpec,
 
 def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
                           n_rounds: Optional[int] = None,
-                          device: DeviceLike = "cuda"):
+                          device: DeviceLike = "cuda", mesh=None):
     """Build the round: ``(RoundState, batch, matrix=None, noise=None,
     device_round=None) -> (RoundState, metrics)``.
 
@@ -494,13 +610,19 @@ def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
     index as a tensor on the device) replaces ``state.round_idx`` in the
     mine stage's nonce offset. The round is the composition of the stage
     factories above; ``device`` is where the communicate stage keeps its
-    constants."""
+    constants.
+
+    With ``mesh`` the state's params and the batch are this rank's client
+    rows. ``perturb`` and ``attack`` are full-width transforms of the
+    broadcast set: when either is active the round gathers the set, runs
+    them on it (every rank the same draws) and keeps its rows, and the
+    communicate stage reuses the gathered set."""
     local_train = make_local_train(loss_fn, spec)
     perturb = make_perturb(spec)
     attack = make_attack(spec)
-    communicate = make_communicate(spec, device)
-    mine = make_mine(spec)
-    finalize = make_finalize(loss_fn, spec, n_rounds)
+    communicate = make_communicate(spec, device, mesh)
+    mine = make_mine(spec, mesh)
+    finalize = make_finalize(loss_fn, spec, n_rounds, mesh)
 
     def round_fn(state: RoundState, batch,
                  matrix: Optional[torch.Tensor] = None,
@@ -509,14 +631,23 @@ def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
                  ) -> Tuple[RoundState, Tree]:
         noise = noise or {}
         params, local_losses = local_train(state.params, batch)
+        # perturb and attack transform the whole broadcast set: on a mesh
+        # they run on the gathered set, which communicate then reuses
+        gathered = mesh is not None and (perturb.active or attack.active)
+        if gathered:
+            params = aggregation.client_all_gather(params, mesh)
         params = perturb(params, state.generator, noise.get("lazy"),
                          noise.get("dp"))
         params = attack(params, state.generator, noise.get("attack"))
+        full = params if gathered else None
+        if gathered:
+            params = aggregation.client_local_rows(full, mesh)
         params, digest, divergence, extra = communicate(
-            params, state.params, state.round_idx, matrix)
+            params, state.params, state.round_idx, matrix, full=full)
         mine_metrics, new_hash = mine(
             state.prev_hash, digest,
             state.round_idx if device_round is None else device_round)
+        local_losses = aggregation.client_gather(local_losses, mesh)
         metrics = {"local_loss": local_losses, **mine_metrics,
                    "digest": digest, "divergence": divergence, **extra}
         return finalize(state, params, new_hash, batch, metrics)
@@ -531,10 +662,15 @@ LAST_DISPATCH: Dict[str, str] = {}
 # warm round (``warm_s``, with its synchronize) and of the captures
 # (``capture_s``), and the ``replays``.
 LAST_GRAPH: Dict[str, float] = {}
+# The last sharded run on this rank: the analytic bytes its collectives
+# received a round, by op (``launch.mesh.ClientMesh.received``), over its
+# rounds only (not the final gather of the params).
+LAST_RECEIVED: Dict[str, float] = {}
 
 
 def dispatch_plan(spec: RoundSpec, device: DeviceLike = "cuda",
-                  batches=None, *, jit: bool = True) -> Dict[str, str]:
+                  batches=None, *, jit: bool = True,
+                  mesh=None) -> Dict[str, str]:
     """The paths a run of ``spec`` on ``device`` takes, with the JAX
     package's keys. Reads only the device's type, so it needs no card.
 
@@ -547,7 +683,11 @@ def dispatch_plan(spec: RoundSpec, device: DeviceLike = "cuda",
     runs on the card, else ``"plain"`` (its plain version, on the CPU);
     ``mix`` and ``mix_mode`` are the resolved ``MixPlan``'s tier and
     executor, from the same ``topology.resolve_mix_plan`` call
-    ``make_communicate`` makes."""
+    ``make_communicate`` makes.
+
+    With ``mesh`` the graph driver needs collectives that a CUDA graph can
+    capture: NCCL's. A gloo mesh's collectives go through the host, so its
+    ranks run the loop driver on the card too."""
     on_card = torch.device(device).type == "cuda"
     if callable(batches):
         plan = {"driver": "loop", "reason": "per-round batch callable"}
@@ -556,11 +696,15 @@ def dispatch_plan(spec: RoundSpec, device: DeviceLike = "cuda",
     elif not on_card:
         plan = {"driver": "loop", "reason": "CPU run: CUDA graphs need the "
                                             "card"}
+    elif mesh is not None and mesh.backend != "nccl":
+        plan = {"driver": "loop",
+                "reason": f"{mesh.backend} ranks: their collectives pass "
+                          "through the host, which no CUDA graph captures"}
     else:
         plan = {"driver": "graph",
                 "reason": "static batch on the card: a warm round, then "
                           "the round replayed as CUDA graphs"}
-    mplan = topology_lib.resolve_mix_plan(spec)
+    mplan = topology_lib.resolve_mix_plan(spec, _mesh_axes(mesh))
     return {**plan, "pow": "kernel" if on_card else "plain",
             "mix": mplan.mix, "mix_mode": mplan.mode}
 
@@ -618,31 +762,52 @@ class RoundRunner:
     two host-side values of the round (:meth:`variant`), and writes the new
     carry back in place and the round's metrics into ``[K, ...]`` rows at
     the counter. With ``stacked`` the batch is ``[K, C, ...]`` and each
-    round takes its slice by the counter."""
+    round takes its slice by the counter.
+
+    With ``mesh`` (and its ``plan``, :func:`carry_plan`) the carry and the
+    batch hold this rank's ``C/D`` client rows (a stacked batch ``[K, C/D,
+    ...]``); the matrices and the noise are the full tables, drawn alike
+    on every rank; the metric rows are the replicated full ones."""
 
     def __init__(self, loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
                  n_rounds: int, *, seed: int = 0,
                  device: DeviceLike = "cuda", stacked: bool = False,
-                 topology_matrices=None):
+                 topology_matrices=None, mesh=None, plan=None):
         if int(n_rounds) < 1:
             raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
         self.spec, self.n_rounds = spec, int(n_rounds)
         self.stacked = bool(stacked)
+        self.mesh = mesh
+        self.carry = carry_plan(spec.n_clients, mesh, plan)
+        self._received = {} if mesh is None else dict(mesh.received)
         self.device = dev = resolve_device(device)
         self.table = mix_matrices(spec, self.n_rounds, seed, dev,
                                   topology_matrices)
         generator = torch.Generator(device="cpu").manual_seed(int(seed))
         self.state = init_state({k: v.to(dev)
                                  for k, v in params_single.items()},
-                                spec.n_clients, generator)
+                                self.carry.clients_per_shard, generator)
         self.noise = draw_noise(spec, self.state.params, self.n_rounds,
                                 generator, dev)
         self.round_idx = torch.zeros(1, dtype=torch.int64, device=dev)
         self.rows: Tree = {}
         self.round_fn = make_integrated_round(loss_fn, spec,
                                               n_rounds=self.n_rounds,
-                                              device=dev)
-        self.plan = topology_lib.resolve_mix_plan(spec)
+                                              device=dev, mesh=mesh)
+        self.plan = topology_lib.resolve_mix_plan(spec, _mesh_axes(mesh))
+
+    def check_batch(self, batch: Tree) -> None:
+        """Raise unless ``batch`` holds this rank's client rows (at axis 1
+        of a stacked batch, whose axis 0 is the K rounds)."""
+        want = self.carry.clients_per_shard
+        axis = 1 if self.stacked else 0
+        leads = {v.shape[axis] for v in batch.values()}
+        if leads != {want}:
+            where = "this rank's" if self.mesh is not None else "the"
+            raise ValueError(f"batch client dims {sorted(leads)} != {want}, "
+                             f"{where} client rows")
+        if self.stacked:
+            _check_stacked(batch, self.n_rounds)
 
     def variant(self, k: int) -> Tuple[int, bool]:
         """The host-side values round ``k`` reads: the shift-table phase
@@ -686,9 +851,39 @@ class RoundRunner:
         idx.add_(1)
 
     def finish(self, ledger: Optional[chain.Ledger] = None):
-        """``(final RoundState, history, ledger)`` after the last round."""
+        """``(final RoundState, history, ledger)`` after the last round;
+        with a mesh every rank calls it, and the state's params come back
+        gathered, ``[C, ...]``."""
         history, ledger = history_and_ledger(self.rows, ledger)
-        return self.state._replace(round_idx=self.n_rounds), history, ledger
+        if self.mesh is not None:
+            LAST_RECEIVED.clear()
+            LAST_RECEIVED.update({
+                op: (n - self._received.get(op, 0)) / self.n_rounds
+                for op, n in self.mesh.received.items()})
+        params = aggregation.client_all_gather(self.state.params, self.mesh)
+        return self.state._replace(params=params, round_idx=self.n_rounds), \
+            history, ledger
+
+
+def carry_plan(n_clients: int, mesh=None,
+               plan: Optional[plans_lib.ScanCarryPlan] = None
+               ) -> plans_lib.ScanCarryPlan:
+    """The carry layout of a run: one block of every client without a
+    mesh; on a mesh ``plan`` (else ``plans.scan_carry_plan`` over all of
+    its axes), which must split the clients over every rank: the engine's
+    collectives span the whole mesh."""
+    if mesh is None:
+        if plan is not None:
+            raise ValueError("a carry plan needs the mesh it was made for")
+        return plans_lib.ScanCarryPlan(n_clients=n_clients)
+    if plan is None:
+        plan = plans_lib.scan_carry_plan(mesh, n_clients, mesh.axis_names)
+    if plan.n_clients != n_clients or plan.n_shards != mesh.n_shards:
+        raise ValueError(
+            f"carry plan of {plan.n_clients} clients over {plan.n_shards} "
+            f"shards, the run has {n_clients} clients over the mesh's "
+            f"{mesh.n_shards} ranks: shard the clients over every axis")
+    return plan
 
 
 class _CaptureHome:
@@ -818,14 +1013,17 @@ def run_blade_fl_scan(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
                       batch: Tree, n_rounds: int, *, seed: int = 0,
                       device: DeviceLike = "cuda",
                       ledger: Optional[chain.Ledger] = None,
-                      stacked: bool = False, topology_matrices=None):
+                      stacked: bool = False, topology_matrices=None,
+                      mesh=None, plan=None):
     """The graph driver (the JAX package's ``run_blade_fl_scan``): K
     rounds on the card as one warm round and K - 1 replays of the captured
     round (:class:`CapturedRounds`), with one host transfer at the end.
     ``batch`` is static: one ``[C, ...]`` batch reused every round, or with
     ``stacked`` a ``[K, C, ...]`` stack. Returns ``(final RoundState,
     history, ledger)`` like :func:`run_blade_fl`; the seconds of the warm
-    round and of the captures go to :data:`LAST_GRAPH`."""
+    round and of the captures go to :data:`LAST_GRAPH`. With ``mesh`` (an
+    NCCL mesh: gloo's collectives cannot be captured) the captured rounds
+    hold the mesh's collectives."""
     if callable(batch):
         raise TypeError("run_blade_fl_scan needs a static batch; use "
                         "run_blade_fl for per-round batch callables")
@@ -833,11 +1031,15 @@ def run_blade_fl_scan(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
     if dev.type != "cuda":
         raise ValueError(f"the graph driver runs on the card, not {dev}; "
                          "run_blade_fl drives the CPU in a loop")
-    if stacked:
-        _check_stacked(batch, n_rounds)
+    if mesh is not None and mesh.backend != "nccl":
+        raise ValueError(f"the graph driver cannot capture {mesh.backend}'s "
+                         "collectives; run_blade_fl runs a gloo mesh in a "
+                         "loop")
     runner = RoundRunner(loss_fn, spec, params_single, n_rounds, seed=seed,
                          device=dev, stacked=stacked,
-                         topology_matrices=topology_matrices)
+                         topology_matrices=topology_matrices, mesh=mesh,
+                         plan=plan)
+    runner.check_batch(batch)
     batch = {k: v.to(dev) for k, v in batch.items()}
     rounds = CapturedRounds(runner, batch)
     rounds.replay()
@@ -852,7 +1054,8 @@ def run_blade_fl(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
                  batches, n_rounds: int, *, seed: int = 0,
                  device: DeviceLike = "cuda",
                  ledger: Optional[chain.Ledger] = None, jit: bool = True,
-                 stacked: bool = False, topology_matrices=None):
+                 stacked: bool = False, topology_matrices=None,
+                 mesh=None, plan=None):
     """Run K integrated rounds; returns (final RoundState, history, ledger).
 
     ``params_single`` (one model) and the batches are moved to ``device``,
@@ -873,26 +1076,33 @@ def run_blade_fl(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
     ``divergence``, ``local_loss_mean``, ``global_loss`` (and
     ``n_suspects`` under ``detect_lazy``) as floats, reduced on the host
     as in the JAX package. The paths taken are recorded in
-    :data:`LAST_DISPATCH`."""
+    :data:`LAST_DISPATCH`.
+
+    With ``mesh`` (``launch.mesh.ClientMesh``; every rank calls this) the
+    client axis is split in rank order by ``plan`` (default: over all of
+    the mesh's axes), ``batches`` hold this rank's rows (a callable gives
+    them), and each rank returns the gathered params, the replicated
+    history and the ledger; the module docstring has the two tiers."""
     if int(n_rounds) < 1:
         raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
     dev = resolve_device(device)
-    plan = dispatch_plan(spec, dev, batches, jit=jit)
+    decision = dispatch_plan(spec, dev, batches, jit=jit, mesh=mesh)
     LAST_DISPATCH.clear()
-    LAST_DISPATCH.update(plan)
-    if plan["driver"] == "graph":
+    LAST_DISPATCH.update(decision)
+    if decision["driver"] == "graph":
         return run_blade_fl_scan(loss_fn, spec, params_single, batches,
                                  n_rounds, seed=seed, device=dev,
                                  ledger=ledger, stacked=stacked,
-                                 topology_matrices=topology_matrices)
+                                 topology_matrices=topology_matrices,
+                                 mesh=mesh, plan=plan)
     per_round = callable(batches)
-    if not per_round:
-        if stacked:
-            _check_stacked(batches, n_rounds)
-        batches = {k: v.to(dev) for k, v in batches.items()}
     runner = RoundRunner(loss_fn, spec, params_single, n_rounds, seed=seed,
                          device=dev, stacked=stacked and not per_round,
-                         topology_matrices=topology_matrices)
+                         topology_matrices=topology_matrices, mesh=mesh,
+                         plan=plan)
+    if not per_round:
+        runner.check_batch(batches)
+        batches = {k: v.to(dev) for k, v in batches.items()}
     for k in range(int(n_rounds)):
         batch = ({n: v.to(dev) for n, v in batches(k).items()}
                  if per_round else batches)
@@ -919,7 +1129,14 @@ class PopulationStore:
     staging buffer (pinned when ``device`` is the card) and non-blocking
     copies; the buffer is not refilled while a copy from it may still be in
     flight. ``scatter(idx, params)`` brings a round's cohort back with one
-    device-to-host copy and copies each client's row out of it."""
+    device-to-host copy and copies each client's row out of it.
+
+    On a client-sharded mesh each rank keeps its own store, a replica of
+    every row touched so far: the cohort driver gathers the whole
+    post-mix cohort to every rank and scatters all of it, so each rank can
+    load whichever of its clients the next round draws. Host memory is
+    then O(touched x model) on every rank, where the JAX package's one
+    controller keeps one store."""
 
     def __init__(self, params_single: Tree, n_enrolled: int,
                  device: DeviceLike = "cuda"):
@@ -1050,14 +1267,19 @@ class CohortRunner:
     :meth:`step` is one round in four parts, each a method of its own so
     that a caller can time them: :meth:`batch` (the cohort's data on the
     device), :meth:`load` (the store's rows into the runner's carry, in
-    place), the runner's step, and :meth:`store_back` (the scatter)."""
+    place), the runner's step, and :meth:`store_back` (the scatter).
+
+    With ``mesh`` (and a ``plans.CohortCarryPlan``) the runner's carry is
+    this rank's block of the cohort: :meth:`batch` and :meth:`load` take
+    the rank's rows of the round's memberships, and :meth:`store_back`
+    gathers the whole cohort into the rank's replica of the store."""
 
     def __init__(self, loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
                  batches, n_rounds: int,
                  cohort: topology_lib.CohortSchedule, *, seed: int = 0,
                  device: DeviceLike = "cuda",
                  store: Optional[PopulationStore] = None, cohorts=None,
-                 topology_matrices=None):
+                 topology_matrices=None, mesh=None, plan=None):
         if cohort.cohort_size != spec.n_clients:
             raise ValueError(
                 f"spec.n_clients={spec.n_clients} must equal "
@@ -1101,21 +1323,45 @@ class CohortRunner:
 
             self.batch_fn = batch_fn
         self.store, self.table, self.device = store, table, dev
+        self.mesh = mesh
+        if mesh is None:
+            self.rows = slice(None)
+        else:
+            if plan is None:
+                plan = plans_lib.cohort_carry_plan(
+                    mesh, cohort.n_enrolled, cohort.cohort_size,
+                    mesh.axis_names)
+            if plan.n_shards != mesh.n_shards or \
+                    plan.cohort_size != cohort.cohort_size:
+                raise ValueError(
+                    f"cohort plan of {plan.cohort_size} over "
+                    f"{plan.n_shards} shards, the run has a cohort of "
+                    f"{cohort.cohort_size} over {mesh.n_shards} ranks")
+            self.rows = plan.rows(mesh.shard_index)
+            plan = plans_lib.ScanCarryPlan(
+                n_clients=plan.cohort_size, client_axes=plan.client_axes,
+                n_shards=plan.n_shards, axis_sizes=plan.axis_sizes)
         self.runner = RoundRunner(loss_fn, spec, params_single, n_rounds,
                                   seed=seed, device=dev,
-                                  topology_matrices=topology_matrices)
+                                  topology_matrices=topology_matrices,
+                                  mesh=mesh, plan=plan)
 
     def batch(self, k: int) -> Tree:
-        """Round ``k``'s ``[A, ...]`` batch on the device."""
-        return _batch_to(self.batch_fn(k, self.table[k]), self.device)
+        """Round ``k``'s ``[A, ...]`` batch on the device (this rank's
+        ``[A/D, ...]`` rows on a mesh)."""
+        return _batch_to(self.batch_fn(k, self.table[k][self.rows]),
+                         self.device)
 
     def load(self, k: int) -> None:
         """Round ``k``'s cohort rows into the runner's carry, in place."""
-        self.store.gather(self.table[k], out=self.runner.state.params)
+        self.store.gather(self.table[k][self.rows],
+                          out=self.runner.state.params)
 
     def store_back(self, k: int) -> None:
-        """Round ``k``'s post-mix cohort back into the store."""
-        self.store.scatter(self.table[k], self.runner.state.params)
+        """Round ``k``'s post-mix cohort back into the store (on a mesh,
+        the whole cohort, gathered, into this rank's replica)."""
+        self.store.scatter(self.table[k], aggregation.client_all_gather(
+            self.runner.state.params, self.mesh))
 
     def step(self, k: int) -> None:
         batch = self.batch(k)
@@ -1137,7 +1383,8 @@ def run_blade_fl_cohort(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
                         device: DeviceLike = "cuda",
                         ledger: Optional[chain.Ledger] = None,
                         store: Optional[PopulationStore] = None,
-                        cohorts=None, topology_matrices=None):
+                        cohorts=None, topology_matrices=None,
+                        mesh=None, plan=None):
     """Cohort-sampled population driver (the JAX package's
     ``run_blade_fl_cohort``): K rounds over ``cohort.n_enrolled`` clients of
     which a cohort of ``A = spec.n_clients`` takes part in each round.
@@ -1156,16 +1403,24 @@ def run_blade_fl_cohort(loss_fn: LossFn, spec: RoundSpec, params_single: Tree,
     host and indexed there each round. With ``A == C_enrolled`` under
     ``prefix`` the run is bitwise :func:`run_blade_fl`'s loop. Returns
     ``(store, history, ledger)``; each history entry also records the
-    round's ``"cohort"``. :data:`LAST_DISPATCH` records ``driver="cohort"``."""
+    round's ``"cohort"``. :data:`LAST_DISPATCH` records ``driver="cohort"``.
+
+    With ``mesh`` (every rank calls this; ``plan`` a
+    ``plans.CohortCarryPlan``, by default over all of the mesh's axes) each
+    rank runs its block of each cohort, ``batches`` is called with the
+    rank's client ids, and each rank's store is a full replica
+    (:class:`CohortRunner`)."""
     runner = CohortRunner(loss_fn, spec, params_single, batches, n_rounds,
                           cohort, seed=seed, device=device, store=store,
-                          cohorts=cohorts, topology_matrices=topology_matrices)
-    plan = dispatch_plan(spec, runner.device, batches, jit=False)
-    plan.update(driver="cohort",
-                reason=f"cohort A={cohort.cohort_size} over "
-                       f"C_enrolled={cohort.n_enrolled}")
+                          cohorts=cohorts, topology_matrices=topology_matrices,
+                          mesh=mesh, plan=plan)
+    decision = dispatch_plan(spec, runner.device, batches, jit=False,
+                             mesh=mesh)
+    decision.update(driver="cohort",
+                    reason=f"cohort A={cohort.cohort_size} over "
+                           f"C_enrolled={cohort.n_enrolled}")
     LAST_DISPATCH.clear()
-    LAST_DISPATCH.update(plan)
+    LAST_DISPATCH.update(decision)
     for k in range(int(n_rounds)):
         runner.step(k)
     return runner.finish(ledger)

@@ -23,6 +23,12 @@ Besides its matrix, every topology advertises how its mix executes
 ``mode`` (an ``EXEC_*`` executor) ``rounds.make_communicate`` switches on.
 This file is the only place that compares lowering kinds (repro-lint
 RL205).
+
+With ``fast_allreduce=True`` (``RoundSpec.fast_allreduce``) ``FullMesh``,
+and any deterministic topology whose matrix has uniform rows
+(:meth:`Topology.uniform_row`), advertise the :data:`PSUM` kind: a sum of
+locally pre-weighted rows over the ranks of a client-sharded mesh, which
+reassociates fp32 and so lives in the tolerance tier.
 """
 from __future__ import annotations
 
@@ -36,6 +42,9 @@ import torch
 ALL_REDUCE = "all_reduce"
 NEIGHBOR_PERMUTE = "neighbor_permute"
 GATHER = "gather"
+# a sum over the ranks of locally pre-weighted rows (aggregation.mix_psum),
+# advertised only under fast_allreduce (tolerance tier)
+PSUM = "psum"
 # per-client neighbor index lists + edge weights (aggregation.mix_segment)
 SEGMENT = "segment"
 # dense intra-cluster mean + ring exchange of cluster means
@@ -45,13 +54,13 @@ ROBUST = "robust"
 
 # Executor strategies a resolved MixPlan selects; disjoint from the kinds,
 # so no kind comparison exists outside this module.
-# The port has the single-device executors only: on one device every
-# neighbor window is a halo (the JAX package's EXEC_SHIFT_HALO and the psum
-# tier are multi-device forms).
 EXEC_FEDAVG = "exec_fedavg"            # aggregation.mix_all_reduce
+EXEC_PSUM = "exec_psum"                # aggregation.mix_psum (tolerance)
+EXEC_PSUM_DENSE = "exec_psum_dense"    # aggregation.mix_psum_dense (tol.)
 EXEC_SEGMENT = "exec_segment"          # aggregation.mix_segment
-EXEC_SHIFT_TABLE = "exec_shift_table"  # one roll set per schedule phase
-EXEC_HALO = "exec_halo"                # aggregation.mix_rolls
+EXEC_SHIFT_TABLE = "exec_shift_table"  # one shift set per schedule phase
+EXEC_HALO = "exec_halo"                # aggregation.mix_neighbor_halo
+EXEC_SHIFT_HALO = "exec_shift_halo"    # aggregation.mix_shift_halo
 EXEC_CLUSTER = "exec_cluster"          # aggregation.mix_cluster
 EXEC_GATHER = "exec_gather"            # aggregation.mix_gather (needs W)
 EXEC_MEDIAN = "exec_median"            # aggregation.robust_median
@@ -76,6 +85,8 @@ class MixLowering:
 
     >>> Ring(neighbors=1).lowering(8).offsets
     (-1, 0, 1)
+    >>> FullMesh().lowering(8, fast_allreduce=True).kind
+    'psum'
     >>> GossipRotation().lowering(4).offsets_table
     ((0, 1), (0, 2), (0, 3))
     """
@@ -91,7 +102,7 @@ class MixPlan:
     by :func:`resolve_mix_plan`. ``rounds.make_communicate`` switches on
     :attr:`mode` and ``rounds.dispatch_plan`` reports :attr:`mix` and
     :attr:`mode` verbatim, so report and execution cannot drift.
-    ``weights`` / ``sparse`` are host numpy payloads."""
+    ``weights`` / ``psum_row`` / ``sparse`` are host numpy payloads."""
     mode: str                   # EXEC_* executor strategy
     kind: str                   # MixLowering kind after reroutes
     # dispatch tier: "fused" | "segment" | "robust" | "jnp" (the plain,
@@ -101,6 +112,8 @@ class MixPlan:
     weight: float = 0.0
     offsets_table: Tuple[Tuple[int, ...], ...] = ()
     period: int = 1             # schedule period (1 for static topologies)
+    n_shards: int = 1           # product of the mesh_axes extents
+    fast_diagnostics: bool = False   # summed digest/divergence (tolerance)
     use_kernel: bool = False    # the mix_rows_flat kernel tier (fused_mix)
     needs_matrix: bool = False  # the executor reads the round's W
     n_clusters: int = 0         # EXEC_CLUSTER: G
@@ -110,6 +123,8 @@ class MixPlan:
     # eq=False (identity hash): a plan is never a cache key
     # repro-lint: disable=RL102
     weights: Optional[np.ndarray] = None    # |D_i| data weights [C]
+    # repro-lint: disable=RL102
+    psum_row: Optional[np.ndarray] = None   # EXEC_PSUM per-client weighting
     sparse: Optional["SparseLowering"] = None   # EXEC_SEGMENT edge lists
 
 
@@ -147,7 +162,7 @@ def parse_robust(name: str, n_clients: int) -> Tuple[str, int, int]:
                      "| trimmed[:t] | geomed[:iters])")
 
 
-def _resolve_robust(spec, c: int) -> "MixPlan | None":
+def _resolve_robust(spec, c: int, n_shards: int) -> "MixPlan | None":
     """The ROBUST-kind plan when ``spec.robust_agg`` selects one, else None.
     The flags that only make sense for linear mixes are rejected."""
     robust = getattr(spec, "robust_agg", None)
@@ -155,6 +170,7 @@ def _resolve_robust(spec, c: int) -> "MixPlan | None":
         return None
     mode, trim, iters = parse_robust(robust, c)
     conflicts = [flag for flag, on in (
+        ("fast_allreduce", _fast(spec)),
         ("fused_mix", spec.fused_mix),
         ("sparse_mix=True", spec.sparse_mix is True),
         ("data_weights", spec.data_weights is not None)) if on]
@@ -164,8 +180,13 @@ def _resolve_robust(spec, c: int) -> "MixPlan | None":
             f"{', '.join(conflicts)}: robust reducers are order statistics "
             "over the full broadcast set — no psum/fused linear fast path, "
             "no sparse edge-list form, no |D_i| row reweighting")
-    return MixPlan(mode=mode, kind=ROBUST, mix="robust", trim=trim,
-                   robust_iters=iters)
+    return MixPlan(mode=mode, kind=ROBUST, mix="robust", n_shards=n_shards,
+                   trim=trim, robust_iters=iters)
+
+
+def _fast(spec) -> bool:
+    """``spec.fast_allreduce``, False for a duck-typed spec without it."""
+    return bool(getattr(spec, "fast_allreduce", False))
 
 
 def _resolve_sparse(spec, topo, kind) -> "SparseLowering | None":
@@ -185,7 +206,7 @@ def _resolve_sparse(spec, topo, kind) -> "SparseLowering | None":
                 "cannot be densified to derive one)")
         return sp
     # auto: only GATHER-kind dense mixes, never preempting the opt-in tiers
-    if kind != GATHER or spec.fused_mix:
+    if kind != GATHER or _fast(spec) or spec.fused_mix:
         return None
     sp = topo.sparse_lowering(spec.n_clients)
     if sp is not None and \
@@ -194,13 +215,26 @@ def _resolve_sparse(spec, topo, kind) -> "SparseLowering | None":
     return None
 
 
-def resolve_mix_plan(spec) -> MixPlan:
+def resolve_mix_plan(spec, mesh_axes=None) -> MixPlan:
     """Resolve a round spec's mix into a :class:`MixPlan`: the single
-    decision surface for how Steps 2+5 execute on one device.
+    decision surface for how Steps 2+5 execute, on one device or on a
+    client-sharded mesh.
 
     ``spec`` is duck-typed: the resolver reads ``topology``, ``n_clients``,
     ``data_weights``, ``fused_mix``, ``sparse_mix`` and, when present,
-    ``robust_agg``.
+    ``fast_allreduce`` and ``robust_agg``. ``mesh_axes`` is None for one
+    device, else ``((axis_name, extent), ...)`` of the client-sharded mesh
+    (``launch.mesh.ClientMesh.axes``); only the extents' product, the
+    shard count, feeds the decision.
+
+    Decisions folded in: the |D_i| data-weight reroute (permute and cluster
+    lowerings bake uniform weights, so a weighted spec mixes through its
+    matrix); the sparse segment crossover; the ``fast_allreduce`` psum tier
+    (uniform-row kinds to EXEC_PSUM with the pre-weighted row, dense ones to
+    EXEC_PSUM_DENSE, both with summed diagnostics); halo feasibility (a
+    neighbor window inside one shard's block runs the two-shift halo,
+    EXEC_HALO, anything else the whole-block shift form, EXEC_SHIFT_HALO);
+    and the robust override, which preempts them all.
 
     >>> from types import SimpleNamespace
     >>> def _spec(topo, **kw):
@@ -211,17 +245,27 @@ def resolve_mix_plan(spec) -> MixPlan:
     'exec_fedavg'
     >>> resolve_mix_plan(_spec(Ring(neighbors=1))).mode
     'exec_halo'
+    >>> resolve_mix_plan(_spec(Ring(neighbors=2)),
+    ...                  (("pod", 2), ("data", 4))).mode
+    'exec_shift_halo'
+    >>> resolve_mix_plan(_spec(FullMesh(), fast_allreduce=True)).mode
+    'exec_psum'
     >>> resolve_mix_plan(_spec(RandomGraph(0.5), fused_mix=True)).mode
     'exec_gather'
     """
     topo = spec.topology
     c = spec.n_clients
+    n_shards = 1
+    for _, extent in (mesh_axes or ()):
+        n_shards *= max(int(extent), 1)
+    n_local = c // n_shards
 
-    robust_plan = _resolve_robust(spec, c)
+    robust_plan = _resolve_robust(spec, c, n_shards)
     if robust_plan is not None:
         return robust_plan
 
-    low = topo.lowering(c)
+    fast = _fast(spec)
+    low = topo.lowering(c, fast_allreduce=fast)
     kind = low.kind
 
     weights = None
@@ -241,9 +285,24 @@ def resolve_mix_plan(spec) -> MixPlan:
     if sparse is not None and weights is not None:
         sparse = sparse.reweighted(weights)
 
+    # the psum tier covers the dense kinds only (permute lowerings already
+    # move O(window) data and stay bitwise); a forced segment mix takes
+    # precedence
+    fast_dense = fast and sparse is None and kind in (PSUM, GATHER)
+
+    psum_row = None
+    if kind == PSUM:
+        if topo.is_full_mesh:
+            psum_row = weights
+        else:
+            row = np.asarray(topo.uniform_row(c), np.float32)
+            psum_row = row if weights is None else row * weights
+
     period = topo.period(c) if isinstance(topo, Schedule) else 1
 
-    if sparse is not None:
+    if fast_dense:
+        mode = EXEC_PSUM if kind == PSUM else EXEC_PSUM_DENSE
+    elif sparse is not None:
         mode = EXEC_SEGMENT
     elif kind == ALL_REDUCE:
         mode = EXEC_FEDAVG
@@ -252,7 +311,11 @@ def resolve_mix_plan(spec) -> MixPlan:
     elif kind == NEIGHBOR_PERMUTE and low.offsets_table:
         mode = EXEC_SHIFT_TABLE
     elif kind == NEIGHBOR_PERMUTE:
-        mode = EXEC_HALO
+        # the two-shift halo needs the window inside one shard's block;
+        # larger shifts take the whole-block shift form
+        halo_ok = (low.offsets and -min(low.offsets) <= n_local
+                   and max(low.offsets) <= n_local)
+        mode = EXEC_HALO if halo_ok else EXEC_SHIFT_HALO
     else:
         mode = EXEC_GATHER
 
@@ -266,10 +329,11 @@ def resolve_mix_plan(spec) -> MixPlan:
         mix=("fused" if spec.fused_mix
              else "segment" if sparse is not None else "jnp"),
         offsets=low.offsets, weight=low.weight,
-        offsets_table=low.offsets_table, period=period,
-        use_kernel=spec.fused_mix, needs_matrix=mode == EXEC_GATHER,
+        offsets_table=low.offsets_table, period=period, n_shards=n_shards,
+        fast_diagnostics=fast_dense, use_kernel=spec.fused_mix,
+        needs_matrix=mode in (EXEC_GATHER, EXEC_PSUM_DENSE),
         n_clusters=n_clusters, inter_weight=inter_w,
-        weights=weights, sparse=sparse)
+        weights=weights, psum_row=psum_row, sparse=sparse)
 
 
 class SparseLowering:
@@ -367,6 +431,10 @@ class Topology:
     selects the phase of a :class:`Schedule`."""
 
     @property
+    def is_full_mesh(self) -> bool:
+        return False
+
+    @property
     def stochastic(self) -> bool:
         """True when the mixing matrix needs per-round randomness."""
         return False
@@ -375,8 +443,34 @@ class Topology:
                round_idx=None) -> np.ndarray:
         raise NotImplementedError
 
-    def lowering(self, n_clients: int) -> MixLowering:
-        """Default: the dense gather, correct for any row-stochastic W."""
+    def uniform_row(self, n_clients: int) -> Optional[np.ndarray]:
+        """The shared row ``r`` when every round's ``W`` has identical rows
+        (``W = 1 r^T``), else None. Such a mix is rank-1, every client
+        adopts the same r-weighted average, so under ``fast_allreduce`` it
+        runs as a sum of locally pre-weighted rows. Deterministic
+        topologies only."""
+        if self.stochastic:
+            return None
+        try:
+            if isinstance(self, Schedule):
+                mats = [self.matrix_at(t, n_clients)
+                        for t in range(self.period(n_clients))]
+            else:
+                mats = [self.matrix(n_clients)]
+        except NotImplementedError:
+            return None
+        row = mats[0][0]
+        for m in mats:
+            if not (m == row[None, :]).all():
+                return None
+        return row
+
+    def lowering(self, n_clients: int, *,
+                 fast_allreduce: bool = False) -> MixLowering:
+        """Default: the dense gather, correct for any row-stochastic W;
+        under ``fast_allreduce`` a uniform-row topology's :data:`PSUM`."""
+        if fast_allreduce and self.uniform_row(n_clients) is not None:
+            return MixLowering(kind=PSUM)
         return MixLowering(kind=GATHER)
 
     def sparse_lowering(self, n_clients: int) -> "SparseLowering | None":
@@ -401,11 +495,20 @@ class FullMesh(Topology):
     True
     """
 
+    @property
+    def is_full_mesh(self) -> bool:
+        return True
+
     def matrix(self, n_clients: int, *, generator=None,
                round_idx=None) -> np.ndarray:
         return np.full((n_clients, n_clients), 1.0 / n_clients, np.float32)
 
-    def lowering(self, n_clients: int) -> MixLowering:
+    def lowering(self, n_clients: int, *,
+                 fast_allreduce: bool = False) -> MixLowering:
+        """The client mean (``fedavg``); under ``fast_allreduce`` a sum
+        over the ranks (:data:`PSUM`)."""
+        if fast_allreduce:
+            return MixLowering(kind=PSUM)
         return MixLowering(kind=ALL_REDUCE)
 
 
@@ -428,9 +531,11 @@ class Ring(Topology):
                 w[i, (i + off) % n_clients] = 1.0
         return w / w.sum(axis=1, keepdims=True)
 
-    def lowering(self, n_clients: int) -> MixLowering:
-        """Rolls of the window when it is distinct (``2k + 1 <= C``), else
-        the dense matrix (the window wraps onto itself)."""
+    def lowering(self, n_clients: int, *,
+                 fast_allreduce: bool = False) -> MixLowering:
+        """Shifts of the window when it is distinct (``2k + 1 <= C``), else
+        the dense matrix (the window wraps onto itself). ``fast_allreduce``
+        changes nothing: the halo moves O(window) and stays bitwise."""
         window = 2 * self.neighbors + 1
         if window > n_clients:
             return MixLowering(kind=GATHER)
@@ -500,6 +605,13 @@ class PartialParticipation(Topology):
         ew[a:, 0] = 1.0
         return SparseLowering(idx, ew)
 
+    def uniform_row(self, n_clients: int) -> Optional[np.ndarray]:
+        """Never rank-1 below full participation (and never densified to
+        find out); ``n_active == n_clients`` is the full mesh's row."""
+        if self.n_active == n_clients:
+            return np.full((n_clients,), 1.0 / n_clients, np.float32)
+        return None
+
 
 @dataclasses.dataclass(frozen=True)
 class PairShift(Topology):
@@ -523,7 +635,8 @@ class PairShift(Topology):
             w[i, (i + self.shift) % n_clients] += 0.5
         return w
 
-    def lowering(self, n_clients: int) -> MixLowering:
+    def lowering(self, n_clients: int, *,
+                 fast_allreduce: bool = False) -> MixLowering:
         return MixLowering(kind=NEIGHBOR_PERMUTE,
                            offsets=(0, self.shift % n_clients), weight=0.5)
 
@@ -572,7 +685,19 @@ class ClusterTopology(Topology):
                     np.full((s, s), 1.0 / s, np.float32))
         return w.astype(np.float32)
 
-    def lowering(self, n_clients: int) -> MixLowering:
+    def uniform_row(self, n_clients: int) -> Optional[np.ndarray]:
+        """Constant-row exactly when the cluster circulant ``B`` is,
+        checked on the ``[G, G]`` block, never on the dense ``W``."""
+        s = self._check_divides(n_clients)
+        b = self._cluster_ring()
+        if not (b == b[0][None, :]).all():
+            return None
+        return np.repeat(b[0], s).astype(np.float32) / np.float32(s)
+
+    def lowering(self, n_clients: int, *,
+                 fast_allreduce: bool = False) -> MixLowering:
+        """Always the :data:`CLUSTER` kind: the two-level mix moves O(S + 2)
+        models and stays bitwise, so ``fast_allreduce`` changes nothing."""
         self._check_divides(n_clients)
         return MixLowering(kind=CLUSTER, weight=self.inter_weight)
 
@@ -652,7 +777,8 @@ class ExplicitSparse(Topology):
         """Dense form for small-C diagnostics only."""
         return self.sparse_lowering(n_clients).to_dense()
 
-    def lowering(self, n_clients: int) -> MixLowering:
+    def lowering(self, n_clients: int, *,
+                 fast_allreduce: bool = False) -> MixLowering:
         return MixLowering(kind=SEGMENT)
 
 
@@ -736,7 +862,8 @@ class GossipRotation(Schedule):
     def topology_at(self, t: int, n_clients: int) -> Topology:
         return PairShift(shift=self.shift_at(t, n_clients))
 
-    def lowering(self, n_clients: int) -> MixLowering:
+    def lowering(self, n_clients: int, *,
+                 fast_allreduce: bool = False) -> MixLowering:
         table = tuple((0, self.shift_at(t, n_clients))
                       for t in range(self.period(n_clients)))
         return MixLowering(kind=NEIGHBOR_PERMUTE, weight=0.5,

@@ -3,11 +3,17 @@
 The FL substrate consumes client-stacked batches [C, m, ...]. They are
 built on the CPU from a seeded generator and moved to the run's device, so
 the same seed gives the same data on the CPU and on the GPU.
+
+A rank of a client-sharded run (``core/rounds.py``'s ``mesh=``) takes its
+block of clients: ``FLDataSource`` and ``LMDataSource`` take ``rows`` (the
+rank's slice of the client axis, ``plans.ScanCarryPlan.rows``) and draw as
+one process does, then keep those rows; ``CohortDataSource`` builds each
+client's set from its id, so the cohort driver passes a rank its own ids.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -19,12 +25,14 @@ from repro_torch.device import DeviceLike, resolve_device
 
 class FLDataSource:
     """Fixed per-client local datasets (paper: |D_i| = 512 samples each);
-    each round every client does full-batch GD on its local shard."""
+    each round every client does full-batch GD on its local shard.
+    ``rows`` keeps a block of the clients (a rank's), equal to that slice
+    of the whole draw."""
 
     def __init__(self, generator: torch.Generator, n_clients: int,
                  samples_per_client: int, dirichlet_alpha: float = 0.5,
                  dataset: str = "mnist", seed: int = 0,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", rows: Optional[slice] = None):
         dev = resolve_device(device)
         n_eval = 2048
         n_total = n_clients * samples_per_client * 2 + n_eval
@@ -37,7 +45,7 @@ class FLDataSource:
         part = synthetic.dirichlet_partition(
             self.data["y"].cpu().numpy(), n_clients, dirichlet_alpha,
             samples_per_client, seed=seed)
-        self.client_data = {k: v.to(dev) for k, v in
+        self.client_data = {k: v[_all(rows)].to(dev) for k, v in
                             synthetic.client_batches(self.data, part).items()}
 
     def round_batch(self, k: int) -> Dict[str, torch.Tensor]:
@@ -52,6 +60,10 @@ class FLDataSource:
 # salts of a CohortDataSource's streams: its class templates, its eval set,
 # and each client's local set
 _TEMPLATES, _EVAL, _CLIENT = 0x746D706C, 0x6576616C, 0x636C6E74
+
+
+def _all(rows: Optional[slice]) -> slice:
+    return slice(None) if rows is None else rows
 
 
 def _rng(seed: int, salt: int, *ids: int) -> np.random.Generator:
@@ -72,7 +84,9 @@ class CohortDataSource:
     a round's cohort holds the client, and moved to ``device`` (from pinned
     memory, without a host sync); an LRU cache keeps ``cache_size`` of them
     there. ``cohort_batch`` is the ``(round_idx, cohort_idx) -> [A, m,
-    ...]`` callable the driver takes."""
+    ...]`` callable the driver takes; on a mesh the driver calls it with a
+    rank's block of the cohort, and the rows it returns are that block of
+    the whole cohort's."""
 
     def __init__(self, seed: int, samples_per_client: int,
                  dirichlet_alpha: float = 0.5, dataset: str = "mnist",
@@ -157,15 +171,19 @@ class LMDataSource:
     P, D] ~ N(0, 1), "tokens": [C, m, S - P]}``, for the audio encoder
     ``{"frames": [C, m, S, D], "mask_positions": [C, m, S] bool (p 0.08),
     "targets": [C, m, S]}``, else ``{"tokens": [C, m, S]}``; tokens from
-    ``synthetic.lm_token_stream`` (the audio targets uniform)."""
+    ``synthetic.lm_token_stream`` (the audio targets uniform). ``rows``
+    keeps a block of the clients (a rank's): every round is drawn whole,
+    as one process draws it, and cut to those rows."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, n_clients: int,
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0, device: DeviceLike = "cuda",
+                 rows: Optional[slice] = None):
         if shape.global_batch % n_clients:
             raise ValueError(f"global_batch={shape.global_batch} must "
                              f"divide evenly over n_clients={n_clients}")
         self.cfg, self.shape, self.n_clients = cfg, shape, n_clients
         self.seed = seed
+        self.rows = _all(rows)
         self.device = resolve_device(device)
 
     def _draw(self, k: int) -> Dict[str, torch.Tensor]:
@@ -176,17 +194,19 @@ class LMDataSource:
         if cfg.family == "vlm":
             p = cfg.vlm_prefix_len
             patches = torch.randn((c, m, p, cfg.d_model), generator=gen)
-            return {"patches": patches,
-                    "tokens": synthetic.lm_token_stream(
-                        gen, c * m, s - p, cfg.vocab).reshape(c, m, s - p)}
-        if cfg.audio_frontend:
+            out = {"patches": patches,
+                   "tokens": synthetic.lm_token_stream(
+                       gen, c * m, s - p, cfg.vocab).reshape(c, m, s - p)}
+        elif cfg.audio_frontend:
             frames = torch.randn((c, m, s, cfg.d_model), generator=gen)
             mask = torch.rand((c, m, s), generator=gen) < 0.08
-            return {"frames": frames, "mask_positions": mask,
-                    "targets": torch.randint(0, cfg.vocab, (c, m, s),
-                                             generator=gen)}
-        return {"tokens": synthetic.lm_token_stream(
-            gen, c * m, s, cfg.vocab).reshape(c, m, s)}
+            out = {"frames": frames, "mask_positions": mask,
+                   "targets": torch.randint(0, cfg.vocab, (c, m, s),
+                                            generator=gen)}
+        else:
+            out = {"tokens": synthetic.lm_token_stream(
+                gen, c * m, s, cfg.vocab).reshape(c, m, s)}
+        return {k: v[self.rows] for k, v in out.items()}
 
     def round_batch(self, k: int) -> Dict[str, torch.Tensor]:
         """Round k's ``[C, m, ...]`` batch on the device."""

@@ -42,9 +42,10 @@ from torch_threads import one_torch_thread  # noqa: F401 (fixture)
 
 RTOL, ATOL = 1e-4, 1e-5
 K, C, PER_CLIENT, SEQ = 2, 2, 2, 16
-# the reference's run_arch_smoke keys, less fast_allreduce (one device)
+# the reference's run_arch_smoke keys
 REFERENCE_ARCH_KEYS = {"arch", "rounds", "loss_curve", "chain_valid",
-                       "devices", "dispatch", "wall_s", "spectral_gap_mean",
+                       "devices", "fast_allreduce", "dispatch", "wall_s",
+                       "spectral_gap_mean",
                        "spectral_gap_min", "ergodic_gap",
                        "predicted_consensus_rate"}
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",

@@ -299,12 +299,13 @@ def test_train_entry_point_on_cpu_prints_the_reference_keys(capsys):
          "--lazy", "1", "--sigma2", "0.01", "--device", "cpu"]))
     printed = json.loads(capsys.readouterr().out)
     assert printed == result
-    # the reference's run_mlp keys, less fast_allreduce (one device)
+    # the reference's run_mlp keys
     assert set(result) == {"K", "tau", "final_eval_loss", "final_eval_acc",
                            "final_global_loss", "chain_valid", "blocks",
-                           "devices", "dispatch", "wall_s",
+                           "devices", "fast_allreduce", "dispatch", "wall_s",
                            "spectral_gap_mean", "spectral_gap_min",
                            "ergodic_gap", "predicted_consensus_rate"}
+    assert result["devices"] == 1 and result["fast_allreduce"] is False
     assert result["dispatch"] == {
         "driver": "loop", "pow": "plain", "mix": "jnp",
         "mix_mode": "exec_fedavg", "reason": result["dispatch"]["reason"]}

@@ -78,6 +78,8 @@ def _check_robust(result, out):
     assert len(_csv_names(out, "robust_")) == 16 + 6
     assert all(r["chain_valid"] for key, r in result.items() if "|" in key)
     assert len(result["signflip_strength_sweep"]) == 6
+    # 8 clients on a 4-way mesh: each rank receives the other 6 models
+    assert result["models_moved_per_device_4way"] == 6
 
 
 SMALL = ["--device", "cpu"]

@@ -58,13 +58,19 @@ def test_matrices_bitwise_at_every_phase(name, c):
 @pytest.mark.parametrize("name", NAMES + ["random:0.5"])
 def test_lowering_uniform_row_and_sparse_export_match(name):
     jt, t = _both(name)
-    # the port has the single-device lowerings (no psum tier), so neither
-    # the psum kind nor the uniform row it rests on
+    # both tiers' lowerings (the psum kind under fast_allreduce) and the
+    # uniform row the psum kind rests on
     for c in (4, 8, 16):
-        jl, lo = jt.lowering(c), t.lowering(c)
-        assert (lo.kind, lo.offsets, lo.weight, lo.offsets_table) == \
-            (jl.kind, jl.offsets, jl.weight, jl.offsets_table)
-        assert not hasattr(t, "uniform_row")
+        for fast in (False, True):
+            jl = jt.lowering(c, fast_allreduce=fast)
+            lo = t.lowering(c, fast_allreduce=fast)
+            assert (lo.kind, lo.offsets, lo.weight, lo.offsets_table) == \
+                (jl.kind, jl.offsets, jl.weight, jl.offsets_table)
+        jrow, row = jt.uniform_row(c), t.uniform_row(c)
+        assert (row is None) == (jrow is None)
+        if row is not None:
+            np.testing.assert_array_equal(row, np.asarray(jrow))
+        assert t.is_full_mesh == jt.is_full_mesh
         jsp, sp = jt.sparse_lowering(c), t.sparse_lowering(c)
         assert (sp is None) == (jsp is None)
         if sp is not None:
