@@ -194,7 +194,24 @@ prints its seconds:
    params at CLIENT_SPREAD_LIMIT off consensus), which of the two printed;
    8c the paper's path over 1 NCCL rank on the graph driver, its
    collectives captured in the CUDA graph, bitwise the one-process graph
-   run. gloo ranks sharing one card measure no multi-GPU communication.
+   run. gloo ranks sharing one card measure no multi-GPU communication;
+9. the LM serve steps on a (data, model) mesh (``launch.serve
+   .serve_on_mesh`` on ``steps.build_prefill_step`` /
+   ``build_decode_step``), gloo ranks sharing the card: 9a phi4-mini
+   ONE_H100 (its published widths, 2 layers) on 4 ranks as (2, 2), a
+   prefill at batch 4 x prompt 2048 (rows over data; heads, MLP and
+   vocab over model), then 8 teacher-forced decode steps with the cache's
+   positions over model: ``flash_attention`` launched exactly twice a
+   prefill on each rank, at 12 query and 4 kv heads; 9b the same weights
+   under the long-context plan (batch 1, positions over (data, model),
+   decode crossing a block edge); 9c jamba smoke at (2, 1) with FSDP
+   (flash and the scan once a prefill a rank). Each run's gathered
+   logits within AGREE_LIMIT of a one-process serve of the same weights
+   and tokens, each layer of its state within the card tolerance at the
+   layer's scale (atol + rtol max |value|); each rank's prefill and
+   decode-step ms, bytes received by op and the collectives' transports
+   printed. Phase 1b also times flash
+   at a 9a rank's shape (MESH_FLASH_PATH) beside SDPA.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -648,6 +665,32 @@ SHARD_COHORT_ARGS = COHORT_ARGS
 # 8b: a smoke arch with attention and Mamba layers, over 2 ranks against 1
 SHARD_ARCH = "jamba-1.5-large-398b"
 SHARD_ARCH_ARGS = ["--arch", SHARD_ARCH] + SMOKE_TRAIN_ARGS
+
+# phase 9: the serve steps on a (data, model) mesh of gloo ranks sharing
+# the card. 9a phi4-mini ONE_H100 at (2, 2): prefill at batch 4 x prompt
+# 2048 with the batch over data, then 8 teacher-forced decode steps with
+# the cache's positions over model (capacity 2056, blocks of 1028); 9b
+# the same weights under the long-context plan (batch 1, positions over
+# (data, model)): a capacity of 2736 makes blocks of 684, so the decode
+# at 2048-2055 crosses the block edge at 2052; 9c jamba smoke at (2, 1)
+# with FSDP over data
+MESH_ARCH = "phi4-mini-3.8b"
+MESH_SHAPE = (2, 2)
+MESH_BATCH, MESH_PROMPT, MESH_STEPS = 4, 2048, 8
+MESH_LONG_CAP = 2736
+MESH_FLASH = {"flash_attention": 2, "ssm_scan": 0}   # a prefill, a rank
+MESH_FLASH_PATH = (2, 12, 4, 2048, 128)   # a rank's flash at (2, 2)
+MESH_JAMBA_SHAPE, MESH_JAMBA_BATCH, MESH_JAMBA_PROMPT = (2, 1), 4, 256
+MESH_JAMBA_LAUNCHES = {"flash_attention": 1, "ssm_scan": 1}
+# the decode state of a mesh serve against one process, each leaf and
+# layer held at its scale: max |diff| <= CARD_CPU_ATOL + CARD_CPU_RTOL
+# max |value|. The kv caches past the first layer come from activations
+# summed over model in parts, in another order than one process's GEMMs,
+# and their elements near 0 sit below what the elementwise tolerance
+# grants them (on an H100 at 700 W 9a's caches read 1.59-1.78 of it
+# elementwise, at most 2.3e-5 on values up to 5.5); each layer's
+# elementwise and scale readings are printed. A kv head or a block of
+# positions out of place is off by the values themselves
 
 
 class SmokeFailure(RuntimeError):
@@ -2170,16 +2213,20 @@ def phase_lm_kernels(torch, dev):
     audio, audio_work = flash_times(FLASH_AUDIO_PATH,
                                     " (audio path, bidirectional)",
                                     causal=False)
+    mesh, mesh_work = flash_times(MESH_FLASH_PATH,
+                                  " (mesh path, a rank at (2, 2))")
     mla, mla_work = flash_times(FLASH_MLA_PATH, "")
     flash_work = {"mla path": mla_work, "gqa path": gqa_work,
-                  "vlm path": vlm_work, "audio path": audio_work}
+                  "vlm path": vlm_work, "audio path": audio_work,
+                  "mesh path (a rank)": mesh_work}
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
         max_abs_err_prefix=prefix_err, **mla,
         at_gqa_path={"shape": FLASH_PATH, **gqa},
         at_vlm_path={"shape": FLASH_VLM_PATH, "prefix": FLASH_VLM_PREFIX,
                      **vlm},
-        at_audio_path={"shape": FLASH_AUDIO_PATH, "causal": False, **audio})
+        at_audio_path={"shape": FLASH_AUDIO_PATH, "causal": False, **audio},
+        at_mesh_path={"shape": MESH_FLASH_PATH, **mesh})
 
     ssm_err, ssm_ratio = 0.0, 0.0
     ssm_cases = ([(case, False) for case in SSM_CASES
@@ -2250,6 +2297,7 @@ def phase_lm_kernels(torch, dev):
                               ("flash_attention (gqa path)", gqa),
                               ("flash_attention (vlm path)", vlm),
                               ("flash_attention (audio path)", audio),
+                              ("flash_attention (mesh path)", mesh),
                               ("ssm_scan", report["ssm_scan"]))}),
           flush=True)
     return report
@@ -3773,6 +3821,281 @@ def phase_sharded(torch, dev):
     return by_path
 
 
+def mesh_serve_rank(jobs, device):
+    """One rank of a phase 9 world: for each job (name -> arch, size,
+    seed, mesh shape, batch, prompt, capacity, prefill plan, decode plan),
+    the config's params drawn from the seed on the card and its prompt and
+    decode tokens from seed + 1, a warm ``serve.serve_on_mesh``, then one
+    with the launch counts set to 0 just before and read just after and
+    the shapes each flash launch took. Returns {name: its blocks of every
+    position's logits and of the state on the CPU, their specs, prefill
+    and decode ms, bytes received by op, transports, launches, flash
+    shapes}."""
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import ShapeConfig, get_one_h100_arch, \
+        get_smoke_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    import torch
+
+    dev = torch.device(device)
+    meshes, out = {}, {}
+    mha, shapes = flash_ops.mha, []
+
+    def recorded(q, k, v, **kw):   # the heads of each flash launch
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return mha(q, k, v, **kw)
+
+    flash_ops.mha = recorded
+    for name, job in jobs.items():
+        if job["mesh"] not in meshes:
+            meshes[job["mesh"]] = mesh_lib.make_host_mesh(
+                job["mesh"], ("data", "model"), dev)
+        cfg = (get_smoke_arch if job["size"] == "smoke"
+               else get_one_h100_arch)(job["arch"])
+        params = registry.init_model(
+            torch.Generator(device=dev).manual_seed(job["seed"]), cfg)
+        n = job["prompt"] + MESH_STEPS
+        tokens = registry.make_prefill_batch(
+            torch.Generator(device=dev).manual_seed(job["seed"] + 1), cfg,
+            ShapeConfig("mesh", n, job["batch"], "prefill"))["tokens"]
+        args = (cfg, params, {"tokens": tokens[:, :job["prompt"]]},
+                tokens[:, job["prompt"]:], meshes[job["mesh"]], job["plan"],
+                job["decode_plan"], job["cap"])
+        serve.serve_on_mesh(*args)   # warm: the ranks' first collectives
+        shapes.clear()
+        kernels.reset_launch_counts()
+        res = serve.serve_on_mesh(*args)
+        launches = kernels.launch_counts()
+        del params
+        out[name] = {
+            **{k: res[k] for k in ("logits_spec", "state_specs",
+                                   "prefill_ms", "decode_ms", "received",
+                                   "transport")},
+            "logits": [x.cpu() for x in res["logits"]],
+            "state": tree_lib.tree_map(lambda x: x.cpu(), res["state"]),
+            "launches": launches, "flash_shapes": list(shapes)}
+        del res
+    flash_ops.mha = mha
+    return out
+
+
+def _gemm_order_witness(torch, params, cfg, prompt, job):
+    """Layer 0's k and v projections of the one-process prefill against
+    the same products at mesh rank 0's shape (its rows of the batch, the
+    columns of its kv heads), on the card: how far the fp32 GEMM's
+    summation order moves with its shape alone. No partial sum over model
+    precedes layer 0's caches (the vocab-split embedding adds exact
+    zeros), so this is what their reading can come from. {leaf: max
+    |diff| and its share of the card tolerance at the leaf's scale}."""
+    from repro_torch.models import layers, transformer
+
+    block = {k: {n: v[0] for n, v in leaf.items()}
+             for k, leaf in params["period"]["j0"].items()}
+    x, _, _ = transformer._embed_inputs(params, cfg, {"tokens": prompt})
+    h = layers.rms_norm(block["norm1"], x, cfg.norm_eps)
+    data, model = job["mesh"]
+    rows = slice(0, h.shape[0] // data if job["plan"].batch_axes
+                 else h.shape[0])
+    cols = slice(0, cfg.n_kv_heads // model * cfg.resolved_head_dim)
+    out = {}
+    for leaf in ("k", "v"):
+        w = block["mixer"]["w_" + leaf]
+        full = (h @ w)[rows, :, cols]
+        diff = float((full - h[rows] @ w[:, cols]).abs().max())
+        out[leaf] = {"max_abs_diff": diff, "scale_share": diff / (
+            CARD_CPU_ATOL + CARD_CPU_RTOL * float(full.abs().max()))}
+    return out
+
+
+def _one_process_serve(torch, dev, job):
+    """The same job in this process with no mesh: every position's logits,
+    the final state and, on a tensor-parallel mesh,
+    :func:`_gemm_order_witness`."""
+    from repro_torch.configs import ShapeConfig, get_one_h100_arch, \
+        get_smoke_arch
+    from repro_torch.models import registry, transformer
+
+    cfg = (get_smoke_arch if job["size"] == "smoke"
+           else get_one_h100_arch)(job["arch"])
+    params = registry.init_model(
+        torch.Generator(device=dev).manual_seed(job["seed"]), cfg)
+    n = job["prompt"] + MESH_STEPS
+    tokens = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(job["seed"] + 1), cfg,
+        ShapeConfig("mesh", n, job["batch"], "prefill"))["tokens"]
+    witness = (_gemm_order_witness(torch, params, cfg,
+                                   tokens[:, :job["prompt"]], job)
+               if job["mesh"][1] > 1 else None)
+    logits, state = transformer.prefill(
+        params, cfg, {"tokens": tokens[:, :job["prompt"]]},
+        max_len=job["cap"])
+    out = [logits.cpu()]
+    for i in range(MESH_STEPS):
+        pos = job["prompt"] + i
+        logits, state = transformer.decode_step(params, cfg, state,
+                                                tokens[:, pos], pos)
+        out.append(logits.cpu())
+    state = {k: v.cpu() for k, v in _flat(state).items()}
+    del params
+    _free(torch)
+    return out, state, witness
+
+
+def _flat(tree):
+    from repro_torch import tree as tree_lib
+
+    return tree_lib.flatten(tree)
+
+
+def _state_by_layer(torch, got, want):
+    """Each state leaf against one process, layer by layer (the leading
+    dim of a period-stacked leaf): the worst elementwise share of the card
+    tolerance, max |diff|, max |value| and max |diff| over the tolerance
+    at max |value| (``scale_share``)."""
+    out = {}
+    for path, w in want.items():
+        g = got[path]
+        layers = zip(g, w) if path.startswith("period/") else [(g, w)]
+        out[path] = [
+            {"worst_of_tolerance": _ratio(torch, gl, wl),
+             "max_abs_diff": float((gl - wl).abs().max()),
+             "max_abs": float(wl.abs().max()),
+             "scale_share": float((gl - wl).abs().max()) / (
+                 CARD_CPU_ATOL + CARD_CPU_RTOL * float(wl.abs().max()))}
+            for gl, wl in layers]
+    return out
+
+
+def held_mesh_serve(torch, dev, name, job, ranks, want_launches):
+    """Phase 9's gates on one job: each rank's launches exactly
+    ``want_launches`` (and every flash launch at the rank's heads), the
+    ranks' logits gathered within AGREE_LIMIT of a one-process serve of
+    the same weights and tokens, each layer of each leaf of the gathered
+    state within CARD_CPU_ATOL + CARD_CPU_RTOL times that layer's largest
+    magnitude in the one-process state (each layer's readings printed,
+    and on a tensor-parallel mesh :func:`_gemm_order_witness` beside
+    them). Returns the phase line's numbers."""
+    from repro_torch import kernels
+    from repro_torch import tree as tree_lib
+    from repro_torch.sharding import specs
+
+    mesh = specs.MeshShape(("data", "model"), job["mesh"])
+    mine = [r[name] for r in ranks]
+    want = {**{k: 0 for k in kernels.WRAPPERS}, **want_launches}
+    for r, got in enumerate(mine):
+        require(got["launches"] == want,
+                f"{name}: rank {r} launched {got['launches']}, expected "
+                f"{want}")
+        require(all(q[2] == job["heads"][0] and k[2] == job["heads"][1]
+                    for q, k in got["flash_shapes"]),
+                f"{name}: rank {r}'s flash launches took "
+                f"{got['flash_shapes']}, expected {job['heads']} heads")
+    logits = [specs.gather_tree([{"x": m["logits"][i]} for m in mine],
+                                {"x": mine[0]["logits_spec"]}, mesh)["x"]
+              for i in range(MESH_STEPS + 1)]
+    state = _flat(specs.gather_tree([m["state"] for m in mine],
+                                    mine[0]["state_specs"], mesh))
+    want_logits, want_state, witness = _one_process_serve(torch, dev, job)
+    require(set(state) == set(want_state), f"{name}: state leaves differ")
+    err = max(float((g - w).abs().max())
+              for g, w in zip(logits, want_logits))
+    by_leaf = _state_by_layer(torch, state, want_state)
+    state_share = max(layer["scale_share"] for layers in by_leaf.values()
+                      for layer in layers)
+    require(err <= AGREE_LIMIT and state_share <= 1.0,
+            f"{name}: the mesh serve differs from one process: max |logit "
+            f"diff| {err:.3g} (limit {AGREE_LIMIT}), state {state_share:.3g}"
+            f" of atol {CARD_CPU_ATOL} + rtol {CARD_CPU_RTOL} max |value| "
+            "(limit 1): " + json.dumps(by_leaf))
+    bitwise = all(torch.equal(g, w) for g, w in zip(logits, want_logits)) \
+        and all(torch.equal(state[k], v) for k, v in want_state.items())
+    return {"mesh": list(job["mesh"]), "batch": job["batch"],
+            "prompt": job["prompt"], "capacity": job["cap"],
+            "max_abs_logit_diff": err, "state_scale_share": state_share,
+            "state_by_leaf_and_layer": by_leaf,
+            "layer0_gemm_order_witness": witness, "bitwise": bitwise,
+            "flash_heads_q_kv": list(job["heads"]),
+            "prefill_ms_by_rank": [m["prefill_ms"] for m in mine],
+            "decode_ms_by_rank": [sum(m["decode_ms"]) / len(m["decode_ms"])
+                                  for m in mine],
+            "received_bytes_by_rank": [m["received"] for m in mine],
+            "launches_by_rank": [{k: v for k, v in m["launches"].items()
+                                  if v} for m in mine]}
+
+
+def phase_mesh_serve(torch, dev):
+    """Phase 9: the serve steps on a (data, model) mesh of gloo ranks
+    sharing the card (``launch.serve.serve_on_mesh`` on
+    ``steps.build_prefill_step`` / ``build_decode_step``). 9a phi4-mini
+    ONE_H100 on 4 ranks as (2, 2): prefill at MESH_BATCH x MESH_PROMPT,
+    the batch over data and the heads, the MLP and the vocab over model,
+    then MESH_STEPS decode steps with the cache's positions over model;
+    9b the same weights under the long-context plan (batch 1, positions
+    over (data, model), decode crossing a block edge), in the same world;
+    9c jamba smoke at (2, 1) with FSDP over data. Each held to a
+    one-process serve (``held_mesh_serve``), flash launched twice a
+    prefill on each phi4 rank at 12 query and 4 kv heads. Returns {path:
+    rank 0's launches}."""
+    from repro_torch.configs import get_one_h100_arch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding.specs import ShardingPlan
+
+    _free(torch)
+    cfg = get_one_h100_arch(MESH_ARCH)
+    m = MESH_SHAPE[1]
+    heads = (cfg.n_heads // m, cfg.n_kv_heads // m)
+    batch_data = ShardingPlan(1, (), ("data",))
+    phi4 = dict(arch=MESH_ARCH, size="one-h100", seed=0, mesh=MESH_SHAPE,
+                heads=heads)
+    jobs = {
+        "9a": dict(phi4, batch=MESH_BATCH, prompt=MESH_PROMPT,
+                   cap=MESH_PROMPT + MESH_STEPS, plan=batch_data,
+                   decode_plan=ShardingPlan(1, (), ("data",),
+                                            seq_axes=("model",))),
+        "9b": dict(phi4, batch=1, prompt=MESH_PROMPT, cap=MESH_LONG_CAP,
+                   plan=ShardingPlan(1, (), ()),
+                   decode_plan=ShardingPlan(1, (), (),
+                                            seq_axes=("data", "model")))}
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(mesh_serve_rank, math.prod(MESH_SHAPE),
+                               backend="gloo", device=str(dev),
+                               args=(jobs, str(dev)))
+    world_s = time.perf_counter() - t0
+    by_path, lines = {}, {}
+    for name, job in jobs.items():
+        lines[name] = held_mesh_serve(torch, dev, name, job, ranks,
+                                      MESH_FLASH)
+        by_path[f"mesh serve {name} (rank 0)"] = ranks[0][name]["launches"]
+    lines["transport"] = ranks[0]["9a"]["transport"]
+    lines["world_s_with_spawn"] = world_s
+    print("phase 9a-9b ok: " + json.dumps(lines), flush=True)
+    del ranks
+
+    fsdp = ShardingPlan(1, (), ("data",), fsdp_axes=("data",))
+    jobs = {"9c": dict(arch=SHARD_ARCH, size="smoke", seed=0,
+                       mesh=MESH_JAMBA_SHAPE, heads=(2, 2),
+                       batch=MESH_JAMBA_BATCH, prompt=MESH_JAMBA_PROMPT,
+                       cap=MESH_JAMBA_PROMPT + MESH_STEPS, plan=fsdp,
+                       decode_plan=fsdp)}
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(mesh_serve_rank, math.prod(MESH_JAMBA_SHAPE),
+                               backend="gloo", device=str(dev),
+                               args=(jobs, str(dev)))
+    world_s = time.perf_counter() - t0
+    line = held_mesh_serve(torch, dev, "9c", jobs["9c"], ranks,
+                           MESH_JAMBA_LAUNCHES)
+    line["world_s_with_spawn"] = world_s
+    by_path["mesh serve 9c (rank 0)"] = ranks[0]["9c"]["launches"]
+    print("phase 9c ok: " + json.dumps(line), flush=True)
+    _free(torch)
+    return by_path
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4011,6 +4334,8 @@ def main(argv=None) -> int:
     lap("phase 7f")
     sharded = phase_sharded(torch, dev)
     lap("phase 8")
+    mesh_serve = phase_mesh_serve(torch, dev)
+    lap("phase 9")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
@@ -4019,7 +4344,7 @@ def main(argv=None) -> int:
                "xlstm train": tlaunches7, "phi4 train": plaunches,
                **{f"{arch} smoke train": counts
                   for arch, counts in smoke_trains.items()},
-               **sharded}
+               **sharded, **mesh_serve}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

@@ -13,9 +13,11 @@ the world concatenates the client blocks in client order.
 :class:`ClientMesh` holds the collectives the engine uses, each on a
 tensor of the rank's device:
 
-  ``all_gather``  blocks of every rank of an axis (or of the world),
-                  concatenated along dim 0 in rank order
-  ``all_reduce``  the sum over the world
+  ``all_gather``  blocks of every rank of an axis, of a tuple of axes
+                  (row-major over their coordinates, the block order of a
+                  ``NamedSharding``) or of the world, concatenated along
+                  any dim
+  ``all_reduce``  the sum over an axis, a tuple of axes or the world
   ``shift``       for each ``q``, the block of the rank ``q`` places
                   ahead along an axis (or the linear world), as one batch
                   of sends and receives
@@ -42,7 +44,8 @@ import tempfile
 import time
 import traceback
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, \
+    Union
 
 import numpy as np
 import torch
@@ -51,6 +54,9 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 
 BACKENDS = ("gloo", "nccl")
+
+# a collective's axes: None (the world), a name, or a tuple of names
+Axes = Union[None, str, Tuple[str, ...]]
 
 # ops whose CUDA tensors gloo does not move: they go through pinned host
 # buffers (the point-to-point sends and receives of ``shift``)
@@ -70,10 +76,12 @@ class ClientMesh:
     ``shape``; ``rank`` is this process's world rank (its linear shard
     index); ``groups`` holds this rank's process group along each axis
     (the ranks that differ from it in that coordinate only), ``world`` the
-    group of every rank. ``received`` counts the analytic bytes each op
+    group of every rank, and a group of each line along every other set
+    of axes under their tuple in mesh order (``("data", "model")`` on a
+    three-axis mesh). ``received`` counts the analytic bytes each op
     received on this rank (an all-gather the other ranks' blocks, an
     all-reduce a ring's ``2 (n - 1) / n`` of its tensor, a shift the block
-    it took), for the communication a round moves.
+    it took), for the communication a round or a step moves.
 
     At one rank the all-gather and the all-reduce still call the backend
     (so an NCCL rank's graph driver captures them); a shift onto this rank
@@ -124,30 +132,61 @@ class ClientMesh:
     def _count(self, op: str, nbytes: float) -> None:
         self.received[op] = self.received.get(op, 0) + int(nbytes)
 
-    def _group(self, axis: Optional[str]):
-        return self.world if axis is None else self.groups[axis]
+    def _axes(self, axis: Axes) -> Tuple[str, ...]:
+        """``axis`` (None: the world; a name; a tuple of names) as a tuple
+        of names."""
+        if axis is None:
+            return self.axis_names
+        return (axis,) if isinstance(axis, str) else tuple(axis)
 
-    def _extent(self, axis: Optional[str]) -> int:
-        return self.n_shards if axis is None else \
-            self.shape[self.axis_names.index(axis)]
+    def _group(self, axes: Tuple[str, ...]):
+        ordered = tuple(a for a in self.axis_names if a in axes)
+        if ordered == self.axis_names:
+            return self.world
+        return self.groups[ordered[0] if len(ordered) == 1 else ordered]
 
-    def all_gather(self, x: torch.Tensor,
-                   axis: Optional[str] = None) -> torch.Tensor:
-        """Every rank's ``x`` along ``axis`` (None: the world),
-        concatenated along dim 0 in rank order."""
-        n = self._extent(axis)
-        x = x.contiguous()
+    def extent(self, axis: Axes = None) -> int:
+        """The ranks along ``axis`` (None: the world; a name; a tuple of
+        names: the product of their extents)."""
+        return int(np.prod([self.shape[self.axis_names.index(a)]
+                            for a in self._axes(axis)], dtype=np.int64))
+
+    def index(self, axis: Axes) -> int:
+        """This rank's block index along ``axis``: its coordinates on the
+        named axes, row-major in the order named."""
+        axes = self._axes(axis)
+        return int(np.ravel_multi_index(
+            [self.coord(a) for a in axes],
+            [self.shape[self.axis_names.index(a)] for a in axes]))
+
+    def all_gather(self, x: torch.Tensor, axis: Axes = None,
+                   dim: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` along ``axis`` (None: the world; a name; a
+        tuple of names in the mesh's order), concatenated along ``dim`` in
+        block order: rank order along one axis, row-major over the
+        coordinates of a tuple. Axes named out of the mesh's order raise
+        ``ValueError``."""
+        axes = self._axes(axis)
+        if axes != tuple(a for a in self.axis_names if a in axes):
+            raise ValueError(f"all_gather over {axes}: name the axes in the "
+                             f"mesh's order {self.axis_names}")
+        n = self.extent(axes)
+        dim = dim % x.dim()
+        x = x.movedim(dim, 0).contiguous()
         out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x, group=self._group(axis))
+        dist.all_gather_into_tensor(out, x, group=self._group(axes))
         self._count("all_gather", (n - 1) * x.numel() * x.element_size())
-        return out
+        return out.movedim(0, dim)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's ``x`` (a new tensor)."""
+    def all_reduce(self, x: torch.Tensor, axis: Axes = None
+                   ) -> torch.Tensor:
+        """The sum of every rank's ``x`` along ``axis`` (None: the world;
+        a name; a tuple of names), as a new tensor."""
+        axes = self._axes(axis)
         out = x.contiguous().clone()
-        n = self.n_shards
-        dist.all_reduce(out, group=self.world)
+        n = self.extent(axes)
+        dist.all_reduce(out, group=self._group(axes))
         self._count("all_reduce", 2 * (n - 1) / n * out.numel()
                     * out.element_size())
         return out
@@ -216,7 +255,8 @@ def make_host_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     """A mesh of ``shape`` with axis names ``axes`` over every rank of the
     current world (its size must be ``prod(shape)``), ranks row-major.
     Every rank must call it, in the same order as its other collectives:
-    it makes one process group for each line along each axis."""
+    it makes one process group for each line along each axis and along
+    each set of axes short of all of them."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes) or min(shape) < 1:
         raise ValueError(f"mesh shape {shape} and axes {axes} do not match")
@@ -225,17 +265,21 @@ def make_host_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     warnings.filterwarnings("ignore", category=FutureWarning,
                             message=".*all_gather_into_tensor.*")
     groups = {}
-    for i, name in enumerate(axes):
-        others = [range(s) if j != i else [0] for j, s in enumerate(shape)]
-        for base in itertools.product(*others):
-            ranks = []
-            for t in range(shape[i]):
-                coords = list(base)
-                coords[i] = t
-                ranks.append(int(np.ravel_multi_index(coords, shape)))
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                groups[name] = group
+    for size in range(1, len(axes)):
+        for sub in itertools.combinations(range(len(axes)), size):
+            others = [range(s) if j not in sub else [0]
+                      for j, s in enumerate(shape)]
+            for base in itertools.product(*others):
+                ranks = []
+                for t in itertools.product(*(range(shape[i]) for i in sub)):
+                    coords = list(base)
+                    for i, c in zip(sub, t):
+                        coords[i] = c
+                    ranks.append(int(np.ravel_multi_index(coords, shape)))
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axes[sub[0]] if size == 1
+                           else tuple(axes[i] for i in sub)] = group
     return ClientMesh(axis_names=axes, shape=shape, rank=rank,
                       backend=backend, device=dev, world=dist.group.WORLD,
                       groups=groups)

@@ -43,6 +43,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch import kernels
+from repro_torch import tree as tree_lib
 from repro_torch.configs import (ShapeConfig, get_one_h100_arch,
                                  get_smoke_arch)
 from repro_torch.configs.base import ModelConfig
@@ -127,6 +128,63 @@ def serve(args) -> dict:
     }
     print(json.dumps(result, indent=1))
     return result
+
+
+def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
+                  mesh, plan, decode_plan=None, max_len: int = 0) -> dict:
+    """One rank's serve on a mesh (``launch.mesh.make_host_mesh``, every
+    rank calling it with the same arguments): a prefill of ``batch`` by
+    ``steps.build_prefill_step`` under ``plan``, then one decode step by
+    ``build_decode_step`` under ``decode_plan`` (default ``plan``) for each
+    column of ``tokens`` [B, n] (teacher-forced), the cache holding
+    ``max_len`` positions (default prompt + n). ``params``, ``batch`` and
+    ``tokens`` are whole, on this rank's device; the rank cuts its blocks
+    (``specs.shard_tree``, copies) and runs on them alone. Returns this
+    rank's blocks of each position's logits (the prefill's last, then each
+    step's) and of the final state, their specs (``logits_spec``,
+    ``state_specs``), the prefill's and each decode step's ms on the host
+    clock (synchronized on the card), the bytes each collective received
+    and their transports."""
+    from repro_torch.launch import steps
+    from repro_torch.sharding import specs
+
+    dev = mesh.device
+    b, n = tokens.shape
+    prompt = sum(batch[k].shape[1] for k in ("patches", "tokens")
+                 if k in batch)
+    max_len = max_len or prompt + n
+    pshape = ShapeConfig("mesh_prefill", prompt, b, "prefill")
+    dshape = ShapeConfig("mesh_decode", max_len, b, "decode")
+    prefill, _, _ = steps.build_prefill_step(
+        cfg, pshape, mesh, False, plan=plan, decode_plan=decode_plan,
+        max_len=max_len)
+    decode, _, dplan = steps.build_decode_step(cfg, dshape, mesh, False,
+                                               plan=decode_plan or plan)
+    local = tree_lib.tree_map(lambda x: x.clone(), specs.shard_tree(
+        params, prefill.in_specs[0], mesh))
+    lbatch = specs.shard_tree(batch, prefill.in_specs[1], mesh)
+    ltokens = specs.shard_leaf(tokens, decode.in_specs[2] + (None,), mesh)
+    mesh.received.clear()
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, state = prefill(local, lbatch)
+    _sync(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    received = {"prefill": dict(mesh.received)}
+    mesh.received.clear()
+    out, step_ms = [logits], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        logits, state = decode(local, state, ltokens[:, i], prompt + i)
+        _sync(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        out.append(logits)
+    received["decode"] = dict(mesh.received)
+    return {"logits": out, "state": state,
+            "logits_spec": decode.out_specs[0], "state_specs":
+            decode.out_specs[1], "prefill_ms": prefill_ms,
+            "decode_ms": step_ms, "received": received,
+            "transport": mesh.transport, "plan": dplan}
 
 
 def build_parser() -> argparse.ArgumentParser:

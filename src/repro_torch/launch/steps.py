@@ -1,18 +1,47 @@
-"""The mesh-free part of the JAX package's ``launch/steps.py``: the arch
-variant a shape runs, the shapes an arch skips, and the BLADE-FL round
-configuration of an (arch, shape, client count) cell.
+"""Step builders over any (architecture x input shape x mesh) triple (the
+JAX package's ``launch/steps.py``): the arch variant a shape runs, the
+shapes an arch skips, the BLADE-FL round of a training cell, and the
+serve steps placed on a mesh.
 
-The reference's ``build_train_step``, ``build_prefill_step`` and
-``build_decode_step`` place a step on a device mesh with its shardings;
-they come with the port's multi-device slice.
+:func:`build_prefill_step` and :func:`build_decode_step` take the
+reference's ``(cfg, shape, mesh, multi_pod, dtype, plan=None)`` and return
+``(step, abstract inputs, plan)``. The reference hands ``in_shardings`` to
+``jax.jit`` and lets GSPMD derive the collectives, so its sharded step
+computes the unsharded function; here one process runs each rank
+(``launch.mesh``) and the step computes that function from this rank's
+blocks by the split the plan's specs imply (``models/parallel.py``):
+
+- the batch rows split over the batch axes (each rank runs its rows);
+- FSDP leaves gathered a block at a time, for every block kind;
+- over the model axes, Megatron-style tensor parallelism of the dense GQA
+  decoders: ``w_q`` / ``w_k`` / ``w_v`` / ``w_in`` / ``w_gate`` column
+  blocks, ``w_o`` / ``w_out`` row blocks (partial sums all-reduced), the
+  vocab-split embedding, logits left split on the vocab;
+- a decode cache split on its positions over ``plan.seq_axes``.
+
+A step takes and returns this rank's blocks; ``step.in_specs`` and
+``step.out_specs`` are the spec trees that place them (the reference's
+``in_shardings`` / ``out_shardings``; ``sharding.specs.shard_tree`` cuts a
+rank's blocks, ``gather_tree`` puts the ranks' back together). A leaf
+that the plan splits over an axis of extent > 1 and that no forward here
+splits (Mamba, xLSTM, MLA and MoE blocks, the audio front-end, MLA's
+sequence-split latent cache) makes the builder raise ``ValueError``; its
+tensor-parallel forward is ROADMAP 9b-3. The train step is ROADMAP 9b-2.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Optional
 
+import torch
+
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import rounds
+from repro_torch.models import registry, transformer
+from repro_torch.models.parallel import Parallel
+from repro_torch.sharding import plans as plans_lib
+from repro_torch.sharding import specs as specs_lib
 
 SLIDING_WINDOW_LONG = 8192  # dense archs x long_500k: windowed-attention variant
 
@@ -45,3 +74,194 @@ def round_spec_for(cfg: ModelConfig, shape: ShapeConfig, n_clients: int, *,
         n_lazy=max(n_clients // 8, 0), sigma2=1e-4,
         mine_attempts=mine_attempts, difficulty_bits=8,
         microbatches=max(1, m // 8), eval_global_loss=False)
+
+
+# ---------------------------------------------------------------------------
+# Steps on a mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class MeshStep:
+    """One rank's step: ``step(*inputs)`` on this rank's blocks, placed by
+    ``in_specs`` (one spec tree an input; a Python int has None) and
+    returned placed by ``out_specs``."""
+    fn: Callable
+    in_specs: tuple
+    out_specs: tuple
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+def _tp_family(cfg: ModelConfig) -> bool:
+    """Whether the model is a dense GQA decoder, whose forward splits over
+    the model axes (attention blocks, no MLA, no MoE, no VLM or audio
+    front-end)."""
+    return (set(cfg.pattern) == {"attn"} and cfg.mla is None
+            and cfg.moe is None and cfg.family not in ("vlm", "audio"))
+
+
+def _split_dims(spec: specs_lib.Spec, mesh, skip=()) -> list:
+    return [(d, specs_lib.split_entry(e, mesh)) for d, e in enumerate(spec)
+            if d not in skip and specs_lib.split_entry(e, mesh)]
+
+
+def _refuse_unported(cfg: ModelConfig, mesh, plan, pspecs, sspecs=None
+                     ) -> None:
+    """Raise ``ValueError`` naming the first leaf that the plan splits over
+    axes of extent > 1 where no forward here splits it: a param leaf
+    split over non-FSDP axes outside the dense GQA family, a decode-state
+    leaf split past its batch dim other than GQA's kv positions."""
+    fsdp = set(plan.fsdp_axes)
+    why = ("the tensor-parallel forwards of Mamba, xLSTM, MLA and MoE "
+           "blocks and of the VLM and audio front-ends, and MLA's "
+           "sequence-split cache, are ROADMAP 9b-3")
+    if not _tp_family(cfg):
+        for path, spec in tree_lib.flatten(pspecs, tuples=False).items():
+            for d, axes in _split_dims(spec, mesh):
+                if not set(axes) <= fsdp:
+                    raise ValueError(
+                        f"{cfg.name}: the plan splits leaf {path!r} (dim {d})"
+                        f" over {axes}; {why}")
+    for path, spec in tree_lib.flatten(sspecs or {}, tuples=False).items():
+        lead = 1 if path.startswith("period/") else 0
+        name = path.split("/")[-1]
+        for d, axes in _split_dims(spec, mesh, skip=(lead,)):
+            if not (name in ("k", "v") and d == lead + 1):
+                raise ValueError(
+                    f"{cfg.name}: the plan splits decode-state leaf {path!r}"
+                    f" (dim {d}) over {axes}; {why}")
+
+
+def _check_batch(cfg, shape, plan, mesh) -> None:
+    if not plans_lib.batch_divisible(cfg, shape, plan, mesh):
+        raise ValueError(
+            f"a batch of {shape.global_batch} does not split over the batch "
+            f"axes {plan.batch_axes} of {dict(mesh.axes)}")
+
+
+def _logits_spec(cfg: ModelConfig, mesh, plan) -> specs_lib.Spec:
+    """The reference's ``logits_sh``: rows over the batch axes, the vocab
+    over ``model`` when it divides."""
+    return (plan.batch_axes or None,
+            ("model",) if cfg.vocab % dict(mesh.axes)["model"] == 0
+            else None)
+
+
+def _seq_axes(state_specs, mesh) -> tuple:
+    """The axes of extent > 1 the kv caches' positions are split over."""
+    for path, spec in tree_lib.flatten(state_specs, tuples=False).items():
+        if path.split("/")[-1] == "k":
+            lead = 1 if path.startswith("period/") else 0
+            return specs_lib.split_entry(spec[lead + 1], mesh) or ()
+    return ()
+
+
+def _prefill_state_specs(cfg: ModelConfig, plan, state) -> Any:
+    """The layout prefill leaves its state in on a rank: rows over the
+    batch axes, the kv caches' heads over the model axes where the
+    attention computed a block of them."""
+    def one(path, x):
+        lead = (None,) if path.startswith("period/") else ()
+        spec = [plan.batch_axes or None] + [None] * (x.dim() - len(lead) - 1)
+        if path.split("/")[-1] in ("k", "v") \
+                and x.shape[-2] < cfg.n_kv_heads:
+            spec[2] = plan.model_axes
+        return lead + tuple(spec)
+
+    return tree_lib.map_with_path(one, state)
+
+
+def build_train_step(cfg, shape, mesh, multi_pod, dtype=torch.bfloat16,
+                     spec_override=None, plan=None):
+    """The BLADE-FL round on a mesh: not ported yet (ROADMAP 9b-2)."""
+    raise NotImplementedError(
+        "the train step on a mesh (build_train_step: the L1 / L2 layouts, "
+        "differentiable collectives, a vocab-parallel loss) is ROADMAP "
+        "9b-2; launch.train --devices runs the client-sharded engine")
+
+
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                       multi_pod: bool, dtype=torch.bfloat16,
+                       plan: Optional[specs_lib.ShardingPlan] = None, *,
+                       decode_plan: Optional[specs_lib.ShardingPlan] = None,
+                       max_len: int = 0) -> tuple:
+    """(step, (params, batch) abstract, plan). ``step(params, batch) ->
+    (last-token logits, decode state)`` on this rank's blocks (``mesh``:
+    its ``launch.mesh.ClientMesh``). The state leaves in the layout
+    ``decode_state_pspecs`` gives under ``decode_plan`` (default: the
+    prefill's plan), at a capacity of ``max_len`` positions (default
+    ``shape.seq_len``; the decode shape's ``seq_len``): the kv heads the
+    rank's attention computed are gathered over the model axes where the
+    decode layout holds every head, and each rank keeps its block of
+    positions. The logits are placed as the decode step's."""
+    cfg = resolve_cfg(cfg, shape)
+    plan = plan or plans_lib.serve_plan(cfg, shape, mesh, multi_pod)
+    decode_plan = decode_plan or plan
+    max_len = max_len or shape.seq_len
+    _check_batch(cfg, shape, plan, mesh)
+    params_abs = registry.params_specs(cfg, dtype)
+    batch_abs = registry.prefill_batch_specs(cfg, shape, dtype)
+    pspecs = specs_lib.param_pspecs(cfg, mesh, plan, params_abs)
+    sspecs = specs_lib.decode_state_pspecs(
+        cfg, mesh, decode_plan,
+        registry.decode_state_specs(cfg, shape.global_batch, max_len, dtype))
+    _refuse_unported(cfg, mesh, plan, pspecs, sspecs)
+    par = Parallel(mesh, plan, tree_lib.flatten(pspecs, tuples=False))
+
+    def prefill(params, batch):
+        logits, state = transformer.prefill(params, cfg, batch,
+                                            max_len=max_len, par=par)
+        src = _prefill_state_specs(cfg, plan, state)
+        state = tree_lib.tree_map(
+            lambda x, a, b: specs_lib.relayout(x, a, b, mesh), state,
+            src, sspecs)
+        return logits, state
+
+    step = MeshStep(prefill, (pspecs, specs_lib.serve_batch_pspecs(
+        plan, batch_abs)), (_logits_spec(cfg, mesh, plan), sspecs))
+    return step, (params_abs, batch_abs), plan
+
+
+def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                      multi_pod: bool, dtype=torch.bfloat16,
+                      plan: Optional[specs_lib.ShardingPlan] = None
+                      ) -> tuple:
+    """(step, (params, state, token, pos) abstract, plan). ``step(params,
+    state, token, pos) -> (logits, state)`` on this rank's blocks, ``pos``
+    a Python int, the state updated in place; the cache holds
+    ``shape.seq_len`` positions, split over ``plan.seq_axes`` where they
+    divide."""
+    cfg = resolve_cfg(cfg, shape)
+    plan = plan or plans_lib.serve_plan(cfg, shape, mesh, multi_pod)
+    _check_batch(cfg, shape, plan, mesh)
+    params_abs = registry.params_specs(cfg, dtype)
+    dec = registry.decode_input_specs(cfg, shape, dtype)
+    pspecs = specs_lib.param_pspecs(cfg, mesh, plan, params_abs)
+    sspecs = specs_lib.decode_state_pspecs(cfg, mesh, plan, dec["state"])
+    _refuse_unported(cfg, mesh, plan, pspecs, sspecs)
+    par = Parallel(mesh, plan, tree_lib.flatten(pspecs, tuples=False),
+                   seq_axes=_seq_axes(sspecs, mesh))
+
+    def decode(params, state, token, pos: int):
+        return transformer.decode_step(params, cfg, state, token, pos,
+                                       par=par)
+
+    step = MeshStep(decode, (pspecs, sspecs, (plan.batch_axes or None,),
+                             None),
+                    (_logits_spec(cfg, mesh, plan), sspecs))
+    return step, (params_abs, dec["state"], dec["token"], dec["pos"]), plan
+
+
+def build_step(kind: str, cfg, shape, mesh, multi_pod,
+               dtype=torch.bfloat16):
+    """The reference's dispatch: ``"train"`` (ROADMAP 9b-2), ``"prefill"``
+    or ``"decode"``; returns (step, abstract inputs, plan)."""
+    if kind == "train":
+        step, abs_in, plan, _ = build_train_step(cfg, shape, mesh,
+                                                 multi_pod, dtype)
+        return step, abs_in, plan
+    if kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh, multi_pod, dtype)
+    return build_decode_step(cfg, shape, mesh, multi_pod, dtype)

@@ -108,19 +108,69 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
         .reshape(b, t, n_heads, hd)
 
 
-def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
-         positions: torch.Tensor):
+def _heads(par, x: torch.Tensor, w: torch.Tensor, n_heads: int, hd: int,
+           gather: bool) -> Tuple[torch.Tensor, int]:
+    """(x @ w as heads [B, S, h, hd], the first head's index). Under
+    ``par`` ``w`` may be a column block over the model axes: its heads
+    are this rank's block of ``n_heads`` unless ``gather``, or unless the
+    block cuts a head, in which case the columns are gathered over the
+    model axes first (all heads)."""
     b, s, _ = x.shape
+    y = x @ w
+    lo = 0
+    if par is not None and y.shape[-1] < n_heads * hd:
+        if gather or y.shape[-1] % hd:
+            y = par.gather_model(y, -1)
+        else:
+            lo = par.model_index * (y.shape[-1] // hd)
+    return y.reshape(b, s, -1, hd), lo
+
+
+def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor, par=None, gather_q: bool = False,
+         gather_kv: bool = False):
+    """(q, k, v, index of q's first head, index of k's first head).
+    Without ``par`` every head; under it each projection's heads as
+    :func:`_heads` gives them (``gather_q`` / ``gather_kv``: all)."""
     hd = cfg.resolved_head_dim
-    q = (x @ params["w_q"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ params["w_k"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ params["w_v"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q, q_lo = _heads(par, x, params["w_q"], cfg.n_heads, hd, gather_q)
+    k, kv_lo = _heads(par, x, params["w_k"], cfg.n_kv_heads, hd, gather_kv)
+    v, _ = _heads(par, x, params["w_v"], cfg.n_kv_heads, hd, gather_kv)
     if cfg.qk_norm:
         q = layers.rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = layers.rms_norm(params["k_norm"], k, cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, q_lo, kv_lo
+
+
+def _kv_for(k: torch.Tensor, kv_lo: int, q_lo: int, hq: int,
+            rep: int) -> torch.Tensor:
+    """The kv heads that query heads ``[q_lo, q_lo + hq)`` read, from
+    ``k`` [B, T, h, hd] holding kv heads from ``kv_lo`` on (query head
+    ``i`` reads kv head ``i // rep``): a slice whose GQA grouping the
+    flash kernel and ``_repeat_kv`` keep, else one kv head a query
+    head."""
+    g0, g1 = q_lo // rep, (q_lo + hq - 1) // rep + 1
+    k = k[:, :, g0 - kv_lo:g1 - kv_lo]
+    if g1 - g0 == 1 or (q_lo % rep == 0 and hq % rep == 0):
+        return k
+    first = q_lo - g0 * rep
+    return _repeat_kv(k, (g1 - g0) * rep)[:, :, first:first + hq]
+
+
+def _out_proj(par, cfg: ModelConfig, out: torch.Tensor, q_lo: int,
+              w_o: torch.Tensor) -> torch.Tensor:
+    """``out`` (the attention output of query heads from ``q_lo`` on,
+    [..., h * hd]) times ``w_o``. A row block of ``w_o`` (its contraction
+    dim split over the model axes) takes this rank's columns of ``out``
+    and the partial products are summed over the model axes; a whole
+    ``w_o`` has every head in ``out``."""
+    rows = w_o.shape[0]
+    if par is not None and rows < cfg.n_heads * cfg.resolved_head_dim:
+        c0 = par.model_index * rows - q_lo * cfg.resolved_head_dim
+        return par.sum_model(out[..., c0:c0 + rows] @ w_o)
+    return out @ w_o
 
 
 def _flash_mask(mask_info: dict) -> dict:
@@ -140,20 +190,42 @@ def _check_position(pos: int, capacity: int) -> None:
 
 
 def gqa_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, mask_info: dict
+                positions: torch.Tensor, mask_info: dict, par=None
                 ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward. Returns (out, kv) where kv feeds cache fill.
     The window and the prefix apply only under the causal mask, as the
-    reference's ``build_mask`` applies them."""
+    reference's ``build_mask`` applies them. Under ``par`` (tensor
+    parallel: ``models/parallel.py``) the flash kernel runs on this rank's
+    query heads and the kv heads they read, and kv holds this rank's kv
+    heads (every kv head where their columns were gathered)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(params, cfg, x, positions)
-    out = flash_ops.mha(q, k, v, **_flash_mask(mask_info))
-    out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
-    return out @ params["w_o"], {"k": k, "v": v}
+    q, k, v, q_lo, kv_lo = _qkv(params, cfg, x, positions, par)
+    kq, vq = k, v
+    if q.shape[2] < cfg.n_heads:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        kq = _kv_for(k, kv_lo, q_lo, q.shape[2], rep)
+        vq = _kv_for(v, kv_lo, q_lo, q.shape[2], rep)
+    out = flash_ops.mha(q, kq, vq, **_flash_mask(mask_info))
+    out = out.reshape(b, s, q.shape[2] * cfg.resolved_head_dim)
+    return _out_proj(par, cfg, out, q_lo, params["w_o"]), {"k": k, "v": v}
+
+
+def _valid_slots(cfg: ModelConfig, pos: int, idx: torch.Tensor,
+                 s_cache: int) -> torch.Tensor:
+    """Which of the cache slots ``idx`` hold a position the token at
+    ``pos`` attends to: a ring of ``s_cache`` slots under a window, else
+    the positions up to ``pos``."""
+    if cfg.sliding_window:
+        wraps = pos // s_cache + (idx <= pos % s_cache).to(idx.dtype)
+        abs_pos = (wraps - 1) * s_cache + idx
+        return (abs_pos >= 0) & (abs_pos <= pos) \
+            & (abs_pos > pos - cfg.sliding_window)
+    return idx <= pos
 
 
 def gqa_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
-               pos: int, cache: Params) -> Tuple[torch.Tensor, Params]:
+               pos: int, cache: Params, par=None
+               ) -> Tuple[torch.Tensor, Params]:
     """Single-token decode. x_t: [B, d]; pos: the current position (a
     Python int, so the step makes no host sync). Writes the step's k and v
     into ``cache`` in place and returns it.
@@ -162,29 +234,91 @@ def gqa_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
     window); attention masks out unwritten and out-of-window slots by each
     slot's absolute position. An unwindowed cache holds positions below
     its capacity: a later ``pos`` raises ``ValueError`` before any write
-    (the reference clamps the write onto the last slot)."""
+    (the reference clamps the write onto the last slot). Under ``par``
+    see :func:`_gqa_decode_par`."""
+    if par is not None and (par.model_axes or par.seq_axes):
+        return _gqa_decode_par(params, cfg, x_t, pos, cache, par)
     b = x_t.shape[0]
     hd = cfg.resolved_head_dim
     s_cache = cache["k"].shape[1]
     if not cfg.sliding_window:
         _check_position(pos, s_cache)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
-    q, k, v = _qkv(params, cfg, x_t[:, None, :], posv)
+    q, k, v, _, _ = _qkv(params, cfg, x_t[:, None, :], posv)
     slot = pos % s_cache if cfg.sliding_window else pos
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
-    idx = torch.arange(s_cache, device=x_t.device)
-    if cfg.sliding_window:
-        wraps = pos // s_cache + (idx <= pos % s_cache).to(idx.dtype)
-        abs_pos = (wraps - 1) * s_cache + idx
-        valid = (abs_pos >= 0) & (abs_pos <= pos) \
-            & (abs_pos > pos - cfg.sliding_window)
-    else:
-        valid = idx <= pos
+    valid = _valid_slots(cfg, pos, torch.arange(s_cache, device=x_t.device),
+                         s_cache)
     mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, :]
     out = _sdpa(q, _repeat_kv(cache["k"], cfg.n_heads),
                 _repeat_kv(cache["v"], cfg.n_heads), mask, hd ** -0.5)
     return out.reshape(b, cfg.n_heads * hd) @ params["w_o"], cache
+
+
+def _sdpa_blocks(q, k, v, valid, scale, par):
+    """Attention of q [B, 1, H, hd] over the positions split into blocks
+    over ``par.seq_axes``: this rank's block k, v [B, T, H, hd] with its
+    ``valid`` slots [T]. Each rank's softmax over its block gives an
+    output and a log-sum-exp, and the blocks' partials combine exactly
+    (weights ``exp(lse_r - lse)``; a block with no valid slot weighs
+    0). The partials are gathered and combined in fp32, whatever the
+    cache's dtype, and the result cast back to it."""
+    logits = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32) * scale
+    logits = logits.masked_fill(~valid, float("-inf"))
+    m = logits.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    l_sum = p.sum(-1, keepdim=True)                          # [B, H, 1, 1]
+    out = torch.einsum("bhst,bthd->bshd", p / l_sum.clamp_min(1e-30),
+                       v.to(torch.float32))
+    lse = torch.where(l_sum > 0, m + torch.log(l_sum),
+                      torch.full_like(m, float("-inf")))
+    both = par.gather_seq(torch.cat([out, lse.permute(0, 2, 1, 3)], dim=-1))
+    outs, lses = both[..., :-1], both[..., -1:]
+    w = torch.exp(lses - torch.logsumexp(lses, dim=0, keepdim=True))
+    return (w * outs).sum(0).to(v.dtype)
+
+
+def _gqa_decode_par(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
+                    pos: int, cache: Params, par
+                    ) -> Tuple[torch.Tensor, Params]:
+    """:func:`gqa_decode` on a mesh. The cache holds every kv head, so the
+    step's k and v are gathered over the model axes. With the cache's
+    positions split over ``par.seq_axes`` (each rank one block of slots)
+    the query of every head is gathered too, only the rank holding slot
+    ``pos`` (``pos % S_cache`` under a window) writes it, each rank
+    attends over its block and the partials combine exactly
+    (:func:`_sdpa_blocks`); the output is then cut back to this rank's
+    heads for the row block of ``w_o``. With every position on every rank
+    each rank attends for its own query heads."""
+    b = x_t.shape[0]
+    hd = cfg.resolved_head_dim
+    s_block = cache["k"].shape[1]
+    s_cache = s_block * par.seq_extent
+    if not cfg.sliding_window:
+        _check_position(pos, s_cache)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
+    q, k, v, q_lo, _ = _qkv(params, cfg, x_t[:, None, :], posv, par,
+                            gather_q=bool(par.seq_axes), gather_kv=True)
+    owner, slot = divmod(pos % s_cache if cfg.sliding_window else pos,
+                         s_block)
+    if owner == par.seq_index:
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+    idx = par.seq_index * s_block + torch.arange(s_block, device=x_t.device)
+    valid = _valid_slots(cfg, pos, idx, s_cache)
+    hq = q.shape[2]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kq = _repeat_kv(_kv_for(cache["k"], 0, q_lo, hq, rep), hq)
+    vq = _repeat_kv(_kv_for(cache["v"], 0, q_lo, hq, rep), hq)
+    if par.seq_axes:
+        out = _sdpa_blocks(q, kq, vq, valid, hd ** -0.5, par)
+    else:
+        mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, :]
+        out = _sdpa(q, kq, vq, mask, hd ** -0.5)
+    return _out_proj(par, cfg, out.reshape(b, hq * hd), q_lo,
+                     params["w_o"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -306,13 +440,15 @@ def mla_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def attn_forward(params, cfg, x, positions, mask_info):
+def attn_forward(params, cfg, x, positions, mask_info, par=None):
+    """``par``: the tensor-parallel context (GQA only: the step builder
+    refuses MLA leaves split over an axis of extent > 1)."""
     if cfg.mla is not None:
         return mla_forward(params, cfg, x, positions, mask_info)
-    return gqa_forward(params, cfg, x, positions, mask_info)
+    return gqa_forward(params, cfg, x, positions, mask_info, par)
 
 
-def attn_decode(params, cfg, x_t, pos, cache):
+def attn_decode(params, cfg, x_t, pos, cache, par=None):
     if cfg.mla is not None:
         return mla_decode(params, cfg, x_t, pos, cache)
-    return gqa_decode(params, cfg, x_t, pos, cache)
+    return gqa_decode(params, cfg, x_t, pos, cache, par)

@@ -111,7 +111,12 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
     return p
 
 
-def mlp_apply(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_apply(params: Params, x: torch.Tensor, kind: str, par=None
+              ) -> torch.Tensor:
+    """The MLP of ``x``. ``par`` (``models/parallel.py``): ``w_in`` /
+    ``w_gate`` are column blocks and ``w_out`` the matching row block over
+    the model axes, so the product is this rank's partial sum, summed over
+    them."""
     h = x @ params["w_in"]
     if kind == "swiglu":
         h = F.silu(x @ params["w_gate"]) * h
@@ -123,7 +128,8 @@ def mlp_apply(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown mlp kind {kind}")
-    return h @ params["w_out"]
+    out = h @ params["w_out"]
+    return out if par is None else par.sum_model(out)
 
 
 # ---------------------------------------------------------------------------

@@ -75,24 +75,28 @@ def capacity_of(cfg: ModelConfig, t: int) -> int:
     return max(int(t * m.top_k * m.capacity_factor / m.n_experts), 4)
 
 
-def route(logits: torch.Tensor, cfg: ModelConfig) -> Routing:
+def route(logits: torch.Tensor, cfg: ModelConfig, par=None) -> Routing:
     """logits: [T, E] fp32 router logits -> the routing of the T tokens.
     Slots are given one routing choice at a time: choice j of a token
     ranks after every choice j' < j and after choice j of earlier tokens.
-    Makes no host sync."""
+    Makes no host sync. ``par`` (``models/parallel.py``, the tokens' rows
+    split over its batch axes): the slots and the capacity are those of
+    every rank's tokens in row order, from their gathered choices, so
+    each rank keeps and drops what one device would."""
     m = cfg.moe
     t, n_exp = logits.shape
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, :m.top_k], idx[:, :m.top_k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-    capacity = capacity_of(cfg, t)
+    every = gate_idx if par is None else par.gather_batch(gate_idx)
+    capacity = capacity_of(cfg, every.shape[0])
 
     experts = torch.arange(n_exp, device=logits.device)
     counts = torch.zeros(n_exp, dtype=torch.int64, device=logits.device)
     slot_list, keep_list = [], []
     for j in range(m.top_k):
-        e_j = gate_idx[:, j]                                       # [T]
+        e_j = every[:, j]                                          # [T]
         onehot = (e_j[:, None] == experts).to(torch.int64)          # [T, E]
         ranks = onehot.cumsum(0) - 1          # rank among this choice
         slot = ranks.gather(1, e_j[:, None])[:, 0] + counts[e_j]
@@ -100,8 +104,11 @@ def route(logits: torch.Tensor, cfg: ModelConfig) -> Routing:
         slot_list.append(torch.where(keep, slot, capacity))
         keep_list.append(keep)
         counts = counts + onehot.sum(0)
-    return Routing(probs, gate_vals, gate_idx, torch.stack(slot_list, 1),
-                   torch.stack(keep_list, 1), capacity)
+    slots, keeps = torch.stack(slot_list, 1), torch.stack(keep_list, 1)
+    if par is not None:
+        rows = slice(par.batch_index * t, (par.batch_index + 1) * t)
+        slots, keeps = slots[rows], keeps[rows]
+    return Routing(probs, gate_vals, gate_idx, slots, keeps, capacity)
 
 
 def _expert_ffn(p: Params, h: torch.Tensor, kind: str) -> torch.Tensor:
@@ -121,16 +128,19 @@ def _expert_ffn(p: Params, h: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
-              drops: Optional[List[Tuple[int, torch.Tensor]]] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              drops: Optional[List[Tuple[int, torch.Tensor]]] = None,
+              par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (out [B, S, D], the Switch-style load-balance aux
     loss, a scalar). With ``drops`` given, appends (the call's T * k
-    assignments, the count dropped as a device tensor): no host sync."""
+    assignments, the count dropped as a device tensor): no host sync.
+    ``par``: x is this rank's block of rows, routed with every rank's
+    (:func:`route`); the aux loss is then this rank's tokens' own (the
+    serve steps discard it)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    r = route(xt.to(torch.float32) @ params["router"], cfg)
+    r = route(xt.to(torch.float32) @ params["router"], cfg, par)
     if drops is not None:
         drops.append((t * m.top_k, (~r.keeps).sum()))
 

@@ -1,19 +1,28 @@
 """Uniform model API over the LM zoo (the JAX package's
 ``models/registry.py``): init, the training loss, the loss of a
-client-stacked model for the round engine, and training and prompt
-batches.
+client-stacked model for the round engine, training and prompt batches,
+and the abstract shapes of every input of an (arch x input shape) pair.
 
 Init and batches draw from an explicit ``torch.Generator`` on the target
 device: at full width the weights are drawn on the card, never copied up
 from the host. The draws differ from ``jax.random``'s; tests carry the
 reference's params and batches across (``weights.lm_params_from_jax``)
 instead.
+
+The abstract-shape helpers (``params_specs``, ``train_batch_specs``,
+``prefill_batch_specs``, ``decode_state_specs``, ``decode_input_specs``)
+return tensors on the ``meta`` device with the reference's global shapes
+and dtypes (tokens int32, as the reference's specs): they allocate
+nothing, so they run at full size (kimi-k2-1t, jamba-398b). The params
+and the decode state are built by the port's own init under torch's fake
+tensor mode, so their tree is the one the model reads.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -110,3 +119,84 @@ def make_prefill_batch(generator: torch.Generator, cfg: ModelConfig,
     if cfg.audio_frontend:
         return {"frames": normal(b, s, cfg.d_model)}
     return {"tokens": tokens(b, s)}
+
+
+# ---------------------------------------------------------------------------
+# Abstract shapes (meta tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(n) for n in shape), dtype=dtype,
+                       device="meta")
+
+
+def _abstract(build) -> Any:
+    """``build()``'s tree of tensors, run under fake tensors, as meta
+    tensors of the same shapes and dtypes."""
+    with FakeTensorMode():
+        tree = build()
+    return tree_lib.tree_map(lambda x: _meta(x.shape, x.dtype), tree)
+
+
+def params_specs(cfg: ModelConfig, dtype=torch.bfloat16,
+                 n_clients: int = 1) -> Dict[str, Any]:
+    """The params' shapes and dtypes; with a leading client axis ``[C,
+    ...]`` when ``n_clients > 1``."""
+    p = _abstract(lambda: transformer.init_lm(torch.Generator(), cfg, dtype))
+    if n_clients > 1:
+        p = tree_lib.tree_map(
+            lambda a: _meta((n_clients,) + tuple(a.shape), a.dtype), p)
+    return p
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                      dtype=torch.bfloat16, n_clients: int = 1
+                      ) -> Dict[str, torch.Tensor]:
+    """A training batch's shapes; with ``n_clients > 1`` a leading client
+    axis ``[C, B / C, ...]`` (clients own disjoint local data)."""
+    b, s = shape.global_batch, shape.seq_len
+    if b % n_clients != 0:
+        raise ValueError(f"global_batch={b} must divide evenly over "
+                         f"n_clients={n_clients}")
+    lead = (n_clients, b // n_clients) if n_clients > 1 else (b,)
+    if cfg.family == "vlm":
+        p = cfg.vlm_prefix_len
+        return {"patches": _meta(lead + (p, cfg.d_model), dtype),
+                "tokens": _meta(lead + (s - p,), torch.int32)}
+    if cfg.audio_frontend:
+        return {"frames": _meta(lead + (s, cfg.d_model), dtype),
+                "mask_positions": _meta(lead + (s,), torch.bool),
+                "targets": _meta(lead + (s,), torch.int32)}
+    return {"tokens": _meta(lead + (s,), torch.int32)}
+
+
+def prefill_batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                        dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """A prompt batch's shapes (:func:`make_prefill_batch`'s layout)."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "vlm":
+        p = cfg.vlm_prefix_len
+        return {"patches": _meta((b, p, cfg.d_model), dtype),
+                "tokens": _meta((b, s - p), torch.int32)}
+    if cfg.audio_frontend:
+        return {"frames": _meta((b, s, cfg.d_model), dtype)}
+    return {"tokens": _meta((b, s), torch.int32)}
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The decode state's shapes (``transformer.init_decode_state``)."""
+    return _abstract(lambda: transformer.init_decode_state(
+        cfg, batch, max_len, dtype, device="cpu"))
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                       dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The decode step's inputs: ``token`` [B] int32, the ``state`` at a
+    capacity of ``shape.seq_len``, and ``pos``, which the port's decode
+    takes as a Python int (the step makes no host sync): its entry is the
+    type ``int``, where the reference has a 0-dim int32 array."""
+    b, s = shape.global_batch, shape.seq_len
+    return {"token": _meta((b,), torch.int32), "pos": int,
+            "state": decode_state_specs(cfg, b, s, dtype)}

@@ -37,6 +37,17 @@ Public API:
 ``decode_step`` updates ``state`` in place (the attention caches by slice
 assignment, the recurrent states by ``copy_``) and returns it.
 
+``_embed_inputs``, ``forward``, ``prefill`` and ``decode_step`` take an
+optional ``par`` (``models/parallel.py``): one rank's part of a step placed
+on a mesh (``launch/steps.py``). Each block's leaves are gathered over the
+FSDP axes just before it runs; a GQA block with its heads split over the
+model axes runs tensor-parallel (``attention.gqa_forward`` /
+``gqa_decode``), and so do a dense MLP with its hidden width split
+(``layers.mlp_apply``) and a vocab-split embedding: a lookup by range,
+summed over the model axes, and a head whose logits stay split on the
+vocab. An MoE block on a batch split over ranks routes with every rank's
+choices (``moe.route``). Without ``par`` nothing changes.
+
 On the card the GQA and MLA forwards launch the flash kernel and the Mamba
 forward the scan kernel; under grad both go through their
 ``autograd.Function`` (``kernels/flash_attention/ops.py::_FlashFn``,
@@ -136,47 +147,56 @@ def _init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
-def _mlp_half(p: Params, cfg: ModelConfig, x, moe_drops=None):
+def _mlp_half(p: Params, cfg: ModelConfig, x, moe_drops=None, par=None):
     """(x + the block's MLP (dense or MoE) of norm2(x), the MoE's
     load-balance loss or None), x: [..., D]; every token of x is one of the
     MoE's T (the reference's [B, S, D] and, in decode, [B, 1, D])."""
     h2 = layers.rms_norm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        out, aux = moe_lib.moe_apply(p["moe"], cfg,
-                                     h2.reshape(-1, 1, cfg.d_model),
-                                     moe_drops)
+        out, aux = moe_lib.moe_apply(
+            p["moe"], cfg, h2.reshape(-1, 1, cfg.d_model), moe_drops,
+            par if par is not None and par.batch_axes else None)
         return x + out.reshape(x.shape), aux
-    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp), None
+    split = par is not None and p["mlp"]["w_out"].shape[0] < cfg.d_ff
+    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp,
+                                par if split else None), None
 
 
 def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
-                   mask: dict, moe_drops=None):
+                   mask: dict, moe_drops=None, par=None):
     """Full-sequence block. Returns (x, aux or None, cache)."""
     h = layers.rms_norm(p["norm1"], x, cfg.norm_eps)
     if kind == "attn":
         out, cache = attention.attn_forward(p["mixer"], cfg, h, positions,
-                                            mask)
+                                            mask, par)
     else:
         with torch.profiler.record_function(MIXER_RANGE + kind):
             out, cache = _FORWARD[kind](p["mixer"], cfg, h)
     x = x + out
     aux = None
     if "norm2" in p:
-        x, aux = _mlp_half(p, cfg, x, moe_drops)
+        x, aux = _mlp_half(p, cfg, x, moe_drops, par)
     return x, aux, cache
 
 
 def _block_decode(p: Params, cfg: ModelConfig, kind: str, x_t, pos: int,
-                  cache: Params):
+                  cache: Params, par=None):
     h = layers.rms_norm(p["norm1"], x_t, cfg.norm_eps)
     if kind == "attn":
-        out, cache = attention.attn_decode(p["mixer"], cfg, h, pos, cache)
+        out, cache = attention.attn_decode(p["mixer"], cfg, h, pos, cache,
+                                           par)
     else:
         out, cache = _DECODE[kind](p["mixer"], cfg, h, cache)
     x_t = x_t + out
     if "norm2" in p:
-        x_t, _ = _mlp_half(p, cfg, x_t)
+        x_t, _ = _mlp_half(p, cfg, x_t, par=par)
     return x_t, cache
+
+
+def _unshard(par, tree: Params, path: str, stacked: bool = False) -> Params:
+    """``tree`` with its FSDP blocks gathered under ``par`` (as it is
+    without)."""
+    return tree if par is None else par.unshard(tree, path, stacked)
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +240,22 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+def _lookup(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+            par=None) -> torch.Tensor:
+    """The embeddings of ``tokens``. Under ``par`` a vocab block of the
+    table (shorter than the vocab) looks up the tokens in its range, zeros
+    elsewhere, summed over the model axes."""
+    if par is None or emb.shape[0] == cfg.vocab:
+        return emb[tokens]
+    rows = emb.shape[0]
+    local = tokens - par.model_index * rows
+    inside = (local >= 0) & (local < rows)
+    out = emb[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0)
+    return par.sum_model(out)
+
+
 def _embed_inputs(params: Params, cfg: ModelConfig,
-                  batch: Dict[str, torch.Tensor]):
+                  batch: Dict[str, torch.Tensor], par=None):
     """(the model's input [B, S, D], labels or None, loss mask or None), as
     the reference's ``_embed_inputs`` builds them: for a VLM ``patches``
     [B, P, D] then the embeddings of ``tokens`` [B, S - P] (P may be all of
@@ -231,11 +265,13 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
     frames at ``mask_positions`` [B, S] (0/1) when given, plus the
     positional conv of the result, the labels ``targets`` and the mask
     ``mask_positions`` as float; else the embeddings of ``tokens``, with
-    ``labels`` and ``loss_mask`` as given."""
-    emb = params["embed"]
+    ``labels`` and ``loss_mask`` as given. ``par``: see
+    :func:`_lookup`."""
+    emb = _unshard(par, params["embed"], "embed")
     if cfg.family == "vlm":
         patches = batch["patches"].to(emb.dtype)
-        x = torch.cat([patches, emb[batch["tokens"]]], dim=1)
+        x = torch.cat([patches, _lookup(emb, batch["tokens"], cfg, par)],
+                      dim=1)
         labels = batch.get("labels")
         if labels is None:
             return x, None, None
@@ -255,12 +291,14 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
             mask = mask.to(torch.float32)
         x = frames + layers.causal_conv_apply(params["pos_conv"], frames)
         return x, batch.get("targets"), mask
-    return emb[batch["tokens"]], batch.get("labels"), batch.get("loss_mask")
+    return (_lookup(emb, batch["tokens"], cfg, par), batch.get("labels"),
+            batch.get("loss_mask"))
 
 
 def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             want_cache: bool = False, remat: bool = True,
-            moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None):
+            moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None,
+            par=None):
     """x: [B, S, D] embeddings -> (hidden [B, S, D], aux, caches). ``aux``
     is the sum of the MoE layers' load-balance losses (a 0-dim fp32
     tensor, 0 without MoE). ``caches`` is ``{"prefix": [...], "period":
@@ -270,7 +308,8 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     its period body) when the forward is differentiated (grad mode on, x
     requiring grad); it changes no value. With
     ``moe_drops`` given, each MoE layer appends its (assignments, dropped
-    count) to it (``moe.moe_apply``)."""
+    count) to it (``moe.moe_apply``). ``par``: one rank's part of a step
+    on a mesh (``models/parallel.py``)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -279,9 +318,10 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
             "window": cfg.sliding_window}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix_caches = []
-    for blk in params.get("prefix", []):
-        x, aux, c = _block_forward(blk, cfg, "attn", x, positions, mask,
-                                   moe_drops)
+    for i, blk in enumerate(params.get("prefix", [])):
+        x, aux, c = _block_forward(_unshard(par, blk, f"prefix/{i}"), cfg,
+                                   "attn", x, positions, mask, moe_drops,
+                                   par)
         if aux is not None:
             aux_total = aux_total + aux
         prefix_caches.append(c)
@@ -289,8 +329,9 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     def period_body(x, aux_acc, blocks):
         caches = {}
         for j, kind in enumerate(cfg.pattern):
-            x, aux, c = _block_forward(blocks[f"j{j}"], cfg, kind, x,
-                                       positions, mask, moe_drops)
+            blk = _unshard(par, blocks[f"j{j}"], f"period/j{j}", True)
+            x, aux, c = _block_forward(blk, cfg, kind, x, positions, mask,
+                                       moe_drops, par)
             if aux is not None:
                 aux_acc = aux_acc + aux
             if want_cache:
@@ -314,10 +355,13 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                           "period": _stack(per_period)}
 
 
-def _lm_head(params: Params, cfg: ModelConfig, h: torch.Tensor
+def _lm_head(params: Params, cfg: ModelConfig, h: torch.Tensor, par=None
              ) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    """Logits of ``h``; under ``par`` of the vocab block this rank holds
+    (every vocab entry when the head is whole)."""
+    if cfg.tie_embeddings:
+        return h @ _unshard(par, params["embed"], "embed").T
+    return h @ _unshard(par, params["lm_head"], "lm_head")
 
 
 def ce_chunk(batch: int, seq: int, vocab: int, chunk: int = 0) -> int:
@@ -438,15 +482,18 @@ def _fill_attn_cache(cfg: ModelConfig, kv: Params, max_len: int,
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, max_len: int = 0,
-            moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None):
+            moe_drops: Optional[List[Tuple[int, torch.Tensor]]] = None,
+            par=None):
     """Run the full prompt (a batch as :func:`_embed_inputs` takes it);
-    return (last-token logits [B, V], decode state). ``moe_drops`` as in
-    :func:`forward`."""
-    x, _, _ = _embed_inputs(params, cfg, batch)
+    return (last-token logits [B, V], decode state). ``moe_drops`` and
+    ``par`` as in :func:`forward`; under ``par`` the logits are this
+    rank's vocab block and the kv caches hold the kv heads its attention
+    computed (``launch/steps.py`` moves them to the decode layout)."""
+    x, _, _ = _embed_inputs(params, cfg, batch, par)
     max_len = max_len or x.shape[1]
     h, _, caches = forward(params, cfg, x, want_cache=True, remat=False,
-                           moe_drops=moe_drops)
-    logits = _lm_head(params, cfg, h[:, -1, :])
+                           moe_drops=moe_drops, par=par)
+    logits = _lm_head(params, cfg, h[:, -1, :], par)
     state: Params = {}
     if caches["prefix"]:
         state["prefix"] = [_fill_attn_cache(cfg, c, max_len, 1)
@@ -460,18 +507,22 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def decode_step(params: Params, cfg: ModelConfig, state: Params,
-                token: torch.Tensor, pos: int):
+                token: torch.Tensor, pos: int, par=None):
     """token: [B] int; pos: the position being decoded (a Python int: the
     step makes no host sync). Returns (logits [B, V], state), ``state``
-    updated in place."""
-    x_t = params["embed"][token]
-    for blk, cache in zip(params.get("prefix", []), state.get("prefix", [])):
-        x_t, _ = _block_decode(blk, cfg, "attn", x_t, pos, cache)
+    updated in place. ``par`` as in :func:`forward` (the logits are then
+    this rank's vocab block)."""
+    x_t = _lookup(_unshard(par, params["embed"], "embed"), token, cfg, par)
+    for i, (blk, cache) in enumerate(zip(params.get("prefix", []),
+                                         state.get("prefix", []))):
+        x_t, _ = _block_decode(_unshard(par, blk, f"prefix/{i}"), cfg,
+                               "attn", x_t, pos, cache, par)
     for p in range(_n_periods(cfg)):
         blocks = _period(params["period"], p)
         caches = _period(state["period"], p)
         for j, kind in enumerate(cfg.pattern):
-            x_t, _ = _block_decode(blocks[f"j{j}"], cfg, kind, x_t, pos,
-                                   caches[f"j{j}"])
+            blk = _unshard(par, blocks[f"j{j}"], f"period/j{j}", True)
+            x_t, _ = _block_decode(blk, cfg, kind, x_t, pos,
+                                   caches[f"j{j}"], par)
     x_t = layers.rms_norm(params["final_norm"], x_t, cfg.norm_eps)
-    return _lm_head(params, cfg, x_t), state
+    return _lm_head(params, cfg, x_t, par), state

@@ -1,5 +1,6 @@
-"""Carry layouts of the client-sharded engine (the JAX package's
-``sharding/plans.py``, its client-axis part).
+"""Layouts on a mesh (the JAX package's ``sharding/plans.py``): the carry
+layouts of the client-sharded engine, and the per-(architecture x input
+shape x mesh) placement of an LM's steps.
 
 The engine (``core/rounds.py`` with ``mesh=``) runs one process a rank,
 and each rank holds one contiguous block of the client axis: rank ``d`` of
@@ -10,14 +11,41 @@ head ``prev_hash``) and every metric row are replicated. The cohort
 driver's plan (:class:`CohortCarryPlan`) lays out only the ``[A, ...]``
 cohort stack; the enrolled population lives in each rank's host store.
 
-The reference's ``train_plan``, ``serve_plan`` and ``batch_divisible``
-place an LM's weights with FSDP and tensor axes; they come with the port of
-``launch/steps.py``'s mesh builders.
+:func:`train_plan` and :func:`serve_plan` give an LM step's
+``specs.ShardingPlan`` by the reference's rules: the client count C and
+layout are an explicit table (:data:`_TRAIN_TABLE`; BLADE-FL needs C model
+replicas somewhere, the protocol's real memory price at scale): small and
+mid archs run the client-sharded layout (L1, C = data extent), giants run
+client-replicated + FSDP (L2) with few clients; serving shards the batch
+over the data axes, adds FSDP past :data:`_FSDP_SERVE_BYTES` of
+tensor-parallel params a device, and shards the decode cache's sequence.
+``launch/steps.py`` builds the serve steps on these plans; the train
+step that uses :func:`train_plan` is not ported yet (ROADMAP 9b-2).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.sharding.specs import ShardingPlan, _extent
+
+# arch -> (layout, single-pod C, multi-pod C)
+_TRAIN_TABLE = {
+    "xlstm-125m": ("L1", 16, 32),
+    "qwen3-32b": ("L2", 4, 4),
+    "nemotron-4-15b": ("L1", 16, 32),
+    "jamba-1.5-large-398b": ("L2", 2, 2),
+    "paligemma-3b": ("L1", 16, 32),
+    "hubert-xlarge": ("L1", 16, 32),
+    "phi4-mini-3.8b": ("L1", 16, 32),
+    "kimi-k2-1t-a32b": ("L2", 2, 2),   # > HBM at 256 chips (the reference)
+    "minicpm-2b": ("L1", 16, 32),
+    "deepseek-v2-236b": ("L2", 2, 2),
+}
+
+# serve: FSDP when the tensor-parallel params a device exceed ~12 GB
+_FSDP_SERVE_BYTES = 12e9
 
 
 def _client_axis_extents(mesh, client_axes: Tuple[str, ...],
@@ -161,3 +189,55 @@ def gathered_mix_models_moved(n_clients: int, n_shards: int) -> int:
         raise ValueError(
             f"n_clients={n_clients} must divide over n_shards={n_shards}")
     return n_clients - n_clients // n_shards
+
+
+def data_axes(multi_pod: bool) -> Tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def train_plan(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               multi_pod: bool) -> ShardingPlan:
+    """The training layout of ``cfg.name`` (:data:`_TRAIN_TABLE`): L1
+    shards the clients over the data axes (aggregation is the all-reduce
+    over the client axis); L2 replicates the few clients, shards the
+    params over the data axes (FSDP) and the per-client batch likewise."""
+    layout, c_single, c_multi = _TRAIN_TABLE[cfg.name]
+    c = c_multi if multi_pod else c_single
+    daxes = data_axes(multi_pod)
+    if layout == "L1":
+        return ShardingPlan(n_clients=c, client_axes=daxes, batch_axes=(),
+                            fsdp_axes=())
+    return ShardingPlan(n_clients=c, client_axes=(), batch_axes=daxes,
+                        fsdp_axes=daxes)
+
+
+def serve_plan(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               multi_pod: bool) -> ShardingPlan:
+    """The serving layout: prefill shards the batch over the data axes;
+    decode at a batch of 16 or more shards it likewise and the cache's
+    sequence over ``model``; a smaller decode batch (long_500k's 1) is
+    replicated and the cache's sequence sharded over every axis. FSDP over
+    the data axes when bf16 params split 16 ways exceed
+    :data:`_FSDP_SERVE_BYTES`."""
+    daxes = data_axes(multi_pod)
+    tp_bytes = cfg.param_count() * 2 / 16
+    fsdp = daxes if tp_bytes > _FSDP_SERVE_BYTES else ()
+    if shape.kind == "prefill":
+        return ShardingPlan(n_clients=1, client_axes=(), batch_axes=daxes,
+                            fsdp_axes=fsdp)
+    if shape.global_batch >= 16:  # decode_32k: batch over data, seq over model
+        return ShardingPlan(n_clients=1, client_axes=(), batch_axes=daxes,
+                            fsdp_axes=fsdp, seq_axes=("model",))
+    seq = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ShardingPlan(n_clients=1, client_axes=(), batch_axes=(),
+                        fsdp_axes=fsdp, seq_axes=seq)
+
+
+def batch_divisible(cfg: ModelConfig, shape: ShapeConfig,
+                    plan: ShardingPlan, mesh) -> bool:
+    """Whether each client's batch splits evenly over the plan's batch
+    axes."""
+    if plan.batch_axes:
+        per = shape.global_batch // max(plan.n_clients, 1)
+        return per % _extent(mesh, plan.batch_axes) == 0
+    return True

@@ -13,18 +13,21 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 
-def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+def flatten(tree: Any, prefix: str = "", tuples: bool = True
+            ) -> Dict[str, Any]:
     """``{path: leaf}`` of a tree of dicts and lists, in the reference's
-    leaf order; a leaf at the root has the path ``""``."""
+    leaf order; a leaf at the root has the path ``""``. With ``tuples``
+    off a tuple is a leaf (a spec tree's, ``sharding/specs.py``)."""
     if isinstance(tree, dict):
         items = ((str(k), tree[k]) for k in sorted(tree))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, list) or (tuples and isinstance(tree, tuple)):
         items = ((str(i), v) for i, v in enumerate(tree))
     else:
         return {prefix: tree}
     out: Dict[str, Any] = {}
     for key, sub in items:
-        out.update(flatten(sub, f"{prefix}/{key}" if prefix else key))
+        out.update(flatten(sub, f"{prefix}/{key}" if prefix else key,
+                           tuples))
     return out
 
 

@@ -130,3 +130,51 @@ def mixes_rank(cases):
         out[name] = ({k: v.numpy() for k, v in res.items()}
                      if isinstance(res, dict) else res.numpy())
     return out
+
+
+def serve_mesh_rank(cases):
+    """Each case (name -> dict of ``cfg``, ``mesh`` (data, model),
+    ``params`` (numpy tree), ``dtype`` (the params cast to it),
+    ``tokens`` [B, prompt + n] numpy, ``n``, ``plan``, ``decode_plan``,
+    ``max_len``) served on this rank's mesh by
+    ``launch.serve.serve_on_mesh``; returns {name: this rank's logits
+    blocks (numpy fp32, one a position), state blocks (numpy fp32 tree),
+    their specs and the bytes received}."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import serve
+    from repro_torch.weights import lm_params_from_jax
+
+    meshes, out = {}, {}
+    for name, case in cases.items():
+        shape = case["mesh"]
+        if shape not in meshes:
+            meshes[shape] = mesh_lib.make_host_mesh(shape, ("data", "model"),
+                                                    "cpu")
+        tokens = torch.from_numpy(case["tokens"].astype(np.int64))
+        prompt = tokens.shape[1] - case["n"]
+        params = tree_lib.tree_map(
+            lambda x: x.to(case["dtype"]),
+            lm_params_from_jax(case["params"], "cpu"))
+        res = serve.serve_on_mesh(
+            case["cfg"], params, {"tokens": tokens[:, :prompt]},
+            tokens[:, prompt:], meshes[shape], case["plan"],
+            case["decode_plan"], case["max_len"])
+        out[name] = {
+            "logits": [x.float().numpy() for x in res["logits"]],
+            "state": tree_lib.tree_map(lambda x: x.float().numpy(),
+                                       res["state"]),
+            "logits_spec": res["logits_spec"],
+            "state_specs": res["state_specs"],
+            "received": res["received"]}
+    for shape, mesh in meshes.items():   # block orders of the collectives
+        x = torch.tensor([[float(mesh.rank)]])
+        out[f"gathers {shape}"] = {
+            axes: (mesh.all_gather(x, axes, dim=1).numpy(),
+                   mesh.all_reduce(x, axes).numpy(), mesh.index(axes))
+            for axes in ("data", "model", ("data", "model"))}
+        try:   # raises before any rank joins a collective
+            mesh.all_gather(x, ("model", "data"))
+            out[f"out of order {shape}"] = None
+        except ValueError as e:
+            out[f"out of order {shape}"] = str(e)
+    return out
