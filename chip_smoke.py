@@ -211,7 +211,30 @@ prints its seconds:
    layer's scale (atol + rtol max |value|); each rank's prefill and
    decode-step ms, bytes received by op and the collectives' transports
    printed. Phase 1b also times flash
-   at a 9a rank's shape (MESH_FLASH_PATH) beside SDPA.
+   at a 9a rank's shape (MESH_FLASH_PATH) beside SDPA;
+10. the BLADE-FL train step on a (data, model) mesh
+   (``steps.build_train_step``, the L1 layout), 4 gloo ranks sharing the
+   card as (2, 2): phi4-mini ONE_H100 (published widths, 2 layers, tied
+   head, vocab 200 064), C = 2 clients of 2 x 512 tokens, K = 2 rounds of
+   ``round_spec_for``'s round, the clients over data and each client's
+   heads, MLP and vocab over model, trained through the differentiable
+   collectives and the vocab-parallel loss. Each rank's launches exact
+   (the flat race once a round, ``fedavg_flat`` and ``digest_div_flat``
+   once a leaf a round, flash forward and backward at 12 query and 4 kv
+   heads) and its bytes received a round exactly the analytic ones, by op
+   and by axes; the metrics equal on every rank, the whole leaves bitwise
+   across the model ranks and the blocks across the data ranks; client
+   0's round-0 gradient of every model block within rtol 1e-4 of one
+   process's on the card; held to a one-process run of the same round on
+   the card: per-round losses at rtol 1e-4, each param leaf at its scale
+   (each leaf's update over the run printed as a share of that
+   tolerance), both ledgers valid. Prints ms a round a rank, the peaks
+   and the bytes; holds flash forward and backward at a rank's shape
+   (MESH_TRAIN_FLASH_PATH, S 511) to the plain twin and times them beside
+   it and SDPA. Phase 8a also prints ``_loss_rows_witness``: the
+   paper's first local training at C and at C/D rows on the same inputs
+   (losses, params, logits, and the cross-entropy's reduction on equal
+   logits, each bitwise or its ulps).
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -682,6 +705,25 @@ MESH_FLASH = {"flash_attention": 2, "ssm_scan": 0}   # a prefill, a rank
 MESH_FLASH_PATH = (2, 12, 4, 2048, 128)   # a rank's flash at (2, 2)
 MESH_JAMBA_SHAPE, MESH_JAMBA_BATCH, MESH_JAMBA_PROMPT = (2, 1), 4, 256
 MESH_JAMBA_LAUNCHES = {"flash_attention": 1, "ssm_scan": 1}
+# phase 10: phi4-mini ONE_H100 (2 layers) trained by the train step on 4
+# gloo ranks as (data 2, model 2): C = 2 clients of 2 x 512 tokens, K = 2
+# rounds of round_spec_for's round (tau 2, no lazy client at C = 2, no eval
+# loss)
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_TRAIN_CLIENTS, MESH_TRAIN_PER_CLIENT, MESH_TRAIN_SEQ = 2, 2, 512
+K_MESH_TRAIN = 2
+MESH_TRAIN_SEED = 0
+# a rank's flash at (2, 2) under grad: its 2 rows of 511 positions (the
+# loss reads tokens[:-1]), 12 query and 4 kv heads
+MESH_TRAIN_FLASH_PATH = (2, 12, 4, MESH_TRAIN_SEQ - 1, 128)
+# each model block's gradient of the round-0 loss against one process's
+# on the card, |got - want| <= rtol |want| + atol max|want| (the backward
+# kernels' tolerance): the gate that sees a tensor-parallel backward, where
+# the params after K rounds move less than their own tolerance
+MESH_TRAIN_GRAD_RTOL = MESH_TRAIN_GRAD_ATOL = FLASH_GRAD_RTOL
+# seconds a rank waits in one collective: a rank that hangs (a collective
+# the others do not join) fails the phase, well inside the script's time
+MESH_TRAIN_TIMEOUT_S = 300.0
 # the decode state of a mesh serve against one process, each leaf and
 # layer held at its scale: max |diff| <= CARD_CPU_ATOL + CARD_CPU_RTOL
 # max |value|. The kv caches past the first layer come from activations
@@ -3674,6 +3716,66 @@ def _summary(result):
             "dispatch": result["dispatch"]}
 
 
+def _ulps(torch, a, b):
+    """The largest distance between ``a`` and ``b`` in fp32 units in the
+    last place (same-signed values: their bit patterns' difference)."""
+    ai, bi = (x.to(torch.float32).contiguous().view(torch.int32)
+              .to(torch.int64) for x in (a, b))
+    return int((ai - bi).abs().max())
+
+
+def _loss_rows_witness(torch, dev):
+    """Where the gather tier's per-client losses leave one process's on
+    the card: the paper's path's first round of local training
+    (``rounds.make_local_train``) from its init params on its batch, at C
+    rows as one process runs it and at each rank's C/D rows as a
+    SHARD_RANKS-rank mesh runs it, on the same inputs; then the loss alone
+    on the C-row result's params: the logits (the GEMMs) and the
+    cross-entropy's reduction (``layers.softmax_cross_entropy``: a
+    log-sum-exp a sample, then a mean over each client's samples) each at
+    C rows and at C/D rows. Each comparison bitwise or its largest ulp
+    distance."""
+    from repro_torch.core import aggregation, rounds
+    from repro_torch.launch import train
+    from repro_torch.models import layers
+    from repro_torch.models.mlp import mlp_client_losses, mlp_logits
+
+    args = train.build_parser().parse_args(MAIN_ARGS
+                                           + ["--device", str(dev)])
+    _, spec, src, params, _ = train.prepare_mlp(args)
+    batch = src.static_batch()
+    full = aggregation.replicate({k: v.to(dev) for k, v in params.items()},
+                                 spec.n_clients)
+    local_train = rounds.make_local_train(mlp_client_losses, spec)
+    trained, losses = local_train(full, batch)
+    n = spec.n_clients // SHARD_RANKS
+    blocks = [slice(r * n, (r + 1) * n) for r in range(SHARD_RANKS)]
+    parts = [local_train({k: v[b] for k, v in full.items()},
+                         {k: v[b] for k, v in batch.items()})
+             for b in blocks]
+    rank_losses = torch.cat([p[1] for p in parts])
+    params_bitwise = all(torch.equal(torch.cat([p[0][k] for p in parts]),
+                                     v) for k, v in trained.items())
+    with torch.no_grad():
+        logits = mlp_logits(trained, batch["x"])
+        rank_logits = torch.cat([mlp_logits({k: v[b] for k, v in
+                                             trained.items()},
+                                            batch["x"][b]) for b in blocks])
+        ce = layers.softmax_cross_entropy(logits, batch["y"])
+        rank_ce = torch.cat([layers.softmax_cross_entropy(
+            logits[b], batch["y"][b]) for b in blocks])
+
+    def reading(got, want):
+        return {"bitwise": bool(torch.equal(got, want)),
+                "max_ulps": _ulps(torch, got, want)}
+
+    return {"rows": [spec.n_clients, n],
+            "local_losses": reading(rank_losses, losses),
+            "trained_params_bitwise": params_bitwise,
+            "logits": reading(rank_logits, logits),
+            "cross_entropy_on_equal_logits": reading(rank_ce, ce)}
+
+
 def phase_sharded(torch, dev):
     """Phase 8: the client-sharded engine on the card. 8a the paper's path
     (MAIN_ARGS) over SHARD_RANKS gloo ranks, gather tier, through the
@@ -3716,7 +3818,8 @@ def phase_sharded(torch, dev):
          "note": "the ranks' first run: its round ms hold their first "
                  "collectives, cuBLAS's handles and the kernels' loads "
                  "(8b's paper's path is read on warm ranks)",
-         "trainer_wall_s_with_spawn": spawn_s, **held}), flush=True)
+         "trainer_wall_s_with_spawn": spawn_s, **held,
+         "loss_rows_witness": _loss_rows_witness(torch, dev)}), flush=True)
 
     # 8b: the other paths over the same 2 ranks, in one world
     n_leaves = len(tree.flatten(registry.init_model(
@@ -4096,6 +4199,458 @@ def phase_mesh_serve(torch, dev):
     return by_path
 
 
+def _mesh_train_config():
+    """(cfg, shape, plan) of phase 10: phi4-mini ONE_H100 (its published
+    widths, 2 layers), MESH_TRAIN_CLIENTS clients of
+    MESH_TRAIN_PER_CLIENT x MESH_TRAIN_SEQ tokens, the L1 plan at that C."""
+    from repro_torch.configs import ShapeConfig, get_one_h100_arch
+    from repro_torch.sharding.specs import ShardingPlan
+
+    cfg = get_one_h100_arch(MESH_ARCH)
+    shape = ShapeConfig("mesh_train", MESH_TRAIN_SEQ,
+                        MESH_TRAIN_CLIENTS * MESH_TRAIN_PER_CLIENT, "train")
+    return cfg, shape, ShardingPlan(MESH_TRAIN_CLIENTS, ("data",), ())
+
+
+def _mesh_train_inputs(torch, dev, cfg):
+    """Phase 10's params (one model, flattened, drawn on the card from
+    MESH_TRAIN_SEED) and tokens [K, C, m, S] (from the seed + 1)."""
+    from repro_torch import tree
+    from repro_torch.models import registry
+
+    params = tree.flatten(registry.init_model(
+        torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED), cfg))
+    tokens = torch.randint(
+        0, cfg.vocab, (K_MESH_TRAIN, MESH_TRAIN_CLIENTS,
+                       MESH_TRAIN_PER_CLIENT, MESH_TRAIN_SEQ),
+        generator=torch.Generator(device=dev).manual_seed(
+            MESH_TRAIN_SEED + 1), device=dev)
+    return params, tokens
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_train_rank(device):
+    """One rank of phase 10's world: ``steps.build_train_step`` on its
+    (data, model) mesh, the round-0 state cut from the params, its
+    client's loss and the gradient of its blocks at round 0 on round 0's
+    batch (``step.loss_fn``: the tensor-parallel forward and backward),
+    then K_MESH_TRAIN rounds with the launch counts set to 0 just before
+    and read just after, each round timed on the host clock
+    (synchronized). Returns its launches, the q / k shapes of each flash
+    launch, round ms, peak allocated GB, the analytic bytes it received a
+    round by op and by axes, the metrics, a digest of its final blocks,
+    its whole leaves and, on data coordinate 0, its round-0 loss and
+    gradient and its final blocks (on the CPU)."""
+    from repro_torch import kernels
+    from repro_torch.core import mining
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.sharding import specs
+
+    import torch
+
+    dev = torch.device(device)
+    mesh = mesh_lib.make_host_mesh(MESH_TRAIN_SHAPE, ("data", "model"), dev)
+    cfg, shape, plan = _mesh_train_config()
+    step, _, _, rspec = steps.build_train_step(cfg, shape, mesh, False,
+                                               torch.float32, plan=plan)
+    params, tokens = _mesh_train_inputs(torch, dev, cfg)
+    state = step.init_state(params, MESH_TRAIN_SEED)
+    batches = [{"tokens": specs.shard_leaf(tokens[k], step.in_specs[1][
+        "tokens"], mesh).contiguous()} for k in range(K_MESH_TRAIN)]
+    del params, tokens
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in state.params.items()}
+    loss0 = step.loss_fn(leaves, batches[0])
+    grads = dict(zip(leaves, torch.autograd.grad(loss0.sum(),
+                                                 list(leaves.values()))))
+    first = ({"loss": loss0.detach().cpu(),
+              "grads": {k: g.cpu() for k, g in grads.items()}}
+             if mesh.coord("data") == 0 else None)
+    del leaves, loss0, grads
+    _free(torch)
+    mha, shapes = flash_ops.mha, []
+
+    def recorded(q, k, v, **kw):   # the heads of each flash launch
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return mha(q, k, v, **kw)
+
+    flash_ops.mha = recorded
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh.received_by_axes.clear()
+    kernels.reset_launch_counts()
+    round_ms, metrics = [], []
+    for k in range(K_MESH_TRAIN):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, mets = step(state, batches[k])
+        _sync(torch, dev)
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({n: v.cpu() for n, v in mets.items()})
+    launches = kernels.launch_counts()
+    flash_ops.mha = mha
+    pspecs = step.in_specs[0].params
+    whole = [k for k, sp in pspecs.items()
+             if not any(e and "model" in e for e in sp[1:])]
+    out = {"launches": launches, "flash_shapes": shapes,
+           "round_ms": round_ms,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                       if on_card else None),
+           "received_by_axes_per_round": {
+               key: n / K_MESH_TRAIN
+               for key, n in mesh.received_by_axes.items()},
+           "transport": mesh.transport, "metrics": metrics,
+           "digest": int(mining.digest_tree(state.params)),
+           "whole": {k: state.params[k].cpu() for k in whole},
+           "specs": pspecs, "tau": rspec.tau,
+           "coords": (mesh.coord("data"), mesh.coord("model"))}
+    if mesh.coord("data") == 0:
+        out["params"] = {k: v.cpu() for k, v in state.params.items()}
+        out["round0"] = first
+    return out
+
+
+def mesh_train_want(cfg, n_leaves, block_floats, n_split, tau):
+    """(launches, bytes received a round by op and axes) of a phase 10
+    rank: the seal's flat race once a round; ``fedavg_flat`` and
+    ``digest_div_flat`` once a leaf a round on the gathered set; flash
+    forward and backward once a layer a client a local step at the rank's
+    heads (no eval loss). Over data the other rank's client block, its
+    local loss (fp32), best hash and nonce (int64 words); over model, a
+    client and local step, 5 activations [m, S - 1, D] all-reduced forward
+    (the embedding, each layer's attention and MLP) and 5 backward (the
+    inputs of the column blocks: each layer's q / k / v and MLP, the vocab
+    head), the vocab-parallel loss's sum of exponentials and label logit
+    ([m, S - 1] each) all-reduced and its maxima gathered, and a round each
+    split leaf's sum and residuals [1 + C] gathered (a ring of 2 receives
+    its tensor once in an all-reduce)."""
+    from repro_torch import kernels
+
+    c_local = MESH_TRAIN_CLIENTS // MESH_TRAIN_SHAPE[0]
+    attn = cfg.layer_kinds().count("attn")
+    steps_ = tau * c_local
+    launches = {**{name: 0 for name in kernels.WRAPPERS},
+                "pow_race": K_MESH_TRAIN,
+                "fedavg_flat": n_leaves * K_MESH_TRAIN,
+                "digest_div_flat": n_leaves * K_MESH_TRAIN,
+                "flash_attention": attn * steps_ * K_MESH_TRAIN,
+                "flash_attention_bwd": attn * steps_ * K_MESH_TRAIN}
+    rows = MESH_TRAIN_PER_CLIENT * (MESH_TRAIN_SEQ - 1)
+    act, terms = 4 * rows * cfg.d_model, 4 * rows
+    received = {
+        "all_gather over data": 4 * block_floats * c_local
+        + c_local * (4 + 8 + 8),
+        "all_reduce over model": steps_ * (10 * act + 2 * terms),
+        "all_gather over model": steps_ * terms
+        + n_split * 4 * (1 + MESH_TRAIN_CLIENTS)}
+    return launches, received
+
+
+def mesh_train_flash_times(torch, dev, report):
+    """Flash forward (with its rows' log-sum-exp, the training launch) and
+    backward at a phase 10 rank's shape (MESH_TRAIN_FLASH_PATH), held to
+    the plain twin on the same inputs (the output within FLASH_RTOL /
+    FLASH_ATOL of ``ref.mha_ref``'s; dq, dk, dv within FLASH_GRAD_RTOL /
+    FLASH_GRAD_ATOL of autograd through it), then timed beside the twin
+    (and its autograd) and SDPA's fp32 forward and backward; their bounds
+    (3xTF32, as rows 6 and 8 count them). Kept in ``report`` under
+    ``at_mesh_train``; the deviations fold into each row's
+    ``max_abs_err``."""
+    import torch.nn.functional as F
+
+    from repro_torch.benchmarks import timing
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    b, h, hkv, s, d = MESH_TRAIN_FLASH_PATH
+    (q, k, v), do = _flash_grad_inputs(torch, gen, MESH_TRAIN_FLASH_PATH)
+    mask = dict(seq_axis=1, head_axis=2, causal=True, window=0,
+                scale=1.0 / math.sqrt(d), prefix_len=0)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    with torch.no_grad():
+        o, lse = flash_ops._forward_lse(qd, kd, vd, **mask)
+    plain = flash_ref.mha_ref(q, k, v, causal=True)
+    fwd_err = float((o - plain.detach()).abs().max())
+    require(bool(((o - plain.detach()).abs() <= FLASH_ATOL
+                  + FLASH_RTOL * plain.detach().abs()).all()),
+            f"flash forward at {MESH_TRAIN_FLASH_PATH} (mesh train): "
+            f"{fwd_err:.3g} off the plain twin (rtol {FLASH_RTOL}, atol "
+            f"{FLASH_ATOL})")
+    got = flash_ops.flash_attention_bwd(qd, kd, vd, o, lse, do, **mask)
+    want = torch.autograd.grad(plain, (q, k, v), do, retain_graph=True)
+    ratios = [_grad_ratio(torch, g, w, FLASH_GRAD_RTOL, FLASH_GRAD_ATOL)
+              for g, w in zip(got, want)]
+    bwd_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    require(max(ratios) <= 1,
+            f"flash backward at {MESH_TRAIN_FLASH_PATH} (mesh train): dq, "
+            f"dk, dv at {ratios} of rtol {FLASH_GRAD_RTOL} |want| + atol "
+            f"{FLASH_GRAD_ATOL} max|want|")
+    checks = {"flash_attention": {"max_abs_err": fwd_err},
+              "flash_attention_bwd": {"max_abs_err": bwd_err,
+                                      "share_of_tolerance": max(ratios)}}
+    del got, want
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    fwd_work = _flash_work(b, h, hkv, s, d, True, 0)
+    pairs = fwd_work[2]
+    bwd_work = (4 * (4 * b * s * h * d + 2 * b * s * hkv * d + b * h * s
+                     + b * s * h * d + 2 * b * s * hkv * d),
+                10 * d * pairs, pairs)
+    tag = " (mesh train, a rank at (2, 2))"
+    out = {}
+    for name, work, fn, plain_fn, lib_fn in (
+            ("flash_attention", fwd_work,
+             lambda: flash_ops._forward_lse(qd, kd, vd, **mask),
+             lambda: flash_ref.mha_ref(qd, kd, vd, causal=True),
+             lambda: F.scaled_dot_product_attention(
+                 qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+                 enable_gqa=True)),
+            ("flash_attention_bwd", bwd_work,
+             lambda: flash_ops.flash_attention_bwd(qd, kd, vd, o, lse, do,
+                                                   **mask),
+             lambda: torch.autograd.grad(plain, (q, k, v), do,
+                                         retain_graph=True),
+             lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                         retain_graph=True))):
+        bound, by = _bound(*work, tf32_passes=FLASH_TF32_PASSES)
+        label = name + tag
+        times = dict(
+            shape=MESH_TRAIN_FLASH_PATH,
+            ms=timing.kernel_ms(fn, label, reps=10),
+            plain_ms=timing.kernel_ms(plain_fn, f"{label} plain", reps=3),
+            library_ms=timing.kernel_ms(lib_fn, f"{label} library (SDPA, "
+                                                "fp32)", reps=10),
+            bound_ms=bound, bound_by=by)
+        times["events_ms"] = timing.READINGS[label]["events_ms"]
+        times["over_bound"] = times["ms"] / bound
+        times.update(checks[name])
+        report[name]["at_mesh_train"] = out[name] = times
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          checks[name]["max_abs_err"])
+    del q, k, v, do, o, lse, plain, qt, kt, vt, lib_out, dot
+    _free(torch)
+    return out
+
+
+def _at_scale(torch, got, want):
+    """max |got - want| and its share of CARD_CPU_ATOL + CARD_CPU_RTOL
+    max |want| (<= 1 passes)."""
+    diff = float((got - want).abs().max())
+    return diff, diff / (CARD_CPU_ATOL + CARD_CPU_RTOL
+                         * float(want.abs().max()))
+
+
+def phase_mesh_train(torch, dev, report):
+    """Phase 10: the BLADE-FL train step on a (data, model) mesh of gloo
+    ranks sharing the card (``steps.build_train_step``, the L1 layout):
+    phi4-mini ONE_H100 on 4 ranks as (2, 2), the clients over data and
+    each client's heads, MLP and vocab over model, trained through the
+    differentiable collectives and the vocab-parallel loss
+    (``mesh_train_rank``). Every reading is taken and printed first
+    ("phase 10 readings", with each gate's verdict), then the gates
+    fire in order: each rank's launches exactly ``mesh_train_want``'s
+    (every flash launch at the rank's shape, 12 query and 4 kv heads)
+    and its bytes received a round exactly the analytic ones; the metrics
+    the same on every rank; both data ranks of a model coordinate with the
+    same final blocks (digest) and both model ranks of a data coordinate
+    with the same whole leaves, bitwise; both ledgers valid; client 0's
+    round-0 loss at rtol 1e-4 and each model block's gradient within
+    MESH_TRAIN_GRAD_RTOL / MESH_TRAIN_GRAD_ATOL of one process's on the
+    card; then against a one-process run of the same round spec on the
+    card (``rounds.RoundRunner``, the loop driver): per-round per-client
+    losses at rtol 1e-4 and each param leaf at its scale (max |diff| <=
+    CARD_CPU_ATOL + CARD_CPU_RTOL max |value|). Each leaf's update over
+    the run (final minus round-0 params) is read as a share of that same
+    tolerance beside its diff. Prints ms a round a rank, each rank's peak
+    GB and their sum, the bytes received by op and axes; checks and times
+    flash forward and backward at a rank's shape
+    (``mesh_train_flash_times``). Returns rank 0's launches."""
+    import dataclasses
+
+    from repro_torch.core import rounds
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs
+
+    _free(torch)
+    flash = mesh_train_flash_times(torch, dev, report)
+    cfg, shape, plan = _mesh_train_config()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(mesh_train_rank, math.prod(MESH_TRAIN_SHAPE),
+                               backend="gloo", device=str(dev),
+                               args=(str(dev),),
+                               timeout_s=MESH_TRAIN_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    pspecs = ranks[0]["specs"]
+    split = [k for k, sp in pspecs.items()
+             if any(e and "model" in e for e in sp[1:])]
+    block_floats = sum(v[0].numel() for v in ranks[0]["params"].values())
+    want_launches, want_bytes = mesh_train_want(
+        cfg, len(pspecs), block_floats, len(split), ranks[0]["tau"])
+    b, h, hkv, s, d = MESH_TRAIN_FLASH_PATH
+    gates = []   # (name, ok, message on failure), fired after the readings
+    for r, got in enumerate(ranks):
+        gates += [
+            (f"rank {r} launches", got["launches"] == want_launches,
+             f"phase 10: rank {r} launched {got['launches']}, expected "
+             f"{want_launches}"),
+            (f"rank {r} flash shapes",
+             all(q == (b, s, h, d) and k == (b, s, hkv, d)
+                 for q, k in got["flash_shapes"]),
+             f"phase 10: rank {r}'s flash launches took "
+             f"{got['flash_shapes'][:2]}, expected q {(b, s, h, d)} and "
+             f"k / v {(b, s, hkv, d)}"),
+            (f"rank {r} bytes",
+             got["received_by_axes_per_round"] == want_bytes,
+             f"phase 10: rank {r} received "
+             f"{got['received_by_axes_per_round']} a round, the analytic "
+             f"bytes are {want_bytes}"),
+            (f"rank {r} metrics",
+             all(torch.equal(m[n], m0[n]) for m, m0 in
+                 zip(got["metrics"], ranks[0]["metrics"]) for n in m0),
+             f"phase 10: rank {r}'s metrics differ from rank 0's")]
+    by_coord = {got["coords"]: got for got in ranks}
+    for (dc, mc), got in by_coord.items():
+        gates += [
+            (f"digest ({dc}, {mc})",
+             got["digest"] == by_coord[(0, mc)]["digest"],
+             f"phase 10: data ranks of model coordinate {mc} hold other "
+             "blocks"),
+            (f"whole leaves ({dc}, {mc})",
+             all(torch.equal(v, by_coord[(dc, 0)]["whole"][k])
+                 for k, v in got["whole"].items()),
+             f"phase 10: a whole leaf differs across the model ranks of "
+             f"data coordinate {dc}")]
+    rows = {n: torch.stack([m[n] for m in ranks[0]["metrics"]])
+            for n in ranks[0]["metrics"][0]}
+    hist, ledger = rounds.history_and_ledger(dict(rows))
+    gates.append(("mesh ledger", ledger.validate_chain(),
+                  "phase 10: the mesh ledger is invalid"))
+
+    # client 0's round-0 loss and gradient in one process on the card
+    params, tokens = _mesh_train_inputs(torch, dev, cfg)
+    mesh = specs.MeshShape(("data", "model"), MESH_TRAIN_SHAPE)
+    ats = [specs.MeshShape(mesh.axis_names, mesh.shape, rank=m)
+           for m in range(MESH_TRAIN_SHAPE[1])]   # (data 0, model m)
+    leaves = {k: v[None].clone().requires_grad_(True)
+              for k, v in params.items()}
+    loss0 = registry.client_losses(cfg)(leaves, {"tokens": tokens[0][:1]})
+    grads = torch.autograd.grad(loss0.sum(), list(leaves.values()))
+    grad_shares = {}
+    for k, g in zip(leaves, grads):
+        for m, at in enumerate(ats):
+            want = specs.shard_leaf(g[0], pspecs[k][1:], at)
+            got = by_coord[(0, m)]["round0"]["grads"][k][0].to(dev)
+            grad_shares[k] = max(grad_shares.get(k, 0.0), _grad_ratio(
+                torch, got, want, MESH_TRAIN_GRAD_RTOL,
+                MESH_TRAIN_GRAD_ATOL))
+            del got, want
+    loss0 = loss0.detach().cpu()
+    loss0_rel = max(float(((by_coord[(0, m)]["round0"]["loss"] - loss0)
+                           .abs() / loss0.abs()).max())
+                    for m in range(MESH_TRAIN_SHAPE[1]))
+    del leaves, grads
+    _free(torch)
+    grad_worst = max(grad_shares.values())
+    gates += [("round-0 loss", loss0_rel <= CARD_CPU_RTOL,
+               f"phase 10: client 0's round-0 loss {loss0_rel:.3g} "
+               f"relative off one process's (rtol {CARD_CPU_RTOL})"),
+              ("round-0 gradients", grad_worst <= 1.0,
+               f"phase 10: model blocks' round-0 gradients off one "
+               f"process's at {json.dumps(grad_shares)} of rtol "
+               f"{MESH_TRAIN_GRAD_RTOL} |want| + atol {MESH_TRAIN_GRAD_ATOL}"
+               " max|want|")]
+
+    # the same round spec in one process on the card (the loop driver)
+    spec = steps.round_spec_for(cfg, shape, plan)
+    runner = rounds.RoundRunner(registry.client_losses(cfg), spec, params,
+                                K_MESH_TRAIN, seed=MESH_TRAIN_SEED,
+                                device=dev)
+    t1 = time.perf_counter()
+    for k in range(K_MESH_TRAIN):
+        runner.step(k, {"tokens": tokens[k]})
+    _sync(torch, dev)
+    one_ms = 1e3 * (time.perf_counter() - t1) / K_MESH_TRAIN
+    want_losses = runner.rows["local_loss"].cpu()
+    _, whist, wledger = runner.finish()
+    gates.append(("one-process ledger", wledger.validate_chain(),
+                  "phase 10: the one-process ledger is invalid"))
+    loss_rel = float(((rows["local_loss"] - want_losses).abs()
+                      / want_losses.abs()).max())
+    gates.append(("per-round losses", loss_rel <= CARD_CPU_RTOL,
+                  f"phase 10: per-round losses "
+                  f"{rows['local_loss'].tolist()} vs one process "
+                  f"{want_losses.tolist()} (rtol {loss_rel:.3g} > "
+                  f"{CARD_CPU_RTOL})"))
+    shares, update_shares, bitwise = {}, {}, True
+    for k, sp in pspecs.items():
+        final = runner.state.params[k]
+        update_shares[k] = float((final - params[k]).abs().max()) / (
+            CARD_CPU_ATOL + CARD_CPU_RTOL * float(final.abs().max()))
+        for m, at in enumerate(ats):
+            want = specs.shard_leaf(final, sp, at).cpu()
+            got = by_coord[(0, m)]["params"][k]
+            diff, share = _at_scale(torch, got, want)
+            bitwise = bitwise and diff == 0.0
+            shares[k] = max(shares.get(k, 0.0), share)
+    del runner, params, tokens
+    _free(torch)
+    worst = max(shares.values())
+    gates.append(("params at scale", worst <= 1.0,
+                  f"phase 10: params differ from one process beyond their "
+                  f"scale: {json.dumps(shares)}"))
+    peaks = [got["peak_gb"] for got in ranks]
+    print("phase 10 readings: " + json.dumps(
+        {"path": "phi4-mini ONE_H100 train step on (data 2, model 2)",
+         "layers": cfg.n_layers, "clients": MESH_TRAIN_CLIENTS,
+         "tokens_a_client": [MESH_TRAIN_PER_CLIENT, MESH_TRAIN_SEQ],
+         "rounds": K_MESH_TRAIN,
+         "round_spec": {k: v for k, v in dataclasses.asdict(spec).items()
+                        if isinstance(v, (int, float, bool))},
+         "launches_a_rank": {k: v for k, v in want_launches.items() if v},
+         "flash_q_kv_shape": [[b, s, h, d], [b, s, hkv, d]],
+         "round_ms_by_rank": [got["round_ms"] for got in ranks],
+         "one_process_round_ms": one_ms,
+         "peak_gb_by_rank": peaks,
+         "peak_gb_sum": None if None in peaks else sum(peaks),
+         "received_bytes_a_round_by_op_and_axes": want_bytes,
+         "received_bytes_a_round_rank_0":
+             ranks[0]["received_by_axes_per_round"],
+         "transport": ranks[0]["transport"],
+         "round0_loss_worst_rtol": loss0_rel,
+         "round0_grad_share_worst": grad_worst,
+         "round0_grad_share_by_leaf": grad_shares,
+         "local_loss": rows["local_loss"].tolist(),
+         "local_loss_one_process": want_losses.tolist(),
+         "local_loss_worst_rtol": loss_rel,
+         "digest_mesh_vs_one_process": [hh["digest"] for hh in hist],
+         "digest_one_process": [hh["digest"] for hh in whist],
+         "params_scale_share_worst": worst, "params_bitwise": bitwise,
+         "params_scale_share_by_leaf": shares,
+         "update_scale_share_by_leaf": update_shares,
+         "flash_at_rank_shape": flash,
+         "world_s_with_spawn": world_s,
+         "gates_failed": [name for name, ok, _ in gates if not ok]}),
+        flush=True)
+    for _, ok, msg in gates:
+        require(ok, msg)
+    print(f"phase 10 ok: {len(gates)} gates", flush=True)
+    _free(torch)
+    return {"phi4 mesh train": ranks[0]["launches"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4336,6 +4891,8 @@ def main(argv=None) -> int:
     lap("phase 8")
     mesh_serve = phase_mesh_serve(torch, dev)
     lap("phase 9")
+    mesh_train = phase_mesh_train(torch, dev, report)
+    lap("phase 10")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
@@ -4344,7 +4901,7 @@ def main(argv=None) -> int:
                "xlstm train": tlaunches7, "phi4 train": plaunches,
                **{f"{arch} smoke train": counts
                   for arch, counts in smoke_trains.items()},
-               **sharded, **mesh_serve}
+               **sharded, **mesh_serve, **mesh_train}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

@@ -52,6 +52,14 @@ and the mix runs over the ranks' collectives, in one of two tiers:
       divergence from summed partials. Summing partials reassociates the
       fp32 reduction, so these agree with the gather tier to a tolerance
       and the ledger forks.
+
+On a ``("data", "model")`` mesh (the train step, ``launch/steps.py``)
+each client's params are further split into model blocks
+(:class:`ModelBlocks`). Every mix here is coordinate-wise, so it runs on
+each leaf's block unchanged: clients mix with clients, and the model
+block needs no collective. The diagnostics that reduce over a whole leaf
+(the digest's leaf sums, the divergence's residuals) take the blocks'
+partials summed by :meth:`ModelBlocks.sum`.
 """
 from __future__ import annotations
 
@@ -68,6 +76,31 @@ Tree = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 # Client-axis collectives
 # ---------------------------------------------------------------------------
+
+
+class ModelBlocks:
+    """The model axes of a (data, model) mesh as the round sees them:
+    each client's leaves in ``split`` are this rank's block of the leaf
+    over ``mesh`` (a ``launch.mesh.ClientMesh`` view of the model axes);
+    every other leaf is whole on each model rank, a replica.
+
+    :meth:`sum` adds a split leaf's per-block partials over the blocks in
+    block order (an all-gather of the partials, then a sum in a Python
+    loop: the same bits on every rank whatever the backend's reduction
+    order), and leaves a replicated leaf's as they are."""
+
+    def __init__(self, mesh, split):
+        self.mesh, self.split = mesh, frozenset(split)
+
+    def sum(self, key: str, x: torch.Tensor) -> torch.Tensor:
+        if key not in self.split:
+            return x
+        # repro-lint: disable=RL302
+        parts = self.mesh.all_gather(x.reshape(1, -1), dim=0)
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc.reshape(x.shape)
 
 
 def client_gather(x: torch.Tensor, mesh=None,
@@ -599,10 +632,13 @@ def mix_psum_dense(params: Tree, W: torch.Tensor,
     return out
 
 
-def client_divergence_psum(params: Tree, mesh=None) -> torch.Tensor:
+def client_divergence_psum(params: Tree, mesh=None,
+                           model: Optional[ModelBlocks] = None
+                           ) -> torch.Tensor:
     """:func:`client_divergence` from summed partials: the column means
     and the final sum of squares are all-reduced, never the client axis
-    gathered. The same quantity up to fp32 association."""
+    gathered. The same quantity up to fp32 association. ``model``: each
+    client's squares of a split leaf summed over its model blocks."""
     n = 1 if mesh is None else mesh.n_shards
     total = None
     for k in sorted(params):
@@ -612,6 +648,8 @@ def client_divergence_psum(params: Tree, mesh=None) -> torch.Tensor:
             s = mesh.all_reduce(s)
         mean = s / _f32(x.shape[0] * n)
         sq = ((x - mean) ** 2).reshape(x.shape[0], -1).sum(dim=1)
+        if model is not None:
+            sq = model.sum(k, sq)
         total = sq if total is None else total + sq
     tsum = total.sum()
     if mesh is not None:

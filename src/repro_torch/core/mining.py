@@ -73,7 +73,7 @@ def fold_digest(acc: torch.Tensor, leaf_sum: torch.Tensor) -> torch.Tensor:
     return _avalanche(acc ^ (bits.to(torch.int64) & MASK))
 
 
-def digest_tree(tree, mesh=None) -> torch.Tensor:
+def digest_tree(tree, mesh=None, model=None) -> torch.Tensor:
     """uint32 digest of a dict of tensors (the model fingerprint in the
     block header). Leaves fold in sorted key order, which is the JAX
     package's ``jax.tree.leaves`` order for dict params.
@@ -81,16 +81,21 @@ def digest_tree(tree, mesh=None) -> torch.Tensor:
     With ``mesh`` (a ``launch.mesh.ClientMesh``; the psum tier) the tree
     holds this rank's client rows and each leaf's sum is all-reduced over
     the ranks: no gather, but the reassociated fp32 sum forks the digest,
-    and every later ledger hash, from the one-process value."""
-    leaves = [tree[k] for k in sorted(tree)]
-    acc = as_word(DIGEST_INIT, leaves[0].device)
-    for x in leaves:
+    and every later ledger hash, from the one-process value. With
+    ``model`` (``aggregation.ModelBlocks``) a split leaf's sum is then
+    summed over its model blocks."""
+    keys = sorted(tree)
+    acc = as_word(DIGEST_INIT, tree[keys[0]].device)
+    for k in keys:
+        x = tree[k]
         if x.is_floating_point():
             s = x.to(torch.float32).sum()
         else:
             s = x.to(torch.int32).sum(dtype=torch.int32).to(torch.float32)
         if mesh is not None:
             s = mesh.all_reduce(s)
+        if model is not None:
+            s = model.sum(k, s)
         acc = fold_digest(acc, s)
     return acc
 

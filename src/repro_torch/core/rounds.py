@@ -89,6 +89,32 @@ replica on each rank of every row touched so far: after each round every
 rank gathers the whole cohort and scatters it into its replica, so any
 rank can load any client the next round draws (where the JAX package's
 one controller keeps one host store).
+
+The train step on a (data, model) mesh (``launch/steps.py``, the L1
+layout) runs this engine on part of the mesh. Its client collectives run
+over the plan's client axes only: the engine is handed
+``ClientMesh.view(client_axes)``, the line of ranks through this rank
+along the data axes, and its code is unchanged. The model axes split each
+client's params into blocks (``aggregation.ModelBlocks``); local training
+runs the tensor-parallel loss (``registry.client_losses(cfg, par=...)``)
+on the rank's ``C/D`` clients, and the fedavg and every other
+coordinate-wise mix run on each leaf's block unchanged (clients mix with
+clients; the block needs no collective). The digest and the divergence
+come from one ``digest_div_flat`` sweep of each block; a split leaf's sum
+and residuals are then summed over the model ranks in a fixed order
+before ``fold_digest``, two scalars a leaf and client in the psum tier's
+way (``mining.digest_tree(model=)``). A gather over ``model`` would move
+half of every client's model a round and would still not give one
+process's chain, since the tensor-parallel GEMMs already move the
+params' last bits: the ledger forks deterministically from the
+one-process chain, and both chains validate. The lazy, DP and attack
+noise is drawn at each leaf's full shape from the run's generator on
+every rank and cut to the rank's block; the race runs on each rank's
+clients with their global ids, redundantly on the model ranks of one data
+coordinate. ``detect_lazy``'s sketch and the geometric median need a
+reduction over each whole client model and raise ``ValueError`` when the
+train step is built (``launch.steps.build_train_step`` calls
+:func:`refuse_model_split`).
 """
 from __future__ import annotations
 
@@ -387,7 +413,7 @@ def _mesh_axes(mesh):
 
 
 def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda",
-                     mesh=None):
+                     mesh=None, model=None):
     """Steps 2+5 stage factory: ``communicate(params, prev_params,
     round_idx, matrix=None, full=None) -> (mixed_params, digest,
     divergence, extra)``.
@@ -409,7 +435,14 @@ def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda",
     psum tier (``plan.fast_diagnostics``) the digest and divergence sum
     per-rank partials (``mining.digest_tree``,
     ``aggregation.client_divergence_psum``) and the detector alone gathers.
-    The same plan without a mesh runs the psum tier's math on one device."""
+    The same plan without a mesh runs the psum tier's math on one device.
+
+    ``model`` (``aggregation.ModelBlocks``): each client's params are this
+    rank's model blocks; the digest's leaf sums and the divergence's
+    residuals are summed over the blocks (:meth:`ModelBlocks.sum`), the
+    mix runs on the blocks as it is. The stages that would need a new
+    full-width reduction over the blocks are refused where the train step
+    is built (:func:`refuse_model_split`)."""
     plan = topology_lib.resolve_mix_plan(spec, _mesh_axes(mesh))
     mode = plan.mode
     dev = resolve_device(device)
@@ -442,12 +475,14 @@ def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda",
     def communicate(params, prev_params, round_idx, matrix=None, full=None):
         extra = {}
         if plan.fast_diagnostics:
-            digest = mining.digest_tree(params, mesh)
-            divergence = aggregation.client_divergence_psum(params, mesh)
+            digest = mining.digest_tree(params, mesh, model)
+            divergence = aggregation.client_divergence_psum(params, mesh,
+                                                            model)
         else:
             if full is None:
                 full = aggregation.client_all_gather(params, mesh)
-            digest, divergence = fedavg_ops.digest_divergence_tree(full)
+            digest, divergence = fedavg_ops.digest_divergence_tree(full,
+                                                                   model)
         if spec.detect_lazy:
             if full is None:
                 full = aggregation.client_all_gather(params, mesh)
@@ -499,6 +534,20 @@ def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda",
 
     communicate.plan = plan
     return communicate
+
+
+def refuse_model_split(spec: RoundSpec, mode: str) -> None:
+    """Raise ``ValueError`` for what the round cannot run on model blocks
+    without a full-width reduction no path has yet (ROADMAP 9b-2a): the
+    lazy detector's sketch (a projection of each whole client model) and
+    the geometric median (each client's distance over the whole model).
+    Every attack is coordinate-wise and runs on the blocks."""
+    why = ("needs a reduction over each whole client model, which the "
+           "train step on model blocks does not run (ROADMAP 9b-2a)")
+    if spec.detect_lazy:
+        raise ValueError(f"detect_lazy's sketch {why}")
+    if mode == topology_lib.EXEC_GEOMED:
+        raise ValueError(f"the geometric median {why}")
 
 
 def make_mine(spec: RoundSpec, mesh=None):
@@ -598,7 +647,8 @@ def make_finalize(loss_fn: LossFn, spec: RoundSpec,
 
 def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
                           n_rounds: Optional[int] = None,
-                          device: DeviceLike = "cuda", mesh=None):
+                          device: DeviceLike = "cuda", mesh=None,
+                          model=None):
     """Build the round: ``(RoundState, batch, matrix=None, noise=None,
     device_round=None) -> (RoundState, metrics)``.
 
@@ -616,11 +666,13 @@ def make_integrated_round(loss_fn: LossFn, spec: RoundSpec,
     rows. ``perturb`` and ``attack`` are full-width transforms of the
     broadcast set: when either is active the round gathers the set, runs
     them on it (every rank the same draws) and keeps its rows, and the
-    communicate stage reuses the gathered set."""
+    communicate stage reuses the gathered set. ``model``: the params are
+    model blocks (:func:`make_communicate`); the noise given must then be
+    cut to the blocks, as the train step on a mesh cuts it."""
     local_train = make_local_train(loss_fn, spec)
     perturb = make_perturb(spec)
     attack = make_attack(spec)
-    communicate = make_communicate(spec, device, mesh)
+    communicate = make_communicate(spec, device, mesh, model)
     mine = make_mine(spec, mesh)
     finalize = make_finalize(loss_fn, spec, n_rounds, mesh)
 

@@ -192,13 +192,17 @@ def mix_rows_tree(params: Tree, w_rows: torch.Tensor) -> Tree:
     return out
 
 
-def digest_divergence_tree(tree: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
+def digest_divergence_tree(tree: Tree, model=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Model digest and client divergence from one sweep of each leaf.
     Returns (digest, 0-d int64 word; divergence, 0-d f32) where divergence
     is ``sqrt(mean_c sum_leaves residual[c])``, the JAX package's
     ``client_divergence``. Tolerance tier: the leaf sums are associated
     differently from ``mining.digest_tree``, so the digest (and the ledger)
-    forks from it deterministically. Leaves must be floating point."""
+    forks from it deterministically. Leaves must be floating point.
+    ``model`` (``core.aggregation.ModelBlocks``): each leaf of the tree is
+    a model block, and a split leaf's sum and residuals are summed over
+    its blocks (``model.sum``) before the fold."""
     keys = sorted(tree)
     c = tree[keys[0]].shape[0]
     acc = mining.as_word(mining.DIGEST_INIT, tree[keys[0]].device)
@@ -208,6 +212,9 @@ def digest_divergence_tree(tree: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
             raise TypeError(f"digest_divergence_tree: leaf {k!r} is "
                             f"{tree[k].dtype}, not floating point")
         s, res = digest_div_flat(_flat(tree[k], c))
+        if model is not None:
+            both = model.sum(k, torch.cat([s.reshape(1), res]))
+            s, res = both[0], both[1:]
         acc = mining.fold_digest(acc, s)
         total = res if total is None else total + res
     return acc, torch.sqrt(total.mean())

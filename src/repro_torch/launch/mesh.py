@@ -78,10 +78,18 @@ class ClientMesh:
     (the ranks that differ from it in that coordinate only), ``world`` the
     group of every rank, and a group of each line along every other set
     of axes under their tuple in mesh order (``("data", "model")`` on a
-    three-axis mesh). ``received`` counts the analytic bytes each op
-    received on this rank (an all-gather the other ranks' blocks, an
+    three-axis mesh). ``received_by_axes`` counts the analytic bytes each
+    op received on this rank (an all-gather the other ranks' blocks, an
     all-reduce a ring's ``2 (n - 1) / n`` of its tensor, a shift the block
-    it took), for the communication a round or a step moves.
+    it took) under ``"<op> over <axes>"`` (the axes joined by ``+``), for
+    the communication a round or a step moves and the line that carried
+    it; ``received`` is the same bytes by op alone.
+
+    :meth:`view` gives the mesh of a subset of the axes (a line of ranks,
+    such as the data axis of a ``("data", "model")`` mesh): its ranks
+    are the ranks of this rank's line, ``rank`` is this rank's index on
+    it, ``world_ranks`` maps the view's ranks to the world's, and it
+    shares the groups and the counter of the mesh it was cut from.
 
     At one rank the all-gather and the all-reduce still call the backend
     (so an NCCL rank's graph driver captures them); a shift onto this rank
@@ -93,7 +101,10 @@ class ClientMesh:
     device: torch.device
     world: Any
     groups: Dict[str, Any]
-    received: Dict[str, int] = dataclasses.field(default_factory=dict)
+    received_by_axes: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
+    # the world rank of each of this mesh's ranks (() : the same)
+    world_ranks: Tuple[int, ...] = ()
 
     @property
     def n_shards(self) -> int:
@@ -129,8 +140,51 @@ class ClientMesh:
                      else direct)
                 for op in ("all_gather", "all_reduce", "shift")}
 
-    def _count(self, op: str, nbytes: float) -> None:
-        self.received[op] = self.received.get(op, 0) + int(nbytes)
+    @property
+    def received(self) -> Dict[str, int]:
+        """``received_by_axes`` summed by op (a new dict: clear the
+        counts through ``received_by_axes``)."""
+        out: Dict[str, int] = {}
+        for key, n in self.received_by_axes.items():
+            op = key.split(" over ")[0]
+            out[op] = out.get(op, 0) + n
+        return out
+
+    def _count(self, op: str, nbytes: float, axes: Tuple[str, ...]
+               ) -> None:
+        key = f"{op} over {'+'.join(axes)}"
+        self.received_by_axes[key] = self.received_by_axes.get(key, 0) \
+            + int(nbytes)
+
+    def view(self, axes: Axes) -> "ClientMesh":
+        """The mesh of ``axes`` (a name or a tuple of names; kept in this
+        mesh's order) through this rank: the ranks that share this rank's
+        coordinates on every other axis. It makes no process group (it
+        takes this mesh's), so a rank may cut it at any time."""
+        axes = self._axes(axes)
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if axes == self.axis_names:
+            return self
+        shape = tuple(self.shape[self.axis_names.index(a)] for a in axes)
+        groups = {}
+        for size in range(1, len(axes)):
+            for sub in itertools.combinations(axes, size):
+                groups[sub[0] if size == 1 else sub] = self._group(sub)
+        coords = list(np.unravel_index(self.rank, self.shape))
+        ranks = []
+        for t in itertools.product(*(range(n) for n in shape)):
+            for a, c in zip(axes, t):
+                coords[self.axis_names.index(a)] = c
+            ranks.append(self._world_rank(
+                int(np.ravel_multi_index(coords, self.shape))))
+        return dataclasses.replace(
+            self, axis_names=axes, shape=shape, rank=self.index(axes),
+            world=self._group(axes), groups=groups,
+            world_ranks=tuple(ranks))
+
+    def _world_rank(self, r: int) -> int:
+        """The world rank of this mesh's rank ``r``."""
+        return self.world_ranks[r] if self.world_ranks else r
 
     def _axes(self, axis: Axes) -> Tuple[str, ...]:
         """``axis`` (None: the world; a name; a tuple of names) as a tuple
@@ -176,7 +230,8 @@ class ClientMesh:
         out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x, group=self._group(axes))
-        self._count("all_gather", (n - 1) * x.numel() * x.element_size())
+        self._count("all_gather", (n - 1) * x.numel() * x.element_size(),
+                    axes)
         return out.movedim(0, dim)
 
     def all_reduce(self, x: torch.Tensor, axis: Axes = None
@@ -188,7 +243,7 @@ class ClientMesh:
         n = self.extent(axes)
         dist.all_reduce(out, group=self._group(axes))
         self._count("all_reduce", 2 * (n - 1) / n * out.numel()
-                    * out.element_size())
+                    * out.element_size(), axes)
         return out
 
     def _peer(self, axis: Optional[str], step: int) -> int:
@@ -224,11 +279,14 @@ class ClientMesh:
                 continue
             buf = torch.empty(src.shape, dtype=src.dtype, device=src.device,
                               pin_memory=staged)
-            ops.append(dist.P2POp(dist.isend, src, self._peer(axis, -q),
+            ops.append(dist.P2POp(dist.isend, src,
+                                  self._world_rank(self._peer(axis, -q)),
                                   tag=i))
-            ops.append(dist.P2POp(dist.irecv, buf, peer_from, tag=i))
+            ops.append(dist.P2POp(dist.irecv, buf,
+                                  self._world_rank(peer_from), tag=i))
             landed.append((i, buf))
-            self._count("shift", x.numel() * x.element_size())
+            self._count("shift", x.numel() * x.element_size(),
+                        self._axes(axis))
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()

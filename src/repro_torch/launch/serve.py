@@ -164,14 +164,14 @@ def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
         params, prefill.in_specs[0], mesh))
     lbatch = specs.shard_tree(batch, prefill.in_specs[1], mesh)
     ltokens = specs.shard_leaf(tokens, decode.in_specs[2] + (None,), mesh)
-    mesh.received.clear()
+    mesh.received_by_axes.clear()
     _sync(dev)
     t0 = time.perf_counter()
     logits, state = prefill(local, lbatch)
     _sync(dev)
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     received = {"prefill": dict(mesh.received)}
-    mesh.received.clear()
+    mesh.received_by_axes.clear()
     out, step_ms = [logits], []
     for i in range(n):
         t0 = time.perf_counter()

@@ -26,7 +26,14 @@ rank's blocks, ``gather_tree`` puts the ranks' back together). A leaf
 that the plan splits over an axis of extent > 1 and that no forward here
 splits (Mamba, xLSTM, MLA and MoE blocks, the audio front-end, MLA's
 sequence-split latent cache) makes the builder raise ``ValueError``; its
-tensor-parallel forward is ROADMAP 9b-3. The train step is ROADMAP 9b-2.
+tensor-parallel forward is ROADMAP 9b-3.
+
+:func:`build_train_step` takes the reference's ``(cfg, shape, mesh,
+multi_pod, dtype, spec_override=None, plan=None)`` and returns ``(step,
+(state, batch) abstract, plan, round spec)``: one BLADE-FL round under
+the L1 layout, the clients over the data axes and each client's params
+over the model axes, trained through autograd over the differentiable
+collectives of ``models/parallel.py``. The L2 layout is ROADMAP 9b-2b.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core import rounds
+from repro_torch.core import aggregation, rounds
+from repro_torch.core import topology as topology_lib
 from repro_torch.models import registry, transformer
 from repro_torch.models.parallel import Parallel
 from repro_torch.sharding import plans as plans_lib
@@ -60,20 +68,22 @@ def skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
     return None
 
 
-def round_spec_for(cfg: ModelConfig, shape: ShapeConfig, n_clients: int, *,
-                   tau: int = 2, mine_attempts: int = 1024
-                   ) -> rounds.RoundSpec:
-    """The round of a training cell at ``n_clients`` clients on one device:
-    the reference's ``round_spec_for`` without FSDP axes (microbatches of
-    8 samples a client, so ``max(1, m // 8)`` of them for m =
-    ``global_batch / n_clients``; one lazy client in 8; sigma2 1e-4;
-    difficulty 8; no global-loss eval)."""
-    m = shape.global_batch // n_clients
+def round_spec_for(cfg: ModelConfig, shape: ShapeConfig,
+                   plan: specs_lib.ShardingPlan, *, tau: int = 2,
+                   mine_attempts: int = 1024) -> rounds.RoundSpec:
+    """The round of a training cell under ``plan`` (the reference's
+    ``round_spec_for``): ``plan.n_clients`` clients; microbatches of 32
+    samples a client under FSDP axes (the L2 giants amortize their weight
+    gathers), else of 8, so ``max(1, m // size)`` of them for m =
+    ``global_batch / n_clients``; eta 1e-3; one lazy client in 8; sigma2
+    1e-4; difficulty 8; no global-loss eval."""
+    m = shape.global_batch // plan.n_clients
+    size = 32 if plan.fsdp_axes else 8
     return rounds.RoundSpec(
-        n_clients=n_clients, tau=tau, eta=1e-3,
-        n_lazy=max(n_clients // 8, 0), sigma2=1e-4,
+        n_clients=plan.n_clients, tau=tau, eta=1e-3,
+        n_lazy=max(plan.n_clients // 8, 0), sigma2=1e-4,
         mine_attempts=mine_attempts, difficulty_bits=8,
-        microbatches=max(1, m // 8), eval_global_loss=False)
+        microbatches=max(1, m // size), eval_global_loss=False)
 
 
 # ---------------------------------------------------------------------------
@@ -90,8 +100,8 @@ class MeshStep:
     in_specs: tuple
     out_specs: tuple
 
-    def __call__(self, *args):
-        return self.fn(*args)
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
 
 
 def _tp_family(cfg: ModelConfig) -> bool:
@@ -173,13 +183,135 @@ def _prefill_state_specs(cfg: ModelConfig, plan, state) -> Any:
     return tree_lib.map_with_path(one, state)
 
 
-def build_train_step(cfg, shape, mesh, multi_pod, dtype=torch.bfloat16,
-                     spec_override=None, plan=None):
-    """The BLADE-FL round on a mesh: not ported yet (ROADMAP 9b-2)."""
-    raise NotImplementedError(
-        "the train step on a mesh (build_train_step: the L1 / L2 layouts, "
-        "differentiable collectives, a vocab-parallel loss) is ROADMAP "
-        "9b-2; launch.train --devices runs the client-sharded engine")
+@dataclasses.dataclass(eq=False)
+class TrainStep(MeshStep):
+    """:class:`MeshStep` of the train step. ``init_state(params, seed)``:
+    this rank's round-0 state from one whole model (its flattened leaves,
+    ``tree.flatten``, on this rank's device): each leaf's block held by
+    every one of this rank's clients, the genesis hash, round 0 and the
+    run's CPU generator seeded with ``seed`` (every rank the same).
+    ``loss_fn``: the round's per-client loss on this rank's blocks
+    (``registry.client_losses`` with the step's tensor-parallel
+    context)."""
+    init_state: Optional[Callable] = None
+    loss_fn: Optional[Callable] = None
+
+
+def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                     multi_pod: bool, dtype=torch.bfloat16,
+                     spec_override: Optional[rounds.RoundSpec] = None,
+                     plan: Optional[specs_lib.ShardingPlan] = None
+                     ) -> tuple:
+    """(step, (state abstract, batch abstract), plan, round spec): one
+    BLADE-FL round (``rounds.make_integrated_round``) on a mesh under the
+    L1 layout, the reference's ``build_train_step``.
+
+    ``plan`` (default ``plans.train_plan``) splits the clients over its
+    client axes; the model axes split each client's params as
+    ``param_pspecs`` gives them, and tensor parallelism runs inside each
+    client's loss (``registry.client_losses(cfg, par=...)``: the dense GQA
+    decoders' forwards with differentiable collectives and a
+    vocab-parallel cross-entropy, ``models/parallel.py``). The round's
+    client collectives run over the client axes alone (the engine gets
+    ``mesh.view(plan.client_axes)``), and the digest and divergence sum
+    the model blocks' partials (``core/rounds.py``'s docstring). At model
+    extent 1 the step is the client-sharded engine of ``launch.train
+    --devices``. ``spec_override`` replaces ``round_spec_for(cfg, shape,
+    plan)``; its ``n_clients`` must be the plan's.
+
+    ``step(state, batch, matrix=None, noise=None) -> (state, metrics)`` on
+    this rank's blocks (``step.in_specs`` / ``out_specs``; the state's
+    params are the flattened leaves, ``[C, ...]`` under their specs): the
+    round's noise is drawn from ``state.generator`` at each leaf's full
+    shape, in the order ``rounds.draw_noise`` draws a round's, and cut to
+    the rank's blocks, unless ``noise`` (one round's, ``{stage: {leaf:
+    [rows, ...]}}`` at the full shapes) is given; ``matrix`` is the
+    round's mixing matrix for a topology that reads one
+    (``rounds.mix_matrices``). ``metrics`` (``local_loss`` [C], ``winner``,
+    ``pow_hash``, ``nonce``, ``solved``, ``digest``, ``divergence``) are
+    replicated on every rank. ``step.init_state(params, seed)`` makes a
+    rank's round-0 state.
+
+    An L2 plan (clients replicated, FSDP) raises ``NotImplementedError``
+    (ROADMAP 9b-2b); a family whose leaves the plan splits over the model
+    axes and no forward here splits raises ``ValueError`` (ROADMAP 9b-3),
+    as do the round stages that would need a reduction over each whole
+    client model (``detect_lazy``, the geometric median)."""
+    cfg = resolve_cfg(cfg, shape)
+    plan = plan or plans_lib.train_plan(cfg, shape, mesh, multi_pod)
+    if not plan.client_axes:
+        raise NotImplementedError(
+            "the L2 layout (clients replicated, FSDP and each client's "
+            "batch over the data axes, FSDP gathers under autograd) is "
+            "ROADMAP 9b-2b; build_train_step runs the L1 layout")
+    rspec = spec_override or round_spec_for(cfg, shape, plan)
+    if rspec.n_clients != plan.n_clients or plan.n_clients < 2:
+        raise ValueError(f"a round of {rspec.n_clients} clients under a "
+                         f"plan of {plan.n_clients} (the L1 layout needs "
+                         "two or more, the same in both)")
+    params_abs = registry.params_specs(cfg, dtype, n_clients=plan.n_clients)
+    batch_abs = registry.train_batch_specs(cfg, shape, dtype,
+                                           n_clients=plan.n_clients)
+    flat_abs = tree_lib.flatten(params_abs)
+    pspecs = tree_lib.flatten(
+        specs_lib.param_pspecs(cfg, mesh, plan, params_abs), tuples=False)
+    # each client's leaves: the specs less the client dim
+    mspecs = {k: spec[1:] for k, spec in pspecs.items()}
+    _refuse_unported(cfg, mesh, plan, mspecs)
+    par = Parallel(mesh, plan, mspecs)
+    model_axes = par.model_axes
+    split = sorted(k for k, spec in mspecs.items()
+                   if any(set(axes) & set(model_axes)
+                          for _, axes in _split_dims(spec, mesh)))
+    if split:
+        rounds.refuse_model_split(rspec, topology_lib.resolve_mix_plan(
+            rspec, tuple((a, n) for a, n in mesh.axes
+                         if a in plan.client_axes)).mode)
+    # at model extent 1 the loss is one device's: the client-sharded engine
+    loss_fn = registry.client_losses(cfg, par=par if model_axes else None)
+    engine: dict = {}
+
+    def build():   # the mesh's views, on the first call (a rank's mesh)
+        dev = mesh.device
+        model = (aggregation.ModelBlocks(mesh.view(model_axes), split)
+                 if model_axes else None)
+        engine["round"] = rounds.make_integrated_round(
+            loss_fn, rspec, device=dev, mesh=mesh.view(plan.client_axes),
+            model=model)
+
+    def train(state: rounds.RoundState, batch, matrix=None, noise=None):
+        if not engine:
+            build()
+        if noise is None:
+            noise = {stage: {k: v[0] for k, v in leaves.items()}
+                     for stage, leaves in rounds.draw_noise(
+                         rspec, flat_abs, 1, state.generator, "cpu").items()}
+        noise = {stage: {k: specs_lib.shard_leaf(
+                     v, (None,) + mspecs[k], mesh).to(mesh.device)
+                     for k, v in leaves.items()}
+                 for stage, leaves in noise.items()}
+        return engine["round"](state, batch, matrix, noise=noise)
+
+    def init(params, seed: int):
+        n_local = plan.n_clients // mesh.extent(plan.client_axes)
+        blocks = {k: specs_lib.shard_leaf(params[k], mspecs[k], mesh)
+                  for k in sorted(params)}
+        return rounds.init_state(
+            blocks, n_local,
+            torch.Generator(device="cpu").manual_seed(int(seed)))
+
+    state_specs = rounds.RoundState(params=pspecs, generator=None,
+                                    round_idx=None, prev_hash=())
+    metric_specs = {"local_loss": (None,), "winner": (), "pow_hash": (),
+                    "nonce": (), "solved": (), "digest": (),
+                    "divergence": ()}
+    state_abs = rounds.RoundState(
+        params=flat_abs, generator=torch.Generator, round_idx=int,
+        prev_hash=torch.empty((), dtype=torch.int64, device="meta"))
+    step = TrainStep(train, (state_specs, specs_lib.train_batch_pspecs(
+        cfg, plan, batch_abs)), (state_specs, metric_specs),
+        init_state=init, loss_fn=loss_fn)
+    return step, (state_abs, batch_abs), plan, rspec
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -256,8 +388,9 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
 def build_step(kind: str, cfg, shape, mesh, multi_pod,
                dtype=torch.bfloat16):
-    """The reference's dispatch: ``"train"`` (ROADMAP 9b-2), ``"prefill"``
-    or ``"decode"``; returns (step, abstract inputs, plan)."""
+    """The reference's dispatch: ``"train"`` (:func:`build_train_step`),
+    ``"prefill"`` or ``"decode"``; returns (step, abstract inputs,
+    plan)."""
     if kind == "train":
         step, abs_in, plan, _ = build_train_step(cfg, shape, mesh,
                                                  multi_pod, dtype)

@@ -131,14 +131,31 @@ def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
          gather_kv: bool = False):
     """(q, k, v, index of q's first head, index of k's first head).
     Without ``par`` every head; under it each projection's heads as
-    :func:`_heads` gives them (``gather_q`` / ``gather_kv``: all)."""
+    :func:`_heads` gives them (``gather_q`` / ``gather_kv``: all).
+
+    When ``w_q`` is a column block the attention runs tensor-parallel:
+    ``x`` enters the column blocks once (``par.enter_model``), and so does
+    every replicated leaf read inside them (a whole ``w_k`` / ``w_v``, the
+    qk-norm scales), whose gradient each rank holds in part."""
     hd = cfg.resolved_head_dim
+    tp = par is not None and params["w_q"].shape[-1] < cfg.n_heads * hd
+    enter = par.enter_model if tp else (lambda t: t)
+    x = enter(x)
+
+    def weight(name, n):
+        w = params[name]
+        return enter(w) if w.shape[-1] == n * hd else w
+
     q, q_lo = _heads(par, x, params["w_q"], cfg.n_heads, hd, gather_q)
-    k, kv_lo = _heads(par, x, params["w_k"], cfg.n_kv_heads, hd, gather_kv)
-    v, _ = _heads(par, x, params["w_v"], cfg.n_kv_heads, hd, gather_kv)
+    k, kv_lo = _heads(par, x, weight("w_k", cfg.n_kv_heads),
+                      cfg.n_kv_heads, hd, gather_kv)
+    v, _ = _heads(par, x, weight("w_v", cfg.n_kv_heads), cfg.n_kv_heads,
+                  hd, gather_kv)
     if cfg.qk_norm:
-        q = layers.rms_norm(params["q_norm"], q, cfg.norm_eps)
-        k = layers.rms_norm(params["k_norm"], k, cfg.norm_eps)
+        q = layers.rms_norm({"scale": enter(params["q_norm"]["scale"])}, q,
+                            cfg.norm_eps)
+        k = layers.rms_norm({"scale": enter(params["k_norm"]["scale"])}, k,
+                            cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v, q_lo, kv_lo

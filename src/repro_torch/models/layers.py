@@ -116,7 +116,10 @@ def mlp_apply(params: Params, x: torch.Tensor, kind: str, par=None
     """The MLP of ``x``. ``par`` (``models/parallel.py``): ``w_in`` /
     ``w_gate`` are column blocks and ``w_out`` the matching row block over
     the model axes, so the product is this rank's partial sum, summed over
-    them."""
+    them; ``x`` enters the column blocks (``par.enter_model``: under
+    autograd its gradient is summed over the model ranks)."""
+    if par is not None:
+        x = par.enter_model(x)
     h = x @ params["w_in"]
     if kind == "swiglu":
         h = F.silu(x @ params["w_gate"]) * h

@@ -15,6 +15,31 @@ from the arch: a column block of ``w_q`` / ``w_k`` / ``w_v`` / ``w_in`` /
 over the model axes; a vocab block of ``embed`` is shorter than the
 vocab. Leaves split over the FSDP axes are gathered just before the block
 that reads them runs (:meth:`Parallel.unshard`) and dropped after it.
+
+Under autograd (the train step on a mesh) the collectives over the model
+axes are differentiable, by Megatron's convention: every model rank
+computes the whole loss, so an activation outside a split block is
+replicated and so is its gradient.
+
+  ``enter_model``   at the input of a column block (one call for q, k and
+                    v, which share it): identity; its gradient is the sum
+                    of the model ranks' partial gradients (all-reduce)
+  ``sum_model``     after a row block: the all-reduce of the partial sums;
+                    its gradient passes through (every rank already holds
+                    the whole gradient of the sum)
+  ``gather_model``  where a block cuts a head: the all-gather of the
+                    blocks; its gradient is this rank's block of the sum
+                    of the ranks' gradients (each rank reads the gathered
+                    heads only through its own query heads or its own
+                    columns of ``w_o``, so each holds a partial gradient)
+
+``torch.distributed.nn.functional``'s collectives are not used: their
+backward sums over the ranks, which would count a loss replicated on the
+model ranks once a rank. A replicated leaf read inside a split block (the
+qk-norm scales) goes through ``enter_model`` too, so that its gradient,
+partial on each rank, is summed and the replicas stay equal. Without
+grad (serving, the eval loss) each issues exactly the collective it did
+before: ``enter_model`` none.
 """
 from __future__ import annotations
 
@@ -25,6 +50,53 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.sharding import specs as specs_lib
+
+
+class _SumModel(torch.autograd.Function):
+    """Forward the all-reduce over ``axes``, backward the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterModel(torch.autograd.Function):
+    """Forward the identity, backward the all-reduce over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axes), None, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """Forward the all-gather over ``axes`` along ``dim``, backward this
+    rank's block of the all-reduced gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        ctx.block = (mesh.index(axes) * x.shape[dim], x.shape[dim])
+        # eager torch's gather, materialized (RL302 guards XLA's)
+        # repro-lint: disable=RL302
+        return mesh.all_gather(x, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.mesh.all_reduce(g, ctx.axes)
+        return g.narrow(ctx.dim, *ctx.block), None, None, None
+
+
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 @dataclasses.dataclass(eq=False)
@@ -68,12 +140,29 @@ class Parallel:
         return self.mesh.extent(self.seq_axes) if self.seq_axes else 1
 
     def sum_model(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of the model ranks' partial ``x``."""
+        """The sum of the model ranks' partial ``x`` (its gradient passes
+        through)."""
+        if _differentiated(x):
+            return _SumModel.apply(x, self.mesh, self.model_axes)
         return self.mesh.all_reduce(x, self.model_axes)
+
+    def enter_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` at the input of a column block over the model axes: the
+        same values; under autograd its gradient is summed over the model
+        ranks. The identity with no model axis or without grad."""
+        if self.model_axes and _differentiated(x):
+            return _EnterModel.apply(x, self.mesh, self.model_axes)
+        return x
 
     # the gathers below are eager torch's, materialized: no reduction can
     # fuse across them (repro-lint's RL302 guards XLA's gathers)
     def gather_model(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every model rank's ``x`` along ``dim``; under autograd the
+        gradient of this rank's block is its block of the ranks' summed
+        gradients."""
+        dim = dim % x.dim()
+        if _differentiated(x):
+            return _GatherModel.apply(x, self.mesh, self.model_axes, dim)
         # repro-lint: disable=RL302
         return self.mesh.all_gather(x, self.model_axes, dim=dim)
 

@@ -35,14 +35,15 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
-            loss_chunk: int = 0):
+            loss_chunk: int = 0, par=None):
     """(loss, {"ce", "aux"}) of one model on ``batch``
-    (``transformer.train_loss``)."""
+    (``transformer.train_loss``; ``par``: one rank's part of the train
+    step on a mesh)."""
     return transformer.train_loss(params, cfg, batch, remat=remat,
-                                  loss_chunk=loss_chunk)
+                                  loss_chunk=loss_chunk, par=par)
 
 
-def client_losses(cfg: ModelConfig, remat: bool = False):
+def client_losses(cfg: ModelConfig, remat: bool = False, par=None):
     """The round engine's loss (``core.rounds.LossFn``) of an LM:
     ``losses(params, batch) -> [C]``, with ``params`` the model's flattened
     leaves (``tree.flatten``: path -> ``[C, ...]``) and ``batch`` leaves
@@ -50,7 +51,9 @@ def client_losses(cfg: ModelConfig, remat: bool = False):
     views ``params[path][c]`` on ``batch[name][c]``, the clients in a
     Python loop (where the reference vmaps its loss over the client axis:
     the kernels' wrappers and the in-place writes of the MoE dispatch do
-    not run under ``torch.func.vmap``)."""
+    not run under ``torch.func.vmap``). With ``par`` (the train step on a
+    mesh) each leaf is this rank's model block of its clients' params and
+    the loss is tensor-parallel, the same on every model rank."""
 
     def losses(params: Dict[str, torch.Tensor],
                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -59,7 +62,7 @@ def client_losses(cfg: ModelConfig, remat: bool = False):
         for c in range(n):
             one = tree_lib.unflatten({k: v[c] for k, v in params.items()})
             loss, _ = loss_fn(one, cfg, {k: v[c] for k, v in batch.items()},
-                              remat=remat)
+                              remat=remat, par=par)
             out.append(loss)
         return torch.stack(out)
 

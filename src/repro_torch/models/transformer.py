@@ -45,7 +45,8 @@ model axes runs tensor-parallel (``attention.gqa_forward`` /
 ``gqa_decode``), and so do a dense MLP with its hidden width split
 (``layers.mlp_apply``) and a vocab-split embedding: a lookup by range,
 summed over the model axes, and a head whose logits stay split on the
-vocab. An MoE block on a batch split over ranks routes with every rank's
+vocab (``train_loss`` then takes a vocab-parallel cross-entropy). An MoE
+block on a batch split over ranks routes with every rank's
 choices (``moe.route``). Without ``par`` nothing changes.
 
 On the card the GQA and MLA forwards launch the flash kernel and the Mamba
@@ -358,10 +359,15 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
 def _lm_head(params: Params, cfg: ModelConfig, h: torch.Tensor, par=None
              ) -> torch.Tensor:
     """Logits of ``h``; under ``par`` of the vocab block this rank holds
-    (every vocab entry when the head is whole)."""
+    (every vocab entry when the head is whole), ``h`` entering the vocab
+    block as a column block's input (``par.enter_model``)."""
     if cfg.tie_embeddings:
-        return h @ _unshard(par, params["embed"], "embed").T
-    return h @ _unshard(par, params["lm_head"], "lm_head")
+        w = _unshard(par, params["embed"], "embed").T
+    else:
+        w = _unshard(par, params["lm_head"], "lm_head")
+    if par is not None and w.shape[-1] < cfg.vocab:
+        h = par.enter_model(h)
+    return h @ w
 
 
 def ce_chunk(batch: int, seq: int, vocab: int, chunk: int = 0) -> int:
@@ -379,14 +385,37 @@ def ce_chunk(batch: int, seq: int, vocab: int, chunk: int = 0) -> int:
     return chunk
 
 
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor,
+                          par) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log-sum-exp, the label's logit) over the whole vocab from this
+    rank's vocab block of the fp32 ``logits`` [..., V / m]: the max is the
+    largest of the model ranks' maxima (gathered, without grad), the sum
+    of the exponentials and the label's logit (this rank's where its block
+    holds the label, else 0) are summed over the model ranks
+    (``par.sum_model``)."""
+    rows = logits.shape[-1]
+    with torch.no_grad():
+        top = par.gather_model(logits.amax(-1, keepdim=True), -1) \
+            .amax(-1, keepdim=True)
+    sumexp = par.sum_model(torch.exp(logits - top).sum(-1))
+    local = labels - par.model_index * rows
+    inside = (local >= 0) & (local < rows)
+    gold = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    gold = par.sum_model(gold.masked_fill(~inside, 0.0))
+    return top[..., 0] + torch.log(sumexp), gold
+
+
 def chunked_ce_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
                     labels: torch.Tensor, loss_mask: Optional[torch.Tensor],
-                    chunk: int = 0) -> torch.Tensor:
+                    chunk: int = 0, par=None) -> torch.Tensor:
     """Mean cross-entropy of the LM head on h [B, S, D] against labels
     [B, S] under loss_mask [B, S] (all ones when None), without the whole
-    [B, S, V] logits: the sequence runs in chunks (:func:`ce_chunk`), one
-    at a time, in a Python loop (the reference's ``lax.scan``). The mean
-    is over the mask's sum (at least 1); no host sync."""
+    [B, S, V] logits: the sequence runs in chunks (:func:`ce_chunk`, at
+    the whole vocab also under ``par``), one at a time, in a Python loop
+    (the reference's ``lax.scan``). The mean is over the mask's sum (at
+    least 1); no host sync. Under ``par`` with a vocab-split head each
+    rank computes its vocab block's logits and the loss is vocab-parallel
+    (:func:`_vocab_parallel_terms`): the same loss on every model rank."""
     b, s, _ = h.shape
     chunk = ce_chunk(b, s, cfg.vocab, chunk)
     if loss_mask is None:
@@ -394,9 +423,14 @@ def chunked_ce_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
-        logits = _lm_head(params, cfg, h[:, c0:c0 + chunk]).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
+        logits = _lm_head(params, cfg, h[:, c0:c0 + chunk],
+                          par).to(torch.float32)
+        lab = labels[:, c0:c0 + chunk]
+        if logits.shape[-1] < cfg.vocab:
+            logz, gold = _vocab_parallel_terms(logits, lab, par)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lab[..., None])[..., 0]
         mc = loss_mask[:, c0:c0 + chunk].to(torch.float32)
         tot = tot + ((logz - gold) * mc).sum()
         cnt = cnt + mc.sum()
@@ -405,29 +439,33 @@ def chunked_ce_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
 
 def train_loss(params: Params, cfg: ModelConfig,
                batch: Dict[str, torch.Tensor], *, remat: bool = True,
-               loss_chunk: int = 0):
+               loss_chunk: int = 0, par=None):
     """The reference's loss by family: causal LM (``tokens`` [B, S]: the
     first S - 1 positions predict the next token, under ``loss_mask``'s
     last S - 1 columns when given); prefix LM for a VLM (``patches`` and
     ``tokens``: the text's next-token loss, the patches unscored); masked
     prediction for the audio encoder (``targets`` at ``mask_positions``).
-    Returns (ce + aux, {"ce": ce, "aux": aux}), 0-dim tensors."""
+    Returns (ce + aux, {"ce": ce, "aux": aux}), 0-dim tensors. ``par``:
+    one rank's part of the train step on a mesh (``models/parallel.py``:
+    the model-split forward and the vocab-parallel loss, the same on
+    every model rank)."""
     if cfg.family == "vlm":
         tokens = batch["tokens"]
         x, labels, mask = _embed_inputs(params, cfg, {
             "patches": batch["patches"], "tokens": tokens[:, :-1],
-            "labels": tokens[:, 1:]})
+            "labels": tokens[:, 1:]}, par)
     elif cfg.audio_frontend:
-        x, labels, mask = _embed_inputs(params, cfg, batch)
+        x, labels, mask = _embed_inputs(params, cfg, batch, par)
     else:
         tokens = batch["tokens"]
-        x, _, _ = _embed_inputs(params, cfg, {"tokens": tokens[:, :-1]})
+        x, _, _ = _embed_inputs(params, cfg, {"tokens": tokens[:, :-1]},
+                                par)
         labels = tokens[:, 1:]
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = mask[:, 1:]
-    h, aux, _ = forward(params, cfg, x, remat=remat)
-    ce = chunked_ce_loss(params, cfg, h, labels, mask, loss_chunk)
+    h, aux, _ = forward(params, cfg, x, remat=remat, par=par)
+    ce = chunked_ce_loss(params, cfg, h, labels, mask, loss_chunk, par)
     return ce + aux, {"ce": ce, "aux": aux}
 
 

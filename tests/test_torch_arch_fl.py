@@ -209,21 +209,26 @@ def test_steps_resolve_cfg_and_skip_reason_match_reference(arch, shape):
     assert steps.skip_reason(cfg, shp) == jsteps.skip_reason(jcfg, jshape)
 
 
-@pytest.mark.parametrize("batch,clients", [(256, 16), (64, 4), (8, 8)])
+@pytest.mark.parametrize("batch,clients,fsdp", [
+    (256, 16, ()), (64, 4, ()), (8, 8, ()), (256, 2, ("data",))])
 def test_round_spec_for_takes_the_references_microbatch_rule(batch,
-                                                             clients):
-    """The reference's rule on a plan without FSDP axes: 8 samples a
-    microbatch."""
+                                                             clients, fsdp):
+    """The reference's rule on the plan: 8 samples a microbatch, 32 under
+    FSDP axes (256 / 2 clients: 4 microbatches, not 16)."""
+    from repro.sharding.specs import ShardingPlan as JShardingPlan
+    from repro_torch.sharding.specs import ShardingPlan
+
     cfg = configs.get_arch("phi4-mini-3.8b")
     shp = configs.ShapeConfig("t", 4096, batch, "train")
-    spec = steps.round_spec_for(cfg, shp, clients)
-
-    class Plan:   # the fields the reference's rule reads
-        n_clients, fsdp_axes = clients, ()
-
+    client_axes = () if fsdp else ("data",)
+    spec = steps.round_spec_for(cfg, shp, ShardingPlan(
+        clients, client_axes, fsdp, fsdp_axes=fsdp))
     want = jsteps.round_spec_for(jconfigs.get_arch("phi4-mini-3.8b"),
                                  jconfigs.ShapeConfig("t", 4096, batch,
-                                                      "train"), Plan())
+                                                      "train"),
+                                 JShardingPlan(clients, client_axes, fsdp,
+                                               fsdp_axes=fsdp))
+    assert spec.microbatches == (4 if fsdp else max(1, batch // clients // 8))
     for field in ("n_clients", "tau", "eta", "n_lazy", "sigma2",
                   "mine_attempts", "difficulty_bits", "microbatches",
                   "eval_global_loss"):

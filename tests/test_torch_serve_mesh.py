@@ -12,16 +12,20 @@ phi4-mini and qwen3 smoke (qk-norm) with the decode cache split on its
 positions over ``model`` (decode crossing a block), a window whose decode
 wraps the ring, the long-context plan (batch 1, positions over (data,
 model)) and an FSDP plan; one world of 2 ranks runs phi4-mini and qwen3
-at (1, 2) and (2, 1), at (1, 2) also the splits inside a head (one kv
-head; 3 kv heads for 6 query heads, with the cache whole on each rank; 3
-query heads), and jamba smoke (Mamba, MoE) at (2, 1) with FSDP.
+at (1, 2) and (2, 1), at (1, 2) also minicpm (the tied head on a
+vocab-split ``embed``), nemotron (squared ReLU on a column block), the
+splits inside a head (one kv head; 3 kv heads for 6 query heads, with the
+cache whole on each rank; 3 query heads), and jamba smoke (Mamba, MoE) at
+(2, 1) with FSDP.
 At (2, 1) the rows split and nothing else: phi4 and qwen3 at 2 rows a
 rank are bitwise the one-process port (one torch thread a side); at 1 row
 a rank (jamba) they are not, since the CPU's GEMM of one row takes
 another kernel (a GEMV) than that of two. With bf16 params and the
 cache's positions over data the decode stays within bf16 rounding of the
 one-process bf16 decode, and the blocks' combine keeps its log-sum-exp
-in fp32. Builds the mesh cannot run raise at build time.
+in fp32. Builds the mesh cannot run raise at build time, the train
+step's among them (the L2 layout, other families' model splits, full-width
+reductions on model blocks).
 """
 import dataclasses
 
@@ -37,7 +41,7 @@ from repro.configs import get_smoke_arch as jget_smoke_arch
 from repro.models import registry as jregistry
 from repro.models import transformer as jtransformer
 from repro_torch import tree
-from repro_torch.configs import ShapeConfig, get_smoke_arch
+from repro_torch.configs import ShapeConfig, get_arch, get_smoke_arch
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import transformer
@@ -77,6 +81,11 @@ CASES = {
     "phi4 (1, 2)": ("phi4-mini-3.8b", {}, (1, 2), 4, 8, 20, PREFILL,
                     DECODE),
     "qwen3 (1, 2)": ("qwen3-32b", {}, (1, 2), 4, 8, 20, PREFILL, DECODE),
+    # the tied head: logits from embed's vocab block
+    "minicpm (1, 2)": ("minicpm-2b", {}, (1, 2), 4, 8, 20, PREFILL, DECODE),
+    # squared ReLU on the MLP's column block
+    "nemotron (1, 2)": ("nemotron-4-15b", {}, (1, 2), 4, 8, 20, PREFILL,
+                        DECODE),
     # one kv head: its columns split inside the head, gathered after the
     # product; each rank's 2 query heads read it
     "mqa (1, 2)": ("phi4-mini-3.8b", {"n_kv_heads": 1}, (1, 2), 4, 8, 20,
@@ -392,9 +401,61 @@ def test_mla_sequence_split_cache_raises_and_model_one_builds():
     assert plan == FSDP and len(abstract) == 4 and abstract[3] is int
 
 
-def test_train_step_is_not_ported_yet():
-    mesh = specs.MeshShape(("data", "model"), (1, 1))
-    shape = ShapeConfig("t", 16, 2, "train")
-    with pytest.raises(NotImplementedError, match="9b-2"):
-        steps.build_step("train", get_smoke_arch("phi4-mini-3.8b"), shape,
-                         mesh, False)
+TRAIN_L1 = ShardingPlan(4, ("data",), ())
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "jamba-1.5-large-398b"])
+def test_train_step_refuses_the_l2_layout(arch):
+    """An L2 plan (clients replicated, FSDP over data): ROADMAP 9b-2b,
+    through ``build_step("train")`` and ``build_train_step``."""
+    mesh = specs.MeshShape(("data", "model"), (2, 2))
+    shape = ShapeConfig("t", 16, 8, "train")
+    l2 = ShardingPlan(2, (), ("data",), fsdp_axes=("data",))
+    with pytest.raises(NotImplementedError, match="9b-2b"):
+        steps.build_train_step(get_smoke_arch(arch), shape, mesh, False,
+                               torch.float32, plan=l2)
+    if arch == "jamba-1.5-large-398b":   # its own train_plan is L2
+        with pytest.raises(NotImplementedError, match="9b-2b"):
+            steps.build_step("train", get_arch(arch), shape, mesh, False)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "deepseek-v2-236b",
+                                  "xlstm-125m"])
+def test_train_step_refuses_unported_model_splits(arch):
+    """An L1 plan at model 2 for a family with no tensor-parallel forward
+    here: ROADMAP 9b-3; at model 1 the same arch builds."""
+    shape = ShapeConfig("t", 16, 8, "train")
+    with pytest.raises(ValueError, match="9b-3"):
+        steps.build_train_step(get_smoke_arch(arch), shape,
+                               specs.MeshShape(("data", "model"), (2, 2)),
+                               False, torch.float32, plan=TRAIN_L1)
+    step, (state, batch), plan, rspec = steps.build_train_step(
+        get_smoke_arch(arch), shape,
+        specs.MeshShape(("data", "model"), (2, 1)), False, torch.float32,
+        plan=TRAIN_L1)
+    assert plan == TRAIN_L1 and rspec.n_clients == 4
+    assert all(v.shape[0] == 4 for v in state.params.values())
+    assert all(s[0] == ("data",) for s in step.in_specs[0].params.values())
+
+
+@pytest.mark.parametrize("what", ["detect_lazy", "geomed"])
+def test_train_step_refuses_full_width_reductions_on_model_blocks(what):
+    """The lazy detector's sketch and the geometric median reduce over
+    each whole client model: refused at build time on model blocks
+    (ROADMAP 9b-2a), built at model 1."""
+    from repro_torch.core import rounds
+
+    spec = rounds.RoundSpec(n_clients=4, tau=1, eta=0.1,
+                            detect_lazy=what == "detect_lazy",
+                            robust_agg="geomed" if what == "geomed"
+                            else None)
+    shape = ShapeConfig("t", 16, 8, "train")
+    cfg = get_smoke_arch("phi4-mini-3.8b")
+    with pytest.raises(ValueError, match="9b-2a"):
+        steps.build_train_step(cfg, shape,
+                               specs.MeshShape(("data", "model"), (2, 2)),
+                               False, torch.float32, spec_override=spec,
+                               plan=TRAIN_L1)
+    steps.build_train_step(cfg, shape,
+                           specs.MeshShape(("data", "model"), (2, 1)), False,
+                           torch.float32, spec_override=spec, plan=TRAIN_L1)

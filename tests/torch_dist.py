@@ -178,3 +178,101 @@ def serve_mesh_rank(cases):
         except ValueError as e:
             out[f"out of order {shape}"] = str(e)
     return out
+
+
+def train_mesh_rank(jobs):
+    """Each job (name -> dict) on this rank's ``("data", "model")`` mesh
+    of ``job["mesh"]``, through ``steps.build_train_step`` under
+    ``job["plan"]`` (and ``job["spec"]`` as its ``spec_override``):
+
+    ``"grad"``    the step's per-client loss on this rank's blocks of the
+                  round-0 state of ``params`` (one model, numpy, flattened)
+                  and ``tokens`` [C, m, S], and its gradient a leaf;
+    ``"rounds"``  ``len(tokens)`` rounds of the step from that state on
+                  ``tokens`` [K, C, m, S], each round's noise ``noise[k]``
+                  (full shapes) or, with None, the step's own draws from
+                  the generator seeded with ``seed``, and the mixing
+                  matrix ``matrices[k]`` when given;
+    ``"stage"``   the communicate stage (``rounds.make_communicate`` on
+                  the data axis' view, the model blocks of ``params`` [C,
+                  ...] a leaf) on this rank's blocks.
+
+    Returns {name: this rank's blocks (numpy) with their specs, and the
+    per-round metrics, the bytes received by op and axes}."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.sharding import specs
+
+    meshes, out = {}, {}
+    for name, job in jobs.items():
+        if job["mesh"] not in meshes:
+            meshes[job["mesh"]] = mesh_lib.make_host_mesh(
+                job["mesh"], ("data", "model"), "cpu")
+        mesh = meshes[job["mesh"]]
+        cfg, plan = job["cfg"], job["plan"]
+        toks = job["tokens"]
+        c, m, s = toks.shape[-3:]
+        step, _, _, _ = steps.build_train_step(
+            cfg, ShapeConfig("mesh_train", s, c * m, "train"), mesh, False,
+            torch.float32, spec_override=job.get("spec"), plan=plan)
+        pspecs = step.in_specs[0].params
+        if job["kind"] == "stage":
+            out[name] = _stage_on_blocks(job, mesh, pspecs)
+            continue
+        state = step.init_state(_tensors(job["params"]), job.get("seed", 0))
+        mesh.received_by_axes.clear()
+        if job["kind"] == "grad":
+            batch = specs.shard_tree(_tensors({"tokens": toks}),
+                                     step.in_specs[1], mesh)
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in state.params.items()}
+            keys = sorted(leaves)
+            losses = step.loss_fn(leaves, batch)
+            grads = torch.autograd.grad(losses.sum(),
+                                        [leaves[k] for k in keys])
+            out[name] = {"losses": losses.detach().numpy(),
+                         "grads": {k: g.numpy() for k, g in zip(keys, grads)},
+                         "specs": pspecs}
+            continue
+        metrics = []
+        for k in range(len(toks)):
+            batch = specs.shard_tree(_tensors({"tokens": toks[k]}),
+                                     step.in_specs[1], mesh)
+            noise = job["noise"][k] if job.get("noise") else None
+            if noise is not None:
+                noise = {stage: _tensors(v) for stage, v in noise.items()}
+            matrix = (torch.from_numpy(job["matrices"][k])
+                      if job.get("matrices") is not None else None)
+            state, mets = step(state, batch, matrix, noise=noise)
+            metrics.append({n: v.numpy() for n, v in mets.items()})
+        out[name] = {"params": {k: v.numpy()
+                                for k, v in state.params.items()},
+                     "metrics": metrics, "specs": pspecs,
+                     "received": dict(mesh.received_by_axes)}
+    return out
+
+
+def _stage_on_blocks(job, mesh, pspecs):
+    """The communicate stage of ``job["spec"]`` and of each of
+    ``job["more_specs"]`` on this rank's blocks of ``job["params"]`` ([C,
+    ...] leaves, numpy): its blocks of the mixed params, the digest, the
+    divergence (and each further spec's mixed blocks)."""
+    from repro_torch.sharding import specs
+
+    split = {k for k, spec in pspecs.items()
+             if any(e and "model" in e for e in spec[1:])}
+    model = aggregation.ModelBlocks(mesh.view("model"), split)
+    local = {k: specs.shard_leaf(v, pspecs[k], mesh).contiguous()
+             for k, v in _tensors(job["params"]).items()}
+    out = {"specs": pspecs}
+    for i, spec in enumerate([job["spec"]] + job.get("more_specs", [])):
+        communicate = rounds.make_communicate(spec, "cpu",
+                                              mesh.view("data"), model)
+        mixed, digest, divergence, _ = communicate(local, local, 0)
+        mixed = {k: v.numpy() for k, v in mixed.items()}
+        if i:
+            out.setdefault("more_params", []).append(mixed)
+        else:
+            out.update(params=mixed, digest=int(digest),
+                       divergence=float(divergence))
+    return out
