@@ -82,7 +82,10 @@ prints its seconds:
    --size one-h100 --batch 4 --prompt-len 2048 --gen 32`` (Jamba at its
    published widths, 8 layers, dense MLPs: 9.0 G parameters): one prefill
    launches ``flash_attention`` once and ``ssm_scan`` 7 times, decode no
-   kernel; then the phi4-mini smoke config (2 flash launches);
+   kernel; then qwen3-32b ONE_H100 at the same batch, prompt and gen (its
+   published widths, 2 of 64 layers, qk-norm, untied head: 2.531 G
+   parameters), 2 flash launches a prefill; then the phi4-mini smoke
+   config (2 flash launches);
 4b. on the same full-width params, prefill + 8 decode steps against one
    forward over 2056 tokens, and 256 decode steps from an empty state
    against the forward, in max |logit diff| <= ``AGREE_LIMIT``, and no
@@ -234,7 +237,26 @@ prints its seconds:
    it and SDPA. Phase 8a also prints ``_loss_rows_witness``: the
    paper's first local training at C and at C/D rows on the same inputs
    (losses, params, logits, and the cross-entropy's reduction on equal
-   logits, each bitwise or its ulps).
+   logits, each bitwise or its ulps);
+11. the train step under the L2 layout (``steps.build_train_step`` with
+   no client axes, ``phase_l2_train``), 4 gloo ranks sharing the card as
+   (2, 2): qwen3-32b ONE_H100 cut to one layer (published widths, 2.043 G
+   parameters, 8.17 GB fp32 a client), C = 2 clients held by every rank,
+   each client's params over (data, model) and its 64 rows of L2_SEQ
+   tokens over data, in ``round_spec_for``'s 2 microbatches of 32 (a rank
+   runs 16 rows of each), tau 1, K = 2 rounds: the FSDP gathers run
+   under autograd, forward and again in each microbatch's recompute, and
+   their gradients come back by a ring reduce-scatter. Gated as phase 10:
+   launches exact (flash forward twice and backward once a layer,
+   microbatch, client and local step, at 32 query and 4 kv heads), bytes
+   by op and axes exactly ``l2_received``'s, the metrics equal on
+   every rank and the unsplit leaves bitwise across all four, the clients
+   equal after the mix, client 0's round-0 gradient of every block
+   within rtol 1e-4 of one process's on the card, per-round losses at
+   rtol 1e-4 and client 0's params at their scale against a one-process
+   run, both ledgers valid; flash forward and backward held to the twin
+   and timed at a rank's shape (L2_FLASH_PATH); ms a round, the peaks and
+   the bytes printed.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -272,6 +294,12 @@ PROFILE_DROP_LIMIT = 3
 # the flash kernel runs each product as three TF32 passes (3xTF32), the
 # least that holds fp32's tolerance on the tensor cores
 FLASH_TF32_PASSES = 3
+# flash and its backward at a train rank's shape (phases 10 and 11): the
+# profiler's and the CUDA events' readings of a whole profile (every
+# launch recorded) must lie within this factor of each other before the
+# row takes the profiler's; the events add only the few microseconds
+# between a call's launches
+FLASH_TRAIN_READINGS_AGREE = 1.25
 
 # the paper's configuration (launch/train.py flags)
 K = 5
@@ -724,6 +752,31 @@ MESH_TRAIN_GRAD_RTOL = MESH_TRAIN_GRAD_ATOL = FLASH_GRAD_RTOL
 # seconds a rank waits in one collective: a rank that hangs (a collective
 # the others do not join) fails the phase, well inside the script's time
 MESH_TRAIN_TIMEOUT_S = 300.0
+# phase 11: qwen3-32b ONE_H100 cut to one layer (its published widths:
+# 2.043 G parameters, 8.17 GB fp32 a client) trained by the train step
+# under the L2 layout on 4 gloo ranks as (data 2, model 2): C = 2 clients,
+# each on every rank, its params over (data, model), its 64 rows of
+# L2_SEQ tokens over data in round_spec_for's 2 microbatches of 32 (a rank
+# runs 16 rows of each; the loss reads 128 positions, which the
+# cross-entropy's chunk rule cuts into chunks of 16); tau 1, K = 2 rounds. The reference's table has C
+# = 4: four 8.17 GB clients and the round's copies of them do not fit 80
+# GB; tau 1 keeps the phase inside its time (each local step gathers and
+# reduce-scatters a client's model over gloo)
+L2_ARCH, L2_LAYERS = "qwen3-32b", 1
+L2_SHAPE = (2, 2)
+L2_CLIENTS, L2_PER_CLIENT, L2_SEQ = 2, 64, 129
+K_L2, L2_TAU = 2, 1
+L2_SEED = 0
+# the train batch's token ids are int64
+TOKEN_BYTES = 8
+# a rank's flash under grad: its 16 rows of a microbatch of 32 at 128
+# positions (the loss reads tokens[:-1]), 32 query and 4 kv heads
+L2_FLASH_PATH = (L2_PER_CLIENT // (2 * L2_SHAPE[0]), 32, 4, L2_SEQ - 1,
+                 128)
+# phase 4's qwen3-32b serve (ONE_H100: 2 layers, published widths)
+QWEN_SERVE_ARGS = ["--arch", "qwen3-32b", "--size", "one-h100", "--batch",
+                   "4", "--prompt-len", "2048", "--gen", "32"]
+QWEN_SERVE_LAUNCHES = {"flash_attention": 2, "ssm_scan": 0}   # one prefill
 # the decode state of a mesh serve against one process, each leaf and
 # layer held at its scale: max |diff| <= CARD_CPU_ATOL + CARD_CPU_RTOL
 # max |value|. The kv caches past the first layer come from activations
@@ -4353,15 +4406,114 @@ def mesh_train_want(cfg, n_leaves, block_floats, n_split, tau):
     return launches, received
 
 
-def mesh_train_flash_times(torch, dev, report):
+def l2_received(cfg, rspec, pspecs, blocks, extents, m, seq, n_rounds=1):
+    """The bytes a rank of ``steps.build_train_step`` receives in
+    ``n_rounds`` rounds under the L2 layout, by op and axes
+    (``ClientMesh.received_by_axes``' keys), for a dense GQA decoder with
+    an untied head whose heads split evenly over ``model``, in a round
+    with no global-loss eval (``round_spec_for``'s). ``pspecs``: the
+    step's param specs (``[C, ...]`` leaves); ``blocks``: each leaf's
+    per-client block shape on a rank; ``extents``: ``{"data": D, "model":
+    Mo}``; ``m`` rows of ``seq`` int64 tokens (TOKEN_BYTES each) a client.
+
+    With n = ``rspec.microbatches``, b = m / (D n) rows a rank and
+    microbatch, T = b (seq - 1) tokens, d = ``cfg.d_model``, L layers,
+    F = the FSDP-split blocks' floats, R = the other leaves' floats, and
+    a ring all-reduce over n' ranks receiving 2 (n' - 1) / n' of its
+    tensor, a round receives:
+
+    - over data: the tokens' re-cut, (D - 1) C (m / D) seq TOKEN_BYTES,
+      all-gathered once (n > 1); then, a pass being a client's forward on
+      a microbatch (two passes a (local step, microbatch, client) under
+      the checkpoint when n > 1, its forward and its recompute; one
+      without): all-gather (D - 1) F 4 a pass; all-reduce 2 (D - 1) / D
+      (2 4) a pass (the loss's sum and count) and 2 (D - 1) / D R 4 a
+      backward (the gradients entering the batch); reduce-scatter (D - 1)
+      F 4 a backward;
+    - over model (Mo > 1): all-reduce 2 (Mo - 1) / Mo [(1 + 2 L) T d + 2
+      T] 4 a pass (the embedding's lookup, each layer's attention and MLP
+      outputs, the vocab-parallel loss's two terms) and 2 (Mo - 1) / Mo
+      [(2 L + 1) T d + 2 L hd] 4 a backward (the inputs of each layer's
+      q / k / v and MLP column blocks and of the vocab head, and the
+      qk-norm scales); all-gather (Mo - 1) T 4 a pass (the loss's maxima);
+    - the digest and divergence partials, (1 + C) floats a split leaf,
+      all-gathered over the axes that leaf is split over: (n' - 1) (1 +
+      C) 4 each.
+
+    Each backward is a (local step, microbatch, client): tau n C of them
+    a round, and as many forward passes times two (n > 1)."""
+    from repro_torch.sharding import specs as specs_lib
+
+    if cfg.tie_embeddings or rspec.eval_global_loss:
+        raise ValueError("l2_received counts an untied head and a round "
+                         "with no global-loss eval")
+    d_ext, mo = extents.get("data", 1), extents.get("model", 1)
+    c = rspec.n_clients
+    n = max(1, rspec.microbatches)
+    mesh = specs_lib.MeshShape(tuple(extents), tuple(extents.values()))
+
+    def ring(k):
+        return 2 * (k - 1) / k
+
+    fsdp = rest = 0
+    digest: dict = {}
+    for k, spec in pspecs.items():
+        size = math.prod(blocks[k])
+        axes = {a for e in spec[1:] if specs_lib.split_entry(e, mesh)
+                for a in specs_lib.split_entry(e, mesh)}
+        if "data" in axes:
+            fsdp += size
+        else:
+            rest += size
+        if axes:
+            key = "+".join(a for a in extents if a in axes)
+            n_ax = math.prod(extents[a] for a in axes)
+            digest[key] = digest.get(key, 0) + (n_ax - 1) * (1 + c) * 4
+    backwards = rspec.tau * n * c
+    passes = backwards * (2 if n > 1 else 1)
+    tokens = m // (d_ext * n) * (seq - 1)
+    out: dict = {}
+
+    def add(key, nbytes):
+        if nbytes:
+            out[key] = out.get(key, 0) + n_rounds * nbytes
+
+    if d_ext > 1:
+        if n > 1:
+            add("all_gather over data",
+                (d_ext - 1) * c * (m // d_ext) * seq * TOKEN_BYTES)
+        add("all_gather over data", passes * (d_ext - 1) * fsdp * 4)
+        add("all_reduce over data", passes * ring(d_ext) * 2 * 4
+            + backwards * ring(d_ext) * rest * 4)
+        add("reduce_scatter over data", backwards * (d_ext - 1) * fsdp * 4)
+    if mo > 1:
+        d, hd, n_layers = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
+        add("all_reduce over model", passes * ring(mo) * (
+            (1 + 2 * n_layers) * tokens * d + 2 * tokens) * 4
+            + backwards * ring(mo) * ((2 * n_layers + 1) * tokens * d
+                                      + (2 * n_layers * hd
+                                         if cfg.qk_norm else 0)) * 4)
+        add("all_gather over model", passes * (mo - 1) * tokens * 4)
+    for key, nbytes in digest.items():
+        add(f"all_gather over {key}", nbytes)
+    return {k: int(v) if float(v).is_integer() else v
+            for k, v in out.items()}
+
+
+def mesh_train_flash_times(torch, dev, report, path=MESH_TRAIN_FLASH_PATH,
+                           key="at_mesh_train",
+                           tag=" (mesh train, a rank at (2, 2))"):
     """Flash forward (with its rows' log-sum-exp, the training launch) and
-    backward at a phase 10 rank's shape (MESH_TRAIN_FLASH_PATH), held to
-    the plain twin on the same inputs (the output within FLASH_RTOL /
-    FLASH_ATOL of ``ref.mha_ref``'s; dq, dk, dv within FLASH_GRAD_RTOL /
-    FLASH_GRAD_ATOL of autograd through it), then timed beside the twin
-    (and its autograd) and SDPA's fp32 forward and backward; their bounds
-    (3xTF32, as rows 6 and 8 count them). Kept in ``report`` under
-    ``at_mesh_train``; the deviations fold into each row's
+    backward at a train rank's shape (``path``; phase 10's
+    MESH_TRAIN_FLASH_PATH), held to the plain twin on the same inputs (the
+    output within FLASH_RTOL / FLASH_ATOL of ``ref.mha_ref``'s; dq, dk, dv
+    within FLASH_GRAD_RTOL / FLASH_GRAD_ATOL of autograd through it), then
+    timed beside the twin (and its autograd) and SDPA's fp32 forward and
+    backward; their bounds (3xTF32, as rows 6 and 8 count them). Each
+    kernel's time must come from a whole profile (its known device
+    operations a call, every one recorded) and agree with the CUDA events
+    within FLASH_TRAIN_READINGS_AGREE; else the phase fails. Kept in
+    ``report`` under ``key``; the deviations fold into each row's
     ``max_abs_err``."""
     import torch.nn.functional as F
 
@@ -4370,8 +4522,8 @@ def mesh_train_flash_times(torch, dev, report):
     from repro_torch.kernels.flash_attention import ref as flash_ref
 
     gen = torch.Generator(device=dev).manual_seed(1357)
-    b, h, hkv, s, d = MESH_TRAIN_FLASH_PATH
-    (q, k, v), do = _flash_grad_inputs(torch, gen, MESH_TRAIN_FLASH_PATH)
+    b, h, hkv, s, d = path
+    (q, k, v), do = _flash_grad_inputs(torch, gen, path)
     mask = dict(seq_axis=1, head_axis=2, causal=True, window=0,
                 scale=1.0 / math.sqrt(d), prefix_len=0)
     qd, kd, vd = (x.detach() for x in (q, k, v))
@@ -4381,7 +4533,7 @@ def mesh_train_flash_times(torch, dev, report):
     fwd_err = float((o - plain.detach()).abs().max())
     require(bool(((o - plain.detach()).abs() <= FLASH_ATOL
                   + FLASH_RTOL * plain.detach().abs()).all()),
-            f"flash forward at {MESH_TRAIN_FLASH_PATH} (mesh train): "
+            f"flash forward at {path}{tag}: "
             f"{fwd_err:.3g} off the plain twin (rtol {FLASH_RTOL}, atol "
             f"{FLASH_ATOL})")
     got = flash_ops.flash_attention_bwd(qd, kd, vd, o, lse, do, **mask)
@@ -4390,9 +4542,13 @@ def mesh_train_flash_times(torch, dev, report):
               for g, w in zip(got, want)]
     bwd_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     require(max(ratios) <= 1,
-            f"flash backward at {MESH_TRAIN_FLASH_PATH} (mesh train): dq, "
+            f"flash backward at {path}{tag}: dq, "
             f"dk, dv at {ratios} of rtol {FLASH_GRAD_RTOL} |want| + atol "
             f"{FLASH_GRAD_ATOL} max|want|")
+    # the device operations a call of each (the backward: D, dK/dV, dQ
+    # and, under GQA, the group sum)
+    launches = {"flash_attention": 1,
+                "flash_attention_bwd": flash_ops.launches_a_call(h, hkv)}
     checks = {"flash_attention": {"max_abs_err": fwd_err},
               "flash_attention_bwd": {"max_abs_err": bwd_err,
                                       "share_of_tolerance": max(ratios)}}
@@ -4407,7 +4563,6 @@ def mesh_train_flash_times(torch, dev, report):
     bwd_work = (4 * (4 * b * s * h * d + 2 * b * s * hkv * d + b * h * s
                      + b * s * h * d + 2 * b * s * hkv * d),
                 10 * d * pairs, pairs)
-    tag = " (mesh train, a rank at (2, 2))"
     out = {}
     for name, work, fn, plain_fn, lib_fn in (
             ("flash_attention", fwd_work,
@@ -4426,16 +4581,27 @@ def mesh_train_flash_times(torch, dev, report):
         bound, by = _bound(*work, tf32_passes=FLASH_TF32_PASSES)
         label = name + tag
         times = dict(
-            shape=MESH_TRAIN_FLASH_PATH,
-            ms=timing.kernel_ms(fn, label, reps=10),
+            shape=path,
+            ms=timing.kernel_ms(fn, label, reps=10, ops=launches[name]),
             plain_ms=timing.kernel_ms(plain_fn, f"{label} plain", reps=3),
             library_ms=timing.kernel_ms(lib_fn, f"{label} library (SDPA, "
                                                 "fp32)", reps=10),
             bound_ms=bound, bound_by=by)
-        times["events_ms"] = timing.READINGS[label]["events_ms"]
+        reading = timing.READINGS[label]
+        times["events_ms"] = reading["events_ms"]
+        require(reading["whole"],
+                f"{label}: no profile of {reading['reps']} calls held "
+                f"{launches[name]} device operations a call (the most: "
+                f"{reading['ops']}), so the profiler lost some of its time")
+        require(max(times["ms"], times["events_ms"])
+                <= FLASH_TRAIN_READINGS_AGREE
+                * min(times["ms"], times["events_ms"]),
+                f"{label}: the profiler reads {times['ms']:.6g} ms and CUDA "
+                f"events {times['events_ms']:.6g} ms, more than "
+                f"{FLASH_TRAIN_READINGS_AGREE}x apart")
         times["over_bound"] = times["ms"] / bound
         times.update(checks[name])
-        report[name]["at_mesh_train"] = out[name] = times
+        report[name][key] = out[name] = times
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           checks[name]["max_abs_err"])
     del q, k, v, do, o, lse, plain, qt, kt, vt, lib_out, dot
@@ -4651,6 +4817,349 @@ def phase_mesh_train(torch, dev, report):
     return {"phi4 mesh train": ranks[0]["launches"]}
 
 
+def _l2_config():
+    """(cfg, shape, plan, round spec) of phase 11: qwen3-32b ONE_H100 at
+    L2_LAYERS layers (its published widths), L2_CLIENTS clients of
+    L2_PER_CLIENT x L2_SEQ tokens, the L2 plan at that C (clients on every
+    rank, FSDP and rows over data), ``round_spec_for``'s round at tau
+    L2_TAU."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_one_h100_arch
+    from repro_torch.launch import steps
+    from repro_torch.sharding.specs import ShardingPlan
+
+    cfg = dataclasses.replace(get_one_h100_arch(L2_ARCH), n_layers=L2_LAYERS)
+    shape = ShapeConfig("l2_train", L2_SEQ, L2_CLIENTS * L2_PER_CLIENT,
+                        "train")
+    plan = ShardingPlan(L2_CLIENTS, (), ("data",), fsdp_axes=("data",))
+    spec = dataclasses.replace(steps.round_spec_for(cfg, shape, plan),
+                               tau=L2_TAU)
+    return cfg, shape, plan, spec
+
+
+def _l2_inputs(torch, dev, cfg):
+    """Phase 11's params (one model, flattened, drawn on the card from
+    L2_SEED) and tokens [K, C, m, S] (from the seed + 1)."""
+    from repro_torch import tree
+    from repro_torch.models import registry
+
+    params = tree.flatten(registry.init_model(
+        torch.Generator(device=dev).manual_seed(L2_SEED), cfg))
+    tokens = torch.randint(
+        0, cfg.vocab, (K_L2, L2_CLIENTS, L2_PER_CLIENT, L2_SEQ),
+        generator=torch.Generator(device=dev).manual_seed(L2_SEED + 1),
+        device=dev)
+    return params, tokens
+
+
+def l2_train_rank(device):
+    """One rank of phase 11's world: ``steps.build_train_step`` under the
+    L2 plan on its (data, model) mesh, the round-0 state cut from the
+    params (both clients' blocks), then K_L2 rounds with the launch counts
+    set to 0 just before and read just after, each round timed on the
+    host clock (synchronized). Before the rounds, client 0's loss and
+    gradient blocks at the round-0 params (``step.grad_fn`` on client 0's
+    blocks and rows: its block of each of the 2 microbatches, through the
+    FSDP gathers and reduce-scatters; neither its launches nor its bytes
+    count). Prints each stage's seconds. Returns
+    its launches, the q / k shapes of each flash launch, round ms, peak
+    allocated GB, the analytic bytes it received by op and by axes, the
+    metrics, whether both clients hold the same blocks after the mix,
+    and (on the CPU) client 0's round-0 loss and gradient blocks and its
+    final blocks, and its unsplit leaves."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.sharding import specs
+
+    import torch
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    mesh = mesh_lib.make_host_mesh(L2_SHAPE, ("data", "model"), dev)
+
+    def stage(what):
+        print(f"phase 11 rank {mesh.rank}: {what} at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    cfg, shape, plan, spec = _l2_config()
+    step, _, _, _ = steps.build_train_step(
+        cfg, shape, mesh, False, torch.float32, spec_override=spec,
+        plan=plan)
+    params, tokens = _l2_inputs(torch, dev, cfg)
+    state = step.init_state(params, L2_SEED)
+    batches = [{"tokens": specs.shard_leaf(tokens[k], step.in_specs[1][
+        "tokens"], mesh).contiguous()} for k in range(K_L2)]
+    del params, tokens
+    _free(torch)
+    stage("state built")
+    loss0, grads0 = step.grad_fn({k: v[:1] for k, v in state.params.items()},
+                                 {k: v[:1] for k, v in batches[0].items()})
+    first = {"loss": loss0.cpu(),
+             "grads": {k: g[0].cpu() for k, g in zip(sorted(state.params),
+                                                     grads0)}}
+    del loss0, grads0
+    _free(torch)
+    stage("round-0 gradient")
+    mha, shapes = flash_ops.mha, []
+
+    def recorded(q, k, v, **kw):   # the heads of each flash launch
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return mha(q, k, v, **kw)
+
+    flash_ops.mha = recorded
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh.received_by_axes.clear()
+    kernels.reset_launch_counts()
+    round_ms, metrics = [], []
+    for k in range(K_L2):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, mets = step(state, batches[k])
+        _sync(torch, dev)
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({n: v.cpu() for n, v in mets.items()})
+        stage(f"round {k}")
+    launches = kernels.launch_counts()
+    flash_ops.mha = mha
+    stage("rounds done")
+    return {"launches": launches, "flash_shapes": shapes,
+            "round_ms": round_ms,
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if on_card else None),
+            "received_by_axes": dict(mesh.received_by_axes),
+            "transport": mesh.transport, "metrics": metrics,
+            "clients_equal": all(torch.equal(v[0], v[1])
+                                 for v in state.params.values()),
+            "params": {k: v[0].cpu() for k, v in state.params.items()},
+            "whole": {k: v[0].cpu() for k, v in state.params.items()
+                      if not any(step.in_specs[0].params[k][1:])},
+            "blocks": {k: tuple(v.shape[1:])
+                       for k, v in state.params.items()},
+            "specs": step.in_specs[0].params, "round0": first}
+
+
+def l2_train_want(cfg, spec, n_leaves):
+    """The launches of a phase 11 rank: the seal once a round (every rank
+    races all C clients, no client mesh); ``fedavg_flat`` and
+    ``digest_div_flat`` once a leaf a round on the rank's blocks of the C
+    clients; flash forward twice (the forward and the checkpoint's
+    recompute) and backward once a layer, microbatch, client and local
+    step, at the rank's heads (no eval loss)."""
+    from repro_torch import kernels
+
+    attn = cfg.layer_kinds().count("attn")
+    backwards = attn * spec.microbatches * spec.n_clients * spec.tau * K_L2
+    return {**{name: 0 for name in kernels.WRAPPERS},
+            "pow_race": K_L2, "fedavg_flat": n_leaves * K_L2,
+            "digest_div_flat": n_leaves * K_L2,
+            "flash_attention": 2 * backwards,
+            "flash_attention_bwd": backwards}
+
+
+def phase_l2_train(torch, dev, report):
+    """Phase 11: the BLADE-FL train step under the L2 layout
+    (``steps.build_train_step`` with no client axes) on 4 gloo ranks
+    sharing the card as (data 2, model 2): qwen3-32b ONE_H100 cut to
+    L2_LAYERS layer at its published widths (2.043 G parameters, 8.17 GB
+    fp32 a client; the cut is of depth only), both clients on every rank,
+    each client's params over (data, model) and its rows over data in
+    the reference's 2 microbatches of 32 (``l2_train_rank``). Every reading
+    is taken and printed first ("phase 11 readings", with each gate's
+    verdict), then the gates fire in order: each rank's launches exactly
+    ``l2_train_want``'s (every flash launch at 16 rows, 32 query and 4 kv
+    heads) and its bytes received over the run exactly
+    ``l2_received``'s (its docstring has the formula: the token
+    re-cut, the FSDP gathers in each forward and each recompute, the
+    reduce-scatters and the batch all-reduces of the gradients, the
+    loss's sum and count, the model axis' tensor-parallel collectives and
+    the digest partials over each leaf's own axes); the metrics the same
+    on every rank; both clients with the same blocks after the mix; the
+    unsplit leaves bitwise across the four ranks; the ledger valid;
+    client 0's round-0 loss at rtol 1e-4 and each block of its round-0
+    gradient within MESH_TRAIN_GRAD_RTOL / MESH_TRAIN_GRAD_ATOL of one
+    process's on the card (the same 2 microbatches of 32, one client at a
+    time); then a one-process run of the same round spec on the card
+    (``rounds.RoundRunner``, the loop driver): per-round per-client
+    losses at rtol 1e-4, client 0's final params at their scale (each
+    leaf's update over the run as a share of that tolerance printed beside
+    it), its ledger valid. Prints ms a round a rank, each rank's peak GB
+    and their sum, the bytes by op and axes; checks and times flash
+    forward and backward at a rank's shape (L2_FLASH_PATH). Returns rank
+    0's launches."""
+    import dataclasses
+
+    from repro_torch.core import rounds
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs
+
+    _free(torch)
+    flash = mesh_train_flash_times(torch, dev, report, path=L2_FLASH_PATH,
+                                   key="at_l2_train",
+                                   tag=" (L2 train, a rank at (2, 2))")
+    cfg, shape, plan, spec = _l2_config()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(l2_train_rank, math.prod(L2_SHAPE),
+                               backend="gloo", device=str(dev),
+                               args=(str(dev),),
+                               timeout_s=MESH_TRAIN_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    pspecs = ranks[0]["specs"]
+    want_launches = l2_train_want(cfg, spec, len(pspecs))
+    want_bytes = l2_received(
+        cfg, spec, pspecs, ranks[0]["blocks"],
+        dict(zip(("data", "model"), L2_SHAPE)), L2_PER_CLIENT, L2_SEQ,
+        n_rounds=K_L2)
+    b, h, hkv, s, d = L2_FLASH_PATH
+    whole = [k for k, sp in pspecs.items() if not any(sp[1:])]
+    gates = []   # (name, ok, message on failure), fired after the readings
+    for r, got in enumerate(ranks):
+        gates += [
+            (f"rank {r} launches", got["launches"] == want_launches,
+             f"phase 11: rank {r} launched {got['launches']}, expected "
+             f"{want_launches}"),
+            (f"rank {r} flash shapes",
+             all(q == (b, s, h, d) and k == (b, s, hkv, d)
+                 for q, k in got["flash_shapes"]),
+             f"phase 11: rank {r}'s flash launches took "
+             f"{got['flash_shapes'][:2]}, expected q {(b, s, h, d)} and "
+             f"k / v {(b, s, hkv, d)}"),
+            (f"rank {r} bytes", got["received_by_axes"] == want_bytes,
+             f"phase 11: rank {r} received {got['received_by_axes']} over "
+             f"{K_L2} rounds, the analytic bytes are {want_bytes}"),
+            (f"rank {r} metrics",
+             all(torch.equal(m[n], m0[n]) for m, m0 in
+                 zip(got["metrics"], ranks[0]["metrics"]) for n in m0),
+             f"phase 11: rank {r}'s metrics differ from rank 0's"),
+            (f"rank {r} clients equal", got["clients_equal"],
+             f"phase 11: rank {r}'s two clients hold other blocks after "
+             "the mix"),
+            (f"rank {r} whole leaves",
+             sorted(got["whole"]) == sorted(whole)
+             and all(torch.equal(got["whole"][k], ranks[0]["whole"][k])
+                     for k in whole),
+             f"phase 11: an unsplit leaf differs between ranks {r} and 0")]
+    rows = {n: torch.stack([m[n] for m in ranks[0]["metrics"]])
+            for n in ranks[0]["metrics"][0]}
+    hist, ledger = rounds.history_and_ledger(dict(rows))
+    gates.append(("mesh ledger", ledger.validate_chain(),
+                  "phase 11: the mesh ledger is invalid"))
+    mesh = specs.MeshShape(("data", "model"), L2_SHAPE)
+    ats = [specs.MeshShape(mesh.axis_names, mesh.shape, rank=r)
+           for r in range(math.prod(L2_SHAPE))]
+
+    # client 0's round-0 loss and gradient in one process on the card
+    params, tokens = _l2_inputs(torch, dev, cfg)
+    leaves = {k: v[None].detach().requires_grad_(True)
+              for k, v in params.items()}
+    loss0, grads = rounds.make_grad(registry.client_losses(cfg), spec)(
+        leaves, {"tokens": tokens[0][:1]})
+    grad_shares = {}
+    for k, g in zip(sorted(leaves), grads):
+        for r, at in enumerate(ats):
+            want = specs.shard_leaf(g[0], pspecs[k][1:], at)
+            got = ranks[r]["round0"]["grads"][k].to(dev)
+            grad_shares[k] = max(grad_shares.get(k, 0.0), _grad_ratio(
+                torch, got, want, MESH_TRAIN_GRAD_RTOL,
+                MESH_TRAIN_GRAD_ATOL))
+            del got, want
+    loss0 = loss0.cpu()
+    loss0_rel = max(float(((got["round0"]["loss"][:1] - loss0).abs()
+                           / loss0.abs()).max()) for got in ranks)
+    del leaves, grads
+    for got in ranks:
+        del got["round0"]
+    _free(torch)
+    grad_worst = max(grad_shares.values())
+    gates += [("round-0 loss", loss0_rel <= CARD_CPU_RTOL,
+               f"phase 11: client 0's round-0 loss {loss0_rel:.3g} "
+               f"relative off one process's (rtol {CARD_CPU_RTOL})"),
+              ("round-0 gradients", grad_worst <= 1.0,
+               f"phase 11: blocks' round-0 gradients off one process's at "
+               f"{json.dumps(grad_shares)} of rtol {MESH_TRAIN_GRAD_RTOL} "
+               f"|want| + atol {MESH_TRAIN_GRAD_ATOL} max|want|")]
+
+    # the same round spec in one process on the card (the loop driver)
+    runner = rounds.RoundRunner(registry.client_losses(cfg), spec, params,
+                                K_L2, seed=L2_SEED, device=dev)
+    t1 = time.perf_counter()
+    for k in range(K_L2):
+        runner.step(k, {"tokens": tokens[k]})
+    _sync(torch, dev)
+    one_ms = 1e3 * (time.perf_counter() - t1) / K_L2
+    want_losses = runner.rows["local_loss"].cpu()
+    _, whist, wledger = runner.finish()
+    gates.append(("one-process ledger", wledger.validate_chain(),
+                  "phase 11: the one-process ledger is invalid"))
+    loss_rel = float(((rows["local_loss"] - want_losses).abs()
+                      / want_losses.abs()).max())
+    gates.append(("per-round losses", loss_rel <= CARD_CPU_RTOL,
+                  f"phase 11: per-round losses "
+                  f"{rows['local_loss'].tolist()} vs one process "
+                  f"{want_losses.tolist()} (rtol {loss_rel:.3g} > "
+                  f"{CARD_CPU_RTOL})"))
+    shares, update_shares, bitwise = {}, {}, True
+    for k, sp in pspecs.items():
+        final = runner.state.params[k][0]
+        update_shares[k] = float((final - params[k]).abs().max()) / (
+            CARD_CPU_ATOL + CARD_CPU_RTOL * float(final.abs().max()))
+        for r, at in enumerate(ats):
+            want = specs.shard_leaf(final, sp[1:], at).cpu()
+            diff, share = _at_scale(torch, ranks[r]["params"][k], want)
+            bitwise = bitwise and diff == 0.0
+            shares[k] = max(shares.get(k, 0.0), share)
+    del runner, params, tokens
+    _free(torch)
+    worst = max(shares.values())
+    gates.append(("params at scale", worst <= 1.0,
+                  f"phase 11: params differ from one process beyond their "
+                  f"scale: {json.dumps(shares)}"))
+    peaks = [got["peak_gb"] for got in ranks]
+    print("phase 11 readings: " + json.dumps(
+        {"path": "qwen3-32b ONE_H100 (1 layer) train step, L2 layout, on "
+                 "(data 2, model 2)",
+         "layers": cfg.n_layers, "params_a_client": cfg.param_count(),
+         "clients": L2_CLIENTS,
+         "tokens_a_client": [L2_PER_CLIENT, L2_SEQ], "rounds": K_L2,
+         "round_spec": {k: v for k, v in dataclasses.asdict(spec).items()
+                        if isinstance(v, (int, float, bool))},
+         "launches_a_rank": {k: v for k, v in want_launches.items() if v},
+         "flash_q_kv_shape": [[b, s, h, d], [b, s, hkv, d]],
+         "round_ms_by_rank": [got["round_ms"] for got in ranks],
+         "one_process_round_ms": one_ms,
+         "peak_gb_by_rank": peaks,
+         "peak_gb_sum": None if None in peaks else sum(peaks),
+         "received_bytes_a_round_by_op_and_axes": {
+             key: n / K_L2 for key, n in want_bytes.items()},
+         "received_bytes_rank_0": ranks[0]["received_by_axes"],
+         "transport": ranks[0]["transport"],
+         "round0_loss_worst_rtol": loss0_rel,
+         "round0_grad_share_worst": grad_worst,
+         "round0_grad_share_by_leaf": grad_shares,
+         "local_loss": rows["local_loss"].tolist(),
+         "local_loss_one_process": want_losses.tolist(),
+         "local_loss_worst_rtol": loss_rel,
+         "digest_mesh_vs_one_process": [hh["digest"] for hh in hist],
+         "digest_one_process": [hh["digest"] for hh in whist],
+         "params_scale_share_worst": worst, "params_bitwise": bitwise,
+         "params_scale_share_by_leaf": shares,
+         "update_scale_share_by_leaf": update_shares,
+         "flash_at_rank_shape": flash,
+         "world_s_with_spawn": world_s,
+         "gates_failed": [name for name, ok, _ in gates if not ok]}),
+        flush=True)
+    for _, ok, msg in gates:
+        require(ok, msg)
+    print(f"phase 11 ok: {len(gates)} gates", flush=True)
+    _free(torch)
+    return {"qwen3 L2 train": ranks[0]["launches"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4846,6 +5355,10 @@ def main(argv=None) -> int:
 
     _, slaunches = phase_serve(torch, dev, SERVE_ARGS, SERVE_LAUNCHES, "4")
     lap("phase 4")
+    _, qlaunches = phase_serve(torch, dev, QWEN_SERVE_ARGS,
+                               QWEN_SERVE_LAUNCHES, "4 (qwen3)")
+    torch.cuda.empty_cache()
+    lap("phase 4 (qwen3)")
     phase_serve(torch, dev, SERVE_SMOKE_ARGS, SERVE_SMOKE_LAUNCHES,
                 "4 (smoke)")
     phase_serve_agreement(torch, dev, opts.profile)
@@ -4893,6 +5406,8 @@ def main(argv=None) -> int:
     lap("phase 9")
     mesh_train = phase_mesh_train(torch, dev, report)
     lap("phase 10")
+    l2_train = phase_l2_train(torch, dev, report)
+    lap("phase 11")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
@@ -4901,7 +5416,8 @@ def main(argv=None) -> int:
                "xlstm train": tlaunches7, "phi4 train": plaunches,
                **{f"{arch} smoke train": counts
                   for arch, counts in smoke_trains.items()},
-               **sharded, **mesh_serve, **mesh_train}
+               "qwen3 serve": qlaunches,
+               **sharded, **mesh_serve, **mesh_train, **l2_train}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

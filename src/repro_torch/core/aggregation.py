@@ -54,12 +54,13 @@ and the mix runs over the ranks' collectives, in one of two tiers:
       and the ledger forks.
 
 On a ``("data", "model")`` mesh (the train step, ``launch/steps.py``)
-each client's params are further split into model blocks
-(:class:`ModelBlocks`). Every mix here is coordinate-wise, so it runs on
-each leaf's block unchanged: clients mix with clients, and the model
-block needs no collective. The diagnostics that reduce over a whole leaf
-(the digest's leaf sums, the divergence's residuals) take the blocks'
-partials summed by :meth:`ModelBlocks.sum`.
+each client's params are further split into blocks (:class:`ModelBlocks`:
+over model under the L1 layout; over data, model or both under L2).
+Every mix here is coordinate-wise, so it runs on each leaf's block
+unchanged: clients mix with clients, and the block needs no collective.
+The diagnostics that reduce over a whole leaf (the digest's leaf sums,
+the divergence's residuals) take the blocks' partials summed by
+:meth:`ModelBlocks.sum`.
 """
 from __future__ import annotations
 
@@ -79,24 +80,29 @@ Tree = Dict[str, torch.Tensor]
 
 
 class ModelBlocks:
-    """The model axes of a (data, model) mesh as the round sees them:
+    """The axes that split each client's params, as the round sees them:
     each client's leaves in ``split`` are this rank's block of the leaf
-    over ``mesh`` (a ``launch.mesh.ClientMesh`` view of the model axes);
-    every other leaf is whole on each model rank, a replica.
+    over ``mesh`` (a ``launch.mesh.ClientMesh``); every other leaf is
+    whole on each rank, a replica. ``split`` maps each split key to the
+    axes of ``mesh`` its block is split over: the model axes under the L1
+    layout; the FSDP axes, the model axes or both under L2.
 
-    :meth:`sum` adds a split leaf's per-block partials over the blocks in
-    block order (an all-gather of the partials, then a sum in a Python
-    loop: the same bits on every rank whatever the backend's reduction
-    order), and leaves a replicated leaf's as they are."""
+    :meth:`sum` adds a split leaf's per-block partials over exactly the
+    axes that leaf is split over, in block order (an all-gather of the
+    partials, then a sum in a Python loop: the same bits on every rank
+    whatever the backend's reduction order), and leaves a replicated
+    leaf's as they are. Summed over more axes than split it, a partial
+    would be counted once a replica."""
 
     def __init__(self, mesh, split):
-        self.mesh, self.split = mesh, frozenset(split)
+        self.mesh, self.split = mesh, dict(split)
 
     def sum(self, key: str, x: torch.Tensor) -> torch.Tensor:
         if key not in self.split:
             return x
         # repro-lint: disable=RL302
-        parts = self.mesh.all_gather(x.reshape(1, -1), dim=0)
+        parts = self.mesh.all_gather(x.reshape(1, -1), self.split[key],
+                                     dim=0)
         acc = parts[0]
         for part in parts[1:]:
             acc = acc + part

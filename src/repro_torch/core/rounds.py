@@ -115,6 +115,15 @@ coordinate. ``detect_lazy``'s sketch and the geometric median need a
 reduction over each whole client model and raise ``ValueError`` when the
 train step is built (``launch.steps.build_train_step`` calls
 :func:`refuse_model_split`).
+
+Under the L2 layout (the same step, no client axes) every rank holds
+all C clients, each client's params split over the data axes (FSDP) and,
+for some leaves, over model: the engine gets no client mesh (``mesh``
+None), so fedavg, the mix and the race run on the rank's blocks of all
+C clients with no client collective, every rank alike, and
+``ModelBlocks`` sums each split leaf's digest and divergence partials
+over exactly the axes that leaf is split over. The FSDP gathers and the
+batch's reductions run inside the loss (``models/parallel.py``).
 """
 from __future__ import annotations
 
@@ -214,7 +223,19 @@ def _microbatched_grad(loss_fn: LossFn, n_mb: int):
 
     Returns ``grad_fn(params, batch) -> (losses [C], grads)``: params a
     dict of ``[C, ...]`` leaves that require grad, grads a list in
-    ``sorted(params)`` order, both the microbatches' mean."""
+    ``sorted(params)`` order, both the microbatches' mean.
+
+    Each (microbatch, client) runs alone: ``loss_fn`` on that client's
+    ``[1, ...]`` slices, under its own checkpoint and its own backward,
+    its gradient added into one ``[C, ...]`` buffer a leaf, so that one
+    client's activations, gathered FSDP blocks and gradient are alive at
+    a time (the clients are independent: the values are the stacked
+    call's). The train step on a mesh (``launch/steps.py``) hands each
+    rank's loss its block of every logical microbatch, so that the
+    microbatch cut here is the reference's."""
+
+    def one_loss(leaves, rows):
+        return loss_fn(leaves, rows)[0]
 
     def grad_fn(params: Tree, batch: Tree):
         m = next(iter(batch.values())).shape[1]
@@ -223,21 +244,56 @@ def _microbatched_grad(loss_fn: LossFn, n_mb: int):
                              f"{n_mb} microbatches")
         size = m // n_mb
         keys = sorted(params)
-        leaves = [params[k] for k in keys]
-        loss, grads = None, None
+        n = params[keys[0]].shape[0]
+        grads = [torch.empty_like(params[k]) for k in keys]
+        losses = []
         for j in range(n_mb):
-            mb = {k: v[:, j * size:(j + 1) * size] for k, v in batch.items()}
-            with torch.enable_grad():
-                l_j = checkpoint(loss_fn, params, mb, use_reentrant=False,
-                                 preserve_rng_state=False)
-                g_j = torch.autograd.grad(l_j.sum(), leaves,
-                                          materialize_grads=True)
-            l_j = l_j.detach()
-            loss = l_j if loss is None else loss + l_j
-            grads = list(g_j) if grads is None else [
-                a + b for a, b in zip(grads, g_j)]
+            for c in range(n):
+                leaves = {k: params[k][c:c + 1].detach().requires_grad_(True)
+                          for k in keys}
+                mb = {k: v[c:c + 1, j * size:(j + 1) * size]
+                      for k, v in batch.items()}
+                with torch.enable_grad():
+                    l_c = checkpoint(one_loss, leaves, mb,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+                    g_c = torch.autograd.grad(
+                        l_c, [leaves[k] for k in keys],
+                        materialize_grads=True)
+                for acc, g in zip(grads, g_c):
+                    if j:
+                        acc[c:c + 1].add_(g)
+                    else:
+                        acc[c:c + 1].copy_(g)
+                del g_c
+                l_c = l_c.detach()
+                if j:
+                    losses[c] = losses[c] + l_c
+                else:
+                    losses.append(l_c)
         scale = 1.0 / n_mb
-        return loss * scale, [g * scale for g in grads]
+        for acc in grads:
+            acc.mul_(scale)
+        return torch.stack(losses) * scale, grads
+
+    return grad_fn
+
+
+def make_grad(loss_fn: LossFn, spec: RoundSpec):
+    """The gradient one local iteration takes: ``grad_fn(params, batch)
+    -> (losses [C], grads in sorted(params) order)`` of ``[C, ...]``
+    leaves that require grad, over ``spec.microbatches``
+    (:func:`_microbatched_grad`) or the whole batch at once."""
+    if spec.microbatches > 1:
+        return _microbatched_grad(loss_fn, spec.microbatches)
+
+    def grad_fn(params, batch):
+        with torch.enable_grad():
+            losses = loss_fn(params, batch)
+            grads = torch.autograd.grad(
+                losses.sum(), [params[k] for k in sorted(params)],
+                materialize_grads=True)
+        return losses.detach(), grads
 
     return grad_fn
 
@@ -253,16 +309,7 @@ def make_local_train(loss_fn: LossFn, spec: RoundSpec):
     that many microbatches (:func:`_microbatched_grad`). The loss returned
     is the one at the last iteration's pre-update params, as the JAX
     package's ``value_and_grad`` gives it."""
-    if spec.microbatches > 1:
-        grad_fn = _microbatched_grad(loss_fn, spec.microbatches)
-    else:
-        def grad_fn(params, batch):
-            with torch.enable_grad():
-                losses = loss_fn(params, batch)
-                grads = torch.autograd.grad(
-                    losses.sum(), [params[k] for k in sorted(params)],
-                    materialize_grads=True)
-            return losses.detach(), grads
+    grad_fn = make_grad(loss_fn, spec)
 
     def local_train(params, batch):
         keys = sorted(params)

@@ -30,14 +30,21 @@ tensor-parallel forward is ROADMAP 9b-3.
 
 :func:`build_train_step` takes the reference's ``(cfg, shape, mesh,
 multi_pod, dtype, spec_override=None, plan=None)`` and returns ``(step,
-(state, batch) abstract, plan, round spec)``: one BLADE-FL round under
-the L1 layout, the clients over the data axes and each client's params
-over the model axes, trained through autograd over the differentiable
-collectives of ``models/parallel.py``. The L2 layout is ROADMAP 9b-2b.
+(state, batch) abstract, plan, round spec)``: one BLADE-FL round, trained
+through autograd over the differentiable collectives of
+``models/parallel.py``, under either layout of ``plans.train_plan``:
+
+- L1: the clients over the data axes, each client's params over the
+  model axes;
+- L2: every client on every rank, each client's params split FSDP-style
+  over the data axes (and over ``model`` where the reference splits a
+  leaf there too), each client's rows over the same data axes, each rank
+  running its block of every one of the reference's microbatches.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -192,9 +199,34 @@ class TrainStep(MeshStep):
     run's CPU generator seeded with ``seed`` (every rank the same).
     ``loss_fn``: the round's per-client loss on this rank's blocks
     (``registry.client_losses`` with the step's tensor-parallel
-    context)."""
+    context). ``grad_fn(params, batch) -> (losses [C], grads)``: the
+    gradient a local iteration takes at ``params`` (this rank's blocks,
+    ``[C, ...]``) on ``batch`` (this rank's block under ``in_specs``),
+    over the round's microbatches as the step runs them; grads in
+    ``sorted(params)`` order."""
     init_state: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
+    grad_fn: Optional[Callable] = None
+
+
+def _microbatch_major(batch, mesh, axes, n_mb: int):
+    """The rows of each client's ``[C, m, ...]`` batch that this rank runs
+    under the L2 layout, from its contiguous block ``[C, m / D, ...]``
+    (``train_batch_pspecs``): its 1/D block of every one of the ``n_mb``
+    logical microbatches of m / n_mb rows, microbatch after microbatch,
+    so that the contiguous cut of ``rounds._microbatched_grad`` takes the
+    reference's microbatch j, rows ``[j m / n_mb, (j + 1) m / n_mb)``,
+    split over the D ranks in row order. The blocks are all-gathered over
+    ``axes`` once a round (the token ids, a few KB)."""
+    d, i = mesh.extent(axes), mesh.index(axes)
+    out = {}
+    for k, v in batch.items():
+        # repro-lint: disable=RL302
+        full = mesh.all_gather(v, axes, dim=1)
+        c, m = full.shape[:2]
+        rows = full.reshape((c, n_mb, d, m // (n_mb * d)) + full.shape[2:])
+        out[k] = rows[:, :, i].reshape((c, m // d) + full.shape[2:])
+    return out
 
 
 def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -203,21 +235,44 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      plan: Optional[specs_lib.ShardingPlan] = None
                      ) -> tuple:
     """(step, (state abstract, batch abstract), plan, round spec): one
-    BLADE-FL round (``rounds.make_integrated_round``) on a mesh under the
-    L1 layout, the reference's ``build_train_step``.
+    BLADE-FL round (``rounds.make_integrated_round``) on a mesh, the
+    reference's ``build_train_step``: the unsharded integrated round,
+    computed from this rank's blocks.
 
-    ``plan`` (default ``plans.train_plan``) splits the clients over its
-    client axes; the model axes split each client's params as
-    ``param_pspecs`` gives them, and tensor parallelism runs inside each
-    client's loss (``registry.client_losses(cfg, par=...)``: the dense GQA
-    decoders' forwards with differentiable collectives and a
-    vocab-parallel cross-entropy, ``models/parallel.py``). The round's
-    client collectives run over the client axes alone (the engine gets
-    ``mesh.view(plan.client_axes)``), and the digest and divergence sum
-    the model blocks' partials (``core/rounds.py``'s docstring). At model
-    extent 1 the step is the client-sharded engine of ``launch.train
-    --devices``. ``spec_override`` replaces ``round_spec_for(cfg, shape,
-    plan)``; its ``n_clients`` must be the plan's.
+    ``plan`` (default ``plans.train_plan``) gives the layout.
+
+    L1 (``plan.client_axes``): the clients split over the client axes; the
+    model axes split each client's params as ``param_pspecs`` gives them,
+    and tensor parallelism runs inside each client's loss
+    (``registry.client_losses(cfg, par=...)``: the dense GQA decoders'
+    forwards with differentiable collectives and a vocab-parallel
+    cross-entropy, ``models/parallel.py``). The round's client collectives
+    run over the client axes alone (the engine gets
+    ``mesh.view(plan.client_axes)``). At model extent 1 the step is the
+    client-sharded engine of ``launch.train --devices``.
+
+    L2 (no client axes): all C clients on every rank; each client's
+    params split over the FSDP axes (which must be the batch axes) and,
+    where ``param_pspecs`` says so, over ``model``. Each client's loss
+    gathers a block's FSDP leaves just before the block runs, under
+    autograd (their gradients reduce-scattered back,
+    ``Parallel.unshard``), sums the gradients of the other leaves over the
+    batch axes (``Parallel.enter_params``) and is the mean over all the
+    client's rows, the MoE load-balance loss over the whole batch too
+    (``Parallel.batch_loss``): the same loss on every rank. Each rank's
+    batch block (``in_specs``: contiguous rows, as the reference's
+    ``train_batch_pspecs``) is re-cut once a round to its block of every
+    logical microbatch (:func:`_microbatch_major`: the tokens all-gathered
+    over the batch axes), so ``round_spec_for``'s microbatches of 32 are
+    the reference's. The engine gets no client mesh: fedavg, the mix and
+    the race run on the rank's blocks of all C clients with no client
+    collective, the race on every rank alike.
+
+    Under both, the digest and the divergence sum each split leaf's
+    partials over exactly the axes that leaf is split over
+    (``aggregation.ModelBlocks``; ``core/rounds.py``'s docstring).
+    ``spec_override`` replaces ``round_spec_for(cfg, shape, plan)``; its
+    ``n_clients`` must be the plan's.
 
     ``step(state, batch, matrix=None, noise=None) -> (state, metrics)`` on
     this rank's blocks (``step.in_specs`` / ``out_specs``; the state's
@@ -232,23 +287,25 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     replicated on every rank. ``step.init_state(params, seed)`` makes a
     rank's round-0 state.
 
-    An L2 plan (clients replicated, FSDP) raises ``NotImplementedError``
-    (ROADMAP 9b-2b); a family whose leaves the plan splits over the model
-    axes and no forward here splits raises ``ValueError`` (ROADMAP 9b-3),
-    as do the round stages that would need a reduction over each whole
-    client model (``detect_lazy``, the geometric median)."""
+    A family whose leaves the plan splits over the model axes and no
+    forward here splits raises ``ValueError`` (ROADMAP 9b-3: jamba,
+    deepseek-v2 and kimi-k2 at model extent > 1; at model extent 1 their
+    leaves are split over the FSDP axes only, and they run under L2), as
+    do the round stages that would need a reduction over each whole
+    client model (``detect_lazy``, the geometric median) on split
+    leaves."""
     cfg = resolve_cfg(cfg, shape)
     plan = plan or plans_lib.train_plan(cfg, shape, mesh, multi_pod)
-    if not plan.client_axes:
-        raise NotImplementedError(
-            "the L2 layout (clients replicated, FSDP and each client's "
-            "batch over the data axes, FSDP gathers under autograd) is "
-            "ROADMAP 9b-2b; build_train_step runs the L1 layout")
     rspec = spec_override or round_spec_for(cfg, shape, plan)
+    l2 = not plan.client_axes
     if rspec.n_clients != plan.n_clients or plan.n_clients < 2:
         raise ValueError(f"a round of {rspec.n_clients} clients under a "
-                         f"plan of {plan.n_clients} (the L1 layout needs "
+                         f"plan of {plan.n_clients} (the train step needs "
                          "two or more, the same in both)")
+    if l2 and set(plan.fsdp_axes) != set(plan.batch_axes):
+        raise ValueError(f"the L2 layout splits the params over the FSDP "
+                         f"axes {plan.fsdp_axes} and the rows over the same "
+                         f"axes; the batch axes are {plan.batch_axes}")
     params_abs = registry.params_specs(cfg, dtype, n_clients=plan.n_clients)
     batch_abs = registry.train_batch_specs(cfg, shape, dtype,
                                            n_clients=plan.n_clients)
@@ -258,26 +315,41 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     # each client's leaves: the specs less the client dim
     mspecs = {k: spec[1:] for k, spec in pspecs.items()}
     _refuse_unported(cfg, mesh, plan, mspecs)
-    par = Parallel(mesh, plan, mspecs)
-    model_axes = par.model_axes
-    split = sorted(k for k, spec in mspecs.items()
-                   if any(set(axes) & set(model_axes)
-                          for _, axes in _split_dims(spec, mesh)))
+    par = Parallel(mesh, plan, mspecs, batch_loss=l2)
+    model_axes, batch_axes = par.model_axes, par.batch_axes
+    m = shape.global_batch // plan.n_clients
+    n_mb = max(1, rspec.microbatches)
+    if l2 and m % (n_mb * math.prod(dict(mesh.axes)[a]
+                                    for a in batch_axes)):
+        raise ValueError(f"{n_mb} microbatches of a client's {m} rows do "
+                         f"not split over the batch axes {plan.batch_axes}")
+    # each split leaf -> the axes (mesh order) its block is split over
+    split = {}
+    for k, spec in mspecs.items():
+        axes = {a for _, ax in _split_dims(spec, mesh) for a in ax}
+        if axes:
+            split[k] = tuple(a for a in mesh.axis_names if a in axes)
     if split:
         rounds.refuse_model_split(rspec, topology_lib.resolve_mix_plan(
             rspec, tuple((a, n) for a, n in mesh.axes
-                         if a in plan.client_axes)).mode)
-    # at model extent 1 the loss is one device's: the client-sharded engine
-    loss_fn = registry.client_losses(cfg, par=par if model_axes else None)
+                         if a in plan.client_axes) or None).mode)
+    # at model extent 1 under L1 the loss is one device's: the
+    # client-sharded engine
+    loss_fn = registry.client_losses(
+        cfg, par=par if model_axes or l2 else None)
+    grad = rounds.make_grad(loss_fn, rspec)
+    recut = l2 and bool(batch_axes) and n_mb > 1
     engine: dict = {}
 
     def build():   # the mesh's views, on the first call (a rank's mesh)
-        dev = mesh.device
-        model = (aggregation.ModelBlocks(mesh.view(model_axes), split)
-                 if model_axes else None)
         engine["round"] = rounds.make_integrated_round(
-            loss_fn, rspec, device=dev, mesh=mesh.view(plan.client_axes),
-            model=model)
+            loss_fn, rspec, device=mesh.device,
+            mesh=mesh.view(plan.client_axes) if plan.client_axes else None,
+            model=aggregation.ModelBlocks(mesh, split) if split else None)
+
+    def rows(batch):
+        return (_microbatch_major(batch, mesh, batch_axes, n_mb) if recut
+                else batch)
 
     def train(state: rounds.RoundState, batch, matrix=None, noise=None):
         if not engine:
@@ -290,7 +362,12 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                      v, (None,) + mspecs[k], mesh).to(mesh.device)
                      for k, v in leaves.items()}
                  for stage, leaves in noise.items()}
-        return engine["round"](state, batch, matrix, noise=noise)
+        return engine["round"](state, rows(batch), matrix, noise=noise)
+
+    def grad_fn(params, batch):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        return grad(leaves, rows(batch))
 
     def init(params, seed: int):
         n_local = plan.n_clients // mesh.extent(plan.client_axes)
@@ -310,7 +387,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         prev_hash=torch.empty((), dtype=torch.int64, device="meta"))
     step = TrainStep(train, (state_specs, specs_lib.train_batch_pspecs(
         cfg, plan, batch_abs)), (state_specs, metric_specs),
-        init_state=init, loss_fn=loss_fn)
+        init_state=init, loss_fn=loss_fn, grad_fn=grad_fn)
     return step, (state_abs, batch_abs), plan, rspec
 
 

@@ -43,6 +43,8 @@ class Routing(NamedTuple):
     slots: torch.Tensor       # [T, k] int64 slot, ``capacity`` if dropped
     keeps: torch.Tensor       # [T, k] bool, the choice kept
     capacity: int
+    # [T', k] every rank's choices in row order (T' = T on one device)
+    every: Optional[torch.Tensor] = None
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig,
@@ -108,7 +110,8 @@ def route(logits: torch.Tensor, cfg: ModelConfig, par=None) -> Routing:
     if par is not None:
         rows = slice(par.batch_index * t, (par.batch_index + 1) * t)
         slots, keeps = slots[rows], keeps[rows]
-    return Routing(probs, gate_vals, gate_idx, slots, keeps, capacity)
+    return Routing(probs, gate_vals, gate_idx, slots, keeps, capacity,
+                   every)
 
 
 def _expert_ffn(p: Params, h: torch.Tensor, kind: str) -> torch.Tensor:
@@ -135,7 +138,11 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     assignments, the count dropped as a device tensor): no host sync.
     ``par``: x is this rank's block of rows, routed with every rank's
     (:func:`route`); the aux loss is then this rank's tokens' own (the
-    serve steps discard it)."""
+    serve steps discard it), or under ``par.batch_loss`` (the train step's
+    L2 layout) the whole batch's, the same on every rank: the top choices'
+    shares from every rank's choices (which ``route`` gathered), the mean
+    router probabilities summed over the batch ranks
+    (``par.sum_batch``)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -158,8 +165,14 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     if m.n_shared:
         out = out + layers.mlp_apply(params["shared"], xt, cfg.mlp)
 
-    frac_tokens = (r.gate_idx[:, 0, None] == torch.arange(
-        m.n_experts, device=x.device)).to(torch.float32).mean(0)
-    frac_probs = r.probs.mean(0)
+    experts = torch.arange(m.n_experts, device=x.device)
+    if par is not None and par.batch_loss:
+        every = r.every[:, 0, None]
+        frac_tokens = (every == experts).to(torch.float32).mean(0)
+        frac_probs = par.sum_batch(r.probs.sum(0)) / every.shape[0]
+    else:
+        frac_tokens = (r.gate_idx[:, 0, None] == experts).to(
+            torch.float32).mean(0)
+        frac_probs = r.probs.mean(0)
     aux = m.n_experts * (frac_tokens * frac_probs).sum() * m.aux_loss_weight
     return out.reshape(b, s, d), aux

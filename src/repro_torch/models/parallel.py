@@ -29,9 +29,10 @@ replicated and so is its gradient.
                     the whole gradient of the sum)
   ``gather_model``  where a block cuts a head: the all-gather of the
                     blocks; its gradient is this rank's block of the sum
-                    of the ranks' gradients (each rank reads the gathered
-                    heads only through its own query heads or its own
-                    columns of ``w_o``, so each holds a partial gradient)
+                    of the ranks' gradients, a reduce-scatter (each rank
+                    reads the gathered heads only through its own query
+                    heads or its own columns of ``w_o``, so each holds a
+                    partial gradient)
 
 ``torch.distributed.nn.functional``'s collectives are not used: their
 backward sums over the ranks, which would count a loss replicated on the
@@ -40,6 +41,28 @@ qk-norm scales) goes through ``enter_model`` too, so that its gradient,
 partial on each rank, is summed and the replicas stay equal. Without
 grad (serving, the eval loss) each issues exactly the collective it did
 before: ``enter_model`` none.
+
+The L2 layout of the train step (``batch_loss``: each client's rows split
+over the batch axes, its params over the FSDP axes, which are the same
+axes) follows the same convention over the batch axes: every batch rank
+computes the client's whole loss, each from its own rows, so a param's
+gradient on a rank is that rank's rows' part and is summed over the batch
+ranks on its way back to the leaf.
+
+  ``unshard``       under grad, an FSDP-split leaf is all-gathered along
+                    its split dim (its model block kept); its gradient is
+                    this rank's block of the sum over the FSDP axes, a
+                    reduce-scatter (``ClientMesh.reduce_scatter``, a ring
+                    of shifts over gloo)
+  ``enter_params``  every other leaf (the norms, the router, the qk-norm
+                    scales, a leaf whose dim does not divide by the data
+                    extent): identity; its gradient is all-reduced over
+                    the batch axes (``enter_batch``)
+  ``sum_batch``     the loss's terms (the cross-entropy's sum and count,
+                    the MoE's mean router probabilities): the all-reduce
+                    over the batch axes; the gradient passes through
+
+Without grad ``unshard`` keeps ``specs.relayout``, bitwise as in serving.
 """
 from __future__ import annotations
 
@@ -77,22 +100,22 @@ class _EnterModel(torch.autograd.Function):
         return ctx.mesh.all_reduce(g, ctx.axes), None, None
 
 
-class _GatherModel(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     """Forward the all-gather over ``axes`` along ``dim``, backward this
-    rank's block of the all-reduced gradient."""
+    rank's block of the gradient summed over ``axes`` (the
+    reduce-scatter, ``ClientMesh.reduce_scatter``)."""
 
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
         ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
-        ctx.block = (mesh.index(axes) * x.shape[dim], x.shape[dim])
         # eager torch's gather, materialized (RL302 guards XLA's)
         # repro-lint: disable=RL302
         return mesh.all_gather(x, axes, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        g = ctx.mesh.all_reduce(g, ctx.axes)
-        return g.narrow(ctx.dim, *ctx.block), None, None, None
+        return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim), None, None, \
+            None
 
 
 def _differentiated(x: torch.Tensor) -> bool:
@@ -105,11 +128,15 @@ class Parallel:
     ``ShardingPlan``; ``param_specs``: ``{path: spec}`` of every param
     leaf (``tree.flatten(param_pspecs(...), tuples=False)``); ``seq_axes``:
     the axes of extent > 1 the decode cache's positions are split over
-    (() when each rank holds every position)."""
+    (() when each rank holds every position); ``batch_loss``: the train
+    step's L2 layout, where a client's rows are split over the batch axes
+    and its loss is the mean over all of them (:meth:`sum_batch`), the
+    same on every rank (serving leaves it off: each rank's own rows)."""
     mesh: Any
     plan: specs_lib.ShardingPlan
     param_specs: Dict[str, specs_lib.Spec]
     seq_axes: specs_lib.Axes = ()
+    batch_loss: bool = False
 
     def _split(self, axes) -> specs_lib.Axes:
         return specs_lib.split_entry(tuple(axes), self.mesh) or ()
@@ -154,6 +181,46 @@ class Parallel:
             return _EnterModel.apply(x, self.mesh, self.model_axes)
         return x
 
+    def sum_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the batch ranks' partial ``x`` (its gradient passes
+        through); ``x`` without batch axes."""
+        if not self.batch_axes:
+            return x
+        if _differentiated(x):
+            return _SumModel.apply(x, self.mesh, self.batch_axes)
+        return self.mesh.all_reduce(x, self.batch_axes)
+
+    def enter_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated leaf read by this rank's rows: the same values;
+        under autograd its gradient is summed over the batch ranks. The
+        identity with no batch axis or without grad."""
+        if self.batch_axes and _differentiated(x):
+            return _EnterModel.apply(x, self.mesh, self.batch_axes)
+        return x
+
+    def _fsdp_dims(self, spec: specs_lib.Spec) -> list:
+        """[(dim, axes)] of the dims ``spec`` splits over FSDP axes of
+        extent > 1."""
+        fsdp = set(self.plan.fsdp_axes)
+        return [(d, self._split(e)) for d, e in enumerate(spec)
+                if e and set(e) <= fsdp and self._split(e)]
+
+    def enter_params(self, params: Any) -> Any:
+        """``params`` (one client's tree) with each leaf that no FSDP axis
+        splits entering the batch (:meth:`enter_batch`); the FSDP-split
+        leaves sum their gradients in :meth:`unshard`'s reduce-scatter.
+        The tree itself unless the loss is the batch's
+        (``batch_loss``)."""
+        if not (self.batch_loss and self.batch_axes):
+            return params
+
+        def one(path, x):
+            if self._fsdp_dims(self.param_specs[path]):
+                return x
+            return self.enter_batch(x)
+
+        return tree_lib.map_with_path(one, params)
+
     # the gathers below are eager torch's, materialized: no reduction can
     # fuse across them (repro-lint's RL302 guards XLA's gathers)
     def gather_model(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -162,7 +229,7 @@ class Parallel:
         gradients."""
         dim = dim % x.dim()
         if _differentiated(x):
-            return _GatherModel.apply(x, self.mesh, self.model_axes, dim)
+            return _Gather.apply(x, self.mesh, self.model_axes, dim)
         # repro-lint: disable=RL302
         return self.mesh.all_gather(x, self.model_axes, dim=dim)
 
@@ -181,7 +248,9 @@ class Parallel:
         """The leaves under ``path`` with their FSDP blocks gathered (the
         model blocks kept). ``stacked``: ``tree`` is one period of a
         period-stacked block, whose leaves' specs lead with the period
-        axis."""
+        axis. Under autograd each gather is differentiable, its gradient
+        reduce-scattered back to the block (:class:`_Gather`);
+        without grad the leaves go through ``specs.relayout``."""
         fsdp = self._split(self.plan.fsdp_axes)
         if not fsdp:
             return tree
@@ -190,6 +259,10 @@ class Parallel:
             spec = self.param_specs[f"{path}/{sub}" if sub else path]
             if stacked:
                 spec = spec[1:]
+            if _differentiated(x):
+                for d, axes in self._fsdp_dims(spec):
+                    x = _Gather.apply(x, self.mesh, axes, d)
+                return x.contiguous()
             want = tuple(None if e and set(e) <= set(self.plan.fsdp_axes)
                          else e for e in spec)
             return specs_lib.relayout(x, spec, want, self.mesh)

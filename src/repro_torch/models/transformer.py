@@ -356,15 +356,23 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                           "period": _stack(per_period)}
 
 
-def _lm_head(params: Params, cfg: ModelConfig, h: torch.Tensor, par=None
-             ) -> torch.Tensor:
+def _head_weight(params: Params, cfg: ModelConfig, par=None
+                 ) -> torch.Tensor:
+    """The head's [D, V] weight (the tied embedding transposed), its FSDP
+    blocks gathered under ``par``."""
+    if cfg.tie_embeddings:
+        return _unshard(par, params["embed"], "embed").T
+    return _unshard(par, params["lm_head"], "lm_head")
+
+
+def _lm_head(params: Params, cfg: ModelConfig, h: torch.Tensor, par=None,
+             w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logits of ``h``; under ``par`` of the vocab block this rank holds
     (every vocab entry when the head is whole), ``h`` entering the vocab
-    block as a column block's input (``par.enter_model``)."""
-    if cfg.tie_embeddings:
-        w = _unshard(par, params["embed"], "embed").T
-    else:
-        w = _unshard(par, params["lm_head"], "lm_head")
+    block as a column block's input (``par.enter_model``). ``w``: the
+    head's weight when the caller gathered it (:func:`_head_weight`)."""
+    if w is None:
+        w = _head_weight(params, cfg, par)
     if par is not None and w.shape[-1] < cfg.vocab:
         h = par.enter_model(h)
     return h @ w
@@ -415,16 +423,21 @@ def chunked_ce_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
     (the reference's ``lax.scan``). The mean is over the mask's sum (at
     least 1); no host sync. Under ``par`` with a vocab-split head each
     rank computes its vocab block's logits and the loss is vocab-parallel
-    (:func:`_vocab_parallel_terms`): the same loss on every model rank."""
+    (:func:`_vocab_parallel_terms`): the same loss on every model rank.
+    The head is gathered over the FSDP axes once, for every chunk. Under
+    ``par.batch_loss`` (h: this rank's rows of the client's) the sum and
+    the count are summed over the batch ranks (``par.sum_batch``), so the
+    mean is over all the client's rows, the same on every rank."""
     b, s, _ = h.shape
     chunk = ce_chunk(b, s, cfg.vocab, chunk)
     if loss_mask is None:
         loss_mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    w = _head_weight(params, cfg, par)
     for c0 in range(0, s, chunk):
-        logits = _lm_head(params, cfg, h[:, c0:c0 + chunk],
-                          par).to(torch.float32)
+        logits = _lm_head(params, cfg, h[:, c0:c0 + chunk], par,
+                          w).to(torch.float32)
         lab = labels[:, c0:c0 + chunk]
         if logits.shape[-1] < cfg.vocab:
             logz, gold = _vocab_parallel_terms(logits, lab, par)
@@ -434,6 +447,9 @@ def chunked_ce_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
         mc = loss_mask[:, c0:c0 + chunk].to(torch.float32)
         tot = tot + ((logz - gold) * mc).sum()
         cnt = cnt + mc.sum()
+    if par is not None and par.batch_loss:
+        both = par.sum_batch(torch.stack([tot, cnt]))
+        tot, cnt = both[0], both[1]
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -448,7 +464,11 @@ def train_loss(params: Params, cfg: ModelConfig,
     Returns (ce + aux, {"ce": ce, "aux": aux}), 0-dim tensors. ``par``:
     one rank's part of the train step on a mesh (``models/parallel.py``:
     the model-split forward and the vocab-parallel loss, the same on
-    every model rank)."""
+    every model rank; under ``par.batch_loss`` the mean over every batch
+    rank's rows, each leaf that no FSDP axis splits entering the batch,
+    ``par.enter_params``)."""
+    if par is not None:
+        params = par.enter_params(params)
     if cfg.family == "vlm":
         tokens = batch["tokens"]
         x, labels, mask = _embed_inputs(params, cfg, {

@@ -19,8 +19,8 @@ mid archs run the client-sharded layout (L1, C = data extent), giants run
 client-replicated + FSDP (L2) with few clients; serving shards the batch
 over the data axes, adds FSDP past :data:`_FSDP_SERVE_BYTES` of
 tensor-parallel params a device, and shards the decode cache's sequence.
-``launch/steps.py`` builds the serve steps on these plans; the train
-step that uses :func:`train_plan` is not ported yet (ROADMAP 9b-2).
+``launch/steps.py`` builds the serve steps and the train step (both
+layouts) on these plans.
 """
 from __future__ import annotations
 

@@ -157,7 +157,7 @@ def test_trainer_refuses_an_unknown_arch_and_cohorts_of_an_lm():
         with pytest.raises(SystemExit):
             train.main(argv + ["--device", "cpu"])
     with pytest.raises(ValueError, match="one-H100"):
-        _train(["--arch", "qwen3-32b", "--size", "one-h100"])
+        _train(["--arch", "nemotron-4-15b", "--size", "one-h100"])
 
 
 def test_phi4_one_h100_config_keeps_the_published_widths():

@@ -113,7 +113,7 @@ def test_one_h100_config_is_jamba_cut_to_one_period_without_moe():
     assert cfg.layer_kinds() == ("ssm",) * 3 + ("attn",) + ("ssm",) * 4
     assert 8.99e9 < cfg.param_count() < 9.01e9     # 36.0 GB in fp32
     with pytest.raises(ValueError):   # an arch with no one-H100 config
-        configs.get_one_h100_arch("qwen3-32b")
+        configs.get_one_h100_arch("nemotron-4-15b")
 
 
 def test_one_h100_deepseek_is_four_layers_at_the_published_widths():

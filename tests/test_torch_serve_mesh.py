@@ -24,8 +24,9 @@ another kernel (a GEMV) than that of two. With bf16 params and the
 cache's positions over data the decode stays within bf16 rounding of the
 one-process bf16 decode, and the blocks' combine keeps its log-sum-exp
 in fp32. Builds the mesh cannot run raise at build time, the train
-step's among them (the L2 layout, other families' model splits, full-width
-reductions on model blocks).
+step's among them (other families' model splits under either layout,
+full-width reductions on model blocks); the train step's L2 layout
+builds for the dense GQA decoders.
 """
 import dataclasses
 
@@ -406,17 +407,43 @@ TRAIN_L1 = ShardingPlan(4, ("data",), ())
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "jamba-1.5-large-398b"])
 def test_train_step_refuses_the_l2_layout(arch):
-    """An L2 plan (clients replicated, FSDP over data): ROADMAP 9b-2b,
-    through ``build_step("train")`` and ``build_train_step``."""
+    """An L2 plan (clients replicated, FSDP over data) at model extent 2,
+    through ``build_train_step`` (and for jamba, whose own train plan is
+    L2, ``build_step("train")``) is refused where this port cannot run
+    it: for jamba, whose leaves it splits over model with no
+    tensor-parallel forward here (ROADMAP 9b-3); for the dense GQA
+    decoder, with the geometric median, which reduces over each whole
+    client model and every leaf is an FSDP block (ROADMAP 9b-2a)."""
     mesh = specs.MeshShape(("data", "model"), (2, 2))
     shape = ShapeConfig("t", 16, 8, "train")
     l2 = ShardingPlan(2, (), ("data",), fsdp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="9b-2b"):
-        steps.build_train_step(get_smoke_arch(arch), shape, mesh, False,
-                               torch.float32, plan=l2)
-    if arch == "jamba-1.5-large-398b":   # its own train_plan is L2
-        with pytest.raises(NotImplementedError, match="9b-2b"):
+    if arch == "jamba-1.5-large-398b":
+        with pytest.raises(ValueError, match="9b-3"):
+            steps.build_train_step(get_smoke_arch(arch), shape, mesh, False,
+                                   torch.float32, plan=l2)
+        with pytest.raises(ValueError, match="9b-3"):   # its own plan: L2
             steps.build_step("train", get_arch(arch), shape, mesh, False)
+        return
+    from repro_torch.core import rounds
+
+    spec = rounds.RoundSpec(n_clients=2, tau=1, eta=0.1, robust_agg="geomed")
+    with pytest.raises(ValueError, match="9b-2a"):
+        steps.build_train_step(get_smoke_arch(arch), shape, mesh, False,
+                               torch.float32, spec_override=spec, plan=l2)
+
+
+def test_train_step_l2_builds_the_dense_gqa_decoder():
+    """An L2 plan at model extent 2 builds for phi4-mini: its clients
+    whole on every rank, its leaves over (data, model)."""
+    mesh = specs.MeshShape(("data", "model"), (2, 2))
+    shape = ShapeConfig("t", 16, 8, "train")
+    l2 = ShardingPlan(2, (), ("data",), fsdp_axes=("data",))
+    step, (state, _), plan, _ = steps.build_train_step(
+        get_smoke_arch("phi4-mini-3.8b"), shape, mesh, False, torch.float32,
+        plan=l2)
+    pspecs = step.in_specs[0].params
+    assert plan == l2 and all(s[0] is None for s in pspecs.values())
+    assert pspecs["embed"] == (None, ("model",), ("data",))
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "deepseek-v2-236b",

@@ -261,7 +261,8 @@ def _stage_on_blocks(job, mesh, pspecs):
 
     split = {k for k, spec in pspecs.items()
              if any(e and "model" in e for e in spec[1:])}
-    model = aggregation.ModelBlocks(mesh.view("model"), split)
+    model = aggregation.ModelBlocks(mesh.view("model"),
+                                    {k: ("model",) for k in split})
     local = {k: specs.shard_leaf(v, pspecs[k], mesh).contiguous()
              for k, v in _tensors(job["params"]).items()}
     out = {"specs": pspecs}
@@ -275,4 +276,118 @@ def _stage_on_blocks(job, mesh, pspecs):
         else:
             out.update(params=mixed, digest=int(digest),
                        divergence=float(divergence))
+    return out
+
+
+def train_fsdp_rank(jobs):
+    """Each job (name -> dict) on this rank's ``("data", "model")`` mesh
+    of ``job["mesh"]``, through ``steps.build_train_step`` under the L2
+    plan ``job["plan"]`` and the round spec ``job["spec"]``:
+
+    ``"grad"``    ``step.grad_fn`` at the round-0 state of ``params`` (one
+                  model, numpy, flattened) on ``tokens`` [C, m, S]: the
+                  per-client losses and this rank's block of every
+                  gradient over the spec's microbatches; with
+                  ``job["witness"]`` also the losses of the two faults
+                  the layout guards against: the microbatches cut from
+                  the rank's contiguous block (no re-cut) and each rank's
+                  own MoE load-balance loss (``batch_loss`` off in
+                  ``moe.moe_apply``);
+    ``"rounds"``  ``len(tokens)`` rounds of the step on ``tokens`` [K, C,
+                  m, S], each round's noise ``noise[k]`` (full shapes) or
+                  the step's own draws from the generator seeded with
+                  ``seed``;
+    ``"reduce_scatter"``  ``ClientMesh.reduce_scatter`` of
+                  :func:`rank_tensor` (:func:`_reduce_scatters`).
+
+    Returns {name: this rank's blocks (numpy) with their specs, the
+    per-round metrics and the bytes received by op and axes}."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.sharding import specs
+
+    meshes, out = {}, {}
+    for name, job in jobs.items():
+        if job["mesh"] not in meshes:
+            meshes[job["mesh"]] = mesh_lib.make_host_mesh(
+                job["mesh"], ("data", "model"), "cpu")
+        mesh = meshes[job["mesh"]]
+        if job["kind"] == "reduce_scatter":
+            out[name] = _reduce_scatters(mesh)
+            continue
+        toks = job["tokens"]
+        c, m, s = toks.shape[-3:]
+        step, _, _, spec = steps.build_train_step(
+            job["cfg"], ShapeConfig("fsdp_train", s, c * m, "train"), mesh,
+            False, torch.float32, spec_override=job["spec"],
+            plan=job["plan"])
+        pspecs = step.in_specs[0].params
+        state = step.init_state(_tensors(job["params"]), job.get("seed", 0))
+        mesh.received_by_axes.clear()
+        if job["kind"] == "grad":
+            batch = specs.shard_tree(_tensors({"tokens": toks}),
+                                     step.in_specs[1], mesh)
+            losses, grads = step.grad_fn(state.params, batch)
+            res = {"losses": losses.numpy(),
+                   "grads": {k: g.numpy()
+                             for k, g in zip(sorted(state.params), grads)},
+                   "specs": pspecs, "received": dict(mesh.received_by_axes)}
+            if job.get("witness"):
+                leaves = {k: v.detach().requires_grad_(True)
+                          for k, v in state.params.items()}
+                res["contiguous"] = rounds.make_grad(step.loss_fn, spec)(
+                    leaves, batch)[0].numpy()
+                apply = moe.moe_apply
+
+                def own_aux(p, cfg, x, drops=None, par=None):
+                    return apply(p, cfg, x, drops, par and dataclasses
+                                 .replace(par, batch_loss=False))
+
+                moe.moe_apply = own_aux
+                try:
+                    res["own_aux"] = step.grad_fn(state.params,
+                                                  batch)[0].numpy()
+                finally:
+                    moe.moe_apply = apply
+            out[name] = res
+            continue
+        metrics = []
+        for k in range(len(toks)):
+            batch = specs.shard_tree(_tensors({"tokens": toks[k]}),
+                                     step.in_specs[1], mesh)
+            noise = job["noise"][k] if job.get("noise") else None
+            if noise is not None:
+                noise = {st: _tensors(v) for st, v in noise.items()}
+            state, mets = step(state, batch, noise=noise)
+            metrics.append({n: v.numpy() for n, v in mets.items()})
+        out[name] = {"params": {k: v.numpy()
+                                for k, v in state.params.items()},
+                     "metrics": metrics, "specs": pspecs,
+                     "received": dict(mesh.received_by_axes)}
+    return out
+
+
+def rank_tensor(rank):
+    """A [4, 6] float tensor of integers, another on every rank (sums
+    exact in fp32)."""
+    return torch.arange(24, dtype=torch.float32).reshape(4, 6) \
+        * (rank + 1) + 100 * rank
+
+
+def _reduce_scatters(mesh):
+    """{(axes, dim): (this rank's block, bytes received)} of
+    ``mesh.reduce_scatter(rank_tensor(rank), axes, dim)`` over data,
+    model and (data, model), along dims 0 and 1 (those that split)."""
+    out = {}
+    for axes in (("data",), ("model",), ("data", "model")):
+        for dim in (0, 1):
+            if rank_tensor(0).shape[dim] % mesh.extent(axes):
+                continue
+            mesh.received_by_axes.clear()
+            block = mesh.reduce_scatter(rank_tensor(mesh.rank), axes, dim)
+            out[(axes, dim)] = (block.numpy(),
+                                mesh.received["reduce_scatter"])
     return out
