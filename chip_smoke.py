@@ -244,7 +244,7 @@ prints its seconds:
    parameters, 8.17 GB fp32 a client), C = 2 clients held by every rank,
    each client's params over (data, model) and its 64 rows of L2_SEQ
    tokens over data, in ``round_spec_for``'s 2 microbatches of 32 (a rank
-   runs 16 rows of each), tau 1, K = 2 rounds: the FSDP gathers run
+   runs 16 rows of each), tau 1, one round (K_L2): the FSDP gathers run
    under autograd, forward and again in each microbatch's recompute, and
    their gradients come back by a ring reduce-scatter. Gated as phase 10:
    launches exact (flash forward twice and backward once a layer,
@@ -256,7 +256,28 @@ prints its seconds:
    rtol 1e-4 and client 0's params at their scale against a one-process
    run, both ledgers valid; flash forward and backward held to the twin
    and timed at a rank's shape (L2_FLASH_PATH); ms a round, the peaks and
-   the bytes printed.
+   the bytes printed;
+12. the Mamba, MLA and MoE families on a (data, model) mesh
+   (``phase_family_serve``, ``phase_family_train``): 12a DeepSeek-V2 at
+   its published widths cut to its dense first layer and one MoE layer
+   (``family_mla_config``, 5.19 G parameters) served on 4 gloo ranks as
+   (2, 2), 64 MLA heads and 80 experts a rank, prefill at 4 x 2048 and 8
+   decode steps under the decode plan (positions over model) and the
+   long-context plan (positions over (data, model)); 12b Jamba-1.5-Large
+   ONE_H100 whole (8 layers, 9.0 G parameters) served on 2 ranks as (1,
+   2), 8192 Mamba channels a rank, the same serves. Each rank draws only
+   its blocks, leaf by leaf (``draw_blocks``), after the one-process
+   reference has run and left the card. Gated as phase 9 (launches exact:
+   flash twice a prefill a rank at 2 x 2048 x 64 heads x D 192, the scan
+   7 times at 4 x 2048 x 8192 channels and flash once at 32 / 4 heads;
+   logits within AGREE_LIMIT, each state layer at its scale) and each
+   rank's bytes by op exactly ``serve_received``'s. 12c the jamba,
+   deepseek and kimi smoke configs trained under L2 at (2, 2) in one
+   world, each gated as phase 11 (launches, bytes by op and axes exactly
+   ``l2_received``'s, round-0 gradients, losses and params against a
+   one-process run, both ledgers). Phase 1b holds flash at a 12a rank's
+   shape (FLASH_FAMILY_PATH) and the scan at a 12b rank's
+   (SSM_FAMILY_PATH) to their twins and times them.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -272,6 +293,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -449,8 +471,13 @@ FLASH_AUDIO_PATH = (4, 16, 16, 2048, 80)
 # (minicpm 36, kimi 112), the MLA path's 192 ragged and under GQA, the
 # NC = 3 form's lowest (132) and the largest (256); a window; a ragged
 # bidirectional mask; GQA throughout; bf16 at a small and the path shape
+# a phase 12a rank's flash (its 2 rows, 64 heads, hd + rope) and a 12b
+# rank's scan (B, T, d_in / 2, ds), held and timed in phase 1b
+FLASH_FAMILY_PATH = (2, 64, 64, 2048, 192)
+SSM_FAMILY_PATH = (4, 2048, 8192, 16)
 FLASH_CASES = [
     FLASH_PATH + (True, 0, False), FLASH_MLA_PATH + (True, 0, False),
+    FLASH_FAMILY_PATH + (True, 0, False),
     (1, 8, 8, 777, 192, True, 0, False), (2, 4, 2, 333, 192, True, 0, False),
     (1, 4, 4, 300, 132, True, 0, False),
     (2, 4, 4, 256, 64, True, 0, False), (1, 2, 2, 128, 32, False, 0, False),
@@ -495,9 +522,11 @@ FLASH_RTOL = FLASH_ATOL = 3e-5   # fp32, as the JAX tests hold the TPU kernel
 FLASH_BF16_ATOL, FLASH_BF16_RTOL = 2e-3, 1e-2
 # the scan at the serve path's Mamba shape: B, T, d_in, d_state
 SSM_PATH = (4, 2048, 16384, 16)
-# the path shape; the reference's SSM_CASES; ragged T and d_in; a d_state
+# the path shape and a 12b rank's; the reference's SSM_CASES; ragged T and
+# d_in; a d_state
 # below the smallest template bucket and the largest taken
-SSM_CASES = [SSM_PATH, (2, 64, 128, 16), (1, 128, 256, 8), (2, 32, 64, 4),
+SSM_CASES = [SSM_PATH, SSM_FAMILY_PATH, (2, 64, 128, 16), (1, 128, 256, 8),
+             (2, 32, 64, 4),
              (1, 16, 32, 16), (2, 37, 100, 16), (1, 5, 130, 3),
              (3, 1000, 1000, 64)]
 SSM_ATOL, SSM_RTOL = 2e-5, 1e-5
@@ -758,14 +787,16 @@ MESH_TRAIN_TIMEOUT_S = 300.0
 # each on every rank, its params over (data, model), its 64 rows of
 # L2_SEQ tokens over data in round_spec_for's 2 microbatches of 32 (a rank
 # runs 16 rows of each; the loss reads 128 positions, which the
-# cross-entropy's chunk rule cuts into chunks of 16); tau 1, K = 2 rounds. The reference's table has C
-# = 4: four 8.17 GB clients and the round's copies of them do not fit 80
-# GB; tau 1 keeps the phase inside its time (each local step gathers and
-# reduce-scatters a client's model over gloo)
+# cross-entropy's chunk rule cuts into chunks of 16); tau 1, one round.
+# The reference's table has C = 4: four 8.17 GB clients and the round's
+# copies of them do not fit 80 GB; tau 1 and one round (K_L2, 2 until the
+# families' phase 12 joined the script) keep the phase inside its time:
+# each local step gathers and reduce-scatters a client's model over gloo,
+# 26 GB a rank a round, 53-83 s (the CPU tests hold K = 2 rounds under L2)
 L2_ARCH, L2_LAYERS = "qwen3-32b", 1
 L2_SHAPE = (2, 2)
 L2_CLIENTS, L2_PER_CLIENT, L2_SEQ = 2, 64, 129
-K_L2, L2_TAU = 2, 1
+K_L2, L2_TAU = 1, 1
 L2_SEED = 0
 # the train batch's token ids are int64
 TOKEN_BYTES = 8
@@ -777,6 +808,32 @@ L2_FLASH_PATH = (L2_PER_CLIENT // (2 * L2_SHAPE[0]), 32, 4, L2_SEQ - 1,
 QWEN_SERVE_ARGS = ["--arch", "qwen3-32b", "--size", "one-h100", "--batch",
                    "4", "--prompt-len", "2048", "--gen", "32"]
 QWEN_SERVE_LAUNCHES = {"flash_attention": 2, "ssm_scan": 0}   # one prefill
+# phase 12: the Mamba, MLA and MoE families on a (data, model) mesh of
+# gloo ranks sharing the card, served as phase 9 serves (prefill at
+# MESH_BATCH x MESH_PROMPT with the batch over data, MESH_STEPS decode
+# steps with the cache's positions over model, then the long-context
+# plan: batch 1, positions over (data, model), capacity MESH_LONG_CAP).
+# 12a DeepSeek-V2 cut to its dense first layer and one MoE layer
+# (family_mla_config, every width published) on 4 ranks as (2, 2): 64 of
+# the 128 MLA heads and 80 of the 160 experts a rank; 12b Jamba-1.5-Large
+# ONE_H100 whole (8 layers) on 2 ranks as (1, 2): 8192 of the 16 384
+# Mamba channels, 32 query and 4 kv heads a rank. Every rank draws each
+# leaf on the card from a seed of its path, keeps its block and frees the
+# rest (draw_blocks); the one-process reference runs first, alone on the
+# card
+FAMILY_MLA_ARCH, FAMILY_MLA_LAYERS = "deepseek-v2-236b", 2
+FAMILY_MLA_SHAPE = (2, 2)
+FAMILY_SSM_ARCH = "jamba-1.5-large-398b"
+FAMILY_SSM_SHAPE = (1, 2)
+FAMILY_MLA_LAUNCHES = {"flash_attention": 2, "ssm_scan": 0}   # a prefill
+FAMILY_SSM_LAUNCHES = {"flash_attention": 1, "ssm_scan": 7}   # a prefill
+# 12c: the smoke configs of the reference's three L2 archs trained by the
+# train step under L2 on 4 ranks as (2, 2), as phase 11 (C = L2_CLIENTS,
+# K_L2 rounds at tau L2_TAU, round_spec_for's 2 microbatches of 32): 64
+# rows of 33 tokens a client, one world for the three
+FAMILY_TRAIN_ARCHS = ("jamba-1.5-large-398b", "deepseek-v2-236b",
+                      "kimi-k2-1t-a32b")
+FAMILY_TRAIN_PER_CLIENT, FAMILY_TRAIN_SEQ = 64, 33
 # the decode state of a mesh serve against one process, each leaf and
 # layer held at its scale: max |diff| <= CARD_CPU_ATOL + CARD_CPU_RTOL
 # max |value|. The kv caches past the first layer come from activations
@@ -2310,10 +2367,13 @@ def phase_lm_kernels(torch, dev):
                                     causal=False)
     mesh, mesh_work = flash_times(MESH_FLASH_PATH,
                                   " (mesh path, a rank at (2, 2))")
+    family, family_work = flash_times(
+        FLASH_FAMILY_PATH, " (mla mesh path, a 12a rank at (2, 2))")
     mla, mla_work = flash_times(FLASH_MLA_PATH, "")
     flash_work = {"mla path": mla_work, "gqa path": gqa_work,
                   "vlm path": vlm_work, "audio path": audio_work,
-                  "mesh path (a rank)": mesh_work}
+                  "mesh path (a rank)": mesh_work,
+                  "mla mesh path (a 12a rank)": family_work}
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
         max_abs_err_prefix=prefix_err, **mla,
@@ -2321,7 +2381,8 @@ def phase_lm_kernels(torch, dev):
         at_vlm_path={"shape": FLASH_VLM_PATH, "prefix": FLASH_VLM_PREFIX,
                      **vlm},
         at_audio_path={"shape": FLASH_AUDIO_PATH, "causal": False, **audio},
-        at_mesh_path={"shape": MESH_FLASH_PATH, **mesh})
+        at_mesh_path={"shape": MESH_FLASH_PATH, **mesh},
+        at_family_mla_path={"shape": FLASH_FAMILY_PATH, **family})
 
     ssm_err, ssm_ratio = 0.0, 0.0
     ssm_cases = ([(case, False) for case in SSM_CASES
@@ -2369,6 +2430,28 @@ def phase_lm_kernels(torch, dev):
         plain_ms=timing.kernel_ms(lambda: ssm_ref.ssm_scan_ref(
             u, dt, bm, cm, a, dsk), "ssm_scan plain", reps=2),
         library_ms=None, bound_ms=bound, bound_by=by)
+    del u, bm, cm, dt, a, dsk
+    # a 12b rank's scan (held among SSM_CASES), timed beside its twin
+    bsz, t, d_in, ds = SSM_FAMILY_PATH
+    u, bm, cm = randn(bsz, t, d_in), randn(bsz, t, ds), randn(bsz, t, ds)
+    dt = F.softplus(randn(bsz, t, d_in) - 2)
+    a = -torch.exp(0.3 * randn(d_in, ds))
+    dsk = torch.ones(d_in, device=dev)
+    label = "ssm_scan (ssm mesh path, a 12b rank at (1, 2))"
+    bound, by = _bound(*_ssm_work(bsz, t, d_in, ds))
+    report["ssm_scan"].update(
+        at_family_ssm_path=dict(
+            shape=SSM_FAMILY_PATH,
+            ms=timing.kernel_ms(lambda: ssm_ops.ssm_scan(
+                u, dt, bm, cm, a, dsk), label, reps=10),
+            # by CUDA events alone: a profile of the twin (18 448 device
+            # operations a call) costs more than its reading is worth
+            plain_ms=timing.time_ms(lambda: ssm_ref.ssm_scan_ref(
+                u, dt, bm, cm, a, dsk), reps=2, warmup=0),
+            library_ms=None, bound_ms=bound, bound_by=by))
+    report["ssm_scan"]["at_family_ssm_path"]["events_ms"] = \
+        timing.READINGS[label]["events_ms"]
+    del u, bm, cm, dt, a, dsk
     print(f"phase 1b ok: flash_attention at {len(FLASH_CASES)} cases, "
           f"{len(FLASH_MISALIGNED)} misaligned fp32 views and "
           f"{len(FLASH_PREFIX_CASES)} prefix-LM cases (largest fp32 "
@@ -2393,7 +2476,11 @@ def phase_lm_kernels(torch, dev):
                               ("flash_attention (vlm path)", vlm),
                               ("flash_attention (audio path)", audio),
                               ("flash_attention (mesh path)", mesh),
-                              ("ssm_scan", report["ssm_scan"]))}),
+                              ("flash_attention (mla mesh path, a 12a "
+                               "rank)", family),
+                              ("ssm_scan", report["ssm_scan"]),
+                              ("ssm_scan (ssm mesh path, a 12b rank)",
+                               report["ssm_scan"]["at_family_ssm_path"]))}),
           flush=True)
     return report
 
@@ -3978,66 +4065,156 @@ def phase_sharded(torch, dev):
 
 
 def mesh_serve_rank(jobs, device):
-    """One rank of a phase 9 world: for each job (name -> arch, size,
-    seed, mesh shape, batch, prompt, capacity, prefill plan, decode plan),
-    the config's params drawn from the seed on the card and its prompt and
-    decode tokens from seed + 1, a warm ``serve.serve_on_mesh``, then one
-    with the launch counts set to 0 just before and read just after and
-    the shapes each flash launch took. Returns {name: its blocks of every
-    position's logits and of the state on the CPU, their specs, prefill
-    and decode ms, bytes received by op, transports, launches, flash
-    shapes}."""
+    """One rank of a phase 9 or 12 world: for each job (name -> arch,
+    size (or ``cfg``), seed, mesh shape, batch, prompt, capacity, prefill
+    plan, decode plan), the config's params drawn from the seed on the
+    card and its prompt and decode tokens from seed + 1, a warm
+    ``serve.serve_on_mesh`` (unless ``job["cold"]``), then one with the
+    launch counts set to 0 just before and read just after and the shapes
+    each flash and scan launch took. With ``job["by_leaf"]`` the rank
+    draws only its blocks (:func:`draw_blocks`). Returns {name: its blocks
+    of every position's logits and of the state on the CPU, their specs,
+    prefill and decode ms, bytes received by op, transports, launches,
+    flash and scan shapes, peak allocated GB}."""
     from repro_torch import kernels
     from repro_torch import tree as tree_lib
-    from repro_torch.configs import ShapeConfig, get_one_h100_arch, \
-        get_smoke_arch
+    from repro_torch.configs import ShapeConfig
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve
-    from repro_torch.models import registry
+    from repro_torch.models import registry, ssm
+    from repro_torch.sharding import specs
 
     import torch
 
     dev = torch.device(device)
     meshes, out = {}, {}
-    mha, shapes = flash_ops.mha, []
+    mha, ssm_ops, shapes, scans = flash_ops.mha, ssm.ssm_ops, [], []
 
     def recorded(q, k, v, **kw):   # the heads of each flash launch
         shapes.append((tuple(q.shape), tuple(k.shape)))
         return mha(q, k, v, **kw)
 
+    def recorded_scan(u, *args):   # the channels of each scan launch
+        scans.append(tuple(u.shape))
+        return ssm_ops.ssm_scan(u, *args)
+
     flash_ops.mha = recorded
+    ssm.ssm_ops = types.SimpleNamespace(ssm_scan=recorded_scan)
     for name, job in jobs.items():
         if job["mesh"] not in meshes:
             meshes[job["mesh"]] = mesh_lib.make_host_mesh(
                 job["mesh"], ("data", "model"), dev)
-        cfg = (get_smoke_arch if job["size"] == "smoke"
-               else get_one_h100_arch)(job["arch"])
-        params = registry.init_model(
-            torch.Generator(device=dev).manual_seed(job["seed"]), cfg)
+        mesh = meshes[job["mesh"]]
+        cfg = _job_cfg(job)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        if job.get("by_leaf"):
+            pspecs = tree_lib.flatten(specs.param_pspecs(
+                cfg, mesh, job["plan"], registry.params_specs(
+                    cfg, torch.float32)), tuples=False)
+            params = draw_blocks(torch, cfg, job["seed"], dev, cut=lambda
+                                 path, x: specs.shard_leaf(x, pspecs[path],
+                                                           mesh))
+        else:
+            params = registry.init_model(
+                torch.Generator(device=dev).manual_seed(job["seed"]), cfg)
         n = job["prompt"] + MESH_STEPS
         tokens = registry.make_prefill_batch(
             torch.Generator(device=dev).manual_seed(job["seed"] + 1), cfg,
             ShapeConfig("mesh", n, job["batch"], "prefill"))["tokens"]
         args = (cfg, params, {"tokens": tokens[:, :job["prompt"]]},
-                tokens[:, job["prompt"]:], meshes[job["mesh"]], job["plan"],
-                job["decode_plan"], job["cap"])
-        serve.serve_on_mesh(*args)   # warm: the ranks' first collectives
+                tokens[:, job["prompt"]:], mesh, job["plan"],
+                job["decode_plan"], job["cap"], bool(job.get("by_leaf")))
+        if not job.get("cold"):
+            serve.serve_on_mesh(*args)   # warm: the first collectives
         shapes.clear()
+        scans.clear()
         kernels.reset_launch_counts()
         res = serve.serve_on_mesh(*args)
         launches = kernels.launch_counts()
-        del params
+        del params, args
         out[name] = {
             **{k: res[k] for k in ("logits_spec", "state_specs",
                                    "prefill_ms", "decode_ms", "received",
                                    "transport")},
             "logits": [x.cpu() for x in res["logits"]],
             "state": tree_lib.tree_map(lambda x: x.cpu(), res["state"]),
-            "launches": launches, "flash_shapes": list(shapes)}
+            "launches": launches, "flash_shapes": list(shapes),
+            "scan_shapes": list(scans),
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else None)}
         del res
-    flash_ops.mha = mha
+        _free(torch)
+    flash_ops.mha, ssm.ssm_ops = mha, ssm_ops
     return out
+
+
+def family_mla_config():
+    """12a's model: DeepSeek-V2 (configs/deepseek_v2_236b.py) at every
+    published width, cut to FAMILY_MLA_LAYERS = 2 layers, its dense first
+    layer and one MoE layer of 160 experts (top-6) and 2 shared experts
+    (MLA kv_lora 512, q_lora 1536, rope 64, 128 heads of 128): 5.19 G
+    parameters (``param_count()``: embedding and head 1.05 G, two MLA
+    mixers at 0.149 G, the dense MLP 0.024 G, the MoE layer 3.823 G),
+    20.8 GB in fp32, about 10.4 GB a rank at (2, 2). ONE_H100's 4 layers
+    (52.6 GB) split over model 2 on 4 ranks would hold 105 GB."""
+    import dataclasses
+
+    from repro_torch.configs import get_one_h100_arch
+
+    return dataclasses.replace(get_one_h100_arch(FAMILY_MLA_ARCH),
+                               n_layers=FAMILY_MLA_LAYERS)
+
+
+def _job_cfg(job):
+    """A mesh serve job's config: ``job["cfg"]``, or its arch at its
+    size."""
+    from repro_torch.configs import get_one_h100_arch, get_smoke_arch
+
+    if job.get("cfg") is not None:
+        return job["cfg"]
+    return (get_smoke_arch if job["size"] == "smoke"
+            else get_one_h100_arch)(job["arch"])
+
+
+def draw_blocks(torch, cfg, seed, dev, cut=None):
+    """The params of ``cfg`` on ``dev`` with every random leaf drawn alone
+    from a generator seeded by (``seed``, its path) at its init's scale
+    (``layers._randn``), and every constant leaf (norm scales, Mamba's
+    ``a_log`` / ``d_skip`` / ``dt_bias``) as ``init_lm`` makes it; ``cut
+    (path, leaf)`` gives the block kept of each (a copy), so that a rank
+    holds one whole leaf at a time and never the whole model. The same
+    values in every process, whatever it keeps."""
+    import zlib
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import layers, registry
+
+    drawn, randn = {}, layers._randn
+
+    def later(generator, shape, scale, dtype=torch.float32):
+        x = torch.zeros((), dtype=dtype, device=generator.device).expand(
+            tuple(shape))
+        drawn[id(x)] = (tuple(shape), scale, dtype)
+        return x
+
+    layers._randn = later
+    try:
+        skeleton = registry.init_model(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+    finally:
+        layers._randn = randn
+
+    def one(path, x):
+        if id(x) in drawn:
+            shape, scale, dtype = drawn[id(x)]
+            gen = torch.Generator(device=dev).manual_seed(
+                seed * 1_000_003 + zlib.crc32(path.encode()))
+            x = randn(gen, shape, scale, dtype)
+        return x if cut is None else cut(path, x).clone()
+
+    return tree_lib.map_with_path(one, skeleton)
 
 
 def _gemm_order_witness(torch, params, cfg, prompt, job):
@@ -4072,21 +4249,21 @@ def _one_process_serve(torch, dev, job):
     """The same job in this process with no mesh: every position's logits,
     the final state and, on a tensor-parallel mesh,
     :func:`_gemm_order_witness`."""
-    from repro_torch.configs import ShapeConfig, get_one_h100_arch, \
-        get_smoke_arch
+    from repro_torch.configs import ShapeConfig
     from repro_torch.models import registry, transformer
 
-    cfg = (get_smoke_arch if job["size"] == "smoke"
-           else get_one_h100_arch)(job["arch"])
-    params = registry.init_model(
-        torch.Generator(device=dev).manual_seed(job["seed"]), cfg)
+    cfg = _job_cfg(job)
+    params = (draw_blocks(torch, cfg, job["seed"], dev) if job.get("by_leaf")
+              else registry.init_model(
+                  torch.Generator(device=dev).manual_seed(job["seed"]), cfg))
     n = job["prompt"] + MESH_STEPS
     tokens = registry.make_prefill_batch(
         torch.Generator(device=dev).manual_seed(job["seed"] + 1), cfg,
         ShapeConfig("mesh", n, job["batch"], "prefill"))["tokens"]
     witness = (_gemm_order_witness(torch, params, cfg,
                                    tokens[:, :job["prompt"]], job)
-               if job["mesh"][1] > 1 else None)
+               if job["mesh"][1] > 1 and cfg.pattern[0] == "attn"
+               and cfg.mla is None else None)
     logits, state = transformer.prefill(
         params, cfg, {"tokens": tokens[:, :job["prompt"]]},
         max_len=job["cap"])
@@ -4127,15 +4304,20 @@ def _state_by_layer(torch, got, want):
     return out
 
 
-def held_mesh_serve(torch, dev, name, job, ranks, want_launches):
+def held_mesh_serve(torch, dev, name, job, ranks, want_launches,
+                    one_process=None):
     """Phase 9's gates on one job: each rank's launches exactly
-    ``want_launches`` (and every flash launch at the rank's heads), the
-    ranks' logits gathered within AGREE_LIMIT of a one-process serve of
-    the same weights and tokens, each layer of each leaf of the gathered
-    state within CARD_CPU_ATOL + CARD_CPU_RTOL times that layer's largest
-    magnitude in the one-process state (each layer's readings printed,
-    and on a tensor-parallel mesh :func:`_gemm_order_witness` beside
-    them). Returns the phase line's numbers."""
+    ``want_launches`` (and every flash launch at the rank's heads; with
+    ``job["flash_shape"]`` / ``job["scan_shape"]`` every flash q and scan
+    u at that shape), the ranks' logits gathered within AGREE_LIMIT of a
+    one-process serve of the same weights and tokens (``one_process``,
+    :func:`_one_process_serve`'s result when the caller ran it first),
+    each layer of each leaf of the gathered state within CARD_CPU_ATOL +
+    CARD_CPU_RTOL times that layer's largest magnitude in the one-process
+    state (each layer's readings printed, and on a tensor-parallel GQA
+    mesh :func:`_gemm_order_witness` beside them); with
+    ``job["exact_bytes"]`` each rank's bytes received by op exactly
+    :func:`serve_received`'s. Returns the phase line's numbers."""
     from repro_torch import kernels
     from repro_torch import tree as tree_lib
     from repro_torch.sharding import specs
@@ -4143,6 +4325,10 @@ def held_mesh_serve(torch, dev, name, job, ranks, want_launches):
     mesh = specs.MeshShape(("data", "model"), job["mesh"])
     mine = [r[name] for r in ranks]
     want = {**{k: 0 for k in kernels.WRAPPERS}, **want_launches}
+    want_bytes = (serve_received(
+        _job_cfg(job), job["mesh"], job["batch"], job["prompt"], job["cap"],
+        job["plan"], job["decode_plan"], MESH_STEPS)
+        if job.get("exact_bytes") else None)
     for r, got in enumerate(mine):
         require(got["launches"] == want,
                 f"{name}: rank {r} launched {got['launches']}, expected "
@@ -4151,12 +4337,24 @@ def held_mesh_serve(torch, dev, name, job, ranks, want_launches):
                     for q, k in got["flash_shapes"]),
                 f"{name}: rank {r}'s flash launches took "
                 f"{got['flash_shapes']}, expected {job['heads']} heads")
+        require(all(q == job.get("flash_shape", q)
+                    for q, _ in got["flash_shapes"])
+                and all(u == job.get("scan_shape", u)
+                        for u in got["scan_shapes"]),
+                f"{name}: rank {r}'s launches took flash "
+                f"{got['flash_shapes']} and scan {got['scan_shapes']}, "
+                f"expected {job.get('flash_shape')} / "
+                f"{job.get('scan_shape')}")
+        require(want_bytes is None or got["received"] == want_bytes,
+                f"{name}: rank {r} received {got['received']}, the "
+                f"analytic bytes are {want_bytes}")
     logits = [specs.gather_tree([{"x": m["logits"][i]} for m in mine],
                                 {"x": mine[0]["logits_spec"]}, mesh)["x"]
               for i in range(MESH_STEPS + 1)]
     state = _flat(specs.gather_tree([m["state"] for m in mine],
                                     mine[0]["state_specs"], mesh))
-    want_logits, want_state, witness = _one_process_serve(torch, dev, job)
+    want_logits, want_state, witness = (
+        one_process or _one_process_serve(torch, dev, job))
     require(set(state) == set(want_state), f"{name}: state leaves differ")
     err = max(float((g - w).abs().max())
               for g, w in zip(logits, want_logits))
@@ -4180,8 +4378,150 @@ def held_mesh_serve(torch, dev, name, job, ranks, want_launches):
             "decode_ms_by_rank": [sum(m["decode_ms"]) / len(m["decode_ms"])
                                   for m in mine],
             "received_bytes_by_rank": [m["received"] for m in mine],
+            "received_bytes_analytic": want_bytes,
+            "peak_gb_by_rank": [m.get("peak_gb") for m in mine],
+            "peak_gb_sum": (None if None in [m.get("peak_gb") for m in mine]
+                            else sum(m["peak_gb"] for m in mine)),
             "launches_by_rank": [{k: v for k, v in m["launches"].items()
                                   if v} for m in mine]}
+
+
+def layer_blocks(cfg):
+    """[(block kind, whether its MLP is the MoE)] of every layer in
+    order: the dense attention prefix, then the pattern's periods
+    (``transformer._uses_moe`` places the MoE alike in every period)."""
+    from repro_torch.models import transformer
+
+    n_per = (cfg.n_layers - cfg.n_dense_prefix) // len(cfg.pattern)
+    return [("attn", transformer._uses_moe(cfg, i))
+            for i in range(cfg.n_dense_prefix)] + [
+        (kind, transformer._uses_moe(cfg, cfg.n_dense_prefix + j))
+        for j, kind in enumerate(cfg.pattern)] * n_per
+
+
+def serve_received(cfg, mesh_shape, batch, prompt, cap, plan, dplan,
+                   n_steps):
+    """The bytes a rank of ``launch.serve.serve_on_mesh`` receives by op,
+    ``{"prefill": {op: n}, "decode": {op: n over n_steps}}``, on a
+    ``(data, model)`` mesh of ``mesh_shape``, for the plans' layouts with
+    no FSDP axes and no window: an all-reduce over n ranks receives 2 (n -
+    1) / n of its tensor, an all-gather the other ranks' blocks; fp32
+    activations, int64 routing choices.
+
+    With Mo the model extent, b the rows a rank holds (the batch over the
+    plan's batch axes), T = b P tokens a prefill and b a decode step, d
+    the model width, a step of either kind receives: the vocab-split
+    embedding's sum [T, d]; a layer, the sum of each row block's partial
+    [T, d] (attention's ``w_o``, the dense MLP's ``w_out``, the MoE's
+    combine with its shared experts' partial when the experts split, else
+    the shared experts' own, Mamba's ``w_out``), Mamba's ``[u | z]``
+    column block gathered (T 2 d_in / Mo a rank) and ``w_x``'s partial
+    sum [T, dt_rank + 2 ds]; the MoE's routing choices [T, k] gathered
+    over the batch axes. GQA with its heads cut inside a head gathers q,
+    k and v in the prefill; a prefill whose attention computed a block of
+    the kv heads gathers them for the cache (every kv head, [b, cap, Hkv /
+    Mo, hd] each). A decode step gathers GQA's k and v (and q when the
+    positions are split or a head cut) and, with the positions split over
+    n_s ranks, each block's partial softmax (output and log-sum-exp, [b,
+    H, hd + 1]); MLA gathers its absorbed and rope queries ([b, H / Mo,
+    kv_lora + rope]) and the partials in the latent space ([b, H, kv_lora
+    + 1])."""
+    from repro_torch.models import ssm
+
+    ext = {"data": mesh_shape[0], "model": mesh_shape[1]}
+    mo = ext["model"]
+    if plan.fsdp_axes or dplan.fsdp_axes or cfg.sliding_window:
+        raise ValueError("serve_received counts plans with no FSDP axes "
+                         "and no window")
+
+    def extent(axes):
+        return math.prod(ext[a] for a in axes)
+
+    def ring(n):
+        return 2 * (n - 1) / n
+
+    d, hd, h_q, h_kv = (cfg.d_model, cfg.resolved_head_dim, cfg.n_heads,
+                        cfg.n_kv_heads)
+    _, d_in, dt_rank = ssm._dims(cfg)
+
+    def split(n):       # a dim of n split over model (specs._div)
+        return mo > 1 and n % mo == 0
+
+    def cut(n, width):   # split, its block cutting a head of ``width``
+        return split(n) and (n // mo) % width != 0
+
+    if cfg.mla is not None and cut(h_q * (hd + cfg.mla.rope_dim),
+                                   hd + cfg.mla.rope_dim):
+        raise ValueError("serve_received counts MLA heads whole on a rank")
+    if split(2 * d_in) and not split(d_in):
+        raise ValueError("serve_received counts Mamba's channels split")
+
+    def step(p, rows, tokens, decode):
+        out = {"all_reduce": 0.0, "all_gather": 0.0}
+        n_b = extent(p.batch_axes)
+        n_s = extent(dplan.seq_axes) if decode else 1
+
+        def reduce(floats):
+            out["all_reduce"] += ring(mo) * floats * 4
+
+        def gather(n, nbytes):
+            out["all_gather"] += (n - 1) * nbytes
+
+        if split(cfg.vocab):
+            reduce(tokens * d)
+        for kind, has_moe in layer_blocks(cfg):
+            if kind == "ssm":
+                if split(d_in):
+                    gather(mo, tokens * 2 * d_in // mo * 4)
+                    reduce(tokens * (dt_rank + 2 * cfg.ssm.d_state))
+                    reduce(tokens * d)
+            elif cfg.mla is not None:
+                m = cfg.mla
+                if split(h_q * hd):
+                    reduce(tokens * d)
+                    if decode and n_s > 1:
+                        gather(mo, rows * h_q // mo
+                               * (m.kv_lora + m.rope_dim) * 4)
+                if decode and n_s > 1:
+                    gather(n_s, rows * h_q * (m.kv_lora + 1) * 4)
+            else:
+                q_split, kv_split = split(h_q * hd), split(h_kv * hd)
+                if not decode:
+                    if cut(h_q * hd, hd):
+                        gather(mo, tokens * h_q * hd // mo * 4)
+                    for _ in "kv":
+                        if cut(h_kv * hd, hd):
+                            gather(mo, tokens * h_kv * hd // mo * 4)
+                        elif kv_split:
+                            gather(mo, rows * cap * h_kv * hd // mo * 4)
+                else:
+                    if q_split and (n_s > 1 or cut(h_q * hd, hd)):
+                        gather(mo, rows * h_q * hd // mo * 4)
+                    if kv_split:
+                        gather(mo, 2 * rows * h_kv * hd // mo * 4)
+                    if n_s > 1:
+                        gather(n_s, rows * h_q * (hd + 1) * 4)
+                if q_split:
+                    reduce(tokens * d)
+            if has_moe:
+                mc = cfg.moe
+                if n_b > 1:
+                    gather(n_b, tokens * mc.top_k * 8)
+                if split(mc.n_experts) or (
+                        mc.n_shared and split(mc.n_shared * mc.d_ff)):
+                    reduce(tokens * d)
+            elif cfg.d_ff and split(cfg.d_ff):
+                reduce(tokens * d)
+        return out
+
+    rows = batch // extent(plan.batch_axes)
+    drows = batch // extent(dplan.batch_axes)
+    got = {"prefill": step(plan, rows, rows * prompt, False),
+           "decode": {k: n_steps * v for k, v in
+                      step(dplan, drows, drows, True).items()}}
+    return {kind: {k: int(v) if float(v).is_integer() else v
+                   for k, v in ops.items() if v}
+            for kind, ops in got.items()}
 
 
 def phase_mesh_serve(torch, dev):
@@ -4249,6 +4589,88 @@ def phase_mesh_serve(torch, dev):
     by_path["mesh serve 9c (rank 0)"] = ranks[0]["9c"]["launches"]
     print("phase 9c ok: " + json.dumps(line), flush=True)
     _free(torch)
+    return by_path
+
+
+def phase_family_serve(torch, dev):
+    """Phase 12a-12b: the Mamba, MLA and MoE families served on a (data,
+    model) mesh of gloo ranks sharing the card, as phase 9 serves
+    (``serve.serve_on_mesh``; a prefill of MESH_BATCH x MESH_PROMPT, then
+    MESH_STEPS decode steps with the cache's positions over model, and the
+    long-context plan). 12a: DeepSeek-V2 cut to 2 layers
+    (:func:`family_mla_config`) on 4 ranks as (2, 2), flash twice a
+    prefill a rank at FLASH_FAMILY_PATH's rows and heads (64 of 128, D
+    192); 12b: Jamba ONE_H100 whole on 2 ranks as (1, 2), the scan 7 times
+    a prefill a rank at SSM_FAMILY_PATH (8192 of 16 384 channels) and
+    flash once at 32 query and 4 kv heads. Each job's one-process serve
+    runs first, its outputs moved to the CPU and the card freed; then each
+    rank draws only its blocks (:func:`draw_blocks`). Each job is held as
+    phase 9 holds its own (``held_mesh_serve``) and its bytes exactly
+    :func:`serve_received`'s; one serve a job (no warm run: the ms include
+    the world's first collectives). Returns {path: rank 0's launches}."""
+    from repro_torch.configs import get_one_h100_arch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding.specs import ShardingPlan
+
+    _free(torch)
+    batch_data = ShardingPlan(1, (), ("data",))
+    decode = ShardingPlan(1, (), ("data",), seq_axes=("model",))
+    long_prefill = ShardingPlan(1, (), ())
+    long = ShardingPlan(1, (), (), seq_axes=("data", "model"))
+    mla_cfg = family_mla_config()
+    ssm_cfg = get_one_h100_arch(FAMILY_SSM_ARCH)
+    worlds = {}
+    for tag, cfg, shape, heads in (
+            ("12a", mla_cfg, FAMILY_MLA_SHAPE,
+             (FLASH_FAMILY_PATH[1], FLASH_FAMILY_PATH[2])),
+            ("12b", ssm_cfg, FAMILY_SSM_SHAPE,
+             (ssm_cfg.n_heads // FAMILY_SSM_SHAPE[1],
+              ssm_cfg.n_kv_heads // FAMILY_SSM_SHAPE[1]))):
+        base = dict(arch=cfg.name, cfg=cfg, seed=0, mesh=shape, heads=heads,
+                    by_leaf=True, cold=True, exact_bytes=True)
+        rows = MESH_BATCH // shape[0]
+        d = (cfg.resolved_head_dim + cfg.mla.rope_dim if cfg.mla
+             else cfg.resolved_head_dim)
+        jobs = {
+            f"{tag} decode plan": dict(
+                base, batch=MESH_BATCH, prompt=MESH_PROMPT,
+                cap=MESH_PROMPT + MESH_STEPS, plan=batch_data,
+                decode_plan=decode,
+                flash_shape=(rows, MESH_PROMPT, heads[0], d),
+                scan_shape=SSM_FAMILY_PATH[:3]),
+            f"{tag} long-context plan": dict(
+                base, batch=1, prompt=MESH_PROMPT, cap=MESH_LONG_CAP,
+                plan=long_prefill, decode_plan=long,
+                flash_shape=(1, MESH_PROMPT, heads[0], d),
+                scan_shape=(1,) + SSM_FAMILY_PATH[1:3])}
+        worlds[tag] = (shape, jobs)
+    by_path = {}
+    for tag, (shape, jobs) in worlds.items():
+        want_launches = (FAMILY_MLA_LAUNCHES if tag == "12a"
+                         else FAMILY_SSM_LAUNCHES)
+        t0 = time.perf_counter()
+        wants = {}
+        for name, job in jobs.items():
+            wants[name] = _one_process_serve(torch, dev, job)
+            _free(torch)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = mesh_lib.run_world(mesh_serve_rank, math.prod(shape),
+                                   backend="gloo", device=str(dev),
+                                   args=(jobs, str(dev)))
+        world_s = time.perf_counter() - t0
+        lines = {}
+        for name, job in jobs.items():
+            lines[name] = held_mesh_serve(torch, dev, name, job, ranks,
+                                          want_launches, wants[name])
+            by_path[f"mesh serve {name} (rank 0)"] = \
+                ranks[0][name]["launches"]
+        lines["transport"] = ranks[0][next(iter(jobs))]["transport"]
+        lines["one_process_s"] = one_s
+        lines["world_s_with_spawn"] = world_s
+        print(f"phase {tag} ok: " + json.dumps(lines), flush=True)
+        del ranks, wants
+        _free(torch)
     return by_path
 
 
@@ -4406,15 +4828,74 @@ def mesh_train_want(cfg, n_leaves, block_floats, n_split, tau):
     return launches, received
 
 
+def _model_split_terms(cfg, mo, tokens):
+    """The model axis' collectives in one forward pass and one backward
+    of a decoder whose heads (GQA or MLA), Mamba channels, MoE experts
+    and dense and shared MLP widths split evenly over ``mo`` ranks (or
+    stay whole where they do not divide), on ``tokens`` rows: (floats
+    all-reduced a pass, all-gathered a pass as (mo - 1) blocks, floats
+    all-reduced a backward, floats reduce-scattered a backward as (mo -
+    1) blocks). A pass all-reduces the embedding's lookup, each row
+    block's output (attention's, the dense MLP's, the MoE's combine
+    joined by its shared experts' partial, Mamba's) and Mamba's ``w_x``
+    partial, the vocab-parallel loss's two terms, and gathers Mamba's
+    ``[u | z]`` block and the loss's maxima; a backward all-reduces the
+    gradient of each input that enters a column block (GQA's x and
+    qk-norm scales, MLA's q-lora latent or x and its ``ckv`` and
+    ``k_rope``, Mamba's x and projection, the MLP's x, the MoE's
+    dispatched tokens and gates and the shared experts' x, the head's
+    input) and reduce-scatters the ``[u | z]`` gather's."""
+    from repro_torch.models import ssm
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    _, d_in, dt_rank = ssm._dims(cfg)
+
+    def split(n):
+        return mo > 1 and n % mo == 0
+
+    fwd = gath = bwd = scat = 0
+    if split(cfg.vocab):
+        fwd += tokens * d + 2 * tokens
+        gath += tokens
+        bwd += tokens * d
+    for kind, has_moe in layer_blocks(cfg):
+        if kind == "ssm" and split(d_in):
+            proj = tokens * (dt_rank + 2 * cfg.ssm.d_state)
+            fwd += tokens * d + proj
+            gath += tokens * 2 * d_in // mo
+            bwd += tokens * d + proj
+            scat += tokens * 2 * d_in // mo
+        elif kind == "attn" and cfg.mla is not None \
+                and split(cfg.n_heads * hd):
+            ml = cfg.mla
+            fwd += tokens * d
+            bwd += tokens * ((ml.q_lora or d) + ml.kv_lora + ml.rope_dim)
+        elif kind == "attn" and cfg.mla is None and split(cfg.n_heads * hd):
+            fwd += tokens * d
+            bwd += tokens * d + (2 * hd if cfg.qk_norm else 0)
+        if has_moe:
+            mc = cfg.moe
+            ep = split(mc.n_experts)
+            sh = bool(mc.n_shared) and split(mc.n_shared * mc.d_ff)
+            if ep or sh:
+                fwd += tokens * d
+            bwd += (tokens * (d + mc.top_k) if ep else 0) \
+                + (tokens * d if sh else 0)
+        elif cfg.d_ff and split(cfg.d_ff):
+            fwd += tokens * d
+            bwd += tokens * d
+    return fwd, gath, bwd, scat
+
+
 def l2_received(cfg, rspec, pspecs, blocks, extents, m, seq, n_rounds=1):
     """The bytes a rank of ``steps.build_train_step`` receives in
     ``n_rounds`` rounds under the L2 layout, by op and axes
-    (``ClientMesh.received_by_axes``' keys), for a dense GQA decoder with
-    an untied head whose heads split evenly over ``model``, in a round
-    with no global-loss eval (``round_spec_for``'s). ``pspecs``: the
-    step's param specs (``[C, ...]`` leaves); ``blocks``: each leaf's
-    per-client block shape on a rank; ``extents``: ``{"data": D, "model":
-    Mo}``; ``m`` rows of ``seq`` int64 tokens (TOKEN_BYTES each) a client.
+    (``ClientMesh.received_by_axes``' keys), for a decoder with an untied
+    head, its attention heads whole on each model rank, in a round with
+    no global-loss eval (``round_spec_for``'s). ``pspecs``: the step's
+    param specs (``[C, ...]`` leaves); ``blocks``: each leaf's per-client
+    block shape on a rank; ``extents``: ``{"data": D, "model": Mo}``;
+    ``m`` rows of ``seq`` int64 tokens (TOKEN_BYTES each) a client.
 
     With n = ``rspec.microbatches``, b = m / (D n) rows a rank and
     microbatch, T = b (seq - 1) tokens, d = ``cfg.d_model``, L layers,
@@ -4430,12 +4911,17 @@ def l2_received(cfg, rspec, pspecs, blocks, extents, m, seq, n_rounds=1):
       (2 4) a pass (the loss's sum and count) and 2 (D - 1) / D R 4 a
       backward (the gradients entering the batch); reduce-scatter (D - 1)
       F 4 a backward;
-    - over model (Mo > 1): all-reduce 2 (Mo - 1) / Mo [(1 + 2 L) T d + 2
-      T] 4 a pass (the embedding's lookup, each layer's attention and MLP
-      outputs, the vocab-parallel loss's two terms) and 2 (Mo - 1) / Mo
-      [(2 L + 1) T d + 2 L hd] 4 a backward (the inputs of each layer's
-      q / k / v and MLP column blocks and of the vocab head, and the
-      qk-norm scales); all-gather (Mo - 1) T 4 a pass (the loss's maxima);
+      an MoE layer also all-gathers its routing choices, (D - 1) T k
+      TOKEN_BYTES a pass, and all-reduces its mean router probabilities,
+      2 (D - 1) / D E 4 a pass;
+    - over model (Mo > 1), by :func:`_model_split_terms`: for a dense GQA
+      decoder all-reduce 2 (Mo - 1) / Mo [(1 + 2 L) T d + 2 T] 4 a pass
+      (the embedding's lookup, each layer's attention and MLP outputs,
+      the vocab-parallel loss's two terms) and 2 (Mo - 1) / Mo [(2 L + 1)
+      T d + 2 L hd] 4 a backward (the inputs of each layer's q / k / v
+      and MLP column blocks and of the vocab head, and the qk-norm
+      scales); all-gather (Mo - 1) T 4 a pass (the loss's maxima); Mamba,
+      MLA and MoE layers add their own terms;
     - the digest and divergence partials, (1 + C) floats a split leaf,
       all-gathered over the axes that leaf is split over: (n' - 1) (1 +
       C) 4 each.
@@ -4478,22 +4964,25 @@ def l2_received(cfg, rspec, pspecs, blocks, extents, m, seq, n_rounds=1):
         if nbytes:
             out[key] = out.get(key, 0) + n_rounds * nbytes
 
+    n_moe = sum(has_moe for _, has_moe in layer_blocks(cfg))
     if d_ext > 1:
         if n > 1:
             add("all_gather over data",
                 (d_ext - 1) * c * (m // d_ext) * seq * TOKEN_BYTES)
-        add("all_gather over data", passes * (d_ext - 1) * fsdp * 4)
+        add("all_gather over data", passes * (d_ext - 1) * fsdp * 4
+            + passes * n_moe * (d_ext - 1) * tokens * (
+                cfg.moe.top_k if n_moe else 0) * TOKEN_BYTES)
         add("all_reduce over data", passes * ring(d_ext) * 2 * 4
-            + backwards * ring(d_ext) * rest * 4)
+            + backwards * ring(d_ext) * rest * 4
+            + passes * n_moe * ring(d_ext) * (
+                cfg.moe.n_experts if n_moe else 0) * 4)
         add("reduce_scatter over data", backwards * (d_ext - 1) * fsdp * 4)
     if mo > 1:
-        d, hd, n_layers = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
-        add("all_reduce over model", passes * ring(mo) * (
-            (1 + 2 * n_layers) * tokens * d + 2 * tokens) * 4
-            + backwards * ring(mo) * ((2 * n_layers + 1) * tokens * d
-                                      + (2 * n_layers * hd
-                                         if cfg.qk_norm else 0)) * 4)
-        add("all_gather over model", passes * (mo - 1) * tokens * 4)
+        fwd, gath, bwd, scat = _model_split_terms(cfg, mo, tokens)
+        add("all_reduce over model",
+            ring(mo) * (passes * fwd + backwards * bwd) * 4)
+        add("all_gather over model", passes * (mo - 1) * gath * 4)
+        add("reduce_scatter over model", backwards * (mo - 1) * scat * 4)
     for key, nbytes in digest.items():
         add(f"all_gather over {key}", nbytes)
     return {k: int(v) if float(v).is_integer() else v
@@ -4817,78 +5306,98 @@ def phase_mesh_train(torch, dev, report):
     return {"phi4 mesh train": ranks[0]["launches"]}
 
 
-def _l2_config():
+def _l2_config(arch=None):
     """(cfg, shape, plan, round spec) of phase 11: qwen3-32b ONE_H100 at
     L2_LAYERS layers (its published widths), L2_CLIENTS clients of
     L2_PER_CLIENT x L2_SEQ tokens, the L2 plan at that C (clients on every
     rank, FSDP and rows over data), ``round_spec_for``'s round at tau
-    L2_TAU."""
+    L2_TAU; with ``arch`` phase 12c's: its smoke config, L2_CLIENTS
+    clients of FAMILY_TRAIN_PER_CLIENT x FAMILY_TRAIN_SEQ tokens, the same
+    plan and round."""
     import dataclasses
 
-    from repro_torch.configs import ShapeConfig, get_one_h100_arch
+    from repro_torch.configs import ShapeConfig, get_one_h100_arch, \
+        get_smoke_arch
     from repro_torch.launch import steps
     from repro_torch.sharding.specs import ShardingPlan
 
-    cfg = dataclasses.replace(get_one_h100_arch(L2_ARCH), n_layers=L2_LAYERS)
-    shape = ShapeConfig("l2_train", L2_SEQ, L2_CLIENTS * L2_PER_CLIENT,
-                        "train")
+    if arch is None:
+        cfg = dataclasses.replace(get_one_h100_arch(L2_ARCH),
+                                  n_layers=L2_LAYERS)
+        shape = ShapeConfig("l2_train", L2_SEQ, L2_CLIENTS * L2_PER_CLIENT,
+                            "train")
+    else:
+        cfg = get_smoke_arch(arch)
+        shape = ShapeConfig("l2_train", FAMILY_TRAIN_SEQ,
+                            L2_CLIENTS * FAMILY_TRAIN_PER_CLIENT, "train")
     plan = ShardingPlan(L2_CLIENTS, (), ("data",), fsdp_axes=("data",))
     spec = dataclasses.replace(steps.round_spec_for(cfg, shape, plan),
                                tau=L2_TAU)
     return cfg, shape, plan, spec
 
 
-def _l2_inputs(torch, dev, cfg):
-    """Phase 11's params (one model, flattened, drawn on the card from
-    L2_SEED) and tokens [K, C, m, S] (from the seed + 1)."""
+def _l2_inputs(torch, dev, cfg, shape):
+    """A phase 11 or 12c run's params (one model, flattened, drawn on the
+    card from L2_SEED) and tokens [K, C, m, S] (from the seed + 1)."""
     from repro_torch import tree
     from repro_torch.models import registry
 
     params = tree.flatten(registry.init_model(
         torch.Generator(device=dev).manual_seed(L2_SEED), cfg))
     tokens = torch.randint(
-        0, cfg.vocab, (K_L2, L2_CLIENTS, L2_PER_CLIENT, L2_SEQ),
+        0, cfg.vocab, (K_L2, L2_CLIENTS, shape.global_batch // L2_CLIENTS,
+                       shape.seq_len),
         generator=torch.Generator(device=dev).manual_seed(L2_SEED + 1),
         device=dev)
     return params, tokens
 
 
-def l2_train_rank(device):
-    """One rank of phase 11's world: ``steps.build_train_step`` under the
-    L2 plan on its (data, model) mesh, the round-0 state cut from the
-    params (both clients' blocks), then K_L2 rounds with the launch counts
-    set to 0 just before and read just after, each round timed on the
-    host clock (synchronized). Before the rounds, client 0's loss and
-    gradient blocks at the round-0 params (``step.grad_fn`` on client 0's
-    blocks and rows: its block of each of the 2 microbatches, through the
-    FSDP gathers and reduce-scatters; neither its launches nor its bytes
-    count). Prints each stage's seconds. Returns
-    its launches, the q / k shapes of each flash launch, round ms, peak
-    allocated GB, the analytic bytes it received by op and by axes, the
-    metrics, whether both clients hold the same blocks after the mix,
-    and (on the CPU) client 0's round-0 loss and gradient blocks and its
-    final blocks, and its unsplit leaves."""
-    from repro_torch import kernels
-    from repro_torch.kernels.flash_attention import ops as flash_ops
+def l2_train_rank(device, archs=None):
+    """One rank of phase 11's world (or, with ``archs``, phase 12c's: the
+    same for each arch's smoke config in turn, {arch: result}):
+    ``steps.build_train_step`` under the L2 plan on its (data, model)
+    mesh, the round-0 state cut from the params (both clients' blocks),
+    then K_L2 rounds with the launch counts set to 0 just before and read
+    just after, each round timed on the host clock (synchronized). Before
+    the rounds, client 0's loss and gradient blocks at the round-0 params
+    (``step.grad_fn`` on client 0's blocks and rows: its block of each of
+    the 2 microbatches, through the FSDP gathers and reduce-scatters;
+    neither its launches nor its bytes count). Prints each stage's
+    seconds. Returns its launches, the q / k shapes of each flash launch,
+    round ms, peak allocated GB, the analytic bytes it received by op and
+    by axes, the metrics, whether both clients hold the same blocks after
+    the mix, and (on the CPU) client 0's round-0 loss and gradient blocks
+    and its final blocks, and its unsplit leaves."""
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import steps
-    from repro_torch.sharding import specs
 
     import torch
 
     t_start = time.perf_counter()
     dev = torch.device(device)
     mesh = mesh_lib.make_host_mesh(L2_SHAPE, ("data", "model"), dev)
+    if archs is None:
+        return _l2_rank_run(torch, dev, mesh, None, "phase 11", t_start)
+    return {arch: _l2_rank_run(torch, dev, mesh, arch,
+                               f"phase 12c ({arch})", t_start)
+            for arch in archs}
+
+
+def _l2_rank_run(torch, dev, mesh, arch, label, t_start):
+    """:func:`l2_train_rank`'s run of one config (:func:`_l2_config`)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import steps
+    from repro_torch.sharding import specs
 
     def stage(what):
-        print(f"phase 11 rank {mesh.rank}: {what} at "
+        print(f"{label} rank {mesh.rank}: {what} at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    cfg, shape, plan, spec = _l2_config()
+    cfg, shape, plan, spec = _l2_config(arch)
     step, _, _, _ = steps.build_train_step(
         cfg, shape, mesh, False, torch.float32, spec_override=spec,
         plan=plan)
-    params, tokens = _l2_inputs(torch, dev, cfg)
+    params, tokens = _l2_inputs(torch, dev, cfg, shape)
     state = step.init_state(params, L2_SEED)
     batches = [{"tokens": specs.shard_leaf(tokens[k], step.in_specs[1][
         "tokens"], mesh).contiguous()} for k in range(K_L2)]
@@ -4927,38 +5436,59 @@ def l2_train_rank(device):
     launches = kernels.launch_counts()
     flash_ops.mha = mha
     stage("rounds done")
-    return {"launches": launches, "flash_shapes": shapes,
-            "round_ms": round_ms,
-            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                        if on_card else None),
-            "received_by_axes": dict(mesh.received_by_axes),
-            "transport": mesh.transport, "metrics": metrics,
-            "clients_equal": all(torch.equal(v[0], v[1])
-                                 for v in state.params.values()),
-            "params": {k: v[0].cpu() for k, v in state.params.items()},
-            "whole": {k: v[0].cpu() for k, v in state.params.items()
-                      if not any(step.in_specs[0].params[k][1:])},
-            "blocks": {k: tuple(v.shape[1:])
-                       for k, v in state.params.items()},
-            "specs": step.in_specs[0].params, "round0": first}
+    out = {"launches": launches, "flash_shapes": shapes,
+           "round_ms": round_ms,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                       if on_card else None),
+           "received_by_axes": dict(mesh.received_by_axes),
+           "transport": mesh.transport, "metrics": metrics,
+           "clients_equal": all(torch.equal(v[0], v[1])
+                                for v in state.params.values()),
+           "params": {k: v[0].cpu() for k, v in state.params.items()},
+           "whole": {k: v[0].cpu() for k, v in state.params.items()
+                     if not any(step.in_specs[0].params[k][1:])},
+           "blocks": {k: tuple(v.shape[1:])
+                      for k, v in state.params.items()},
+           "specs": step.in_specs[0].params, "round0": first}
+    del state, batches
+    _free(torch)
+    return out
 
 
 def l2_train_want(cfg, spec, n_leaves):
-    """The launches of a phase 11 rank: the seal once a round (every rank
-    races all C clients, no client mesh); ``fedavg_flat`` and
+    """The launches of a phase 11 or 12c rank: the seal once a round
+    (every rank races all C clients, no client mesh); ``fedavg_flat`` and
     ``digest_div_flat`` once a leaf a round on the rank's blocks of the C
     clients; flash forward twice (the forward and the checkpoint's
-    recompute) and backward once a layer, microbatch, client and local
-    step, at the rank's heads (no eval loss)."""
+    recompute) and backward once an attention layer, microbatch, client
+    and local step, at the rank's heads, and the scan the same a Mamba
+    layer (no eval loss)."""
     from repro_torch import kernels
 
-    attn = cfg.layer_kinds().count("attn")
-    backwards = attn * spec.microbatches * spec.n_clients * spec.tau * K_L2
+    kinds = [kind for kind, _ in layer_blocks(cfg)]
+    backwards = spec.microbatches * spec.n_clients * spec.tau * K_L2
     return {**{name: 0 for name in kernels.WRAPPERS},
             "pow_race": K_L2, "fedavg_flat": n_leaves * K_L2,
             "digest_div_flat": n_leaves * K_L2,
-            "flash_attention": 2 * backwards,
-            "flash_attention_bwd": backwards}
+            "flash_attention": 2 * backwards * kinds.count("attn"),
+            "flash_attention_bwd": backwards * kinds.count("attn"),
+            "ssm_scan": 2 * backwards * kinds.count("ssm"),
+            "ssm_scan_bwd": backwards * kinds.count("ssm")}
+
+
+def l2_flash_shapes(cfg, shape, spec):
+    """The q and k shapes of a phase 11 or 12c rank's flash launches: its
+    rows of a microbatch at the positions the loss reads, its heads (MLA:
+    every head's key, at hd + rope)."""
+    d_ext, mo = L2_SHAPE
+    b = shape.global_batch // L2_CLIENTS // (spec.microbatches * d_ext)
+    s = shape.seq_len - 1
+    if cfg.mla is not None:
+        h = cfg.n_heads // mo
+        d = cfg.resolved_head_dim + cfg.mla.rope_dim
+        return (b, s, h, d), (b, s, h, d)
+    return ((b, s, cfg.n_heads // mo, cfg.resolved_head_dim),
+            (b, s, cfg.n_kv_heads // mo, cfg.resolved_head_dim))
 
 
 def phase_l2_train(torch, dev, report):
@@ -4968,93 +5498,133 @@ def phase_l2_train(torch, dev, report):
     L2_LAYERS layer at its published widths (2.043 G parameters, 8.17 GB
     fp32 a client; the cut is of depth only), both clients on every rank,
     each client's params over (data, model) and its rows over data in
-    the reference's 2 microbatches of 32 (``l2_train_rank``). Every reading
-    is taken and printed first ("phase 11 readings", with each gate's
-    verdict), then the gates fire in order: each rank's launches exactly
-    ``l2_train_want``'s (every flash launch at 16 rows, 32 query and 4 kv
-    heads) and its bytes received over the run exactly
-    ``l2_received``'s (its docstring has the formula: the token
-    re-cut, the FSDP gathers in each forward and each recompute, the
-    reduce-scatters and the batch all-reduces of the gradients, the
-    loss's sum and count, the model axis' tensor-parallel collectives and
-    the digest partials over each leaf's own axes); the metrics the same
-    on every rank; both clients with the same blocks after the mix; the
-    unsplit leaves bitwise across the four ranks; the ledger valid;
-    client 0's round-0 loss at rtol 1e-4 and each block of its round-0
-    gradient within MESH_TRAIN_GRAD_RTOL / MESH_TRAIN_GRAD_ATOL of one
-    process's on the card (the same 2 microbatches of 32, one client at a
-    time); then a one-process run of the same round spec on the card
-    (``rounds.RoundRunner``, the loop driver): per-round per-client
-    losses at rtol 1e-4, client 0's final params at their scale (each
-    leaf's update over the run as a share of that tolerance printed beside
-    it), its ledger valid. Prints ms a round a rank, each rank's peak GB
-    and their sum, the bytes by op and axes; checks and times flash
-    forward and backward at a rank's shape (L2_FLASH_PATH). Returns rank
-    0's launches."""
-    import dataclasses
-
-    from repro_torch.core import rounds
+    the reference's 2 microbatches of 32 (``l2_train_rank``), held by
+    :func:`held_l2_train`; checks and times flash forward and backward at
+    a rank's shape (L2_FLASH_PATH). Returns rank 0's launches."""
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import registry
-    from repro_torch.sharding import specs
 
     _free(torch)
     flash = mesh_train_flash_times(torch, dev, report, path=L2_FLASH_PATH,
                                    key="at_l2_train",
                                    tag=" (L2 train, a rank at (2, 2))")
-    cfg, shape, plan, spec = _l2_config()
     t0 = time.perf_counter()
     ranks = mesh_lib.run_world(l2_train_rank, math.prod(L2_SHAPE),
                                backend="gloo", device=str(dev),
                                args=(str(dev),),
                                timeout_s=MESH_TRAIN_TIMEOUT_S)
     world_s = time.perf_counter() - t0
+    held_l2_train(torch, dev, None, ranks, "phase 11",
+                  "qwen3-32b ONE_H100 (1 layer) train step, L2 layout, on "
+                  "(data 2, model 2)",
+                  {"flash_at_rank_shape": flash,
+                   "world_s_with_spawn": world_s})
+    _free(torch)
+    return {"qwen3 L2 train": ranks[0]["launches"]}
+
+
+def phase_family_train(torch, dev):
+    """Phase 12c: the smoke configs of the reference's three L2 archs
+    (FAMILY_TRAIN_ARCHS: Mamba, MLA, MoE experts, each split over model)
+    trained by the train step under L2 on 4 gloo ranks as (2, 2), in one
+    world (``l2_train_rank`` with ``archs``), each held as phase 11 holds
+    qwen3 (:func:`held_l2_train`). Returns {path: rank 0's launches}."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    _free(torch)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(l2_train_rank, math.prod(L2_SHAPE),
+                               backend="gloo", device=str(dev),
+                               args=(str(dev), FAMILY_TRAIN_ARCHS),
+                               timeout_s=MESH_TRAIN_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    out = {}
+    for arch in FAMILY_TRAIN_ARCHS:
+        held_l2_train(torch, dev, arch, [r[arch] for r in ranks],
+                      f"phase 12c ({arch})",
+                      f"{arch} smoke train step, L2 layout, on (data 2, "
+                      "model 2)", {"world_s_with_spawn": world_s})
+        out[f"{arch} L2 train (rank 0)"] = ranks[0][arch]["launches"]
+    _free(torch)
+    return out
+
+
+def held_l2_train(torch, dev, arch, ranks, label, path, extra):
+    """Phase 11's gates (and 12c's) on one config's ranks. Every reading
+    is taken and printed first ("<label> readings", with each gate's
+    verdict), then the gates fire in order: each rank's launches exactly
+    ``l2_train_want``'s (every flash launch at :func:`l2_flash_shapes`)
+    and its bytes received over the run exactly ``l2_received``'s (its
+    docstring has the formula: the token re-cut, the FSDP gathers in each
+    forward and each recompute, the reduce-scatters and the batch
+    all-reduces of the gradients, the loss's sum and count, the MoE's
+    routing choices and router probabilities, the model axis' tensor-
+    parallel collectives and the digest partials over each leaf's own
+    axes); the metrics the same on every rank; both clients with the same
+    blocks after the mix; the unsplit leaves bitwise across the four
+    ranks; the ledger valid; client 0's round-0 loss at rtol 1e-4 and each
+    block of its round-0 gradient within MESH_TRAIN_GRAD_RTOL /
+    MESH_TRAIN_GRAD_ATOL of one process's on the card (the same 2
+    microbatches of 32, one client at a time); then a one-process run of
+    the same round spec on the card (``rounds.RoundRunner``, the loop
+    driver): per-round per-client losses at rtol 1e-4, client 0's final
+    params at their scale (each leaf's update over the run as a share of
+    that tolerance printed beside it), its ledger valid. Prints ms a round
+    a rank, each rank's peak GB and their sum, the bytes by op and
+    axes."""
+    import dataclasses
+
+    from repro_torch.core import rounds
+    from repro_torch.models import registry
+    from repro_torch.sharding import specs
+
+    cfg, shape, plan, spec = _l2_config(arch)
+    m = shape.global_batch // L2_CLIENTS
     pspecs = ranks[0]["specs"]
     want_launches = l2_train_want(cfg, spec, len(pspecs))
     want_bytes = l2_received(
         cfg, spec, pspecs, ranks[0]["blocks"],
-        dict(zip(("data", "model"), L2_SHAPE)), L2_PER_CLIENT, L2_SEQ,
+        dict(zip(("data", "model"), L2_SHAPE)), m, shape.seq_len,
         n_rounds=K_L2)
-    b, h, hkv, s, d = L2_FLASH_PATH
+    want_q, want_k = l2_flash_shapes(cfg, shape, spec)
     whole = [k for k, sp in pspecs.items() if not any(sp[1:])]
     gates = []   # (name, ok, message on failure), fired after the readings
     for r, got in enumerate(ranks):
         gates += [
             (f"rank {r} launches", got["launches"] == want_launches,
-             f"phase 11: rank {r} launched {got['launches']}, expected "
+             f"{label}: rank {r} launched {got['launches']}, expected "
              f"{want_launches}"),
             (f"rank {r} flash shapes",
-             all(q == (b, s, h, d) and k == (b, s, hkv, d)
+             all(q == want_q and k == want_k
                  for q, k in got["flash_shapes"]),
-             f"phase 11: rank {r}'s flash launches took "
-             f"{got['flash_shapes'][:2]}, expected q {(b, s, h, d)} and "
-             f"k / v {(b, s, hkv, d)}"),
+             f"{label}: rank {r}'s flash launches took "
+             f"{got['flash_shapes'][:2]}, expected q {want_q} and "
+             f"k / v {want_k}"),
             (f"rank {r} bytes", got["received_by_axes"] == want_bytes,
-             f"phase 11: rank {r} received {got['received_by_axes']} over "
+             f"{label}: rank {r} received {got['received_by_axes']} over "
              f"{K_L2} rounds, the analytic bytes are {want_bytes}"),
             (f"rank {r} metrics",
-             all(torch.equal(m[n], m0[n]) for m, m0 in
+             all(torch.equal(mt[n], m0[n]) for mt, m0 in
                  zip(got["metrics"], ranks[0]["metrics"]) for n in m0),
-             f"phase 11: rank {r}'s metrics differ from rank 0's"),
+             f"{label}: rank {r}'s metrics differ from rank 0's"),
             (f"rank {r} clients equal", got["clients_equal"],
-             f"phase 11: rank {r}'s two clients hold other blocks after "
+             f"{label}: rank {r}'s two clients hold other blocks after "
              "the mix"),
             (f"rank {r} whole leaves",
              sorted(got["whole"]) == sorted(whole)
              and all(torch.equal(got["whole"][k], ranks[0]["whole"][k])
                      for k in whole),
-             f"phase 11: an unsplit leaf differs between ranks {r} and 0")]
-    rows = {n: torch.stack([m[n] for m in ranks[0]["metrics"]])
+             f"{label}: an unsplit leaf differs between ranks {r} and 0")]
+    rows = {n: torch.stack([mt[n] for mt in ranks[0]["metrics"]])
             for n in ranks[0]["metrics"][0]}
     hist, ledger = rounds.history_and_ledger(dict(rows))
     gates.append(("mesh ledger", ledger.validate_chain(),
-                  "phase 11: the mesh ledger is invalid"))
+                  f"{label}: the mesh ledger is invalid"))
     mesh = specs.MeshShape(("data", "model"), L2_SHAPE)
     ats = [specs.MeshShape(mesh.axis_names, mesh.shape, rank=r)
            for r in range(math.prod(L2_SHAPE))]
 
     # client 0's round-0 loss and gradient in one process on the card
-    params, tokens = _l2_inputs(torch, dev, cfg)
+    params, tokens = _l2_inputs(torch, dev, cfg, shape)
     leaves = {k: v[None].detach().requires_grad_(True)
               for k, v in params.items()}
     loss0, grads = rounds.make_grad(registry.client_losses(cfg), spec)(
@@ -5077,10 +5647,10 @@ def phase_l2_train(torch, dev, report):
     _free(torch)
     grad_worst = max(grad_shares.values())
     gates += [("round-0 loss", loss0_rel <= CARD_CPU_RTOL,
-               f"phase 11: client 0's round-0 loss {loss0_rel:.3g} "
+               f"{label}: client 0's round-0 loss {loss0_rel:.3g} "
                f"relative off one process's (rtol {CARD_CPU_RTOL})"),
               ("round-0 gradients", grad_worst <= 1.0,
-               f"phase 11: blocks' round-0 gradients off one process's at "
+               f"{label}: blocks' round-0 gradients off one process's at "
                f"{json.dumps(grad_shares)} of rtol {MESH_TRAIN_GRAD_RTOL} "
                f"|want| + atol {MESH_TRAIN_GRAD_ATOL} max|want|")]
 
@@ -5095,11 +5665,11 @@ def phase_l2_train(torch, dev, report):
     want_losses = runner.rows["local_loss"].cpu()
     _, whist, wledger = runner.finish()
     gates.append(("one-process ledger", wledger.validate_chain(),
-                  "phase 11: the one-process ledger is invalid"))
+                  f"{label}: the one-process ledger is invalid"))
     loss_rel = float(((rows["local_loss"] - want_losses).abs()
                       / want_losses.abs()).max())
     gates.append(("per-round losses", loss_rel <= CARD_CPU_RTOL,
-                  f"phase 11: per-round losses "
+                  f"{label}: per-round losses "
                   f"{rows['local_loss'].tolist()} vs one process "
                   f"{want_losses.tolist()} (rtol {loss_rel:.3g} > "
                   f"{CARD_CPU_RTOL})"))
@@ -5117,19 +5687,18 @@ def phase_l2_train(torch, dev, report):
     _free(torch)
     worst = max(shares.values())
     gates.append(("params at scale", worst <= 1.0,
-                  f"phase 11: params differ from one process beyond their "
+                  f"{label}: params differ from one process beyond their "
                   f"scale: {json.dumps(shares)}"))
     peaks = [got["peak_gb"] for got in ranks]
-    print("phase 11 readings: " + json.dumps(
-        {"path": "qwen3-32b ONE_H100 (1 layer) train step, L2 layout, on "
-                 "(data 2, model 2)",
+    print(f"{label} readings: " + json.dumps(
+        {"path": path,
          "layers": cfg.n_layers, "params_a_client": cfg.param_count(),
          "clients": L2_CLIENTS,
-         "tokens_a_client": [L2_PER_CLIENT, L2_SEQ], "rounds": K_L2,
+         "tokens_a_client": [m, shape.seq_len], "rounds": K_L2,
          "round_spec": {k: v for k, v in dataclasses.asdict(spec).items()
                         if isinstance(v, (int, float, bool))},
          "launches_a_rank": {k: v for k, v in want_launches.items() if v},
-         "flash_q_kv_shape": [[b, s, h, d], [b, s, hkv, d]],
+         "flash_q_kv_shape": [list(want_q), list(want_k)],
          "round_ms_by_rank": [got["round_ms"] for got in ranks],
          "one_process_round_ms": one_ms,
          "peak_gb_by_rank": peaks,
@@ -5148,16 +5717,12 @@ def phase_l2_train(torch, dev, report):
          "digest_one_process": [hh["digest"] for hh in whist],
          "params_scale_share_worst": worst, "params_bitwise": bitwise,
          "params_scale_share_by_leaf": shares,
-         "update_scale_share_by_leaf": update_shares,
-         "flash_at_rank_shape": flash,
-         "world_s_with_spawn": world_s,
+         "update_scale_share_by_leaf": update_shares, **extra,
          "gates_failed": [name for name, ok, _ in gates if not ok]}),
         flush=True)
     for _, ok, msg in gates:
         require(ok, msg)
-    print(f"phase 11 ok: {len(gates)} gates", flush=True)
-    _free(torch)
-    return {"qwen3 L2 train": ranks[0]["launches"]}
+    print(f"{label} ok: {len(gates)} gates", flush=True)
 
 
 def _leaves(tree):
@@ -5408,6 +5973,10 @@ def main(argv=None) -> int:
     lap("phase 10")
     l2_train = phase_l2_train(torch, dev, report)
     lap("phase 11")
+    family_serve = phase_family_serve(torch, dev)
+    lap("phase 12a-12b")
+    family_train = phase_family_train(torch, dev)
+    lap("phase 12c")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
@@ -5417,13 +5986,16 @@ def main(argv=None) -> int:
                **{f"{arch} smoke train": counts
                   for arch, counts in smoke_trains.items()},
                "qwen3 serve": qlaunches,
-               **sharded, **mesh_serve, **mesh_train, **l2_train}
+               **sharded, **mesh_serve, **mesh_train, **l2_train,
+               **family_serve, **family_train}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, the "
+          "kernels' build included", flush=True)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

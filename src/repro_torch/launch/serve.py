@@ -131,7 +131,8 @@ def serve(args) -> dict:
 
 
 def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
-                  mesh, plan, decode_plan=None, max_len: int = 0) -> dict:
+                  mesh, plan, decode_plan=None, max_len: int = 0,
+                  blocks: bool = False) -> dict:
     """One rank's serve on a mesh (``launch.mesh.make_host_mesh``, every
     rank calling it with the same arguments): a prefill of ``batch`` by
     ``steps.build_prefill_step`` under ``plan``, then one decode step by
@@ -139,7 +140,10 @@ def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
     column of ``tokens`` [B, n] (teacher-forced), the cache holding
     ``max_len`` positions (default prompt + n). ``params``, ``batch`` and
     ``tokens`` are whole, on this rank's device; the rank cuts its blocks
-    (``specs.shard_tree``, copies) and runs on them alone. Returns this
+    (``specs.shard_tree``, copies) and runs on them alone; with
+    ``blocks`` ``params`` are already this rank's blocks under the
+    plans' param specs (``specs.param_pspecs``, the same under both
+    plans), so that the whole model never sits on the rank. Returns this
     rank's blocks of each position's logits (the prefill's last, then each
     step's) and of the final state, their specs (``logits_spec``,
     ``state_specs``), the prefill's and each decode step's ms on the host
@@ -160,8 +164,9 @@ def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
         max_len=max_len)
     decode, _, dplan = steps.build_decode_step(cfg, dshape, mesh, False,
                                                plan=decode_plan or plan)
-    local = tree_lib.tree_map(lambda x: x.clone(), specs.shard_tree(
-        params, prefill.in_specs[0], mesh))
+    local = params if blocks else tree_lib.tree_map(
+        lambda x: x.clone(), specs.shard_tree(params, prefill.in_specs[0],
+                                              mesh))
     lbatch = specs.shard_tree(batch, prefill.in_specs[1], mesh)
     ltokens = specs.shard_leaf(tokens, decode.in_specs[2] + (None,), mesh)
     mesh.received_by_axes.clear()

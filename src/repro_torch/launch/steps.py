@@ -13,20 +13,25 @@ blocks by the split the plan's specs imply (``models/parallel.py``):
 
 - the batch rows split over the batch axes (each rank runs its rows);
 - FSDP leaves gathered a block at a time, for every block kind;
-- over the model axes, Megatron-style tensor parallelism of the dense GQA
-  decoders: ``w_q`` / ``w_k`` / ``w_v`` / ``w_in`` / ``w_gate`` column
-  blocks, ``w_o`` / ``w_out`` row blocks (partial sums all-reduced), the
-  vocab-split embedding, logits left split on the vocab;
-- a decode cache split on its positions over ``plan.seq_axes``.
+- over the model axes, Megatron-style tensor parallelism: GQA's query and
+  kv head blocks, MLA's head blocks over its whole latents, Mamba's
+  channel blocks of d_in (``w_in``'s ``[u | z]`` block gathered and re-cut
+  to the rank's channels), the MoE's expert blocks (tokens whole on every
+  model rank, the weighted outputs summed: no all-to-all), the dense
+  MLPs' column and row blocks (partial sums all-reduced), the vocab-split
+  embedding, logits left split on the vocab;
+- a decode cache split on its positions over ``plan.seq_axes`` (GQA's k
+  and v, MLA's latent ``ckv`` and ``k_rope``), and Mamba's decode state
+  on its channels over the model axes.
 
 A step takes and returns this rank's blocks; ``step.in_specs`` and
 ``step.out_specs`` are the spec trees that place them (the reference's
 ``in_shardings`` / ``out_shardings``; ``sharding.specs.shard_tree`` cuts a
 rank's blocks, ``gather_tree`` puts the ranks' back together). A leaf
 that the plan splits over an axis of extent > 1 and that no forward here
-splits (Mamba, xLSTM, MLA and MoE blocks, the audio front-end, MLA's
-sequence-split latent cache) makes the builder raise ``ValueError``; its
-tensor-parallel forward is ROADMAP 9b-3.
+splits (the xLSTM blocks, the VLM's and the audio encoder's front-ends
+and every leaf of those archs) makes the builder raise ``ValueError``;
+their tensor-parallel forwards are ROADMAP 9b-3b.
 
 :func:`build_train_step` takes the reference's ``(cfg, shape, mesh,
 multi_pod, dtype, spec_override=None, plan=None)`` and returns ``(step,
@@ -53,7 +58,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import aggregation, rounds
 from repro_torch.core import topology as topology_lib
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry, ssm as ssm_lib, transformer
 from repro_torch.models.parallel import Parallel
 from repro_torch.sharding import plans as plans_lib
 from repro_torch.sharding import specs as specs_lib
@@ -111,12 +116,12 @@ class MeshStep:
         return self.fn(*args, **kwargs)
 
 
-def _tp_family(cfg: ModelConfig) -> bool:
-    """Whether the model is a dense GQA decoder, whose forward splits over
-    the model axes (attention blocks, no MLA, no MoE, no VLM or audio
-    front-end)."""
-    return (set(cfg.pattern) == {"attn"} and cfg.mla is None
-            and cfg.moe is None and cfg.family not in ("vlm", "audio"))
+def _ported(cfg: ModelConfig) -> bool:
+    """Whether every block of the model has a forward here that splits
+    over the model axes: attention (GQA or MLA), Mamba, dense and MoE
+    MLPs, in a decoder with no VLM or audio front-end."""
+    return (set(cfg.pattern) <= {"attn", "ssm"}
+            and cfg.family not in ("vlm", "audio"))
 
 
 def _split_dims(spec: specs_lib.Spec, mesh, skip=()) -> list:
@@ -124,17 +129,22 @@ def _split_dims(spec: specs_lib.Spec, mesh, skip=()) -> list:
             if d not in skip and specs_lib.split_entry(e, mesh)]
 
 
+# decode-state leaf -> the dim (past a period axis) the forwards split:
+# the kv caches' and the latent cache's positions, Mamba's channels
+_STATE_SPLITS = {"k": 1, "v": 1, "ckv": 1, "k_rope": 1, "conv": 2, "h": 1}
+
+
 def _refuse_unported(cfg: ModelConfig, mesh, plan, pspecs, sspecs=None
                      ) -> None:
     """Raise ``ValueError`` naming the first leaf that the plan splits over
     axes of extent > 1 where no forward here splits it: a param leaf
-    split over non-FSDP axes outside the dense GQA family, a decode-state
-    leaf split past its batch dim other than GQA's kv positions."""
+    split over non-FSDP axes in an arch with an xLSTM block or a VLM or
+    audio front-end, a decode-state leaf split past its batch dim other
+    than the kv or latent caches' positions and Mamba's channels."""
     fsdp = set(plan.fsdp_axes)
-    why = ("the tensor-parallel forwards of Mamba, xLSTM, MLA and MoE "
-           "blocks and of the VLM and audio front-ends, and MLA's "
-           "sequence-split cache, are ROADMAP 9b-3")
-    if not _tp_family(cfg):
+    why = ("the tensor-parallel forwards of the xLSTM blocks and of the "
+           "VLM and audio front-ends are ROADMAP 9b-3b")
+    if not _ported(cfg):
         for path, spec in tree_lib.flatten(pspecs, tuples=False).items():
             for d, axes in _split_dims(spec, mesh):
                 if not set(axes) <= fsdp:
@@ -143,9 +153,11 @@ def _refuse_unported(cfg: ModelConfig, mesh, plan, pspecs, sspecs=None
                         f" over {axes}; {why}")
     for path, spec in tree_lib.flatten(sspecs or {}, tuples=False).items():
         lead = 1 if path.startswith("period/") else 0
-        name = path.split("/")[-1]
+        kind = specs_lib._kind_of_path(cfg, path)
+        want = _STATE_SPLITS.get(path.split("/")[-1]) \
+            if kind in ("attn", "ssm") else None
         for d, axes in _split_dims(spec, mesh, skip=(lead,)):
-            if not (name in ("k", "v") and d == lead + 1):
+            if want is None or d != lead + want:
                 raise ValueError(
                     f"{cfg.name}: the plan splits decode-state leaf {path!r}"
                     f" (dim {d}) over {axes}; {why}")
@@ -167,9 +179,10 @@ def _logits_spec(cfg: ModelConfig, mesh, plan) -> specs_lib.Spec:
 
 
 def _seq_axes(state_specs, mesh) -> tuple:
-    """The axes of extent > 1 the kv caches' positions are split over."""
+    """The axes of extent > 1 the kv or latent caches' positions are split
+    over."""
     for path, spec in tree_lib.flatten(state_specs, tuples=False).items():
-        if path.split("/")[-1] == "k":
+        if path.split("/")[-1] in ("k", "ckv"):
             lead = 1 if path.startswith("period/") else 0
             return specs_lib.split_entry(spec[lead + 1], mesh) or ()
     return ()
@@ -178,13 +191,21 @@ def _seq_axes(state_specs, mesh) -> tuple:
 def _prefill_state_specs(cfg: ModelConfig, plan, state) -> Any:
     """The layout prefill leaves its state in on a rank: rows over the
     batch axes, the kv caches' heads over the model axes where the
-    attention computed a block of them."""
+    attention computed a block of them, Mamba's conv window and scan
+    state on the channels the block computed (MLA's latent cache is
+    whole)."""
+    d_in = ssm_lib._dims(cfg)[1]
+
     def one(path, x):
         lead = (None,) if path.startswith("period/") else ()
         spec = [plan.batch_axes or None] + [None] * (x.dim() - len(lead) - 1)
-        if path.split("/")[-1] in ("k", "v") \
-                and x.shape[-2] < cfg.n_kv_heads:
+        name = path.split("/")[-1]
+        if name in ("k", "v") and x.shape[-2] < cfg.n_kv_heads:
             spec[2] = plan.model_axes
+        elif specs_lib._kind_of_path(cfg, path) == "ssm":
+            dim = _STATE_SPLITS[name]
+            if x.shape[len(lead) + dim] < d_in:
+                spec[dim] = plan.model_axes
         return lead + tuple(spec)
 
     return tree_lib.map_with_path(one, state)
@@ -288,12 +309,10 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     rank's round-0 state.
 
     A family whose leaves the plan splits over the model axes and no
-    forward here splits raises ``ValueError`` (ROADMAP 9b-3: jamba,
-    deepseek-v2 and kimi-k2 at model extent > 1; at model extent 1 their
-    leaves are split over the FSDP axes only, and they run under L2), as
-    do the round stages that would need a reduction over each whole
-    client model (``detect_lazy``, the geometric median) on split
-    leaves."""
+    forward here splits raises ``ValueError`` (ROADMAP 9b-3b: xlstm-125m,
+    paligemma-3b and hubert-xlarge at model extent > 1), as do the round
+    stages that would need a reduction over each whole client model
+    (``detect_lazy``, the geometric median) on split leaves."""
     cfg = resolve_cfg(cfg, shape)
     plan = plan or plans_lib.train_plan(cfg, shape, mesh, multi_pod)
     rspec = spec_override or round_spec_for(cfg, shape, plan)

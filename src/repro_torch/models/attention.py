@@ -17,7 +17,10 @@ the kernel at head dim hd + rope (keys and queries concatenated with their
 rope parts, values zero-padded), the reference's materialized form; its
 absorbed form (scores in the latent space) is the ``absorbed=True``
 ablation. Decode stays plain torch (one query row against the cache), as
-the JAX package leaves it to XLA; MLA decodes in the absorbed form. Decode
+the JAX package leaves it to XLA; MLA decodes in the absorbed form. On a
+mesh (``par``, ``models/parallel.py``) GQA and MLA run on this rank's
+heads, and a decode cache split on its positions combines the blocks'
+partial softmaxes exactly (:func:`_softmax_blocks`). Decode
 writes the step's entries into the cache in place (slice assignment where
 the reference has ``dynamic_update_slice``): no copy of the cache per
 step, and the caller's state is updated.
@@ -276,25 +279,34 @@ def gqa_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
 def _sdpa_blocks(q, k, v, valid, scale, par):
     """Attention of q [B, 1, H, hd] over the positions split into blocks
     over ``par.seq_axes``: this rank's block k, v [B, T, H, hd] with its
-    ``valid`` slots [T]. Each rank's softmax over its block gives an
-    output and a log-sum-exp, and the blocks' partials combine exactly
-    (weights ``exp(lse_r - lse)``; a block with no valid slot weighs
-    0). The partials are gathered and combined in fp32, whatever the
-    cache's dtype, and the result cast back to it."""
+    ``valid`` slots [T] (:func:`_softmax_blocks`), cast back to the
+    cache's dtype."""
     logits = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32) * scale
+    return _softmax_blocks(logits, valid, lambda p: torch.einsum(
+        "bhst,bthd->bshd", p, v.to(torch.float32)), par).to(v.dtype)
+
+
+def _softmax_blocks(logits, valid, values, par):
+    """The softmax over every position block of ``logits`` [B, H, S, T]
+    (fp32, scaled; this rank's block of T positions, ``valid`` [T]) times
+    the values: ``values(p)`` gives [B, S, H, dv] of this block's
+    probabilities p. Each rank's softmax over its block gives an output
+    and a log-sum-exp, and the blocks' partials combine exactly (weights
+    ``exp(lse_r - lse)``; a block with no valid slot weighs 0). The
+    partials are gathered (``par.gather_seq``) and combined in fp32,
+    whatever the cache's dtype; returns fp32."""
     logits = logits.masked_fill(~valid, float("-inf"))
     m = logits.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - m)
-    l_sum = p.sum(-1, keepdim=True)                          # [B, H, 1, 1]
-    out = torch.einsum("bhst,bthd->bshd", p / l_sum.clamp_min(1e-30),
-                       v.to(torch.float32))
+    l_sum = p.sum(-1, keepdim=True)                          # [B, H, S, 1]
+    out = values(p / l_sum.clamp_min(1e-30))
     lse = torch.where(l_sum > 0, m + torch.log(l_sum),
                       torch.full_like(m, float("-inf")))
     both = par.gather_seq(torch.cat([out, lse.permute(0, 2, 1, 3)], dim=-1))
     outs, lses = both[..., :-1], both[..., -1:]
     w = torch.exp(lses - torch.logsumexp(lses, dim=0, keepdim=True))
-    return (w * outs).sum(0).to(v.dtype)
+    return (w * outs).sum(0)
 
 
 def _gqa_decode_par(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
@@ -343,16 +355,52 @@ def _gqa_decode_par(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _mla_tp(params: Params, cfg: ModelConfig, par) -> bool:
+    """Whether an MLA block runs tensor-parallel: ``w_o`` a row block over
+    the model axes (its head blocks' output a partial sum)."""
+    return par is not None \
+        and params["w_o"].shape[0] < cfg.n_heads * cfg.resolved_head_dim
+
+
+def _mla_heads(par, w: torch.Tensor, n_heads: int, width: int, tp: bool,
+               every: bool) -> Tuple[torch.Tensor, int]:
+    """(``w`` [rows, h * width] as heads [rows, h, width], the first
+    head's index). A column block of whole heads gives this rank's heads
+    unless ``every``; a block that cuts a head, or any block when
+    ``every``, is gathered over the model axes (every head: a weight of
+    at most the latent's rows, read where a block would cut a head); a
+    whole leaf gives every head and, under ``tp``, enters the split block
+    (its gradient, partial on each rank, is summed)."""
+    rows, cols = w.shape
+    if cols < n_heads * width:
+        if not every and cols % width == 0:
+            return (w.reshape(rows, cols // width, width),
+                    par.model_index * (cols // width))
+        w = par.gather_model(w, -1) if tp else par.gather_whole(w, -1)
+    elif tp:
+        w = par.enter_model(w)
+    return w.reshape(rows, n_heads, width), 0
+
+
 def _mla_q(params: Params, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor):
+           positions: torch.Tensor, par=None, tp: bool = False):
+    """(q_nope [B, S, h, hd], q_rope [B, S, h, r], first head): every
+    head, or under ``tp`` this rank's block (every head where ``w_uq``'s
+    block would cut one). The q-lora latent (or ``x``) enters the column
+    block under ``tp``."""
     b, s, _ = x.shape
     hd, m = cfg.resolved_head_dim, cfg.mla
     if m.q_lora:
         x = layers.rms_norm(params["q_norm"], x @ params["w_dq"],
                             cfg.norm_eps)
-    q = (x @ params["w_uq"]).reshape(b, s, cfg.n_heads, hd + m.rope_dim)
+    if tp:
+        x = par.enter_model(x)
+    w, lo = _mla_heads(par, params["w_uq"], cfg.n_heads, hd + m.rope_dim,
+                       tp, not tp)
+    q = (x @ w.reshape(w.shape[0], -1)).reshape(b, s, w.shape[1],
+                                                hd + m.rope_dim)
     q_rope = layers.apply_rope(q[..., hd:], positions, cfg.rope_theta)
-    return q[..., :hd], q_rope
+    return q[..., :hd], q_rope, lo
 
 
 def _mla_kv(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -366,35 +414,50 @@ def _mla_kv(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return ckv, k_rope
 
 
+def _mla_up(params: Params, cfg: ModelConfig, name: str, par, tp: bool,
+            q_lo: int, h: int) -> torch.Tensor:
+    """``w_uk`` / ``w_uv`` at the query heads ``[q_lo, q_lo + h)``:
+    [kv_lora, h, hd]."""
+    w, lo = _mla_heads(par, params[name], cfg.n_heads,
+                       cfg.resolved_head_dim, tp, h == cfg.n_heads)
+    return w[:, q_lo - lo:q_lo - lo + h]
+
+
 def _mla_attend(params: Params, cfg: ModelConfig, q_nope, q_rope, ckv,
-                k_rope, mask):
+                k_rope, mask, par=None, tp: bool = False, q_lo: int = 0):
     """Latent-space attention, W_uk absorbed into the query and W_uv
-    applied after the values. q_nope: [B,S,H,hd]; q_rope: [B,S,H,r]; ckv:
-    [B,T,kv_lora]; k_rope: [B,T,r]; mask: [S,T] additive."""
+    applied after the values. q_nope: [B,S,h,hd] (heads from ``q_lo``);
+    q_rope: [B,S,h,r]; ckv: [B,T,kv_lora]; k_rope: [B,T,r]; mask: [S,T]
+    additive."""
     b, s, h, hd = q_nope.shape
     m = cfg.mla
-    w_uk = params["w_uk"].reshape(m.kv_lora, h, hd)
+    w_uk = _mla_up(params, cfg, "w_uk", par, tp, q_lo, h)
     q_lat = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)
     scores = torch.einsum("bshl,btl->bhst", q_lat, ckv) \
         + torch.einsum("bshr,btr->bhst", q_rope, k_rope)
     scores = scores.to(torch.float32) * (hd + m.rope_dim) ** -0.5 + mask
     probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
     o_lat = torch.einsum("bhst,btl->bshl", probs, ckv)
-    w_uv = params["w_uv"].reshape(m.kv_lora, h, hd)
+    w_uv = _mla_up(params, cfg, "w_uv", par, tp, q_lo, h)
     out = torch.einsum("bshl,lhd->bshd", o_lat, w_uv)
-    return out.reshape(b, s, h * hd) @ params["w_o"]
+    return _out_proj(par if tp else None, cfg, out.reshape(b, s, h * hd),
+                     q_lo, params["w_o"])
 
 
 def _mla_attend_materialized(params: Params, cfg: ModelConfig, q_nope,
-                             q_rope, ckv, k_rope, mask_info: dict):
+                             q_rope, ckv, k_rope, mask_info: dict, par=None,
+                             tp: bool = False, q_lo: int = 0):
     """Prefill form: per-head keys and values reconstructed from the
     latent once, then the flash kernel at head dim hd + rope, its scale
     1/sqrt(hd + rope) the reference's; values zero-padded to that dim and
-    the padding sliced off the output."""
+    the padding sliced off the output. The heads are q's (from
+    ``q_lo``)."""
     b, s, h, hd = q_nope.shape
     r = cfg.mla.rope_dim
-    k_nope = (ckv @ params["w_uk"]).reshape(b, s, h, hd)
-    v = (ckv @ params["w_uv"]).reshape(b, s, h, hd)
+    w_uk = _mla_up(params, cfg, "w_uk", par, tp, q_lo, h)
+    k_nope = (ckv @ w_uk.reshape(w_uk.shape[0], -1)).reshape(b, s, h, hd)
+    w_uv = _mla_up(params, cfg, "w_uv", par, tp, q_lo, h)
+    v = (ckv @ w_uv.reshape(w_uv.shape[0], -1)).reshape(b, s, h, hd)
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, r)],
                       dim=-1)
@@ -402,7 +465,9 @@ def _mla_attend_materialized(params: Params, cfg: ModelConfig, q_nope,
     v_pad = F.pad(v, (0, r))
     del v
     out = flash_ops.mha(q_cat, k_cat, v_pad, **_flash_mask(mask_info))
-    return out[..., :hd].reshape(b, s, h * hd) @ params["w_o"]
+    return _out_proj(par if tp else None, cfg,
+                     out[..., :hd].reshape(b, s, h * hd), q_lo,
+                     params["w_o"])
 
 
 def _dense_mask(s: int, mask_info: dict, device) -> torch.Tensor:
@@ -413,43 +478,108 @@ def _dense_mask(s: int, mask_info: dict, device) -> torch.Tensor:
 
 
 def mla_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, mask_info: dict, *,
+                positions: torch.Tensor, mask_info: dict, par=None, *,
                 absorbed: bool = False) -> Tuple[torch.Tensor, Params]:
     """Full-sequence MLA. Returns (out, the latent cache entries). The
     default is the materialized form on the flash kernel; ``absorbed``
     takes the latent-space form with a dense mask (plain torch), the
-    reference's ablation, which it selects by ``REPRO_MLA_ABSORBED``."""
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    reference's ablation, which it selects by ``REPRO_MLA_ABSORBED``.
+    Under ``par`` with ``w_o`` a row block (:func:`_mla_tp`) either form
+    runs on this rank's heads: the latents (``ckv``, ``k_rope``, the
+    q-lora latent) are computed whole on every rank and enter the head
+    blocks, and ``w_o``'s partial sum is summed over the model axes; the
+    cache entries are the whole latents."""
+    tp = _mla_tp(params, cfg, par)
+    q_nope, q_rope, q_lo = _mla_q(params, cfg, x, positions, par, tp)
     ckv, k_rope = _mla_kv(params, cfg, x, positions)
+    ckv_in, k_rope_in = ((par.enter_model(ckv), par.enter_model(k_rope))
+                         if tp else (ckv, k_rope))
     if absorbed:
         mask = _dense_mask(x.shape[1], mask_info, x.device)
-        out = _mla_attend(params, cfg, q_nope, q_rope, ckv, k_rope, mask)
+        out = _mla_attend(params, cfg, q_nope, q_rope, ckv_in, k_rope_in,
+                          mask, par, tp, q_lo)
     else:
-        out = _mla_attend_materialized(params, cfg, q_nope, q_rope, ckv,
-                                       k_rope, mask_info)
+        out = _mla_attend_materialized(params, cfg, q_nope, q_rope, ckv_in,
+                                       k_rope_in, mask_info, par, tp, q_lo)
     return out, {"ckv": ckv, "k_rope": k_rope}
 
 
 def mla_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
-               pos: int, cache: Params) -> Tuple[torch.Tensor, Params]:
+               pos: int, cache: Params, par=None
+               ) -> Tuple[torch.Tensor, Params]:
     """Single-token MLA decode in the absorbed form. x_t: [B, d]; pos: the
     current position (a Python int). Writes the step's latent and rope key
     into ``cache`` in place and returns it; a ``pos`` past the cache's
     capacity raises ``ValueError`` before any write (the reference clamps
-    the write onto the last slot)."""
+    the write onto the last slot). Under ``par`` see
+    :func:`_mla_decode_par`."""
+    if par is not None and (_mla_tp(params, cfg, par) or par.seq_axes):
+        return _mla_decode_par(params, cfg, x_t, pos, cache, par)
     b = x_t.shape[0]
     t = cache["ckv"].shape[1]
     _check_position(pos, t)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
-    q_nope, q_rope = _mla_q(params, cfg, x_t[:, None, :], posv)
+    q_nope, q_rope, _ = _mla_q(params, cfg, x_t[:, None, :], posv, par)
     ckv_t, k_rope_t = _mla_kv(params, cfg, x_t[:, None, :], posv)
     cache["ckv"][:, pos] = ckv_t[:, 0]
     cache["k_rope"][:, pos] = k_rope_t[:, 0]
     valid = torch.arange(t, device=x_t.device) <= pos
     mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, :]
     out = _mla_attend(params, cfg, q_nope, q_rope, cache["ckv"],
-                      cache["k_rope"], mask)
+                      cache["k_rope"], mask, par)
     return out[:, 0, :], cache
+
+
+def _mla_decode_par(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
+                    pos: int, cache: Params, par
+                    ) -> Tuple[torch.Tensor, Params]:
+    """:func:`mla_decode` on a mesh. Every rank computes the step's
+    latent and rope key whole. With the cache's positions split over
+    ``par.seq_axes`` (each rank one block of slots) every head's absorbed
+    query (``q_nope W_uk``) and rope query are gathered over the model
+    axes, only the rank holding slot ``pos`` writes it, each rank attends
+    over its block in the latent space and the blocks' partials combine
+    exactly (:func:`_softmax_blocks`); the latent output is then cut back
+    to this rank's heads for ``w_uv`` and ``w_o``'s row block. With every
+    position on every rank each rank attends for its own heads."""
+    b = x_t.shape[0]
+    hd, m = cfg.resolved_head_dim, cfg.mla
+    tp = _mla_tp(params, cfg, par)
+    s_block = cache["ckv"].shape[1]
+    s_cache = s_block * par.seq_extent
+    _check_position(pos, s_cache)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
+    q_nope, q_rope, q_lo = _mla_q(params, cfg, x_t[:, None, :], posv, par,
+                                  tp)
+    ckv_t, k_rope_t = _mla_kv(params, cfg, x_t[:, None, :], posv)
+    owner, slot = divmod(pos, s_block)
+    if owner == par.seq_index:
+        cache["ckv"][:, slot] = ckv_t[:, 0]
+        cache["k_rope"][:, slot] = k_rope_t[:, 0]
+    idx = par.seq_index * s_block + torch.arange(s_block, device=x_t.device)
+    valid = idx <= pos
+    if not par.seq_axes:
+        mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, :]
+        out = _mla_attend(params, cfg, q_nope, q_rope, cache["ckv"],
+                          cache["k_rope"], mask, par, tp, q_lo)
+        return out[:, 0, :], cache
+    h = q_nope.shape[2]
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope,
+                         _mla_up(params, cfg, "w_uk", par, tp, q_lo, h))
+    if h < cfg.n_heads:     # every head's queries
+        q_lat = par.gather_model(q_lat, 2)
+        q_rope = par.gather_model(q_rope, 2)
+    ckv, k_rope = cache["ckv"], cache["k_rope"]
+    scores = torch.einsum("bshl,btl->bhst", q_lat, ckv) \
+        + torch.einsum("bshr,btr->bhst", q_rope, k_rope)
+    o_lat = _softmax_blocks(
+        scores.to(torch.float32) * (hd + m.rope_dim) ** -0.5, valid,
+        lambda p: torch.einsum("bhst,btl->bshl", p, ckv.to(torch.float32)),
+        par).to(ckv.dtype)[:, :, q_lo:q_lo + h]
+    out = torch.einsum("bshl,lhd->bshd", o_lat,
+                       _mla_up(params, cfg, "w_uv", par, tp, q_lo, h))
+    return _out_proj(par if tp else None, cfg, out.reshape(b, h * hd),
+                     q_lo, params["w_o"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -458,14 +588,13 @@ def mla_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
 
 
 def attn_forward(params, cfg, x, positions, mask_info, par=None):
-    """``par``: the tensor-parallel context (GQA only: the step builder
-    refuses MLA leaves split over an axis of extent > 1)."""
+    """``par``: the tensor-parallel context (``models/parallel.py``)."""
     if cfg.mla is not None:
-        return mla_forward(params, cfg, x, positions, mask_info)
+        return mla_forward(params, cfg, x, positions, mask_info, par)
     return gqa_forward(params, cfg, x, positions, mask_info, par)
 
 
 def attn_decode(params, cfg, x_t, pos, cache, par=None):
     if cfg.mla is not None:
-        return mla_decode(params, cfg, x_t, pos, cache)
+        return mla_decode(params, cfg, x_t, pos, cache, par)
     return gqa_decode(params, cfg, x_t, pos, cache, par)

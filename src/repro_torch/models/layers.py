@@ -111,12 +111,13 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
     return p
 
 
-def mlp_apply(params: Params, x: torch.Tensor, kind: str, par=None
-              ) -> torch.Tensor:
+def mlp_apply(params: Params, x: torch.Tensor, kind: str, par=None,
+              reduce: bool = True) -> torch.Tensor:
     """The MLP of ``x``. ``par`` (``models/parallel.py``): ``w_in`` /
     ``w_gate`` are column blocks and ``w_out`` the matching row block over
     the model axes, so the product is this rank's partial sum, summed over
-    them; ``x`` enters the column blocks (``par.enter_model``: under
+    them (unless not ``reduce``: the caller sums it with its own partial
+    sum); ``x`` enters the column blocks (``par.enter_model``: under
     autograd its gradient is summed over the model ranks)."""
     if par is not None:
         x = par.enter_model(x)
@@ -132,7 +133,7 @@ def mlp_apply(params: Params, x: torch.Tensor, kind: str, par=None
     else:
         raise ValueError(f"unknown mlp kind {kind}")
     out = h @ params["w_out"]
-    return out if par is None else par.sum_model(out)
+    return out if par is None or not reduce else par.sum_model(out)
 
 
 # ---------------------------------------------------------------------------

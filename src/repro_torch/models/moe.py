@@ -16,6 +16,18 @@ overflow row of the input is zeroed after the scatter, and an expert's FFN
 maps a zero row to zero (no biases), so the row it gathers for a dropped
 choice is zero all the same, with no copy of the output.
 
+On a mesh (``par``, ``models/parallel.py``) the experts split over the
+model axes (``[E / m, ...]`` blocks) while the tokens are whole on every
+model rank (split only over the batch axes): every model rank routes the
+same tokens, dispatches only the choices whose expert lies in its block
+(the others go to the overflow slot of its first expert, which is zeroed
+and read back as zero), runs its experts, and combines its choices'
+weighted outputs into a partial ``[T, D]`` that one all-reduce over the
+model axes completes, the shared experts' partial (their hidden width
+split over the model axes) joining the same sum. Capacity, slots, drops
+and the aux loss are the unsplit function's: the routing is the same. So
+expert parallelism here needs no all-to-all.
+
 The capacity depends on the token count T, so a forward over S tokens and
 prefill plus decode over the same tokens agree only when nothing is
 dropped. Decode calls :func:`moe_apply` on ``[B, 1, D]``: T = B and the
@@ -91,7 +103,8 @@ def route(logits: torch.Tensor, cfg: ModelConfig, par=None) -> Routing:
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, :m.top_k], idx[:, :m.top_k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-    every = gate_idx if par is None else par.gather_batch(gate_idx)
+    by_rows = par is not None and bool(par.batch_axes)
+    every = par.gather_batch(gate_idx) if by_rows else gate_idx
     capacity = capacity_of(cfg, every.shape[0])
 
     experts = torch.arange(n_exp, device=logits.device)
@@ -107,7 +120,7 @@ def route(logits: torch.Tensor, cfg: ModelConfig, par=None) -> Routing:
         keep_list.append(keep)
         counts = counts + onehot.sum(0)
     slots, keeps = torch.stack(slot_list, 1), torch.stack(keep_list, 1)
-    if par is not None:
+    if by_rows:
         rows = slice(par.batch_index * t, (par.batch_index + 1) * t)
         slots, keeps = slots[rows], keeps[rows]
     return Routing(probs, gate_vals, gate_idx, slots, keeps, capacity,
@@ -136,13 +149,16 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     """x: [B, S, D] -> (out [B, S, D], the Switch-style load-balance aux
     loss, a scalar). With ``drops`` given, appends (the call's T * k
     assignments, the count dropped as a device tensor): no host sync.
-    ``par``: x is this rank's block of rows, routed with every rank's
-    (:func:`route`); the aux loss is then this rank's tokens' own (the
-    serve steps discard it), or under ``par.batch_loss`` (the train step's
-    L2 layout) the whole batch's, the same on every rank: the top choices'
-    shares from every rank's choices (which ``route`` gathered), the mean
-    router probabilities summed over the batch ranks
-    (``par.sum_batch``)."""
+    ``par``: x is this rank's block of rows (when the batch axes split
+    them), routed with every rank's (:func:`route`); the aux loss is then
+    this rank's tokens' own (the serve steps discard it), or under
+    ``par.batch_loss`` (the train step's L2 layout) the whole batch's, the
+    same on every rank: the top choices' shares from every rank's choices
+    (which ``route`` gathered), the mean router probabilities summed over
+    the batch ranks (``par.sum_batch``). With the experts split over the
+    model axes (the module docstring) the dispatched tokens and the gates
+    enter the expert block (``par.enter_model``: under autograd their
+    gradients, partial on each rank, are summed)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -150,20 +166,41 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     r = route(xt.to(torch.float32) @ params["router"], cfg, par)
     if drops is not None:
         drops.append((t * m.top_k, (~r.keeps).sum()))
+    n_local = params["w_in"].shape[0]
+    ep = par is not None and n_local < m.n_experts
+    idx, slots, keeps, gates, xd = (r.gate_idx, r.slots, r.keeps,
+                                    r.gate_vals, xt)
+    if ep:   # this rank's experts' choices; the others to a discarded slot
+        local = idx - par.model_index * n_local
+        mine = (local >= 0) & (local < n_local)
+        idx = torch.where(mine, local, 0)
+        slots = torch.where(mine, slots, r.capacity)
+        keeps = keeps & mine
+        xd, gates = par.enter_model(xt), par.enter_model(gates)
 
     # dispatch: scatter tokens into [E, C + 1, D], slot C the overflow bin
-    buf = x.new_zeros((m.n_experts, r.capacity + 1, d))
-    buf.index_put_((r.gate_idx, r.slots),
-                   xt[:, None, :].expand(t, m.top_k, d))
+    buf = x.new_zeros((n_local, r.capacity + 1, d))
+    buf.index_put_((idx, slots), xd[:, None, :].expand(t, m.top_k, d))
     buf[:, r.capacity] = 0
     expert_out = _expert_ffn(params, buf, cfg.mlp)       # overflow rows 0
 
     # combine: gather back, weight by the (renormalised) gates
-    gathered = expert_out[r.gate_idx, r.slots]                  # [T, k, D]
-    w = (r.gate_vals * r.keeps.to(r.gate_vals.dtype)).to(x.dtype)
+    gathered = expert_out[idx, slots]                           # [T, k, D]
+    w = (gates * keeps.to(gates.dtype)).to(x.dtype)
     out = torch.einsum("tkd,tk->td", gathered, w)
-    if m.n_shared:
-        out = out + layers.mlp_apply(params["shared"], xt, cfg.mlp)
+    shared = None
+    if m.n_shared:   # its partial joins the experts' sum where both split
+        sh = params["shared"]
+        sh_split = par is not None \
+            and sh["w_out"].shape[0] < m.n_shared * m.d_ff
+        shared = layers.mlp_apply(sh, xt, cfg.mlp, par if sh_split else None,
+                                  reduce=not ep)
+        if ep and sh_split:
+            out, shared = out + shared, None
+    if ep:
+        out = par.sum_model(out)
+    if shared is not None:
+        out = out + shared
 
     experts = torch.arange(m.n_experts, device=x.device)
     if par is not None and par.batch_loss:

@@ -10,11 +10,30 @@ computes what it computes on one device.
 
 The split each function takes is read from the leaves it is handed, not
 from the arch: a column block of ``w_q`` / ``w_k`` / ``w_v`` / ``w_in`` /
-``w_gate`` is narrower than the config's width, and a row block of
-``w_o`` / ``w_out`` shorter, in which case its product is a partial sum
-over the model axes; a vocab block of ``embed`` is shorter than the
-vocab. Leaves split over the FSDP axes are gathered just before the block
-that reads them runs (:meth:`Parallel.unshard`) and dropped after it.
+``w_gate`` / ``w_uq`` / ``w_uk`` / ``w_uv`` is narrower than the
+config's width, and a row block of ``w_o`` / ``w_out`` shorter, in which
+case its product is a partial sum over the model axes; a vocab block of
+``embed`` is shorter than the vocab; an expert block of the MoE's
+``[E, ...]`` stacks holds fewer than ``E`` experts. A dim that does not
+divide by the model extent stays whole (``specs._div``) and its function
+runs whole beside split ones. Leaves split over the FSDP axes are
+gathered just before the block that reads them runs
+(:meth:`Parallel.unshard`) and dropped after it.
+
+By block kind, over the model axes:
+
+  GQA     query / kv head blocks, ``w_o``'s row block (``attention.py``)
+  MLA     head blocks of ``w_uq`` / ``w_uk`` / ``w_uv`` over the latents
+          every rank computes whole, ``w_o``'s row block; in decode a
+          cache split on its positions combines the blocks' partial
+          softmaxes in the latent space (``attention.py``)
+  Mamba   channel blocks of d_in: ``w_in``'s column block of ``[u | z]``
+          gathered and re-cut to the rank's channels of u and of z,
+          ``w_x``'s row block summed, the scan on the rank's channels,
+          ``w_out``'s row block summed (``ssm.py``)
+  MoE     expert blocks: every rank routes the same tokens, dispatches
+          the choices its experts take, and the weighted outputs are
+          summed over the model ranks (``moe.py``); no all-to-all
 
 Under autograd (the train step on a mesh) the collectives over the model
 axes are differentiable, by Megatron's convention: every model rank
@@ -27,12 +46,16 @@ replicated and so is its gradient.
   ``sum_model``     after a row block: the all-reduce of the partial sums;
                     its gradient passes through (every rank already holds
                     the whole gradient of the sum)
-  ``gather_model``  where a block cuts a head: the all-gather of the
-                    blocks; its gradient is this rank's block of the sum
-                    of the ranks' gradients, a reduce-scatter (each rank
-                    reads the gathered heads only through its own query
-                    heads or its own columns of ``w_o``, so each holds a
-                    partial gradient)
+  ``gather_model``  where a block cuts a head (or Mamba's ``[u | z]``
+                    block): the all-gather of the blocks; its gradient is
+                    this rank's block of the sum of the ranks' gradients,
+                    a reduce-scatter (each rank reads the gathered heads
+                    only through its own query heads or its own columns
+                    of ``w_o``, so each holds a partial gradient)
+  ``gather_whole``  the all-gather of a block that every rank then reads
+                    whole, alike (a leaf split where the block that reads
+                    it runs whole: no partial sum follows); its gradient,
+                    whole on every rank, is cut to this rank's block
 
 ``torch.distributed.nn.functional``'s collectives are not used: their
 backward sums over the ranks, which would count a loss replicated on the
@@ -116,6 +139,22 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim), None, None, \
             None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """Forward the all-gather over ``axes`` along ``dim``, backward this
+    rank's block of the gradient (every rank holds the whole of it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.index, ctx.dim, ctx.size = mesh.index(axes), dim, x.shape[dim]
+        # repro-lint: disable=RL302
+        return mesh.all_gather(x, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, \
+            None, None
 
 
 def _differentiated(x: torch.Tensor) -> bool:
@@ -230,6 +269,16 @@ class Parallel:
         dim = dim % x.dim()
         if _differentiated(x):
             return _Gather.apply(x, self.mesh, self.model_axes, dim)
+        # repro-lint: disable=RL302
+        return self.mesh.all_gather(x, self.model_axes, dim=dim)
+
+    def gather_whole(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every model rank's ``x`` along ``dim``, for a block that each
+        rank runs whole (no partial sum follows); under autograd the
+        gradient of this rank's block is its block of its own gradient."""
+        dim = dim % x.dim()
+        if _differentiated(x):
+            return _GatherWhole.apply(x, self.mesh, self.model_axes, dim)
         # repro-lint: disable=RL302
         return self.mesh.all_gather(x, self.model_axes, dim=dim)
 

@@ -8,6 +8,19 @@ tensor, its plain version for a CPU tensor (the reference switches with
 ``REPRO_SSM_KERNEL``; here the tensor's device decides). Decode is one
 step of the same recurrence in plain torch.
 
+Under ``par`` (``models/parallel.py``, a step on a mesh) the block runs
+on this rank's channels of d_in when its channel leaves are blocks over
+the model axes (``w_out``'s rows shorter than d_in): ``w_in``'s column
+block of ``[u | z]`` is gathered over the model axes and re-cut to the
+rank's channels of u and of z (:func:`_in_proj`; a contiguous column
+block of ``[u | z]`` is not the rank's channels of either), the conv,
+``w_dt``, ``dt_bias``, ``a_log`` and ``d_skip`` are channel blocks,
+``w_x``'s row block gives a partial sum of the projection (summed over
+the model axes, then entering the channel blocks), the scan runs on the
+rank's channels alone (the recurrence is per channel), and ``w_out``'s
+row block gives a partial sum of the output. The decode state is the
+rank's channels.
+
 ``jax.nn.softplus`` has no threshold; ``F.softplus`` returns x above 20,
 where the two differ by log1p(exp(-20)), under 1e-8 relative.
 """
@@ -57,29 +70,63 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _ssm_inner(params: Params, cfg: ModelConfig, u: torch.Tensor):
-    """u: [B, T, d_in] (post conv+silu). Returns y [B, T, d_in], final h."""
+def _in_proj(params: Params, cfg: ModelConfig, x: torch.Tensor, par):
+    """(u_raw, z, tp): the input projection's u and z at the channels
+    this rank computes, and whether those are a block of d_in (``tp``:
+    the block's output is then a partial sum over the model axes). A
+    column block of ``w_in`` (its ``[u | z]`` columns cut in contiguous
+    blocks over the model axes) is gathered and re-cut; ``x`` enters it
+    (under autograd its gradient, partial on each rank, is summed)."""
+    _, d_in, _ = _dims(cfg)
+    c = params["w_out"].shape[-2]                    # channels computed
+    tp = par is not None and c < d_in
+    split_in = params["w_in"].shape[-1] < 2 * d_in
+    if split_in:
+        x = par.enter_model(x)
+    xz = x @ params["w_in"]
+    if split_in:
+        xz = par.gather_model(xz, -1) if tp else par.gather_whole(xz, -1)
+    lo = par.model_index * c if tp else 0
+    return xz[..., lo:lo + c], xz[..., d_in + lo:d_in + lo + c], tp
+
+
+def _x_proj(params: Params, u: torch.Tensor, par, tp: bool):
+    """``u @ w_x``: under ``tp`` a row block's partial sum, summed over
+    the model axes and entering the channel blocks that read it."""
+    proj = u @ params["w_x"]
+    return par.enter_model(par.sum_model(proj)) if tp else proj
+
+
+def _out_proj(params: Params, y: torch.Tensor, par, tp: bool):
+    out = y @ params["w_out"]
+    return par.sum_model(out) if tp else out
+
+
+def _ssm_inner(params: Params, cfg: ModelConfig, u: torch.Tensor, par=None,
+               tp: bool = False):
+    """u: [B, T, c] (post conv+silu; c the channels computed). Returns y
+    [B, T, c], final h."""
     s, d_in, dt_rank = _dims(cfg)
-    proj = u @ params["w_x"]                          # [B, T, dt_rank + 2 ds]
+    proj = _x_proj(params, u, par, tp)                # [B, T, dt_rank + 2 ds]
     dt = F.softplus(proj[..., :dt_rank] @ params["w_dt"]
-                    + params["dt_bias"])              # [B, T, d_in]
+                    + params["dt_bias"])              # [B, T, c]
     bmat = proj[..., dt_rank:dt_rank + s.d_state]     # [B, T, ds]
     cmat = proj[..., dt_rank + s.d_state:]            # [B, T, ds]
-    a = -torch.exp(params["a_log"].to(torch.float32))  # [d_in, ds]
+    a = -torch.exp(params["a_log"].to(torch.float32))  # [c, ds]
     y, h = ssm_ops.ssm_scan(u, dt, bmat, cmat, a,
                             params["d_skip"].to(torch.float32))
     return y.to(u.dtype), h
 
 
-def ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor
+def ssm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor, par=None
                 ) -> Tuple[torch.Tensor, Params]:
-    """x: [B, T, D] -> (out [B, T, D], final state dict)."""
+    """x: [B, T, D] -> (out [B, T, D], final state dict). ``par``: see the
+    module docstring."""
     s, d_in, _ = _dims(cfg)
-    xz = x @ params["w_in"]
-    u_raw, z = xz.chunk(2, dim=-1)
+    u_raw, z, tp = _in_proj(params, cfg, x, par)
     u = F.silu(layers.causal_conv_apply(params["conv"], u_raw))
-    y, h = _ssm_inner(params, cfg, u)
-    out = (y * F.silu(z)) @ params["w_out"]
+    y, h = _ssm_inner(params, cfg, u, par, tp)
+    out = _out_proj(params, y * F.silu(z), par, tp)
     # the conv state holds the PRE-activation conv inputs (the last W-1 raw
     # u values, zero-padded on the left), copied out of xz so that the state
     # does not keep the [B, T, 2 d_in] projection alive
@@ -104,16 +151,16 @@ def init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def ssm_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
-               state: Params) -> Tuple[torch.Tensor, Params]:
+               state: Params, par=None) -> Tuple[torch.Tensor, Params]:
     """x_t: [B, D], one step. Writes the new conv window and h into
-    ``state`` in place and returns it."""
+    ``state`` in place and returns it. ``par``: see the module docstring
+    (``state`` then holds this rank's channels)."""
     s, d_in, dt_rank = _dims(cfg)
-    xz = x_t @ params["w_in"]
-    u_raw, z = xz.chunk(2, dim=-1)
+    u_raw, z, tp = _in_proj(params, cfg, x_t, par)
     u_c, conv_state = layers.causal_conv_step(params["conv"], state["conv"],
                                               u_raw)
     u = F.silu(u_c)
-    proj = u @ params["w_x"]
+    proj = _x_proj(params, u, par, tp)
     dt = F.softplus(proj[..., :dt_rank] @ params["w_dt"] + params["dt_bias"])
     b_t = proj[..., dt_rank:dt_rank + s.d_state].to(torch.float32)
     c_t = proj[..., dt_rank + s.d_state:].to(torch.float32)
@@ -123,7 +170,7 @@ def ssm_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
         + (dt * u).to(torch.float32)[..., None] * b_t[:, None, :]
     y = torch.einsum("bds,bs->bd", h, c_t).to(x_t.dtype) \
         + u * params["d_skip"]
-    out = (y * F.silu(z)) @ params["w_out"]
+    out = _out_proj(params, y * F.silu(z), par, tp)
     state["conv"].copy_(conv_state)
     state["h"].copy_(h)
     return out, state

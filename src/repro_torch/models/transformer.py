@@ -40,14 +40,17 @@ assignment, the recurrent states by ``copy_``) and returns it.
 ``_embed_inputs``, ``forward``, ``prefill`` and ``decode_step`` take an
 optional ``par`` (``models/parallel.py``): one rank's part of a step placed
 on a mesh (``launch/steps.py``). Each block's leaves are gathered over the
-FSDP axes just before it runs; a GQA block with its heads split over the
-model axes runs tensor-parallel (``attention.gqa_forward`` /
-``gqa_decode``), and so do a dense MLP with its hidden width split
+FSDP axes just before it runs; a GQA or MLA block with its heads split
+over the model axes runs tensor-parallel (``attention.attn_forward`` /
+``attn_decode``), a Mamba block on its channels of d_in
+(``ssm.ssm_forward`` / ``ssm_decode``), an MoE block on its experts
+(``moe.moe_apply``), and so do a dense MLP with its hidden width split
 (``layers.mlp_apply``) and a vocab-split embedding: a lookup by range,
 summed over the model axes, and a head whose logits stay split on the
 vocab (``train_loss`` then takes a vocab-parallel cross-entropy). An MoE
-block on a batch split over ranks routes with every rank's
-choices (``moe.route``). Without ``par`` nothing changes.
+block on a batch split over ranks routes with every rank's choices
+(``moe.route``). The xLSTM blocks take no ``par`` (``launch/steps.py``
+refuses their model splits). Without ``par`` nothing changes.
 
 On the card the GQA and MLA forwards launch the flash kernel and the Mamba
 forward the scan kernel; under grad both go through their
@@ -155,12 +158,17 @@ def _mlp_half(p: Params, cfg: ModelConfig, x, moe_drops=None, par=None):
     h2 = layers.rms_norm(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
         out, aux = moe_lib.moe_apply(
-            p["moe"], cfg, h2.reshape(-1, 1, cfg.d_model), moe_drops,
-            par if par is not None and par.batch_axes else None)
+            p["moe"], cfg, h2.reshape(-1, 1, cfg.d_model), moe_drops, par)
         return x + out.reshape(x.shape), aux
     split = par is not None and p["mlp"]["w_out"].shape[0] < cfg.d_ff
     return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp,
                                 par if split else None), None
+
+
+def _mixer_par(kind: str, par) -> dict:
+    """The recurrent mixer's ``par`` keyword: Mamba's (the xLSTM mixers
+    run whole)."""
+    return {"par": par} if kind == "ssm" else {}
 
 
 def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
@@ -172,7 +180,8 @@ def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
                                             mask, par)
     else:
         with torch.profiler.record_function(MIXER_RANGE + kind):
-            out, cache = _FORWARD[kind](p["mixer"], cfg, h)
+            out, cache = _FORWARD[kind](p["mixer"], cfg, h,
+                                        **_mixer_par(kind, par))
     x = x + out
     aux = None
     if "norm2" in p:
@@ -187,7 +196,8 @@ def _block_decode(p: Params, cfg: ModelConfig, kind: str, x_t, pos: int,
         out, cache = attention.attn_decode(p["mixer"], cfg, h, pos, cache,
                                            par)
     else:
-        out, cache = _DECODE[kind](p["mixer"], cfg, h, cache)
+        out, cache = _DECODE[kind](p["mixer"], cfg, h, cache,
+                                   **_mixer_par(kind, par))
     x_t = x_t + out
     if "norm2" in p:
         x_t, _ = _mlp_half(p, cfg, x_t, par=par)

@@ -24,9 +24,11 @@ another kernel (a GEMV) than that of two. With bf16 params and the
 cache's positions over data the decode stays within bf16 rounding of the
 one-process bf16 decode, and the blocks' combine keeps its log-sum-exp
 in fp32. Builds the mesh cannot run raise at build time, the train
-step's among them (other families' model splits under either layout,
-full-width reductions on model blocks); the train step's L2 layout
-builds for the dense GQA decoders.
+step's among them (the xLSTM, VLM and audio families' model splits under
+either layout, full-width reductions on model blocks); the Mamba, MLA and
+MoE families build (``test_torch_mesh_families.py`` and
+``test_torch_train_families.py`` hold them to one process), and the
+train step's L2 layout builds for the dense GQA decoders.
 """
 import dataclasses
 
@@ -383,20 +385,44 @@ def _build(arch, mesh_shape, plan, kind="prefill"):
     return build(cfg, shape, mesh, False, torch.float32, plan)
 
 
+# a leaf of each family the builder now splits over model: Mamba's
+# channels, MLA's heads, the MoE's experts (the leaf's spec, less the
+# period axis, and the dim split over model)
+SPLIT_LEAVES = {
+    "jamba-1.5-large-398b": [("period/j0/mixer/w_in", 1),
+                             ("period/j0/mixer/a_log", 0),
+                             ("period/j1/moe/w_in", 0)],
+    "deepseek-v2-236b": [("prefix/0/mixer/w_uq", 1),
+                         ("period/j0/moe/w_in", 0)]}
+
+
 @pytest.mark.parametrize("arch,kind", [
     ("jamba-1.5-large-398b", "prefill"), ("jamba-1.5-large-398b", "decode"),
     ("deepseek-v2-236b", "prefill"), ("deepseek-v2-236b", "decode"),
-    ("xlstm-125m", "decode"), ("paligemma-3b", "prefill")])
+    ("xlstm-125m", "decode"), ("paligemma-3b", "prefill"),
+    ("hubert-xlarge", "prefill")])
 def test_unported_splits_raise_at_build_time(arch, kind):
-    """A leaf that the plan splits over model 2 outside the dense GQA
-    decoders: the builder names it and ROADMAP 9b-3."""
-    with pytest.raises(ValueError, match="9b-3"):
-        _build(arch, (1, 2), DECODE, kind)
+    """At model 2 the Mamba, MLA and MoE families build, their leaves
+    split over model (``tests/test_torch_mesh_families.py`` holds their
+    steps to one process); xLSTM, the VLM and the audio encoder still
+    raise, naming the leaf and ROADMAP 9b-3b."""
+    if arch not in SPLIT_LEAVES:
+        with pytest.raises(ValueError, match="9b-3b"):
+            _build(arch, (1, 2), DECODE, kind)
+        return
+    step, _, plan = _build(arch, (1, 2), DECODE, kind)
+    pspecs = tree.flatten(step.in_specs[0], tuples=False)
+    for path, dim in SPLIT_LEAVES[arch]:
+        lead = 1 if path.startswith("period/") else 0
+        assert pspecs[path][lead + dim] == ("model",), (path, pspecs[path])
 
 
 def test_mla_sequence_split_cache_raises_and_model_one_builds():
-    with pytest.raises(ValueError, match="decode-state leaf.*ckv.*9b-3"):
-        _build("deepseek-v2-236b", (2, 1), LONG, "decode")
+    """MLA's latent cache split on its positions over (data, model) (the
+    long-context plan) builds, as does model 1 with FSDP."""
+    step, _, plan = _build("deepseek-v2-236b", (2, 1), LONG, "decode")
+    sspecs = tree.flatten(step.in_specs[1], tuples=False)
+    assert sspecs["prefix/0/ckv"] == (None, ("data", "model"), None)
     step, abstract, plan = _build("deepseek-v2-236b", (2, 1), FSDP,
                                   "decode")
     assert plan == FSDP and len(abstract) == 4 and abstract[3] is int
@@ -409,20 +435,25 @@ TRAIN_L1 = ShardingPlan(4, ("data",), ())
 def test_train_step_refuses_the_l2_layout(arch):
     """An L2 plan (clients replicated, FSDP over data) at model extent 2,
     through ``build_train_step`` (and for jamba, whose own train plan is
-    L2, ``build_step("train")``) is refused where this port cannot run
-    it: for jamba, whose leaves it splits over model with no
-    tensor-parallel forward here (ROADMAP 9b-3); for the dense GQA
-    decoder, with the geometric median, which reduces over each whole
-    client model and every leaf is an FSDP block (ROADMAP 9b-2a)."""
+    L2, ``build_step("train")``): jamba builds, its Mamba and MoE leaves
+    split over model as well (``tests/test_torch_train_families.py``
+    holds it to one process); the dense GQA decoder with the geometric
+    median, which reduces over each whole client model and every leaf is
+    an FSDP block, is refused (ROADMAP 9b-2a)."""
     mesh = specs.MeshShape(("data", "model"), (2, 2))
     shape = ShapeConfig("t", 16, 8, "train")
     l2 = ShardingPlan(2, (), ("data",), fsdp_axes=("data",))
     if arch == "jamba-1.5-large-398b":
-        with pytest.raises(ValueError, match="9b-3"):
-            steps.build_train_step(get_smoke_arch(arch), shape, mesh, False,
-                                   torch.float32, plan=l2)
-        with pytest.raises(ValueError, match="9b-3"):   # its own plan: L2
-            steps.build_step("train", get_arch(arch), shape, mesh, False)
+        step, _, plan, _ = steps.build_train_step(
+            get_smoke_arch(arch), shape, mesh, False, torch.float32,
+            plan=l2)
+        pspecs = step.in_specs[0].params
+        assert plan == l2
+        assert pspecs["period/j0/mixer/w_in"] == (None, None, ("data",),
+                                                  ("model",))
+        step, _, plan = steps.build_step("train", get_arch(arch), shape,
+                                         mesh, False)   # its own plan: L2
+        assert plan.fsdp_axes == ("data",) and not plan.client_axes
         return
     from repro_torch.core import rounds
 
@@ -449,13 +480,23 @@ def test_train_step_l2_builds_the_dense_gqa_decoder():
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "deepseek-v2-236b",
                                   "xlstm-125m"])
 def test_train_step_refuses_unported_model_splits(arch):
-    """An L1 plan at model 2 for a family with no tensor-parallel forward
-    here: ROADMAP 9b-3; at model 1 the same arch builds."""
+    """An L1 plan at model 2: jamba and deepseek build, their clients over
+    data and their Mamba, MLA and MoE leaves over model; xLSTM, with no
+    tensor-parallel forward here, raises naming ROADMAP 9b-3b. At model 1
+    each builds."""
     shape = ShapeConfig("t", 16, 8, "train")
-    with pytest.raises(ValueError, match="9b-3"):
-        steps.build_train_step(get_smoke_arch(arch), shape,
-                               specs.MeshShape(("data", "model"), (2, 2)),
-                               False, torch.float32, plan=TRAIN_L1)
+    mesh22 = specs.MeshShape(("data", "model"), (2, 2))
+    if arch == "xlstm-125m":
+        with pytest.raises(ValueError, match="9b-3b"):
+            steps.build_train_step(get_smoke_arch(arch), shape, mesh22,
+                                   False, torch.float32, plan=TRAIN_L1)
+    else:
+        step, _, _, _ = steps.build_train_step(
+            get_smoke_arch(arch), shape, mesh22, False, torch.float32,
+            plan=TRAIN_L1)
+        pspecs = step.in_specs[0].params
+        assert any(("model",) in sp[1:] for sp in pspecs.values())
+        assert all(sp[0] == ("data",) for sp in pspecs.values())
     step, (state, batch), plan, rspec = steps.build_train_step(
         get_smoke_arch(arch), shape,
         specs.MeshShape(("data", "model"), (2, 1)), False, torch.float32,

@@ -7,6 +7,9 @@ takes numpy inputs made by the test process and returns host values: the
 final params as numpy, the history, the ledger's header hashes and whether
 the chain validates. Nothing here imports JAX.
 """
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
@@ -132,11 +135,27 @@ def mixes_rank(cases):
     return out
 
 
+@contextlib.contextmanager
+def mla_absorbed(on):
+    """MLA's full-sequence forward in its absorbed form (the reference's
+    ``REPRO_MLA_ABSORBED`` ablation) while ``on``."""
+    from repro_torch.models import attention
+
+    forward = attention.mla_forward
+    if on:
+        attention.mla_forward = functools.partial(forward, absorbed=True)
+    try:
+        yield
+    finally:
+        attention.mla_forward = forward
+
+
 def serve_mesh_rank(cases):
     """Each case (name -> dict of ``cfg``, ``mesh`` (data, model),
     ``params`` (numpy tree), ``dtype`` (the params cast to it),
     ``tokens`` [B, prompt + n] numpy, ``n``, ``plan``, ``decode_plan``,
-    ``max_len``) served on this rank's mesh by
+    ``max_len``, optionally ``absorbed``: MLA's prefill in its absorbed
+    form) served on this rank's mesh by
     ``launch.serve.serve_on_mesh``; returns {name: this rank's logits
     blocks (numpy fp32, one a position), state blocks (numpy fp32 tree),
     their specs and the bytes received}."""
@@ -155,10 +174,11 @@ def serve_mesh_rank(cases):
         params = tree_lib.tree_map(
             lambda x: x.to(case["dtype"]),
             lm_params_from_jax(case["params"], "cpu"))
-        res = serve.serve_on_mesh(
-            case["cfg"], params, {"tokens": tokens[:, :prompt]},
-            tokens[:, prompt:], meshes[shape], case["plan"],
-            case["decode_plan"], case["max_len"])
+        with mla_absorbed(case.get("absorbed", False)):
+            res = serve.serve_on_mesh(
+                case["cfg"], params, {"tokens": tokens[:, :prompt]},
+                tokens[:, prompt:], meshes[shape], case["plan"],
+                case["decode_plan"], case["max_len"])
         out[name] = {
             "logits": [x.float().numpy() for x in res["logits"]],
             "state": tree_lib.tree_map(lambda x: x.float().numpy(),
