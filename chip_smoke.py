@@ -277,7 +277,22 @@ prints its seconds:
    ``l2_received``'s, round-0 gradients, losses and params against a
    one-process run, both ledgers). Phase 1b holds flash at a 12a rank's
    shape (FLASH_FAMILY_PATH) and the scan at a 12b rank's
-   (SSM_FAMILY_PATH) to their twins and times them.
+   (SSM_FAMILY_PATH) to their twins and times them;
+13. the xLSTM blocks and the VLM's and the audio encoder's front-ends on
+   a (data, model) mesh (``phase_front_serve``, ``phase_front_train``), 4
+   gloo ranks sharing the card as (2, 2): 13a xlstm-125m, 13b
+   paligemma-3b and 13c hubert-xlarge at their published widths, whole,
+   each rank drawing only its blocks, served as phase 12 serves (prefill
+   at 4 x 2048, 8 decode steps; HuBERT's encoder alone, half its frames
+   masked): no kernel on the xLSTM ranks (its heads and states split 2 of
+   4 a rank), flash 18 times a prefill a 13b rank at 4 query heads over
+   the gathered kv head (D 256, prefix 256) and 48 times a 13c rank at 8
+   of 16 heads (D 80, bidirectional); gated as phase 12 (launches and
+   bytes exact, logits within AGREE_LIMIT, each state layer at its
+   scale). 13d the three smoke configs trained under L1 at (2, 2) in one
+   world, gated as 12c with the bytes by ``l1_received``. Phase 1b holds
+   flash at a 13b and a 13c rank's shapes (FLASH_VLM_MESH_PATH,
+   FLASH_AUDIO_MESH_PATH) to its twin and times them beside SDPA.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -478,6 +493,7 @@ SSM_FAMILY_PATH = (4, 2048, 8192, 16)
 FLASH_CASES = [
     FLASH_PATH + (True, 0, False), FLASH_MLA_PATH + (True, 0, False),
     FLASH_FAMILY_PATH + (True, 0, False),
+    (2, 8, 8, 2048, 80, False, 0, False),     # a phase 13c rank's
     (1, 8, 8, 777, 192, True, 0, False), (2, 4, 2, 333, 192, True, 0, False),
     (1, 4, 4, 300, 132, True, 0, False),
     (2, 4, 4, 256, 64, True, 0, False), (1, 2, 2, 128, 32, False, 0, False),
@@ -496,6 +512,7 @@ FLASH_CASES = [
 # a prefix of one (the causal mask itself); bf16
 FLASH_PREFIX_CASES = [
     FLASH_VLM_PATH + (0, FLASH_VLM_PREFIX, False),
+    (2, 4, 1, 2048, 256, 0, 256, False),      # a phase 13b rank's
     (2, 4, 2, 777, 64, 0, 100, False), (1, 8, 1, 1000, 256, 0, 300, False),
     (2, 4, 4, 333, 128, 0, 300, False), (1, 4, 2, 300, 80, 0, 300, False),
     (1, 4, 2, 300, 192, 0, 305, False), (2, 4, 2, 700, 64, 128, 300, False),
@@ -834,6 +851,30 @@ FAMILY_SSM_LAUNCHES = {"flash_attention": 1, "ssm_scan": 7}   # a prefill
 FAMILY_TRAIN_ARCHS = ("jamba-1.5-large-398b", "deepseek-v2-236b",
                       "kimi-k2-1t-a32b")
 FAMILY_TRAIN_PER_CLIENT, FAMILY_TRAIN_SEQ = 64, 33
+# phase 13: the xLSTM blocks and the VLM's and the audio encoder's
+# front-ends on a (data, model) mesh of gloo ranks sharing the card, each
+# arch at its published widths (ONE_H100, whole) on 4 ranks as (2, 2),
+# served as phase 12 serves (a prefill of MESH_BATCH x MESH_PROMPT with the
+# batch over data, MESH_STEPS decode steps, none for the encoder-only
+# HuBERT), each rank drawing only its blocks: 13a xlstm-125m (2 of its 4
+# heads a rank), 13b paligemma-3b (4 of 8 query heads; its one kv head,
+# whose columns the plan cuts over model, gathered), 13c hubert-xlarge (8
+# of 16 heads, half its frames masked)
+FRONT_SHAPE = (2, 2)
+FRONT_ARCHS = {"13a": "xlstm-125m", "13b": "paligemma-3b",
+               "13c": "hubert-xlarge"}
+FRONT_LAUNCHES = {"13a": {"flash_attention": 0, "ssm_scan": 0},
+                  "13b": {"flash_attention": 18, "ssm_scan": 0},
+                  "13c": {"flash_attention": 48, "ssm_scan": 0}}
+# a 13b rank's flash (prefix-LM, prefix FLASH_VLM_PREFIX) and a 13c
+# rank's (bidirectional), held and timed in phase 1b
+FLASH_VLM_MESH_PATH = (2, 4, 1, 2048, 256)
+FLASH_AUDIO_MESH_PATH = (2, 8, 8, 2048, 80)
+# 13d: the three smoke configs trained by the train step under L1 on 4
+# ranks as (2, 2), as 12c trains under L2 (C = L2_CLIENTS over data,
+# K_L2 rounds at tau L2_TAU, round_spec_for's microbatches of 8): 16 rows
+# of 33 positions a client (2 microbatches), one world for the three
+FRONT_TRAIN_PER_CLIENT, FRONT_TRAIN_SEQ = 16, 33
 # the decode state of a mesh serve against one process, each leaf and
 # layer held at its scale: max |diff| <= CARD_CPU_ATOL + CARD_CPU_RTOL
 # max |value|. The kv caches past the first layer come from activations
@@ -2369,11 +2410,19 @@ def phase_lm_kernels(torch, dev):
                                   " (mesh path, a rank at (2, 2))")
     family, family_work = flash_times(
         FLASH_FAMILY_PATH, " (mla mesh path, a 12a rank at (2, 2))")
+    vlm_mesh, vlm_mesh_work = flash_times(
+        FLASH_VLM_MESH_PATH, " (vlm mesh path, a 13b rank at (2, 2))",
+        prefix=FLASH_VLM_PREFIX)
+    audio_mesh, audio_mesh_work = flash_times(
+        FLASH_AUDIO_MESH_PATH, " (audio mesh path, a 13c rank at (2, 2))",
+        causal=False)
     mla, mla_work = flash_times(FLASH_MLA_PATH, "")
     flash_work = {"mla path": mla_work, "gqa path": gqa_work,
                   "vlm path": vlm_work, "audio path": audio_work,
                   "mesh path (a rank)": mesh_work,
-                  "mla mesh path (a 12a rank)": family_work}
+                  "mla mesh path (a 12a rank)": family_work,
+                  "vlm mesh path (a 13b rank)": vlm_mesh_work,
+                  "audio mesh path (a 13c rank)": audio_mesh_work}
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
         max_abs_err_prefix=prefix_err, **mla,
@@ -2382,7 +2431,11 @@ def phase_lm_kernels(torch, dev):
                      **vlm},
         at_audio_path={"shape": FLASH_AUDIO_PATH, "causal": False, **audio},
         at_mesh_path={"shape": MESH_FLASH_PATH, **mesh},
-        at_family_mla_path={"shape": FLASH_FAMILY_PATH, **family})
+        at_family_mla_path={"shape": FLASH_FAMILY_PATH, **family},
+        at_vlm_mesh_path={"shape": FLASH_VLM_MESH_PATH,
+                          "prefix": FLASH_VLM_PREFIX, **vlm_mesh},
+        at_audio_mesh_path={"shape": FLASH_AUDIO_MESH_PATH,
+                            "causal": False, **audio_mesh})
 
     ssm_err, ssm_ratio = 0.0, 0.0
     ssm_cases = ([(case, False) for case in SSM_CASES
@@ -4065,10 +4118,11 @@ def phase_sharded(torch, dev):
 
 
 def mesh_serve_rank(jobs, device):
-    """One rank of a phase 9 or 12 world: for each job (name -> arch,
+    """One rank of a phase 9, 12 or 13 world: for each job (name -> arch,
     size (or ``cfg``), seed, mesh shape, batch, prompt, capacity, prefill
     plan, decode plan), the config's params drawn from the seed on the
-    card and its prompt and decode tokens from seed + 1, a warm
+    card and its prompt and decode tokens from seed + 1
+    (:func:`mesh_serve_inputs`), a warm
     ``serve.serve_on_mesh`` (unless ``job["cold"]``), then one with the
     launch counts set to 0 just before and read just after and the shapes
     each flash and scan launch took. With ``job["by_leaf"]`` the rank
@@ -4078,7 +4132,6 @@ def mesh_serve_rank(jobs, device):
     flash and scan shapes, peak allocated GB}."""
     from repro_torch import kernels
     from repro_torch import tree as tree_lib
-    from repro_torch.configs import ShapeConfig
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve
@@ -4119,12 +4172,8 @@ def mesh_serve_rank(jobs, device):
         else:
             params = registry.init_model(
                 torch.Generator(device=dev).manual_seed(job["seed"]), cfg)
-        n = job["prompt"] + MESH_STEPS
-        tokens = registry.make_prefill_batch(
-            torch.Generator(device=dev).manual_seed(job["seed"] + 1), cfg,
-            ShapeConfig("mesh", n, job["batch"], "prefill"))["tokens"]
-        args = (cfg, params, {"tokens": tokens[:, :job["prompt"]]},
-                tokens[:, job["prompt"]:], mesh, job["plan"],
+        batch, tokens = mesh_serve_inputs(torch, cfg, job, dev)
+        args = (cfg, params, batch, tokens, mesh, job["plan"],
                 job["decode_plan"], job["cap"], bool(job.get("by_leaf")))
         if not job.get("cold"):
             serve.serve_on_mesh(*args)   # warm: the first collectives
@@ -4148,6 +4197,36 @@ def mesh_serve_rank(jobs, device):
         _free(torch)
     flash_ops.mha, ssm.ssm_ops = mha, ssm_ops
     return out
+
+
+def mesh_steps(cfg):
+    """The decode steps of a mesh serve: MESH_STEPS, none for an
+    encoder-only config."""
+    return MESH_STEPS if cfg.has_decode else 0
+
+
+def mesh_serve_inputs(torch, cfg, job, dev):
+    """(the prefill batch, the decode tokens [B, :func:`mesh_steps`]) of a
+    mesh serve job, drawn on ``dev`` from the job's seed + 1
+    (``registry.make_prefill_batch`` over the prompt and the steps): the
+    prompt's tokens and the next ones; a VLM's patches, then its text
+    and the next tokens; the audio encoder's frames with AUDIO_MASK_SHARE
+    of them masked (``mask_positions``) and no decode token."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import registry
+
+    gen = torch.Generator(device=dev).manual_seed(job["seed"] + 1)
+    steps, b, prompt = mesh_steps(cfg), job["batch"], job["prompt"]
+    full = registry.make_prefill_batch(gen, cfg, ShapeConfig(
+        "mesh", prompt + steps, b, "prefill"))
+    if cfg.audio_frontend:
+        full["mask_positions"] = (torch.rand(
+            (b, prompt), generator=gen, device=dev)
+            < AUDIO_MASK_SHARE).to(torch.int32)
+        return full, torch.zeros((b, 0), dtype=torch.int64, device=dev)
+    tokens = full.pop("tokens")
+    text = tokens.shape[1] - steps
+    return {**full, "tokens": tokens[:, :text]}, tokens[:, text:]
 
 
 def family_mla_config():
@@ -4217,7 +4296,7 @@ def draw_blocks(torch, cfg, seed, dev, cut=None):
     return tree_lib.map_with_path(one, skeleton)
 
 
-def _gemm_order_witness(torch, params, cfg, prompt, job):
+def _gemm_order_witness(torch, params, cfg, batch, job):
     """Layer 0's k and v projections of the one-process prefill against
     the same products at mesh rank 0's shape (its rows of the batch, the
     columns of its kv heads), on the card: how far the fp32 GEMM's
@@ -4229,12 +4308,12 @@ def _gemm_order_witness(torch, params, cfg, prompt, job):
 
     block = {k: {n: v[0] for n, v in leaf.items()}
              for k, leaf in params["period"]["j0"].items()}
-    x, _, _ = transformer._embed_inputs(params, cfg, {"tokens": prompt})
+    x, _, _ = transformer._embed_inputs(params, cfg, batch)
     h = layers.rms_norm(block["norm1"], x, cfg.norm_eps)
     data, model = job["mesh"]
     rows = slice(0, h.shape[0] // data if job["plan"].batch_axes
                  else h.shape[0])
-    cols = slice(0, cfg.n_kv_heads // model * cfg.resolved_head_dim)
+    cols = slice(0, cfg.n_kv_heads * cfg.resolved_head_dim // model)
     out = {}
     for leaf in ("k", "v"):
         w = block["mixer"]["w_" + leaf]
@@ -4249,29 +4328,24 @@ def _one_process_serve(torch, dev, job):
     """The same job in this process with no mesh: every position's logits,
     the final state and, on a tensor-parallel mesh,
     :func:`_gemm_order_witness`."""
-    from repro_torch.configs import ShapeConfig
     from repro_torch.models import registry, transformer
 
     cfg = _job_cfg(job)
     params = (draw_blocks(torch, cfg, job["seed"], dev) if job.get("by_leaf")
               else registry.init_model(
                   torch.Generator(device=dev).manual_seed(job["seed"]), cfg))
-    n = job["prompt"] + MESH_STEPS
-    tokens = registry.make_prefill_batch(
-        torch.Generator(device=dev).manual_seed(job["seed"] + 1), cfg,
-        ShapeConfig("mesh", n, job["batch"], "prefill"))["tokens"]
-    witness = (_gemm_order_witness(torch, params, cfg,
-                                   tokens[:, :job["prompt"]], job)
+    batch, tokens = mesh_serve_inputs(torch, cfg, job, dev)
+    witness = (_gemm_order_witness(torch, params, cfg, batch, job)
                if job["mesh"][1] > 1 and cfg.pattern[0] == "attn"
                and cfg.mla is None else None)
-    logits, state = transformer.prefill(
-        params, cfg, {"tokens": tokens[:, :job["prompt"]]},
-        max_len=job["cap"])
+    logits, state = transformer.prefill(params, cfg, batch,
+                                        max_len=job["cap"])
+    del batch
     out = [logits.cpu()]
-    for i in range(MESH_STEPS):
-        pos = job["prompt"] + i
+    for i in range(tokens.shape[1]):
         logits, state = transformer.decode_step(params, cfg, state,
-                                                tokens[:, pos], pos)
+                                                tokens[:, i],
+                                                job["prompt"] + i)
         out.append(logits.cpu())
     state = {k: v.cpu() for k, v in _flat(state).items()}
     del params
@@ -4325,9 +4399,10 @@ def held_mesh_serve(torch, dev, name, job, ranks, want_launches,
     mesh = specs.MeshShape(("data", "model"), job["mesh"])
     mine = [r[name] for r in ranks]
     want = {**{k: 0 for k in kernels.WRAPPERS}, **want_launches}
+    steps = mesh_steps(_job_cfg(job))
     want_bytes = (serve_received(
         _job_cfg(job), job["mesh"], job["batch"], job["prompt"], job["cap"],
-        job["plan"], job["decode_plan"], MESH_STEPS)
+        job["plan"], job["decode_plan"], steps)
         if job.get("exact_bytes") else None)
     for r, got in enumerate(mine):
         require(got["launches"] == want,
@@ -4350,7 +4425,7 @@ def held_mesh_serve(torch, dev, name, job, ranks, want_launches,
                 f"analytic bytes are {want_bytes}")
     logits = [specs.gather_tree([{"x": m["logits"][i]} for m in mine],
                                 {"x": mine[0]["logits_spec"]}, mesh)["x"]
-              for i in range(MESH_STEPS + 1)]
+              for i in range(steps + 1)]
     state = _flat(specs.gather_tree([m["state"] for m in mine],
                                     mine[0]["state_specs"], mesh))
     want_logits, want_state, witness = (
@@ -4376,7 +4451,7 @@ def held_mesh_serve(torch, dev, name, job, ranks, want_launches,
             "flash_heads_q_kv": list(job["heads"]),
             "prefill_ms_by_rank": [m["prefill_ms"] for m in mine],
             "decode_ms_by_rank": [sum(m["decode_ms"]) / len(m["decode_ms"])
-                                  for m in mine],
+                                  if steps else None for m in mine],
             "received_bytes_by_rank": [m["received"] for m in mine],
             "received_bytes_analytic": want_bytes,
             "peak_gb_by_rank": [m.get("peak_gb") for m in mine],
@@ -4417,7 +4492,15 @@ def serve_received(cfg, mesh_shape, batch, prompt, cap, plan, dplan,
     the shared experts' own, Mamba's ``w_out``), Mamba's ``[u | z]``
     column block gathered (T 2 d_in / Mo a rank) and ``w_x``'s partial
     sum [T, dt_rank + 2 ds]; the MoE's routing choices [T, k] gathered
-    over the batch axes. GQA with its heads cut inside a head gathers q,
+    over the batch axes. An mLSTM or sLSTM layer on its channels of d_in
+    (:func:`xlstm_terms`) gathers the mLSTM's ``[u | z]`` block and u
+    (each T d_in / Mo a rank), and where the column blocks cut a head the
+    mLSTM's q, k, v or the sLSTM's four projections [T, 4 d_in / Mo] and
+    its ``f_bias`` block; it sums the output norm's statistic [T] and the
+    row block's partial [T, d]; nothing inside the sLSTM's time loop. A
+    VLM's lookup covers its text alone (b (P - ``cfg.vlm_prefix_len``)
+    tokens a prefill); the audio encoder has none, and gathers its
+    positional conv's channel blocks [T, d / Mo] when D splits. GQA with its heads cut inside a head gathers q,
     k and v in the prefill; a prefill whose attention computed a block of
     the kv heads gathers them for the cache (every kv head, [b, cap, Hkv /
     Mo, hd] each). A decode step gathers GQA's k and v (and q when the
@@ -4460,6 +4543,8 @@ def serve_received(cfg, mesh_shape, batch, prompt, cap, plan, dplan,
         out = {"all_reduce": 0.0, "all_gather": 0.0}
         n_b = extent(p.batch_axes)
         n_s = extent(dplan.seq_axes) if decode else 1
+        if cap % n_s:       # positions that do not split stay whole
+            n_s = 1
 
         def reduce(floats):
             out["all_reduce"] += ring(mo) * floats * 4
@@ -4467,10 +4552,18 @@ def serve_received(cfg, mesh_shape, batch, prompt, cap, plan, dplan,
         def gather(n, nbytes):
             out["all_gather"] += (n - 1) * nbytes
 
-        if split(cfg.vocab):
-            reduce(tokens * d)
+        text = tokens - (0 if decode or cfg.family != "vlm"
+                         else rows * cfg.vlm_prefix_len)
+        if split(cfg.vocab) and not cfg.audio_frontend:
+            reduce(text * d)
+        if cfg.audio_frontend and split(d):
+            gather(mo, tokens * d // mo * 4)
         for kind, has_moe in layer_blocks(cfg):
-            if kind == "ssm":
+            if kind in ("mlstm", "slstm"):
+                fwd, gath, _, _ = xlstm_terms(cfg, kind, mo, tokens)
+                reduce(fwd)
+                out["all_gather"] += (mo - 1) * gath * 4
+            elif kind == "ssm":
                 if split(d_in):
                     gather(mo, tokens * 2 * d_in // mo * 4)
                     reduce(tokens * (dt_rank + 2 * cfg.ssm.d_state))
@@ -4522,6 +4615,45 @@ def serve_received(cfg, mesh_shape, batch, prompt, cap, plan, dplan,
     return {kind: {k: int(v) if float(v).is_integer() else v
                    for k, v in ops.items() if v}
             for kind, ops in got.items()}
+
+
+def xlstm_terms(cfg, kind, mo, tokens):
+    """An ``kind`` ("mlstm" / "slstm") layer's collectives over ``mo``
+    model ranks on ``tokens`` rows, as :func:`_model_split_terms` counts
+    them: (floats all-reduced a pass, floats of one rank's blocks
+    all-gathered a pass, floats all-reduced a backward, floats of one
+    rank's blocks reduce-scattered a backward). On its channels (d_in
+    dividing by ``mo``) a pass gathers the mLSTM's ``[u | z]`` block [T, 2
+    d_in / mo] and u [T, d_in / mo]; where H does not divide (the column
+    blocks cut a head) the mLSTM's q, k, v or the sLSTM's projections [T,
+    4 d_in / mo] and its ``f_bias`` block [d_in / mo]; it all-reduces the
+    norm's statistic [T] and the row block's partial [T, d]. A backward
+    all-reduces the gradient of x entering ``w_up`` [T, d] and of the
+    norm's statistic [T], and those of the whole leaves read inside the
+    split block where it cuts a head (the mLSTM's ``w_i``, ``w_f``,
+    ``f_bias``; the sLSTM's ``r_*``), and reduce-scatters each gather's.
+    Run whole beside a split ``w_up`` (d_in not dividing, 2 d_in
+    dividing), the mLSTM gathers its product whole and all-reduces x's
+    gradient."""
+    from repro_torch.models import xlstm
+
+    _, d_in, hd = xlstm._dims(cfg)
+    d, h = cfg.d_model, cfg.n_heads
+    if mo == 1 or d_in % mo:
+        if kind == "mlstm" and mo > 1 and (2 * d_in) % mo == 0:
+            return 0, tokens * 2 * d_in // mo, tokens * d, 0
+        return 0, 0, 0, 0
+    blk = tokens * d_in // mo
+    gath = blk * (3 if kind == "mlstm" else 1)
+    bwd = tokens * d + tokens
+    cut = h % mo != 0
+    if cut and kind == "mlstm":
+        gath += 3 * blk
+        bwd += 2 * d_in * h + h
+    elif cut:
+        gath += 4 * blk + d_in // mo
+        bwd += 4 * h * hd * hd
+    return tokens + tokens * d, gath, bwd, gath
 
 
 def phase_mesh_serve(torch, dev):
@@ -4674,6 +4806,103 @@ def phase_family_serve(torch, dev):
     return by_path
 
 
+def phase_front_serve(torch, dev):
+    """Phase 13a-13c: the xLSTM blocks and the VLM's and the audio
+    encoder's front-ends served on a (data, model) mesh of 4 gloo ranks
+    sharing the card as FRONT_SHAPE, each arch at its published widths
+    (ONE_H100, whole), as phase 12 serves (``serve.serve_on_mesh``; a
+    prefill of MESH_BATCH x MESH_PROMPT with the batch over data, then
+    MESH_STEPS decode steps with the cache's positions over model):
+    13a xlstm-125m (no kernel: the mLSTM's and sLSTM's heads, 2 of 4 a
+    rank, the states on them), 13b paligemma-3b (its 256 patches first;
+    flash 18 times a prefill a rank at FLASH_VLM_MESH_PATH's rows and
+    heads, prefix 256), 13c hubert-xlarge (the encoder's prefill alone,
+    half its frames masked; flash 48 times at FLASH_AUDIO_MESH_PATH's,
+    bidirectional). Each job's one-process serve runs first, its outputs
+    moved to the CPU and the card freed; then one world serves the three,
+    each rank drawing only its blocks (:func:`draw_blocks`). Each job is
+    held as phase 12 holds its own (``held_mesh_serve``: launches exact,
+    bytes exactly :func:`serve_received`'s, logits within AGREE_LIMIT of
+    one process, each state layer at its scale). Returns {path: rank 0's
+    launches}."""
+    from repro_torch.configs import get_one_h100_arch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding.specs import ShardingPlan
+
+    _free(torch)
+    batch_data = ShardingPlan(1, (), ("data",))
+    decode = ShardingPlan(1, (), ("data",), seq_axes=("model",))
+    rows, mo = MESH_BATCH // FRONT_SHAPE[0], FRONT_SHAPE[1]
+    jobs = {}
+    for tag, arch in FRONT_ARCHS.items():
+        cfg = get_one_h100_arch(arch)
+        hd, steps = cfg.resolved_head_dim, mesh_steps(cfg)
+        kv_cut = (cfg.n_kv_heads * hd // mo) % hd != 0
+        heads = (cfg.n_heads // mo,
+                 cfg.n_kv_heads if kv_cut else cfg.n_kv_heads // mo)
+        jobs[tag] = dict(
+            arch=arch, cfg=cfg, seed=0, mesh=FRONT_SHAPE, heads=heads,
+            by_leaf=True, cold=True, exact_bytes=True, batch=MESH_BATCH,
+            prompt=MESH_PROMPT, cap=MESH_PROMPT + steps, plan=batch_data,
+            decode_plan=decode if steps else batch_data,
+            flash_shape=(rows, MESH_PROMPT, heads[0], hd))
+    t0 = time.perf_counter()
+    wants = {}
+    for name, job in jobs.items():
+        wants[name] = _one_process_serve(torch, dev, job)
+        _free(torch)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(mesh_serve_rank, math.prod(FRONT_SHAPE),
+                               backend="gloo", device=str(dev),
+                               args=(jobs, str(dev)))
+    world_s = time.perf_counter() - t0
+    lines, by_path = {}, {}
+    for name, job in jobs.items():
+        lines[name] = held_mesh_serve(torch, dev, name, job, ranks,
+                                      FRONT_LAUNCHES[name], wants[name])
+        lines[name]["arch"] = job["arch"]
+        by_path[f"mesh serve {name} (rank 0)"] = ranks[0][name]["launches"]
+    lines["transport"] = ranks[0]["13a"]["transport"]
+    lines["one_process_s"] = one_s
+    lines["world_s_with_spawn"] = world_s
+    print("phase 13a-13c ok: " + json.dumps(lines), flush=True)
+    del ranks, wants
+    _free(torch)
+    return by_path
+
+
+def phase_front_train(torch, dev):
+    """Phase 13d: the xlstm-125m, paligemma-3b and hubert-xlarge smoke
+    configs (FRONT_ARCHS) trained by the train step under L1 (the
+    reference's layout for the three) on 4 gloo ranks as (2, 2), in one
+    world (``l2_train_rank`` with ``layout`` "L1": a client a data rank,
+    its params over model), each held as phase 12c holds its archs
+    (:func:`held_l2_train`: launches exact, bytes by op and axes exactly
+    :func:`l1_received`'s, round-0 gradients, losses and params against a
+    one-process run, both ledgers). Returns {path: rank 0's launches}."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    _free(torch)
+    archs = tuple(FRONT_ARCHS.values())
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_world(l2_train_rank, math.prod(L2_SHAPE),
+                               backend="gloo", device=str(dev),
+                               args=(str(dev), archs, "L1"),
+                               timeout_s=MESH_TRAIN_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    out = {}
+    for arch in archs:
+        held_l2_train(torch, dev, arch, [r[arch] for r in ranks],
+                      f"phase 13d ({arch})",
+                      f"{arch} smoke train step, L1 layout, on (data 2, "
+                      "model 2)", {"world_s_with_spawn": world_s},
+                      layout="L1")
+        out[f"{arch} L1 train (rank 0)"] = ranks[0][arch]["launches"]
+    _free(torch)
+    return out
+
+
 def _mesh_train_config():
     """(cfg, shape, plan) of phase 10: phi4-mini ONE_H100 (its published
     widths, 2 layers), MESH_TRAIN_CLIENTS clients of
@@ -4792,43 +5021,26 @@ def mesh_train_rank(device):
     return out
 
 
-def mesh_train_want(cfg, n_leaves, block_floats, n_split, tau):
-    """(launches, bytes received a round by op and axes) of a phase 10
-    rank: the seal's flat race once a round; ``fedavg_flat`` and
-    ``digest_div_flat`` once a leaf a round on the gathered set; flash
-    forward and backward once a layer a client a local step at the rank's
-    heads (no eval loss). Over data the other rank's client block, its
-    local loss (fp32), best hash and nonce (int64 words); over model, a
-    client and local step, 5 activations [m, S - 1, D] all-reduced forward
-    (the embedding, each layer's attention and MLP) and 5 backward (the
-    inputs of the column blocks: each layer's q / k / v and MLP, the vocab
-    head), the vocab-parallel loss's sum of exponentials and label logit
-    ([m, S - 1] each) all-reduced and its maxima gathered, and a round each
-    split leaf's sum and residuals [1 + C] gathered (a ring of 2 receives
-    its tensor once in an all-reduce)."""
+def mesh_train_want(cfg, n_leaves, tau):
+    """The launches of a phase 10 rank: the seal's flat race once a round;
+    ``fedavg_flat`` and ``digest_div_flat`` once a leaf a round on the
+    gathered set; flash forward and backward once a layer a client a
+    local step at the rank's heads (no eval loss). Its bytes are
+    :func:`l1_received`'s."""
     from repro_torch import kernels
 
     c_local = MESH_TRAIN_CLIENTS // MESH_TRAIN_SHAPE[0]
     attn = cfg.layer_kinds().count("attn")
     steps_ = tau * c_local
-    launches = {**{name: 0 for name in kernels.WRAPPERS},
-                "pow_race": K_MESH_TRAIN,
-                "fedavg_flat": n_leaves * K_MESH_TRAIN,
-                "digest_div_flat": n_leaves * K_MESH_TRAIN,
-                "flash_attention": attn * steps_ * K_MESH_TRAIN,
-                "flash_attention_bwd": attn * steps_ * K_MESH_TRAIN}
-    rows = MESH_TRAIN_PER_CLIENT * (MESH_TRAIN_SEQ - 1)
-    act, terms = 4 * rows * cfg.d_model, 4 * rows
-    received = {
-        "all_gather over data": 4 * block_floats * c_local
-        + c_local * (4 + 8 + 8),
-        "all_reduce over model": steps_ * (10 * act + 2 * terms),
-        "all_gather over model": steps_ * terms
-        + n_split * 4 * (1 + MESH_TRAIN_CLIENTS)}
-    return launches, received
+    return {**{name: 0 for name in kernels.WRAPPERS},
+            "pow_race": K_MESH_TRAIN,
+            "fedavg_flat": n_leaves * K_MESH_TRAIN,
+            "digest_div_flat": n_leaves * K_MESH_TRAIN,
+            "flash_attention": attn * steps_ * K_MESH_TRAIN,
+            "flash_attention_bwd": attn * steps_ * K_MESH_TRAIN}
 
 
-def _model_split_terms(cfg, mo, tokens):
+def _model_split_terms(cfg, mo, tokens, text=None):
     """The model axis' collectives in one forward pass and one backward
     of a decoder whose heads (GQA or MLA), Mamba channels, MoE experts
     and dense and shared MLP widths split evenly over ``mo`` ranks (or
@@ -4844,8 +5056,18 @@ def _model_split_terms(cfg, mo, tokens):
     qk-norm scales, MLA's q-lora latent or x and its ``ckv`` and
     ``k_rope``, Mamba's x and projection, the MLP's x, the MoE's
     dispatched tokens and gates and the shared experts' x, the head's
-    input) and reduce-scatters the ``[u | z]`` gather's."""
+    input, a whole ``w_k`` / ``w_v`` beside split queries) and
+    reduce-scatters the ``[u | z]`` gather's and those of GQA's
+    projections where a block cuts a head (q; k and v, as PaliGemma's
+    one kv head at model 2); the xLSTM
+    layers' terms are :func:`xlstm_terms`'. ``text``: the rows the
+    embedding looks up (a VLM's text, without its patches; default
+    ``tokens``); the audio encoder looks up none, gathers its positional
+    conv's channel blocks and all-reduces the gradient of the frames
+    blended with ``mask_emb`` that enter them."""
     from repro_torch.models import ssm
+
+    text = tokens if text is None else text
 
     d, hd = cfg.d_model, cfg.resolved_head_dim
     _, d_in, dt_rank = ssm._dims(cfg)
@@ -4855,11 +5077,18 @@ def _model_split_terms(cfg, mo, tokens):
 
     fwd = gath = bwd = scat = 0
     if split(cfg.vocab):
-        fwd += tokens * d + 2 * tokens
+        fwd += (0 if cfg.audio_frontend else text) * d + 2 * tokens
         gath += tokens
         bwd += tokens * d
+    if cfg.audio_frontend and split(d):
+        gath += tokens * d // mo
+        bwd += tokens * d
     for kind, has_moe in layer_blocks(cfg):
-        if kind == "ssm" and split(d_in):
+        if kind in ("mlstm", "slstm"):
+            terms = xlstm_terms(cfg, kind, mo, tokens)
+            fwd, gath, bwd, scat = (a + b for a, b in zip(
+                (fwd, gath, bwd, scat), terms))
+        elif kind == "ssm" and split(d_in):
             proj = tokens * (dt_rank + 2 * cfg.ssm.d_state)
             fwd += tokens * d + proj
             gath += tokens * 2 * d_in // mo
@@ -4873,6 +5102,15 @@ def _model_split_terms(cfg, mo, tokens):
         elif kind == "attn" and cfg.mla is None and split(cfg.n_heads * hd):
             fwd += tokens * d
             bwd += tokens * d + (2 * hd if cfg.qk_norm else 0)
+            kv = cfg.n_kv_heads * hd
+            if not split(kv):        # whole w_k / w_v entering the block
+                bwd += 2 * d * kv
+            # a block cutting a head: its heads gathered (q; k and v)
+            q_cut = (cfg.n_heads * hd // mo) % hd != 0
+            kv_cut = split(kv) and (kv // mo) % hd != 0
+            cut = q_cut * cfg.n_heads * hd + kv_cut * 2 * kv
+            gath += tokens * cut // mo
+            scat += tokens * cut // mo
         if has_moe:
             mc = cfg.moe
             ep = split(mc.n_experts)
@@ -4885,6 +5123,78 @@ def _model_split_terms(cfg, mo, tokens):
             fwd += tokens * d
             bwd += tokens * d
     return fwd, gath, bwd, scat
+
+
+def train_positions(cfg, seq):
+    """(positions, looked-up tokens) of one row of a train batch of ``seq``
+    positions, as ``transformer.train_loss`` reads it: a decoder's S - 1
+    (its last token only a label), a VLM's P patches and S - P - 1 text
+    tokens, the audio encoder's S frames and no lookup."""
+    if cfg.audio_frontend:
+        return seq, 0
+    if cfg.family == "vlm":
+        return seq - 1, seq - cfg.vlm_prefix_len - 1
+    return seq - 1, seq - 1
+
+
+def l1_received(cfg, rspec, pspecs, blocks, extents, m, seq, n_rounds=1):
+    """The bytes a rank of ``steps.build_train_step`` receives in
+    ``n_rounds`` rounds under the L1 layout, by op and axes
+    (``ClientMesh.received_by_axes``' keys), in a round with no lazy
+    client and no global-loss eval (``round_spec_for``'s at C < 8).
+    ``pspecs``: the step's param specs (``[C, ...]`` leaves); ``blocks``:
+    each leaf's per-client block shape on a rank; ``extents``: ``{"data":
+    D, "model": Mo}``; ``m`` rows of ``seq`` positions a client
+    (:func:`train_positions`).
+
+    With C / D clients a rank, n = ``rspec.microbatches``, T = (m / n)
+    positions a row, F the floats of a client's blocks on the rank:
+
+    - over data (the clients' axis, the engine's gather tier): (D - 1)
+      (C / D) (4 F + 4 + 8 + 8) a round, the other ranks' clients'
+      blocks, local losses (fp32), best hashes and nonces (int64);
+    - over model, a client's forward on a microbatch being a pass (two a
+      backward under the checkpoint when n > 1) and each (local step,
+      microbatch, client) a backward, tau n C / D of them a round:
+      :func:`_model_split_terms`' floats all-reduced (a ring of Mo ranks
+      receiving 2 (Mo - 1) / Mo of its tensor), gathered and
+      reduce-scattered ((Mo - 1) blocks each);
+    - the digest and divergence partials, (1 + C) floats a split leaf
+      gathered over the model axes: (Mo - 1) (1 + C) 4 each."""
+    from repro_torch.sharding import specs as specs_lib
+
+    if rspec.n_lazy or rspec.eval_global_loss:
+        raise ValueError("l1_received counts a round with no lazy client "
+                         "and no global-loss eval")
+    d_ext, mo = extents.get("data", 1), extents.get("model", 1)
+    c = rspec.n_clients
+    c_local = c // d_ext
+    n = max(1, rspec.microbatches)
+    mesh = specs_lib.MeshShape(tuple(extents), tuple(extents.values()))
+    floats = sum(math.prod(blocks[k]) for k in pspecs)
+    n_split = sum(1 for spec in pspecs.values()
+                  if any(specs_lib.split_entry(e, mesh) for e in spec[1:]))
+    backwards = rspec.tau * n * c_local
+    passes = backwards * (2 if n > 1 else 1)
+    positions, text = train_positions(cfg, seq)
+    out: dict = {}
+
+    def add(key, nbytes):
+        if nbytes:
+            out[key] = out.get(key, 0) + n_rounds * nbytes
+
+    add("all_gather over data",
+        (d_ext - 1) * c_local * (4 * floats + 4 + 8 + 8))
+    if mo > 1:
+        fwd, gath, bwd, scat = _model_split_terms(
+            cfg, mo, m // n * positions, m // n * text)
+        add("all_reduce over model",
+            2 * (mo - 1) / mo * (passes * fwd + backwards * bwd) * 4)
+        add("all_gather over model", passes * (mo - 1) * gath * 4)
+        add("reduce_scatter over model", backwards * (mo - 1) * scat * 4)
+        add("all_gather over model", n_split * (mo - 1) * (1 + c) * 4)
+    return {k: int(v) if float(v).is_integer() else v
+            for k, v in out.items()}
 
 
 def l2_received(cfg, rspec, pspecs, blocks, extents, m, seq, n_rounds=1):
@@ -5116,7 +5426,7 @@ def phase_mesh_train(torch, dev, report):
     ("phase 10 readings", with each gate's verdict), then the gates
     fire in order: each rank's launches exactly ``mesh_train_want``'s
     (every flash launch at the rank's shape, 12 query and 4 kv heads)
-    and its bytes received a round exactly the analytic ones; the metrics
+    and its bytes received a round exactly ``l1_received``'s; the metrics
     the same on every rank; both data ranks of a model coordinate with the
     same final blocks (digest) and both model ranks of a data coordinate
     with the same whole leaves, bitwise; both ledgers valid; client 0's
@@ -5149,11 +5459,13 @@ def phase_mesh_train(torch, dev, report):
                                timeout_s=MESH_TRAIN_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     pspecs = ranks[0]["specs"]
-    split = [k for k, sp in pspecs.items()
-             if any(e and "model" in e for e in sp[1:])]
-    block_floats = sum(v[0].numel() for v in ranks[0]["params"].values())
-    want_launches, want_bytes = mesh_train_want(
-        cfg, len(pspecs), block_floats, len(split), ranks[0]["tau"])
+    spec = steps.round_spec_for(cfg, shape, plan)
+    want_launches = mesh_train_want(cfg, len(pspecs), ranks[0]["tau"])
+    want_bytes = l1_received(
+        cfg, spec, pspecs, {k: v.shape[1:] for k, v in
+                            ranks[0]["params"].items()},
+        dict(zip(("data", "model"), MESH_TRAIN_SHAPE)),
+        MESH_TRAIN_PER_CLIENT, MESH_TRAIN_SEQ)
     b, h, hkv, s, d = MESH_TRAIN_FLASH_PATH
     gates = []   # (name, ok, message on failure), fired after the readings
     for r, got in enumerate(ranks):
@@ -5229,7 +5541,6 @@ def phase_mesh_train(torch, dev, report):
                " max|want|")]
 
     # the same round spec in one process on the card (the loop driver)
-    spec = steps.round_spec_for(cfg, shape, plan)
     runner = rounds.RoundRunner(registry.client_losses(cfg), spec, params,
                                 K_MESH_TRAIN, seed=MESH_TRAIN_SEED,
                                 device=dev)
@@ -5306,14 +5617,16 @@ def phase_mesh_train(torch, dev, report):
     return {"phi4 mesh train": ranks[0]["launches"]}
 
 
-def _l2_config(arch=None):
+def _l2_config(arch=None, layout="L2"):
     """(cfg, shape, plan, round spec) of phase 11: qwen3-32b ONE_H100 at
     L2_LAYERS layers (its published widths), L2_CLIENTS clients of
     L2_PER_CLIENT x L2_SEQ tokens, the L2 plan at that C (clients on every
     rank, FSDP and rows over data), ``round_spec_for``'s round at tau
     L2_TAU; with ``arch`` phase 12c's: its smoke config, L2_CLIENTS
     clients of FAMILY_TRAIN_PER_CLIENT x FAMILY_TRAIN_SEQ tokens, the same
-    plan and round."""
+    plan and round; with ``layout`` "L1" phase 13d's: its smoke config,
+    L2_CLIENTS clients of FRONT_TRAIN_PER_CLIENT x FRONT_TRAIN_SEQ
+    positions, the L1 plan (the clients over data), the same round."""
     import dataclasses
 
     from repro_torch.configs import ShapeConfig, get_one_h100_arch, \
@@ -5326,35 +5639,50 @@ def _l2_config(arch=None):
                                   n_layers=L2_LAYERS)
         shape = ShapeConfig("l2_train", L2_SEQ, L2_CLIENTS * L2_PER_CLIENT,
                             "train")
+    elif layout == "L1":
+        cfg = get_smoke_arch(arch)
+        shape = ShapeConfig("l1_train", FRONT_TRAIN_SEQ,
+                            L2_CLIENTS * FRONT_TRAIN_PER_CLIENT, "train")
     else:
         cfg = get_smoke_arch(arch)
         shape = ShapeConfig("l2_train", FAMILY_TRAIN_SEQ,
                             L2_CLIENTS * FAMILY_TRAIN_PER_CLIENT, "train")
-    plan = ShardingPlan(L2_CLIENTS, (), ("data",), fsdp_axes=("data",))
+    plan = (ShardingPlan(L2_CLIENTS, ("data",), ()) if layout == "L1"
+            else ShardingPlan(L2_CLIENTS, (), ("data",),
+                              fsdp_axes=("data",)))
     spec = dataclasses.replace(steps.round_spec_for(cfg, shape, plan),
                                tau=L2_TAU)
     return cfg, shape, plan, spec
 
 
 def _l2_inputs(torch, dev, cfg, shape):
-    """A phase 11 or 12c run's params (one model, flattened, drawn on the
-    card from L2_SEED) and tokens [K, C, m, S] (from the seed + 1)."""
+    """A phase 11, 12c or 13d run's params (one model, flattened, drawn on
+    the card from L2_SEED) and its K_L2 rounds' batches ({leaf: [C, m,
+    ...]}, from the seed + 1): a decoder's tokens [C, m, S], else
+    ``registry.make_train_batch``'s (a VLM's patches and text, the audio
+    encoder's frames, mask positions and targets), a client's rows
+    consecutive."""
     from repro_torch import tree
     from repro_torch.models import registry
 
     params = tree.flatten(registry.init_model(
         torch.Generator(device=dev).manual_seed(L2_SEED), cfg))
+    gen = torch.Generator(device=dev).manual_seed(L2_SEED + 1)
+    if cfg.family == "vlm" or cfg.audio_frontend:
+        return params, [
+            {k: v.reshape((L2_CLIENTS, -1) + v.shape[1:])
+             for k, v in registry.make_train_batch(gen, cfg, shape).items()}
+            for _ in range(K_L2)]
     tokens = torch.randint(
         0, cfg.vocab, (K_L2, L2_CLIENTS, shape.global_batch // L2_CLIENTS,
-                       shape.seq_len),
-        generator=torch.Generator(device=dev).manual_seed(L2_SEED + 1),
-        device=dev)
-    return params, tokens
+                       shape.seq_len), generator=gen, device=dev)
+    return params, [{"tokens": tokens[k]} for k in range(K_L2)]
 
 
-def l2_train_rank(device, archs=None):
+def l2_train_rank(device, archs=None, layout="L2"):
     """One rank of phase 11's world (or, with ``archs``, phase 12c's: the
-    same for each arch's smoke config in turn, {arch: result}):
+    same for each arch's smoke config in turn, {arch: result}; with
+    ``layout`` "L1" phase 13d's, each client on its data rank):
     ``steps.build_train_step`` under the L2 plan on its (data, model)
     mesh, the round-0 state cut from the params (both clients' blocks),
     then K_L2 rounds with the launch counts set to 0 just before and read
@@ -5377,13 +5705,15 @@ def l2_train_rank(device, archs=None):
     mesh = mesh_lib.make_host_mesh(L2_SHAPE, ("data", "model"), dev)
     if archs is None:
         return _l2_rank_run(torch, dev, mesh, None, "phase 11", t_start)
+    tag = "13d" if layout == "L1" else "12c"
     return {arch: _l2_rank_run(torch, dev, mesh, arch,
-                               f"phase 12c ({arch})", t_start)
+                               f"phase {tag} ({arch})", t_start, layout)
             for arch in archs}
 
 
-def _l2_rank_run(torch, dev, mesh, arch, label, t_start):
-    """:func:`l2_train_rank`'s run of one config (:func:`_l2_config`)."""
+def _l2_rank_run(torch, dev, mesh, arch, label, t_start, layout="L2"):
+    """:func:`l2_train_rank`'s run of one config (:func:`_l2_config`);
+    under L1 the rank's client is its data coordinate's."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import steps
@@ -5393,15 +5723,15 @@ def _l2_rank_run(torch, dev, mesh, arch, label, t_start):
         print(f"{label} rank {mesh.rank}: {what} at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    cfg, shape, plan, spec = _l2_config(arch)
+    cfg, shape, plan, spec = _l2_config(arch, layout)
     step, _, _, _ = steps.build_train_step(
         cfg, shape, mesh, False, torch.float32, spec_override=spec,
         plan=plan)
-    params, tokens = _l2_inputs(torch, dev, cfg, shape)
+    params, inputs = _l2_inputs(torch, dev, cfg, shape)
     state = step.init_state(params, L2_SEED)
-    batches = [{"tokens": specs.shard_leaf(tokens[k], step.in_specs[1][
-        "tokens"], mesh).contiguous()} for k in range(K_L2)]
-    del params, tokens
+    batches = [{n: specs.shard_leaf(v, step.in_specs[1][n], mesh)
+                .contiguous() for n, v in batch.items()} for batch in inputs]
+    del params, inputs
     _free(torch)
     stage("state built")
     loss0, grads0 = step.grad_fn({k: v[:1] for k, v in state.params.items()},
@@ -5442,8 +5772,9 @@ def _l2_rank_run(torch, dev, mesh, arch, label, t_start):
                        if on_card else None),
            "received_by_axes": dict(mesh.received_by_axes),
            "transport": mesh.transport, "metrics": metrics,
-           "clients_equal": all(torch.equal(v[0], v[1])
+           "clients_equal": all(torch.equal(v[0], v[-1])
                                 for v in state.params.values()),
+           "client": mesh.coord("data") if layout == "L1" else 0,
            "params": {k: v[0].cpu() for k, v in state.params.items()},
            "whole": {k: v[0].cpu() for k, v in state.params.items()
                      if not any(step.in_specs[0].params[k][1:])},
@@ -5455,40 +5786,50 @@ def _l2_rank_run(torch, dev, mesh, arch, label, t_start):
     return out
 
 
-def l2_train_want(cfg, spec, n_leaves):
-    """The launches of a phase 11 or 12c rank: the seal once a round
-    (every rank races all C clients, no client mesh); ``fedavg_flat`` and
+def l2_train_want(cfg, spec, n_leaves, layout="L2"):
+    """The launches of a phase 11, 12c or 13d rank: the seal once a round
+    (under L2 every rank races all C clients, no client mesh; under L1
+    the flat race of its clients); ``fedavg_flat`` and
     ``digest_div_flat`` once a leaf a round on the rank's blocks of the C
     clients; flash forward twice (the forward and the checkpoint's
-    recompute) and backward once an attention layer, microbatch, client
+    recompute; once with one microbatch) and backward once an attention
+    layer, microbatch, client of the rank (all C under L2, C / D under L1)
     and local step, at the rank's heads, and the scan the same a Mamba
     layer (no eval loss)."""
     from repro_torch import kernels
 
     kinds = [kind for kind, _ in layer_blocks(cfg)]
-    backwards = spec.microbatches * spec.n_clients * spec.tau * K_L2
+    clients = spec.n_clients // (L2_SHAPE[0] if layout == "L1" else 1)
+    backwards = spec.microbatches * clients * spec.tau * K_L2
+    passes = backwards * (2 if spec.microbatches > 1 else 1)
     return {**{name: 0 for name in kernels.WRAPPERS},
             "pow_race": K_L2, "fedavg_flat": n_leaves * K_L2,
             "digest_div_flat": n_leaves * K_L2,
-            "flash_attention": 2 * backwards * kinds.count("attn"),
+            "flash_attention": passes * kinds.count("attn"),
             "flash_attention_bwd": backwards * kinds.count("attn"),
-            "ssm_scan": 2 * backwards * kinds.count("ssm"),
+            "ssm_scan": passes * kinds.count("ssm"),
             "ssm_scan_bwd": backwards * kinds.count("ssm")}
 
 
-def l2_flash_shapes(cfg, shape, spec):
-    """The q and k shapes of a phase 11 or 12c rank's flash launches: its
-    rows of a microbatch at the positions the loss reads, its heads (MLA:
-    every head's key, at hd + rope)."""
+def l2_flash_shapes(cfg, shape, spec, layout="L2"):
+    """The q and k shapes of a phase 11, 12c or 13d rank's flash launches:
+    its rows of a microbatch (under L1 all of them: a client's rows are
+    not split) at the positions the loss reads (:func:`train_positions`),
+    its heads (MLA: every head's key, at hd + rope; a kv head whose block
+    the plan cuts, gathered whole)."""
     d_ext, mo = L2_SHAPE
-    b = shape.global_batch // L2_CLIENTS // (spec.microbatches * d_ext)
-    s = shape.seq_len - 1
+    b = shape.global_batch // L2_CLIENTS // (
+        spec.microbatches * (d_ext if layout == "L2" else 1))
+    s = train_positions(cfg, shape.seq_len)[0]
+    hd = cfg.resolved_head_dim
     if cfg.mla is not None:
         h = cfg.n_heads // mo
-        d = cfg.resolved_head_dim + cfg.mla.rope_dim
+        d = hd + cfg.mla.rope_dim
         return (b, s, h, d), (b, s, h, d)
-    return ((b, s, cfg.n_heads // mo, cfg.resolved_head_dim),
-            (b, s, cfg.n_kv_heads // mo, cfg.resolved_head_dim))
+    kv = cfg.n_kv_heads * hd
+    hkv = cfg.n_kv_heads if kv % mo or (kv // mo) % hd \
+        else cfg.n_kv_heads // mo
+    return (b, s, cfg.n_heads // mo, hd), (b, s, hkv, hd)
 
 
 def phase_l2_train(torch, dev, report):
@@ -5548,8 +5889,11 @@ def phase_family_train(torch, dev):
     return out
 
 
-def held_l2_train(torch, dev, arch, ranks, label, path, extra):
-    """Phase 11's gates (and 12c's) on one config's ranks. Every reading
+def held_l2_train(torch, dev, arch, ranks, label, path, extra,
+                  layout="L2"):
+    """Phase 11's gates (and 12c's; with ``layout`` "L1" 13d's, bytes by
+    :func:`l1_received` and each rank's own client held) on one config's
+    ranks. Every reading
     is taken and printed first ("<label> readings", with each gate's
     verdict), then the gates fire in order: each rank's launches exactly
     ``l2_train_want``'s (every flash launch at :func:`l2_flash_shapes`)
@@ -5577,15 +5921,15 @@ def held_l2_train(torch, dev, arch, ranks, label, path, extra):
     from repro_torch.models import registry
     from repro_torch.sharding import specs
 
-    cfg, shape, plan, spec = _l2_config(arch)
+    cfg, shape, plan, spec = _l2_config(arch, layout)
     m = shape.global_batch // L2_CLIENTS
     pspecs = ranks[0]["specs"]
-    want_launches = l2_train_want(cfg, spec, len(pspecs))
-    want_bytes = l2_received(
+    want_launches = l2_train_want(cfg, spec, len(pspecs), layout)
+    want_bytes = (l1_received if layout == "L1" else l2_received)(
         cfg, spec, pspecs, ranks[0]["blocks"],
         dict(zip(("data", "model"), L2_SHAPE)), m, shape.seq_len,
         n_rounds=K_L2)
-    want_q, want_k = l2_flash_shapes(cfg, shape, spec)
+    want_q, want_k = l2_flash_shapes(cfg, shape, spec, layout)
     whole = [k for k, sp in pspecs.items() if not any(sp[1:])]
     gates = []   # (name, ok, message on failure), fired after the readings
     for r, got in enumerate(ranks):
@@ -5623,25 +5967,29 @@ def held_l2_train(torch, dev, arch, ranks, label, path, extra):
     ats = [specs.MeshShape(mesh.axis_names, mesh.shape, rank=r)
            for r in range(math.prod(L2_SHAPE))]
 
-    # client 0's round-0 loss and gradient in one process on the card
-    params, tokens = _l2_inputs(torch, dev, cfg, shape)
-    leaves = {k: v[None].detach().requires_grad_(True)
-              for k, v in params.items()}
-    loss0, grads = rounds.make_grad(registry.client_losses(cfg), spec)(
-        leaves, {"tokens": tokens[0][:1]})
-    grad_shares = {}
-    for k, g in zip(sorted(leaves), grads):
-        for r, at in enumerate(ats):
-            want = specs.shard_leaf(g[0], pspecs[k][1:], at)
-            got = ranks[r]["round0"]["grads"][k].to(dev)
-            grad_shares[k] = max(grad_shares.get(k, 0.0), _grad_ratio(
-                torch, got, want, MESH_TRAIN_GRAD_RTOL,
-                MESH_TRAIN_GRAD_ATOL))
-            del got, want
-    loss0 = loss0.cpu()
-    loss0_rel = max(float(((got["round0"]["loss"][:1] - loss0).abs()
-                           / loss0.abs()).max()) for got in ranks)
-    del leaves, grads
+    # each rank's client's round-0 loss and gradient in one process on
+    # the card (client 0 on every rank under L2)
+    params, batches = _l2_inputs(torch, dev, cfg, shape)
+    grad_shares, loss0_rel = {}, 0.0
+    for c in sorted({got["client"] for got in ranks}):
+        leaves = {k: v[None].detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss0, grads = rounds.make_grad(registry.client_losses(cfg), spec)(
+            leaves, {n: v[c:c + 1] for n, v in batches[0].items()})
+        mine = [r for r, got in enumerate(ranks) if got["client"] == c]
+        for k, g in zip(sorted(leaves), grads):
+            for r in mine:
+                want = specs.shard_leaf(g[0], pspecs[k][1:], ats[r])
+                got = ranks[r]["round0"]["grads"][k].to(dev)
+                grad_shares[k] = max(grad_shares.get(k, 0.0), _grad_ratio(
+                    torch, got, want, MESH_TRAIN_GRAD_RTOL,
+                    MESH_TRAIN_GRAD_ATOL))
+                del got, want
+        loss0 = loss0.cpu()
+        loss0_rel = max([loss0_rel] + [float(
+            ((ranks[r]["round0"]["loss"][:1] - loss0).abs()
+             / loss0.abs()).max()) for r in mine])
+        del leaves, grads
     for got in ranks:
         del got["round0"]
     _free(torch)
@@ -5659,7 +6007,7 @@ def held_l2_train(torch, dev, arch, ranks, label, path, extra):
                                 K_L2, seed=L2_SEED, device=dev)
     t1 = time.perf_counter()
     for k in range(K_L2):
-        runner.step(k, {"tokens": tokens[k]})
+        runner.step(k, batches[k])
     _sync(torch, dev)
     one_ms = 1e3 * (time.perf_counter() - t1) / K_L2
     want_losses = runner.rows["local_loss"].cpu()
@@ -5675,15 +6023,15 @@ def held_l2_train(torch, dev, arch, ranks, label, path, extra):
                   f"{CARD_CPU_RTOL})"))
     shares, update_shares, bitwise = {}, {}, True
     for k, sp in pspecs.items():
-        final = runner.state.params[k][0]
-        update_shares[k] = float((final - params[k]).abs().max()) / (
-            CARD_CPU_ATOL + CARD_CPU_RTOL * float(final.abs().max()))
         for r, at in enumerate(ats):
+            final = runner.state.params[k][ranks[r]["client"]]
             want = specs.shard_leaf(final, sp[1:], at).cpu()
             diff, share = _at_scale(torch, ranks[r]["params"][k], want)
             bitwise = bitwise and diff == 0.0
             shares[k] = max(shares.get(k, 0.0), share)
-    del runner, params, tokens
+        update_shares[k] = float((final - params[k]).abs().max()) / (
+            CARD_CPU_ATOL + CARD_CPU_RTOL * float(final.abs().max()))
+    del runner, params, batches
     _free(torch)
     worst = max(shares.values())
     gates.append(("params at scale", worst <= 1.0,
@@ -5977,6 +6325,10 @@ def main(argv=None) -> int:
     lap("phase 12a-12b")
     family_train = phase_family_train(torch, dev)
     lap("phase 12c")
+    front_serve = phase_front_serve(torch, dev)
+    lap("phase 13a-13c")
+    front_train = phase_front_train(torch, dev)
+    lap("phase 13d")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
@@ -5987,7 +6339,8 @@ def main(argv=None) -> int:
                   for arch, counts in smoke_trains.items()},
                "qwen3 serve": qlaunches,
                **sharded, **mesh_serve, **mesh_train, **l2_train,
-               **family_serve, **family_train}
+               **family_serve, **family_train, **front_serve,
+               **front_train}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

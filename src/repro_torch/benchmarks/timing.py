@@ -18,6 +18,9 @@ SPIN_CYCLES_PER_S = 2.0e9
 # profiles of one timing, at most, until the device operations come out a
 # whole number a call
 PROFILE_ATTEMPTS = 5
+# events_ms repeats its trial of back-to-back calls only while one lasts
+# less than this (seconds); a longer one is read once
+TRIAL_REPEAT_S = 0.1
 
 # label -> both device-time readings of a function timed by kernel_ms
 READINGS = {}
@@ -55,13 +58,16 @@ def device_ops(prof):
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def events_ms(fn, reps=20, warmup=3):
+def events_ms(fn, reps=20, warmup=3, trials=3):
     """Device ms per call of ``fn`` by CUDA events: ``reps`` back-to-back
     calls queued behind a spin kernel that outlasts the host's enqueue of
     them, so the events time the device's work and the gaps between its
-    launches, not the host. Returns (ms, hidden): ``hidden`` is False when
-    the spin ended before the host had queued every call, so the reading
-    may hold host time."""
+    launches, not the host. A disturbance (the host preempted past the
+    spin, another process on the card) only lengthens a trial, so the
+    trial is taken up to ``trials`` times, while one lasts under
+    TRIAL_REPEAT_S, and the least is kept. Returns (ms, hidden) of that
+    trial: ``hidden`` is False when the spin ended before the host had
+    queued every call, so the reading may hold host time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -73,14 +79,21 @@ def events_ms(fn, reps=20, warmup=3):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     spin_s = min(2.0, 2 * enqueue_s + 1e-3)
-    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * spin_s))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    hidden = not start.query()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, hidden
+    best = None
+    for _ in range(trials):
+        torch.cuda._sleep(int(SPIN_CYCLES_PER_S * spin_s))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hidden = not start.query()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        if best is None or ms < best[0]:
+            best = (ms, hidden)
+        if ms > TRIAL_REPEAT_S * 1e3:
+            break
+    return best[0] / reps, best[1]
 
 
 def kernel_ms(fn, label, reps=20, ops=None):

@@ -139,7 +139,11 @@ def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
     ``build_decode_step`` under ``decode_plan`` (default ``plan``) for each
     column of ``tokens`` [B, n] (teacher-forced), the cache holding
     ``max_len`` positions (default prompt + n). ``params``, ``batch`` and
-    ``tokens`` are whole, on this rank's device; the rank cuts its blocks
+    ``tokens`` are whole, on this rank's device (``batch`` as
+    ``transformer.prefill`` takes it: tokens, a VLM's patches and text, or
+    the audio encoder's frames with optional ``mask_positions``; an
+    encoder-only config takes ``tokens`` [B, 0] and runs the prefill
+    alone); the rank cuts its blocks
     (``specs.shard_tree``, copies) and runs on them alone; with
     ``blocks`` ``params`` are already this rank's blocks under the
     plans' param specs (``specs.param_pspecs``, the same under both
@@ -154,21 +158,25 @@ def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
 
     dev = mesh.device
     b, n = tokens.shape
-    prompt = sum(batch[k].shape[1] for k in ("patches", "tokens")
+    prompt = sum(batch[k].shape[1] for k in ("patches", "tokens", "frames")
                  if k in batch)
     max_len = max_len or prompt + n
     pshape = ShapeConfig("mesh_prefill", prompt, b, "prefill")
     dshape = ShapeConfig("mesh_decode", max_len, b, "decode")
-    prefill, _, _ = steps.build_prefill_step(
+    prefill, _, pplan = steps.build_prefill_step(
         cfg, pshape, mesh, False, plan=plan, decode_plan=decode_plan,
         max_len=max_len)
-    decode, _, dplan = steps.build_decode_step(cfg, dshape, mesh, False,
-                                               plan=decode_plan or plan)
+    decode, dplan = prefill, pplan
+    if cfg.has_decode:
+        decode, _, dplan = steps.build_decode_step(
+            cfg, dshape, mesh, False, plan=decode_plan or plan)
+    elif n:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     local = params if blocks else tree_lib.tree_map(
         lambda x: x.clone(), specs.shard_tree(params, prefill.in_specs[0],
                                               mesh))
-    lbatch = specs.shard_tree(batch, prefill.in_specs[1], mesh)
-    ltokens = specs.shard_leaf(tokens, decode.in_specs[2] + (None,), mesh)
+    lbatch = specs.shard_tree(batch, specs.serve_batch_pspecs(pplan, batch),
+                              mesh)
     mesh.received_by_axes.clear()
     _sync(dev)
     t0 = time.perf_counter()
@@ -178,6 +186,9 @@ def serve_on_mesh(cfg: ModelConfig, params, batch, tokens: torch.Tensor,
     received = {"prefill": dict(mesh.received)}
     mesh.received_by_axes.clear()
     out, step_ms = [logits], []
+    if n:
+        ltokens = specs.shard_leaf(tokens, decode.in_specs[2] + (None,),
+                                   mesh)
     for i in range(n):
         t0 = time.perf_counter()
         logits, state = decode(local, state, ltokens[:, i], prompt + i)

@@ -20,18 +20,23 @@ blocks by the split the plan's specs imply (``models/parallel.py``):
   model rank, the weighted outputs summed: no all-to-all), the dense
   MLPs' column and row blocks (partial sums all-reduced), the vocab-split
   embedding, logits left split on the vocab;
+- the mLSTM's and sLSTM's head blocks (d_in's channels: ``w_up``'s
+  column block, u gathered once for the projections, the recurrence on
+  the rank's heads, the output norm's statistic summed over model), the
+  VLM's patches beside its vocab-split lookup and the audio encoder's
+  positional conv on its channels;
 - a decode cache split on its positions over ``plan.seq_axes`` (GQA's k
-  and v, MLA's latent ``ckv`` and ``k_rope``), and Mamba's decode state
-  on its channels over the model axes.
+  and v, MLA's latent ``ckv`` and ``k_rope``), and the recurrent states
+  over the model axes: Mamba's on its channels, the mLSTM's ``C``, ``n``,
+  ``m`` and the sLSTM's ``c``, ``n``, ``m``, ``h`` on their heads, each
+  conv window on its channels.
 
 A step takes and returns this rank's blocks; ``step.in_specs`` and
 ``step.out_specs`` are the spec trees that place them (the reference's
 ``in_shardings`` / ``out_shardings``; ``sharding.specs.shard_tree`` cuts a
-rank's blocks, ``gather_tree`` puts the ranks' back together). A leaf
-that the plan splits over an axis of extent > 1 and that no forward here
-splits (the xLSTM blocks, the VLM's and the audio encoder's front-ends
-and every leaf of those archs) makes the builder raise ``ValueError``;
-their tensor-parallel forwards are ROADMAP 9b-3b.
+rank's blocks, ``gather_tree`` puts the ranks' back together). A
+decode-state leaf that the plan splits on a dim no forward here splits
+makes the builder raise ``ValueError``.
 
 :func:`build_train_step` takes the reference's ``(cfg, shape, mesh,
 multi_pod, dtype, spec_override=None, plan=None)`` and returns ``(step,
@@ -58,7 +63,8 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import aggregation, rounds
 from repro_torch.core import topology as topology_lib
-from repro_torch.models import registry, ssm as ssm_lib, transformer
+from repro_torch.models import registry, ssm as ssm_lib, transformer, \
+    xlstm as xlstm_lib
 from repro_torch.models.parallel import Parallel
 from repro_torch.sharding import plans as plans_lib
 from repro_torch.sharding import specs as specs_lib
@@ -116,51 +122,34 @@ class MeshStep:
         return self.fn(*args, **kwargs)
 
 
-def _ported(cfg: ModelConfig) -> bool:
-    """Whether every block of the model has a forward here that splits
-    over the model axes: attention (GQA or MLA), Mamba, dense and MoE
-    MLPs, in a decoder with no VLM or audio front-end."""
-    return (set(cfg.pattern) <= {"attn", "ssm"}
-            and cfg.family not in ("vlm", "audio"))
-
-
 def _split_dims(spec: specs_lib.Spec, mesh, skip=()) -> list:
     return [(d, specs_lib.split_entry(e, mesh)) for d, e in enumerate(spec)
             if d not in skip and specs_lib.split_entry(e, mesh)]
 
 
 # decode-state leaf -> the dim (past a period axis) the forwards split:
-# the kv caches' and the latent cache's positions, Mamba's channels
-_STATE_SPLITS = {"k": 1, "v": 1, "ckv": 1, "k_rope": 1, "conv": 2, "h": 1}
+# the kv caches' and the latent cache's positions, Mamba's channels (its
+# scan state ``h`` [B, d_in, ds]), the xLSTM states' heads (``C``, ``n``,
+# ``m``, the sLSTM's ``c`` and ``h`` [B, H, hd]), every conv window's
+# channels
+_STATE_SPLITS = {"k": 1, "v": 1, "ckv": 1, "k_rope": 1, "conv": 2, "h": 1,
+                 "C": 1, "n": 1, "m": 1, "c": 1}
 
 
-def _refuse_unported(cfg: ModelConfig, mesh, plan, pspecs, sspecs=None
-                     ) -> None:
-    """Raise ``ValueError`` naming the first leaf that the plan splits over
-    axes of extent > 1 where no forward here splits it: a param leaf
-    split over non-FSDP axes in an arch with an xLSTM block or a VLM or
-    audio front-end, a decode-state leaf split past its batch dim other
-    than the kv or latent caches' positions and Mamba's channels."""
-    fsdp = set(plan.fsdp_axes)
-    why = ("the tensor-parallel forwards of the xLSTM blocks and of the "
-           "VLM and audio front-ends are ROADMAP 9b-3b")
-    if not _ported(cfg):
-        for path, spec in tree_lib.flatten(pspecs, tuples=False).items():
-            for d, axes in _split_dims(spec, mesh):
-                if not set(axes) <= fsdp:
-                    raise ValueError(
-                        f"{cfg.name}: the plan splits leaf {path!r} (dim {d})"
-                        f" over {axes}; {why}")
-    for path, spec in tree_lib.flatten(sspecs or {}, tuples=False).items():
+def _refuse_unsplit_state(cfg: ModelConfig, mesh, sspecs) -> None:
+    """Raise ``ValueError`` naming the first decode-state leaf that the
+    plan splits over axes of extent > 1 on a dim past its batch dim where
+    no forward here splits it (a guard: every leaf of the zoo's states is
+    split where :data:`_STATE_SPLITS` says)."""
+    for path, spec in tree_lib.flatten(sspecs, tuples=False).items():
         lead = 1 if path.startswith("period/") else 0
-        kind = specs_lib._kind_of_path(cfg, path)
-        want = _STATE_SPLITS.get(path.split("/")[-1]) \
-            if kind in ("attn", "ssm") else None
+        want = _STATE_SPLITS.get(path.split("/")[-1])
         for d, axes in _split_dims(spec, mesh, skip=(lead,)):
             if want is None or d != lead + want:
                 raise ValueError(
                     f"{cfg.name}: the plan splits decode-state leaf {path!r}"
-                    f" (dim {d}) over {axes}; {why}")
+                    f" (dim {d}) over {axes}, where no forward here splits "
+                    "it")
 
 
 def _check_batch(cfg, shape, plan, mesh) -> None:
@@ -192,19 +181,27 @@ def _prefill_state_specs(cfg: ModelConfig, plan, state) -> Any:
     """The layout prefill leaves its state in on a rank: rows over the
     batch axes, the kv caches' heads over the model axes where the
     attention computed a block of them, Mamba's conv window and scan
-    state on the channels the block computed (MLA's latent cache is
-    whole)."""
-    d_in = ssm_lib._dims(cfg)[1]
+    state on the channels the block computed, the xLSTM states on the
+    heads and the conv windows on the channels the block computed (MLA's
+    latent cache is whole)."""
+    ssm_in, xlstm_in = ssm_lib._dims(cfg)[1], xlstm_lib._dims(cfg)[1]
+
+    def whole(kind, name):   # the split dim's extent on one device
+        if kind == "ssm":
+            return ssm_in
+        return xlstm_in if name == "conv" else cfg.n_heads
 
     def one(path, x):
         lead = (None,) if path.startswith("period/") else ()
         spec = [plan.batch_axes or None] + [None] * (x.dim() - len(lead) - 1)
         name = path.split("/")[-1]
-        if name in ("k", "v") and x.shape[-2] < cfg.n_kv_heads:
-            spec[2] = plan.model_axes
-        elif specs_lib._kind_of_path(cfg, path) == "ssm":
+        kind = specs_lib._kind_of_path(cfg, path)
+        if kind == "attn":
+            if name in ("k", "v") and x.shape[-2] < cfg.n_kv_heads:
+                spec[2] = plan.model_axes
+        else:
             dim = _STATE_SPLITS[name]
-            if x.shape[len(lead) + dim] < d_in:
+            if x.shape[len(lead) + dim] < whole(kind, name):
                 spec[dim] = plan.model_axes
         return lead + tuple(spec)
 
@@ -265,9 +262,9 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     L1 (``plan.client_axes``): the clients split over the client axes; the
     model axes split each client's params as ``param_pspecs`` gives them,
     and tensor parallelism runs inside each client's loss
-    (``registry.client_losses(cfg, par=...)``: the dense GQA decoders'
-    forwards with differentiable collectives and a vocab-parallel
-    cross-entropy, ``models/parallel.py``). The round's client collectives
+    (``registry.client_losses(cfg, par=...)``: every family's forward
+    with differentiable collectives and a vocab-parallel cross-entropy,
+    ``models/parallel.py``). The round's client collectives
     run over the client axes alone (the engine gets
     ``mesh.view(plan.client_axes)``). At model extent 1 the step is the
     client-sharded engine of ``launch.train --devices``.
@@ -308,11 +305,9 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     replicated on every rank. ``step.init_state(params, seed)`` makes a
     rank's round-0 state.
 
-    A family whose leaves the plan splits over the model axes and no
-    forward here splits raises ``ValueError`` (ROADMAP 9b-3b: xlstm-125m,
-    paligemma-3b and hubert-xlarge at model extent > 1), as do the round
-    stages that would need a reduction over each whole client model
-    (``detect_lazy``, the geometric median) on split leaves."""
+    The round stages that would need a reduction over each whole client
+    model (``detect_lazy``, the geometric median) raise ``ValueError`` on
+    split leaves."""
     cfg = resolve_cfg(cfg, shape)
     plan = plan or plans_lib.train_plan(cfg, shape, mesh, multi_pod)
     rspec = spec_override or round_spec_for(cfg, shape, plan)
@@ -333,7 +328,6 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         specs_lib.param_pspecs(cfg, mesh, plan, params_abs), tuples=False)
     # each client's leaves: the specs less the client dim
     mspecs = {k: spec[1:] for k, spec in pspecs.items()}
-    _refuse_unported(cfg, mesh, plan, mspecs)
     par = Parallel(mesh, plan, mspecs, batch_loss=l2)
     model_axes, batch_axes = par.model_axes, par.batch_axes
     m = shape.global_batch // plan.n_clients
@@ -435,7 +429,7 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     sspecs = specs_lib.decode_state_pspecs(
         cfg, mesh, decode_plan,
         registry.decode_state_specs(cfg, shape.global_batch, max_len, dtype))
-    _refuse_unported(cfg, mesh, plan, pspecs, sspecs)
+    _refuse_unsplit_state(cfg, mesh, sspecs)
     par = Parallel(mesh, plan, tree_lib.flatten(pspecs, tuples=False))
 
     def prefill(params, batch):
@@ -468,7 +462,7 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     dec = registry.decode_input_specs(cfg, shape, dtype)
     pspecs = specs_lib.param_pspecs(cfg, mesh, plan, params_abs)
     sspecs = specs_lib.decode_state_pspecs(cfg, mesh, plan, dec["state"])
-    _refuse_unported(cfg, mesh, plan, pspecs, sspecs)
+    _refuse_unsplit_state(cfg, mesh, sspecs)
     par = Parallel(mesh, plan, tree_lib.flatten(pspecs, tuples=False),
                    seq_axes=_seq_axes(sspecs, mesh))
 

@@ -10,9 +10,10 @@ computes what it computes on one device.
 
 The split each function takes is read from the leaves it is handed, not
 from the arch: a column block of ``w_q`` / ``w_k`` / ``w_v`` / ``w_in`` /
-``w_gate`` / ``w_uq`` / ``w_uk`` / ``w_uv`` is narrower than the
-config's width, and a row block of ``w_o`` / ``w_out`` shorter, in which
-case its product is a partial sum over the model axes; a vocab block of
+``w_gate`` / ``w_uq`` / ``w_uk`` / ``w_uv`` / ``w_up`` (and the xLSTM's
+gate projections) is narrower than the config's width, and a row block
+of ``w_o`` / ``w_out`` / ``w_down`` shorter, in which case its product is
+a partial sum over the model axes; a vocab block of
 ``embed`` is shorter than the vocab; an expert block of the MoE's
 ``[E, ...]`` stacks holds fewer than ``E`` experts. A dim that does not
 divide by the model extent stays whole (``specs._div``) and its function
@@ -34,6 +35,24 @@ By block kind, over the model axes:
   MoE     expert blocks: every rank routes the same tokens, dispatches
           the choices its experts take, and the weighted outputs are
           summed over the model ranks (``moe.py``); no all-to-all
+  mLSTM   channel blocks of d_in, which are head blocks: ``w_up``'s column
+          block of ``[u | z]`` gathered and re-cut (:func:`column_pair`),
+          the conv on the rank's channels, u gathered once for the
+          column blocks of ``w_q`` / ``w_k`` / ``w_v`` / ``w_i`` /
+          ``w_f``, the recurrence on the rank's heads, the output norm's
+          statistic summed over the model ranks, ``w_down``'s row block
+          summed (``xlstm.py``)
+  sLSTM   the same with a plain column block of ``w_up``; the input
+          projections of all T steps on the rank's heads before the time
+          loop, so no collective runs inside it (``xlstm.py``)
+  front   the VLM's patches whole beside the vocab-split lookup of its
+  -ends   text; the audio encoder's positional conv on the rank's channels,
+          gathered whole (``transformer.py``)
+
+A block whose column blocks cut a head (H not dividing by the model
+extent while d_in does) gathers the projections' columns over the model
+axes and runs every head on every rank, its row block taking the rank's
+channels (GQA's ``attention._heads``, MLA's weights, the xLSTM blocks).
 
 Under autograd (the train step on a mesh) the collectives over the model
 axes are differentiable, by Megatron's convention: every model rank
@@ -159,6 +178,26 @@ class _GatherWhole(torch.autograd.Function):
 
 def _differentiated(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
+
+
+def column_pair(par, x: torch.Tensor, w: torch.Tensor, width: int, c: int,
+                tp: bool):
+    """(a, b): the ``c`` channels this rank computes of each half of a
+    fused projection ``x @ w = [a | b]`` of ``2 width`` columns (Mamba's
+    ``w_in``, the mLSTM's ``w_up``). Under ``tp`` they are the rank's block
+    of ``width`` channels, else every channel. A column block of ``w`` (its
+    ``[a | b]`` columns cut in contiguous blocks over the model axes: at
+    model 2 a block is all of a or all of b) is gathered and re-cut, ``x``
+    entering it; read whole (not ``tp``) its gather's gradient is cut, not
+    summed (``gather_whole``)."""
+    split = par is not None and w.shape[-1] < 2 * width
+    if split:
+        x = par.enter_model(x)
+    xz = x @ w
+    if split:
+        xz = par.gather_model(xz, -1) if tp else par.gather_whole(xz, -1)
+    lo = par.model_index * c if tp else 0
+    return xz[..., lo:lo + c], xz[..., width + lo:width + lo + c]
 
 
 @dataclasses.dataclass(eq=False)

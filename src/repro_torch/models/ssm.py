@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
-from repro_torch.models import layers
+from repro_torch.models import layers, parallel
 
 Params = Dict[str, object]
 
@@ -73,21 +73,14 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig,
 def _in_proj(params: Params, cfg: ModelConfig, x: torch.Tensor, par):
     """(u_raw, z, tp): the input projection's u and z at the channels
     this rank computes, and whether those are a block of d_in (``tp``:
-    the block's output is then a partial sum over the model axes). A
-    column block of ``w_in`` (its ``[u | z]`` columns cut in contiguous
-    blocks over the model axes) is gathered and re-cut; ``x`` enters it
-    (under autograd its gradient, partial on each rank, is summed)."""
+    the block's output is then a partial sum over the model axes); a
+    column block of ``w_in`` is gathered and re-cut
+    (``parallel.column_pair``)."""
     _, d_in, _ = _dims(cfg)
     c = params["w_out"].shape[-2]                    # channels computed
     tp = par is not None and c < d_in
-    split_in = params["w_in"].shape[-1] < 2 * d_in
-    if split_in:
-        x = par.enter_model(x)
-    xz = x @ params["w_in"]
-    if split_in:
-        xz = par.gather_model(xz, -1) if tp else par.gather_whole(xz, -1)
-    lo = par.model_index * c if tp else 0
-    return xz[..., lo:lo + c], xz[..., d_in + lo:d_in + lo + c], tp
+    u_raw, z = parallel.column_pair(par, x, params["w_in"], d_in, c, tp)
+    return u_raw, z, tp
 
 
 def _x_proj(params: Params, u: torch.Tensor, par, tp: bool):

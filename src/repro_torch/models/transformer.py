@@ -44,13 +44,14 @@ FSDP axes just before it runs; a GQA or MLA block with its heads split
 over the model axes runs tensor-parallel (``attention.attn_forward`` /
 ``attn_decode``), a Mamba block on its channels of d_in
 (``ssm.ssm_forward`` / ``ssm_decode``), an MoE block on its experts
-(``moe.moe_apply``), and so do a dense MLP with its hidden width split
-(``layers.mlp_apply``) and a vocab-split embedding: a lookup by range,
-summed over the model axes, and a head whose logits stay split on the
-vocab (``train_loss`` then takes a vocab-parallel cross-entropy). An MoE
-block on a batch split over ranks routes with every rank's choices
-(``moe.route``). The xLSTM blocks take no ``par`` (``launch/steps.py``
-refuses their model splits). Without ``par`` nothing changes.
+(``moe.moe_apply``), an mLSTM or sLSTM block on its heads (``xlstm``),
+and so do a dense MLP with its hidden width split
+(``layers.mlp_apply``), the audio front-end's positional conv on its
+channels (:func:`_pos_conv`) and a vocab-split embedding: a lookup by
+range, summed over the model axes, and a head whose logits stay split on
+the vocab (``train_loss`` then takes a vocab-parallel cross-entropy). An
+MoE block on a batch split over ranks routes with every rank's choices
+(``moe.route``). Without ``par`` nothing changes.
 
 On the card the GQA and MLA forwards launch the flash kernel and the Mamba
 forward the scan kernel; under grad both go through their
@@ -165,12 +166,6 @@ def _mlp_half(p: Params, cfg: ModelConfig, x, moe_drops=None, par=None):
                                 par if split else None), None
 
 
-def _mixer_par(kind: str, par) -> dict:
-    """The recurrent mixer's ``par`` keyword: Mamba's (the xLSTM mixers
-    run whole)."""
-    return {"par": par} if kind == "ssm" else {}
-
-
 def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
                    mask: dict, moe_drops=None, par=None):
     """Full-sequence block. Returns (x, aux or None, cache)."""
@@ -180,8 +175,7 @@ def _block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
                                             mask, par)
     else:
         with torch.profiler.record_function(MIXER_RANGE + kind):
-            out, cache = _FORWARD[kind](p["mixer"], cfg, h,
-                                        **_mixer_par(kind, par))
+            out, cache = _FORWARD[kind](p["mixer"], cfg, h, par=par)
     x = x + out
     aux = None
     if "norm2" in p:
@@ -196,8 +190,7 @@ def _block_decode(p: Params, cfg: ModelConfig, kind: str, x_t, pos: int,
         out, cache = attention.attn_decode(p["mixer"], cfg, h, pos, cache,
                                            par)
     else:
-        out, cache = _DECODE[kind](p["mixer"], cfg, h, cache,
-                                   **_mixer_par(kind, par))
+        out, cache = _DECODE[kind](p["mixer"], cfg, h, cache, par=par)
     x_t = x_t + out
     if "norm2" in p:
         x_t, _ = _mlp_half(p, cfg, x_t, par=par)
@@ -265,6 +258,23 @@ def _lookup(emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
     return par.sum_model(out)
 
 
+def _pos_conv(p: Params, frames: torch.Tensor, cfg: ModelConfig, par=None
+              ) -> torch.Tensor:
+    """The audio front-end's positional conv of ``frames`` [B, S, D].
+    Under ``par`` a channel block of ``pos_conv`` (shorter than D) runs on
+    the rank's channels of the whole frames, which enter the block (under
+    autograd the gradient of the frames blended with ``mask_emb``, each
+    rank's on its channels, is summed), and the result is gathered over
+    the model axes for every rank to read whole (``gather_whole``: its
+    gradient cut to the block)."""
+    c = p["w"].shape[-1]
+    if par is None or c == cfg.d_model:
+        return layers.causal_conv_apply(p, frames)
+    lo = par.model_index * c
+    own = par.enter_model(frames)[..., lo:lo + c]
+    return par.gather_whole(layers.causal_conv_apply(p, own), -1)
+
+
 def _embed_inputs(params: Params, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor], par=None):
     """(the model's input [B, S, D], labels or None, loss mask or None), as
@@ -276,8 +286,9 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
     frames at ``mask_positions`` [B, S] (0/1) when given, plus the
     positional conv of the result, the labels ``targets`` and the mask
     ``mask_positions`` as float; else the embeddings of ``tokens``, with
-    ``labels`` and ``loss_mask`` as given. ``par``: see
-    :func:`_lookup`."""
+    ``labels`` and ``loss_mask`` as given. ``par``: see :func:`_lookup`
+    (the VLM's patches arrive whole on every model rank beside the
+    lookup of its text) and :func:`_pos_conv`."""
     emb = _unshard(par, params["embed"], "embed")
     if cfg.family == "vlm":
         patches = batch["patches"].to(emb.dtype)
@@ -300,7 +311,7 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
             m = mask[..., None].to(emb.dtype)
             frames = frames * (1 - m) + params["mask_emb"] * m
             mask = mask.to(torch.float32)
-        x = frames + layers.causal_conv_apply(params["pos_conv"], frames)
+        x = frames + _pos_conv(params["pos_conv"], frames, cfg, par)
         return x, batch.get("targets"), mask
     return (_lookup(emb, batch["tokens"], cfg, par), batch.get("labels"),
             batch.get("loss_mask"))

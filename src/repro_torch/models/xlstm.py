@@ -30,6 +30,34 @@ takes no gradient, so that reason does not bind here.
 
 Decode writes the states in place (``copy_``), as ``ssm_decode`` does, and
 returns them.
+
+Under ``par`` (``models/parallel.py``, a step on a mesh) a block runs on
+this rank's channels of d_in when its channel leaves are blocks over the
+model axes (``w_down``'s rows shorter than d_in); d_in = H hd, so a block
+of channels is a block of heads when H divides by the model extent. The
+mLSTM's ``w_up`` column block of ``[u | z]`` is gathered and re-cut to the
+rank's channels of u and of z (``parallel.column_pair``), the sLSTM's is
+the rank's channels of u; the conv runs on those channels; u is gathered
+over the model axes once (``gather_model``: each rank reads it only
+through its own columns) for the column blocks of ``w_q`` / ``w_k`` /
+``w_v`` / ``w_i`` / ``w_f`` (mLSTM) or ``w_z`` / ``w_i`` / ``w_f`` /
+``w_o`` (sLSTM), which give the rank's heads; the recurrence runs on them
+with the rank's ``f_bias`` and ``r_*`` blocks (the heads are independent:
+no collective inside it); the output norm, an RMS over the whole d_in, sums
+the rank's sum of squares over the model ranks (``enter_model(sum_model
+(.))``: under autograd each rank reads the sum only through its own
+channels, so its gradient is summed back); ``w_down``'s row block gives a
+partial sum of the output. The sLSTM's input projections of all T steps
+are computed before its time loop on the rank's head block, so not one
+collective runs inside the T steps. Where the column blocks cut a head (H
+not dividing by the model extent, d_in dividing: ``w_i``, ``w_f``, the
+mLSTM's ``f_bias`` and the sLSTM's ``r_*`` stay whole), the projections'
+columns are gathered over the model axes once, before the recurrence, and
+every rank runs every head (as ``attention._heads`` does), the whole leaves
+read inside entering the split block and the sLSTM's ``f_bias`` block
+gathered; the row block then takes the rank's channels. The decode state
+is the rank's heads (every head where they were gathered) and the rank's
+channels of the conv window.
 """
 from __future__ import annotations
 
@@ -40,7 +68,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import layers
+from repro_torch.models import attention, layers, parallel
 
 Params = Dict[str, object]
 
@@ -54,6 +82,45 @@ def _dims(cfg: ModelConfig):
     x = cfg.xlstm or XLSTMConfig()
     d_in = int(x.proj_factor * cfg.d_model)
     return x, d_in, d_in // cfg.n_heads
+
+
+def _split(params: Params, cfg: ModelConfig, par) -> Tuple[int, bool]:
+    """(c, tp): the channels of d_in the block computes (``w_down``'s
+    rows) and whether they are a block of d_in (the output then a partial
+    sum over the model axes)."""
+    _, d_in, _ = _dims(cfg)
+    c = params["w_down"].shape[-2]
+    return c, par is not None and c < d_in
+
+
+def _channels(h: torch.Tensor, par, tp: bool, c: int, head0: int,
+              hd: int) -> torch.Tensor:
+    """This rank's ``c`` channels of ``h`` [..., h hd], whose heads start
+    at head ``head0``: all of ``h`` unless the heads were gathered (or the
+    block runs whole)."""
+    if not tp or h.shape[-1] == c:
+        return h
+    c0 = par.model_index * c - head0 * hd
+    return h[..., c0:c0 + c]
+
+
+def _out_norm(params: Params, cfg: ModelConfig, h: torch.Tensor, par,
+              tp: bool) -> torch.Tensor:
+    """The RMS norm of ``h`` over the whole d_in; under ``tp`` ``h`` is the
+    rank's channels (and ``o_norm/scale`` their block): the sum of squares
+    summed over the model ranks, entering the channel block."""
+    if not tp:
+        return layers.rms_norm(params["o_norm"], h, cfg.norm_eps)
+    _, d_in, _ = _dims(cfg)
+    x32 = h.to(torch.float32)
+    ss = par.enter_model(par.sum_model(x32.square().sum(-1, keepdim=True)))
+    out = x32 * torch.rsqrt(ss / d_in + cfg.norm_eps)
+    return (out * params["o_norm"]["scale"].to(torch.float32)).to(h.dtype)
+
+
+def _down(params: Params, h: torch.Tensor, par, tp: bool) -> torch.Tensor:
+    out = h @ params["w_down"]
+    return par.sum_model(out) if tp else out
 
 
 def _conv_state(u_raw: torch.Tensor, width: int) -> torch.Tensor:
@@ -93,18 +160,29 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _mlstm_gates_qkv(params: Params, cfg: ModelConfig, u: torch.Tensor):
-    """u: [B, T, d_in] after conv and silu -> q, k, v [B, T, H, hd] and the
-    input / forget pre-activations [B, T, H] in fp32."""
+def _mlstm_gates_qkv(params: Params, cfg: ModelConfig, u: torch.Tensor,
+                     par=None, tp: bool = False):
+    """u: [B, T, c] after conv and silu -> q, k, v [B, T, h, hd] and the
+    input / forget pre-activations [B, T, h] in fp32 at the heads this
+    rank runs, and the first one's index. Without ``tp`` u has every
+    channel and h = H; under it u is the rank's channels, gathered once,
+    and the heads those of the column blocks (every head where they cut
+    one: the columns gathered, the whole ``w_i`` / ``w_f`` / ``f_bias``
+    entering the split block)."""
     _, _, hd = _dims(cfg)
-    b, t, _ = u.shape
-    q = (u @ params["w_q"]).reshape(b, t, cfg.n_heads, hd)
-    k = (u @ params["w_k"]).reshape(b, t, cfg.n_heads, hd) * hd ** -0.5
-    v = (u @ params["w_v"]).reshape(b, t, cfg.n_heads, hd)
-    i_pre = (u @ params["w_i"]).to(torch.float32)
-    f_pre = (u @ params["w_f"]).to(torch.float32) \
-        + params["f_bias"].to(torch.float32)
-    return q, k, v, i_pre, f_pre
+    par = par if tp else None
+    if par is not None:
+        u = par.gather_model(u, -1)
+    q, head0 = attention._heads(par, u, params["w_q"], cfg.n_heads, hd,
+                                False)
+    k, _ = attention._heads(par, u, params["w_k"], cfg.n_heads, hd, False)
+    v, _ = attention._heads(par, u, params["w_v"], cfg.n_heads, hd, False)
+    w_i, w_f, f_bias = params["w_i"], params["w_f"], params["f_bias"]
+    if par is not None and q.shape[2] == cfg.n_heads:   # whole gate leaves
+        w_i, w_f, f_bias = (par.enter_model(g) for g in (w_i, w_f, f_bias))
+    i_pre = (u @ w_i).to(torch.float32)
+    f_pre = (u @ w_f).to(torch.float32) + f_bias.to(torch.float32)
+    return q, k * hd ** -0.5, v, i_pre, f_pre, head0
 
 
 def _mlstm_step(carry, inp):
@@ -199,26 +277,28 @@ def mlstm_chunk(t: int, chunk: Optional[int] = None) -> int:
 
 
 def mlstm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                  chunk: Optional[int] = None
+                  chunk: Optional[int] = None, par=None
                   ) -> Tuple[torch.Tensor, Params]:
     """x: [B, T, D] -> (out [B, T, D], final state). ``chunk`` as in
-    :func:`mlstm_chunk`."""
+    :func:`mlstm_chunk`; ``par``: see the module docstring."""
     xcfg, d_in, hd = _dims(cfg)
     b, t, _ = x.shape
-    u_raw, z = (x @ params["w_up"]).chunk(2, dim=-1)
+    c, tp = _split(params, cfg, par)
+    u_raw, z = parallel.column_pair(par, x, params["w_up"], d_in, c, tp)
     u = F.silu(layers.causal_conv_apply(params["conv"], u_raw))
-    q, k, v, i_pre, f_pre = _mlstm_gates_qkv(params, cfg, u)
-    carry = (torch.zeros((b, cfg.n_heads, hd, hd), device=x.device),
-             torch.zeros((b, cfg.n_heads, hd), device=x.device),
-             torch.full((b, cfg.n_heads), _NEG_M, device=x.device))
+    q, k, v, i_pre, f_pre, head0 = _mlstm_gates_qkv(params, cfg, u, par, tp)
+    nh = q.shape[2]
+    carry = (torch.zeros((b, nh, hd, hd), device=x.device),
+             torch.zeros((b, nh, hd), device=x.device),
+             torch.full((b, nh), _NEG_M, device=x.device))
     chunk = mlstm_chunk(t, chunk)
     if chunk:
         carry, hs = _mlstm_chunkwise(q, k, v, i_pre, f_pre, carry, chunk)
     else:
         carry, hs = _mlstm_sequential(q, k, v, i_pre, f_pre, carry)
-    h = layers.rms_norm(params["o_norm"], hs.reshape(b, t, d_in).to(x.dtype),
-                        cfg.norm_eps)
-    out = (h * F.silu(z)) @ params["w_down"]
+    hs = _channels(hs.reshape(b, t, nh * hd), par, tp, c, head0, hd)
+    h = _out_norm(params, cfg, hs.to(x.dtype), par, tp)
+    out = _down(params, h * F.silu(z), par, tp)
     return out, {"C": carry[0], "n": carry[1], "m": carry[2],
                  "conv": _conv_state(u_raw, xcfg.conv_width)}
 
@@ -238,23 +318,24 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def mlstm_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
-                 state: Params) -> Tuple[torch.Tensor, Params]:
+                 state: Params, par=None) -> Tuple[torch.Tensor, Params]:
     """x_t: [B, D], one step. Writes the new state into ``state`` in place
-    and returns it."""
-    _, d_in, _ = _dims(cfg)
-    u_raw, z = (x_t @ params["w_up"]).chunk(2, dim=-1)
+    and returns it. ``par``: see the module docstring (``state`` then
+    holds the rank's heads and channels)."""
+    _, d_in, hd = _dims(cfg)
+    c, tp = _split(params, cfg, par)
+    u_raw, z = parallel.column_pair(par, x_t, params["w_up"], d_in, c, tp)
     u_c, conv_state = layers.causal_conv_step(params["conv"], state["conv"],
                                               u_raw)
-    q, k, v, i_pre, f_pre = _mlstm_gates_qkv(params, cfg,
-                                             F.silu(u_c)[:, None, :])
+    q, k, v, i_pre, f_pre, head0 = _mlstm_gates_qkv(
+        params, cfg, F.silu(u_c)[:, None, :], par, tp)
     (C, n, m), h = _mlstm_step(
         (state["C"], state["n"], state["m"]),
         (q[:, 0].to(torch.float32), k[:, 0].to(torch.float32),
          v[:, 0].to(torch.float32), i_pre[:, 0], f_pre[:, 0]))
-    h = layers.rms_norm(params["o_norm"],
-                        h.reshape(x_t.shape[0], d_in).to(x_t.dtype),
-                        cfg.norm_eps)
-    out = (h * F.silu(z)) @ params["w_down"]
+    h = _channels(h.reshape(x_t.shape[0], -1), par, tp, c, head0, hd)
+    h = _out_norm(params, cfg, h.to(x_t.dtype), par, tp)
+    out = _down(params, h * F.silu(z), par, tp)
     for key, new in (("C", C), ("n", n), ("m", m), ("conv", conv_state)):
         state[key].copy_(new)
     return out, state
@@ -331,35 +412,63 @@ def _slstm_step_rec(r_cat: torch.Tensor, f_bias: torch.Tensor, carry,
     return (c, n, m_new, h_new), h_new
 
 
-def _f_bias(params: Params, cfg: ModelConfig) -> torch.Tensor:
+def _slstm_heads(params: Params, cfg: ModelConfig, u: torch.Tensor, par,
+                 tp: bool):
+    """(the input projections [..., 4, h hd] of u at the heads the rank
+    runs, their recurrent weights (:func:`_slstm_recurrent`) and
+    ``f_bias`` [1, h, hd], the first one's index) from u [..., c] after
+    conv and silu. Under ``tp`` u is the rank's channels, gathered once
+    for the projections' column blocks; where those cut a head (``r_*``
+    whole) the projections' columns and ``f_bias`` are gathered too and
+    the whole ``r_*`` enter the split block."""
     _, _, hd = _dims(cfg)
-    return params["f_bias"].to(torch.float32).reshape(1, cfg.n_heads, hd)
+    if tp:
+        u = par.gather_model(u, -1)
+    proj = _slstm_proj(params, u)
+    rec, f_bias = params, params["f_bias"]
+    nh, head0 = params["r_z"].shape[-3], 0
+    if tp and nh == cfg.n_heads:       # the column blocks cut a head
+        proj = par.gather_model(proj, -1)
+        f_bias = par.gather_model(f_bias, -1)
+        rec = {f"r_{g}": par.enter_model(params[f"r_{g}"]) for g in "zifo"}
+    elif tp:
+        head0 = par.model_index * nh
+    return (proj, _slstm_recurrent(rec),
+            f_bias.to(torch.float32).reshape(1, nh, hd), head0)
 
 
-def slstm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Params]:
+def _slstm_up(params: Params, x: torch.Tensor, par, tp: bool):
+    """x @ ``w_up``: the rank's channels of u under ``tp`` (x entering the
+    column block)."""
+    return (par.enter_model(x) if tp else x) @ params["w_up"]
+
+
+def slstm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                  par=None) -> Tuple[torch.Tensor, Params]:
     """x: [B, T, D] -> (out [B, T, D], final state): the input projections
-    of all T steps first, then the recurrence step by step."""
+    of all T steps first, then the recurrence step by step. ``par``: see
+    the module docstring; every collective runs before the time loop or
+    after it."""
     xcfg, d_in, hd = _dims(cfg)
     b, t, _ = x.shape
-    u_raw = x @ params["w_up"]
-    proj = _slstm_proj(params, F.silu(layers.causal_conv_apply(
-        params["conv"], u_raw)))                       # [B, T, 4, d_in]
-    shape = (b, cfg.n_heads, hd)
+    c, tp = _split(params, cfg, par)
+    u_raw = _slstm_up(params, x, par, tp)
+    proj, r_cat, f_bias, head0 = _slstm_heads(params, cfg, F.silu(
+        layers.causal_conv_apply(params["conv"], u_raw)), par, tp)
+    shape = (b, f_bias.shape[1], hd)
     carry = (torch.zeros(shape, device=x.device),
              torch.zeros(shape, device=x.device),
              torch.full(shape, _NEG_M, device=x.device),
              torch.zeros(shape, device=x.device))
-    r_cat, f_bias = _slstm_recurrent(params), _f_bias(params, cfg)
     hs = []
     for step in range(t):
         carry, h = _slstm_step_rec(r_cat, f_bias, carry, proj[:, step])
         hs.append(h)
     del proj
-    h = layers.rms_norm(params["o_norm"],
-                        torch.stack(hs, dim=1).reshape(b, t, d_in)
-                        .to(x.dtype), cfg.norm_eps)
-    return h @ params["w_down"], {
+    h = _channels(torch.stack(hs, dim=1).reshape(b, t, -1), par, tp, c,
+                  head0, hd)
+    h = _out_norm(params, cfg, h.to(x.dtype), par, tp)
+    return _down(params, h, par, tp), {
         "c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3],
         "conv": _conv_state(u_raw, xcfg.conv_width)}
 
@@ -380,18 +489,20 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def slstm_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
-                 state: Params) -> Tuple[torch.Tensor, Params]:
+                 state: Params, par=None) -> Tuple[torch.Tensor, Params]:
     """x_t: [B, D], one step. Writes the new state into ``state`` in place
-    and returns it."""
-    _, d_in, _ = _dims(cfg)
-    u_c, conv_state = layers.causal_conv_step(params["conv"], state["conv"],
-                                              x_t @ params["w_up"])
+    and returns it. ``par``: see the module docstring (``state`` then
+    holds the rank's heads and channels)."""
+    _, _, hd = _dims(cfg)
+    c, tp = _split(params, cfg, par)
+    u_c, conv_state = layers.causal_conv_step(
+        params["conv"], state["conv"], _slstm_up(params, x_t, par, tp))
+    proj, r_cat, f_bias, head0 = _slstm_heads(params, cfg, F.silu(u_c), par,
+                                              tp)
     carry = (state["c"], state["n"], state["m"], state["h"])
-    carry, h = _slstm_step_rec(_slstm_recurrent(params), _f_bias(params, cfg),
-                               carry, _slstm_proj(params, F.silu(u_c)))
-    h = layers.rms_norm(params["o_norm"],
-                        h.reshape(x_t.shape[0], d_in).to(x_t.dtype),
-                        cfg.norm_eps)
+    carry, h = _slstm_step_rec(r_cat, f_bias, carry, proj)
+    h = _channels(h.reshape(x_t.shape[0], -1), par, tp, c, head0, hd)
+    h = _out_norm(params, cfg, h.to(x_t.dtype), par, tp)
     for key, new in zip(("c", "n", "m", "h", "conv"), (*carry, conv_state)):
         state[key].copy_(new)
-    return h @ params["w_down"], state
+    return _down(params, h, par, tp), state

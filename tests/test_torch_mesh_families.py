@@ -23,8 +23,8 @@ one-device ``transformer.prefill`` / ``decode_step`` of both packages on
 the same weights (the reference's init) and tokens, at rtol 1e-4 / atol
 1e-5. The bytes a rank receives are held to ``chip_smoke.serve_received``
 (the count phase 12 holds the card to). The serve steps and the train
-step (L1, L2) build for the three at each mesh, and the families of
-ROADMAP 9b-3b still raise at build time.
+step (L1, L2) build for the three at each mesh, and so do the serve
+steps of xLSTM, the VLM and the audio encoder, their leaves over model.
 """
 import dataclasses
 import importlib.util
@@ -283,15 +283,37 @@ def _build(arch, mesh_shape, plan, kind="prefill"):
     return build(cfg, shape, mesh, False, torch.float32, plan)
 
 
+# a leaf of each of the last three families that the builders split over
+# model (the spec less the period axis, the dim split): the mLSTM's and
+# sLSTM's head blocks, their states' heads, the VLM's MQA kv columns and
+# tied vocab, the audio encoder's positional conv and heads
+NINE_B_3B_LEAVES = {
+    "xlstm-125m": [("period/j0/mixer/w_up", 1), ("period/j0/mixer/w_i", 1),
+                   ("period/j1/mixer/r_z", 0), ("period/j1/mixer/w_down", 0),
+                   ("period/j0/mixer/o_norm/scale", 0)],
+    "paligemma-3b": [("period/j0/mixer/w_k", 1), ("embed", 0)],
+    "hubert-xlarge": [("pos_conv/w", 1), ("period/j0/mixer/w_q", 1)]}
+NINE_B_3B_STATES = {"xlstm-125m": [("period/j0/C", 1), ("period/j1/h", 1),
+                                   ("period/j1/conv", 2)]}
+
+
 @pytest.mark.parametrize("arch,kind", [
     ("xlstm-125m", "prefill"), ("xlstm-125m", "decode"),
     ("paligemma-3b", "prefill"), ("paligemma-3b", "decode"),
     ("hubert-xlarge", "prefill")])
 def test_9b_3b_families_raise_at_build_time(arch, kind):
-    """xLSTM, the VLM and the audio encoder split over model: the builder
-    names the leaf and ROADMAP 9b-3b."""
-    with pytest.raises(ValueError, match="9b-3b"):
-        _build(arch, (1, 2), DECODE, kind)
+    """xLSTM, the VLM and the audio encoder split over model build: their
+    leaves and the xLSTM states split over model
+    (``tests/test_torch_mesh_xlstm_frontends.py`` holds their steps to one
+    process)."""
+    step, _, _ = _build(arch, (1, 2), DECODE, kind)
+    pspecs = tree.flatten(step.in_specs[0], tuples=False)
+    for path, dim in NINE_B_3B_LEAVES[arch]:
+        lead = 1 if path.startswith("period/") else 0
+        assert pspecs[path][lead + dim] == ("model",), (path, pspecs[path])
+    sspecs = tree.flatten(step.out_specs[1], tuples=False)
+    for path, dim in NINE_B_3B_STATES.get(arch, []):
+        assert sspecs[path][1 + dim] == ("model",), (path, sspecs[path])
 
 
 @pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2), (1, 4)])

@@ -393,7 +393,13 @@ SPLIT_LEAVES = {
                              ("period/j0/mixer/a_log", 0),
                              ("period/j1/moe/w_in", 0)],
     "deepseek-v2-236b": [("prefix/0/mixer/w_uq", 1),
-                         ("period/j0/moe/w_in", 0)]}
+                         ("period/j0/moe/w_in", 0)],
+    # the mLSTM's and sLSTM's heads, the VLM's MQA kv columns, the
+    # audio encoder's positional conv
+    "xlstm-125m": [("period/j0/mixer/w_up", 1), ("period/j0/mixer/f_bias", 0),
+                   ("period/j1/mixer/r_o", 0)],
+    "paligemma-3b": [("period/j0/mixer/w_k", 1), ("embed", 0)],
+    "hubert-xlarge": [("pos_conv/w", 1), ("pos_conv/b", 0)]}
 
 
 @pytest.mark.parametrize("arch,kind", [
@@ -402,14 +408,10 @@ SPLIT_LEAVES = {
     ("xlstm-125m", "decode"), ("paligemma-3b", "prefill"),
     ("hubert-xlarge", "prefill")])
 def test_unported_splits_raise_at_build_time(arch, kind):
-    """At model 2 the Mamba, MLA and MoE families build, their leaves
-    split over model (``tests/test_torch_mesh_families.py`` holds their
-    steps to one process); xLSTM, the VLM and the audio encoder still
-    raise, naming the leaf and ROADMAP 9b-3b."""
-    if arch not in SPLIT_LEAVES:
-        with pytest.raises(ValueError, match="9b-3b"):
-            _build(arch, (1, 2), DECODE, kind)
-        return
+    """At model 2 every family builds, its leaves split over model: the
+    Mamba, MLA and MoE families (``tests/test_torch_mesh_families.py``
+    holds their steps to one process) and xLSTM, the VLM and the audio
+    encoder (``tests/test_torch_mesh_xlstm_frontends.py``)."""
     step, _, plan = _build(arch, (1, 2), DECODE, kind)
     pspecs = tree.flatten(step.in_specs[0], tuples=False)
     for path, dim in SPLIT_LEAVES[arch]:
@@ -480,23 +482,16 @@ def test_train_step_l2_builds_the_dense_gqa_decoder():
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "deepseek-v2-236b",
                                   "xlstm-125m"])
 def test_train_step_refuses_unported_model_splits(arch):
-    """An L1 plan at model 2: jamba and deepseek build, their clients over
-    data and their Mamba, MLA and MoE leaves over model; xLSTM, with no
-    tensor-parallel forward here, raises naming ROADMAP 9b-3b. At model 1
-    each builds."""
+    """An L1 plan at model 2: jamba, deepseek and xLSTM build, their clients over data and their Mamba, MLA, MoE and xLSTM
+    leaves over model. At model 1 each builds."""
     shape = ShapeConfig("t", 16, 8, "train")
     mesh22 = specs.MeshShape(("data", "model"), (2, 2))
-    if arch == "xlstm-125m":
-        with pytest.raises(ValueError, match="9b-3b"):
-            steps.build_train_step(get_smoke_arch(arch), shape, mesh22,
-                                   False, torch.float32, plan=TRAIN_L1)
-    else:
-        step, _, _, _ = steps.build_train_step(
-            get_smoke_arch(arch), shape, mesh22, False, torch.float32,
-            plan=TRAIN_L1)
-        pspecs = step.in_specs[0].params
-        assert any(("model",) in sp[1:] for sp in pspecs.values())
-        assert all(sp[0] == ("data",) for sp in pspecs.values())
+    step, _, _, _ = steps.build_train_step(
+        get_smoke_arch(arch), shape, mesh22, False, torch.float32,
+        plan=TRAIN_L1)
+    pspecs = step.in_specs[0].params
+    assert any(("model",) in sp[1:] for sp in pspecs.values())
+    assert all(sp[0] == ("data",) for sp in pspecs.values())
     step, (state, batch), plan, rspec = steps.build_train_step(
         get_smoke_arch(arch), shape,
         specs.MeshShape(("data", "model"), (2, 1)), False, torch.float32,

@@ -29,7 +29,8 @@ archs. Two worlds: 4 ranks (meshes (2, 2) and (1, 4)) and 2 ranks
   one-process port; the
   L2 runs' bytes by op and axes exactly ``chip_smoke.l2_received``'s
   count (the count phase 12 holds the card to).
-- xLSTM's model split still raises, naming ROADMAP 9b-3b.
+- xLSTM's train step builds under L1 and L2 at (2, 2), its leaves over
+  model (``test_torch_train_xlstm_frontends.py`` holds it to one process).
 """
 import dataclasses
 import importlib.util
@@ -330,9 +331,18 @@ def test_family_l2_rounds_receive_their_analytic_bytes(trained, name):
 
 @pytest.mark.parametrize("plan", [L1, L2])
 def test_xlstm_model_split_raises_naming_9b_3b(plan):
-    with pytest.raises(ValueError, match="9b-3b"):
-        steps.build_train_step(
-            get_smoke_arch("xlstm-125m"),
-            ShapeConfig("t", SEQ, C * M_L2, "train"),
-            specs.MeshShape(("data", "model"), (2, 2)), False,
-            torch.float32, plan=plan)
+    """xLSTM's model split builds under both layouts: the mLSTM's and sLSTM's head blocks and
+    ``w_down``'s rows over model, and under L2 ``w_up``'s rows over
+    data."""
+    step, _, got, _ = steps.build_train_step(
+        get_smoke_arch("xlstm-125m"),
+        ShapeConfig("t", SEQ, C * M_L2, "train"),
+        specs.MeshShape(("data", "model"), (2, 2)), False,
+        torch.float32, plan=plan)
+    pspecs = step.in_specs[0].params
+    assert got == plan
+    for path in ("period/j0/mixer/w_q", "period/j1/mixer/w_z"):
+        assert pspecs[path][-1] == ("model",), (path, pspecs[path])
+    assert pspecs["period/j1/mixer/r_i"][2] == ("model",)
+    assert pspecs["period/j0/mixer/w_up"][2] == (
+        ("data",) if plan.fsdp_axes else None)

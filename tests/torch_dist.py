@@ -155,7 +155,9 @@ def serve_mesh_rank(cases):
     ``params`` (numpy tree), ``dtype`` (the params cast to it),
     ``tokens`` [B, prompt + n] numpy, ``n``, ``plan``, ``decode_plan``,
     ``max_len``, optionally ``absorbed``: MLA's prefill in its absorbed
-    form) served on this rank's mesh by
+    form, and ``batch``: the prefill's batch (numpy; a VLM's patches and
+    text, the audio encoder's frames and mask positions), ``tokens`` then
+    the ``n`` decode tokens [B, n]) served on this rank's mesh by
     ``launch.serve.serve_on_mesh``; returns {name: this rank's logits
     blocks (numpy fp32, one a position), state blocks (numpy fp32 tree),
     their specs and the bytes received}."""
@@ -170,14 +172,17 @@ def serve_mesh_rank(cases):
             meshes[shape] = mesh_lib.make_host_mesh(shape, ("data", "model"),
                                                     "cpu")
         tokens = torch.from_numpy(case["tokens"].astype(np.int64))
-        prompt = tokens.shape[1] - case["n"]
+        if "batch" in case:
+            batch = _tensors(case["batch"])
+        else:
+            prompt = tokens.shape[1] - case["n"]
+            batch, tokens = {"tokens": tokens[:, :prompt]}, tokens[:, prompt:]
         params = tree_lib.tree_map(
             lambda x: x.to(case["dtype"]),
             lm_params_from_jax(case["params"], "cpu"))
         with mla_absorbed(case.get("absorbed", False)):
             res = serve.serve_on_mesh(
-                case["cfg"], params, {"tokens": tokens[:, :prompt]},
-                tokens[:, prompt:], meshes[shape], case["plan"],
+                case["cfg"], params, batch, tokens, meshes[shape], case["plan"],
                 case["decode_plan"], case["max_len"])
         out[name] = {
             "logits": [x.float().numpy() for x in res["logits"]],
@@ -207,9 +212,11 @@ def train_mesh_rank(jobs):
 
     ``"grad"``    the step's per-client loss on this rank's blocks of the
                   round-0 state of ``params`` (one model, numpy, flattened)
-                  and ``tokens`` [C, m, S], and its gradient a leaf;
+                  and ``tokens`` [C, m, S] (or ``batch``: a train batch of
+                  [C, m, ...] leaves, numpy), and its gradient a leaf;
     ``"rounds"``  ``len(tokens)`` rounds of the step from that state on
-                  ``tokens`` [K, C, m, S], each round's noise ``noise[k]``
+                  ``tokens`` [K, C, m, S] (or ``batch`` of [K, C, m, ...]
+                  leaves), each round's noise ``noise[k]``
                   (full shapes) or, with None, the step's own draws from
                   the generator seeded with ``seed``, and the mixing
                   matrix ``matrices[k]`` when given;
@@ -230,10 +237,12 @@ def train_mesh_rank(jobs):
                 job["mesh"], ("data", "model"), "cpu")
         mesh = meshes[job["mesh"]]
         cfg, plan = job["cfg"], job["plan"]
-        toks = job["tokens"]
-        c, m, s = toks.shape[-3:]
+        batches = job.get("batch") or {"tokens": job["tokens"]}
+        lead = 1 if job["kind"] == "rounds" else 0
+        c, m = next(iter(batches.values())).shape[lead:lead + 2]
         step, _, _, _ = steps.build_train_step(
-            cfg, ShapeConfig("mesh_train", s, c * m, "train"), mesh, False,
+            cfg, ShapeConfig("mesh_train", train_seq(cfg, batches, lead),
+                             c * m, "train"), mesh, False,
             torch.float32, spec_override=job.get("spec"), plan=plan)
         pspecs = step.in_specs[0].params
         if job["kind"] == "stage":
@@ -242,22 +251,24 @@ def train_mesh_rank(jobs):
         state = step.init_state(_tensors(job["params"]), job.get("seed", 0))
         mesh.received_by_axes.clear()
         if job["kind"] == "grad":
-            batch = specs.shard_tree(_tensors({"tokens": toks}),
-                                     step.in_specs[1], mesh)
+            batch = specs.shard_tree(_tensors(batches), step.in_specs[1],
+                                     mesh)
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in state.params.items()}
             keys = sorted(leaves)
             losses = step.loss_fn(leaves, batch)
             grads = torch.autograd.grad(losses.sum(),
-                                        [leaves[k] for k in keys])
+                                        [leaves[k] for k in keys],
+                                        materialize_grads=True)
             out[name] = {"losses": losses.detach().numpy(),
                          "grads": {k: g.numpy() for k, g in zip(keys, grads)},
                          "specs": pspecs}
             continue
         metrics = []
-        for k in range(len(toks)):
-            batch = specs.shard_tree(_tensors({"tokens": toks[k]}),
-                                     step.in_specs[1], mesh)
+        for k in range(len(next(iter(batches.values())))):
+            batch = specs.shard_tree(
+                _tensors({n: v[k] for n, v in batches.items()}),
+                step.in_specs[1], mesh)
             noise = job["noise"][k] if job.get("noise") else None
             if noise is not None:
                 noise = {stage: _tensors(v) for stage, v in noise.items()}
@@ -270,6 +281,17 @@ def train_mesh_rank(jobs):
                      "metrics": metrics, "specs": pspecs,
                      "received": dict(mesh.received_by_axes)}
     return out
+
+
+def train_seq(cfg, batch, lead=0):
+    """The positions S of a train batch's rows (``registry
+    .make_train_batch``'s layout; ``lead`` dims before [C, m, ...])."""
+    if cfg.audio_frontend:
+        return batch["frames"].shape[lead + 2]
+    if cfg.family == "vlm":
+        return batch["patches"].shape[lead + 2] \
+            + batch["tokens"].shape[lead + 2]
+    return batch["tokens"].shape[lead + 2]
 
 
 def _stage_on_blocks(job, mesh, pspecs):
