@@ -122,6 +122,18 @@ prints its seconds:
    logits, seconds and peak memory; one attention layer card against
    CPU. Under ``--profile`` 4e and 4f also profile 4 decode steps, and
    4e-4g one prefill (device ops, busy share, time by class);
+4h. ``launch.serve --size one-h100`` at the same batch, prompt and gen for
+   the last three one-H100 configs (``phase_new_serves``): minicpm-2b
+   whole (2.725 G parameters, MHA at D 64, its tied head at vocab 122 753
+   in every decode step), nemotron-4-15b at 16 of 32 layers (9.387 G, GQA
+   48 / 8 at D 128), kimi-k2 at 2 layers and 192 of 384 routed experts
+   (11.125 G, GQA 64 / 8 at D 112): flash 40, 16 and 2 times a prefill and
+   no other kernel, finite logits, each peak under its NEW_SERVES limit,
+   kimi's dropped share printed; prefill + 8 decode steps against one
+   forward within ``AGREE_LIMIT`` (kimi with the capacity out of the way,
+   as 4d) and no host sync in decode. Phase 1b holds flash at the three
+   attention shapes (FLASH_NEW_PATHS) to its plain version and times them
+   beside SDPA;
 5. the paper's K sweep (``repro_torch.benchmarks.paper_tables
    .fig3_bound_gap``: C = 20, 256 samples a client, Dir(0.2), t_sum 100,
    alpha 1, beta 6, eta 0.005, K in 1-6, 8, 14) by each driver: its rows
@@ -292,7 +304,16 @@ prints its seconds:
    scale). 13d the three smoke configs trained under L1 at (2, 2) in one
    world, gated as 12c with the bytes by ``l1_received``. Phase 1b holds
    flash at a 13b and a 13c rank's shapes (FLASH_VLM_MESH_PATH,
-   FLASH_AUDIO_MESH_PATH) to its twin and times them beside SDPA.
+   FLASH_AUDIO_MESH_PATH) to its twin and times them beside SDPA;
+14. the dry-run held to the card (``phase_dryrun``; ``launch.dryrun``
+   runs a step on meta tensors under ``launch.cost_analysis
+   .CostCounter``): (a) one fp32 prefill of minicpm-2b ONE_H100 at 4 x 2048
+   on a one-rank ``DryMesh``, on meta tensors and on the card (flash 40
+   times), the same flops and HBM bytes exactly; (b) phase 9a's serve on a
+   meta ``DryMesh`` counts the bytes phase 9a's rank 0 received, by phase
+   and op; (c) the card's warm prefill no faster than the roofline bound
+   of (a)'s costs at the fp32 peak (``analysis.roofline(..., peak_flops=
+   PEAK_FLOPS_FP32)``), the ratio printed.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -481,6 +502,12 @@ FLASH_MLA_PATH = (4, 128, 128, 2048, 192)
 # and HuBERT's (bidirectional, D 80)
 FLASH_VLM_PATH, FLASH_VLM_PREFIX = (4, 8, 1, 2048, 256), 256
 FLASH_AUDIO_PATH = (4, 16, 16, 2048, 80)
+# the attention shapes of phase 4h's three serves (B, H, Hkv, S, D), held
+# and timed in phase 1b: MHA at D 64, GQA at D 128, GQA at D 112 (the
+# kernel pads it to 128)
+FLASH_NEW_PATHS = {"minicpm-2b": (4, 36, 36, 2048, 64),
+                   "nemotron-4-15b": (4, 48, 8, 2048, 128),
+                   "kimi-k2-1t-a32b": (4, 64, 8, 2048, 112)}
 # (B, H, Hkv, S, D, causal, window, bf16): the path shapes; the reference's
 # FLASH_CASES (tests/test_kernels.py); ragged S; the zoo's odd head dims
 # (minicpm 36, kimi 112), the MLA path's 192 ragged and under GQA, the
@@ -505,7 +532,7 @@ FLASH_CASES = [
     (2, 4, 4, 1000, 64, True, 128, False), (2, 4, 2, 777, 64, False, 0, False),
     (1, 2, 2, 128, 64, True, 0, True), FLASH_PATH + (True, 0, True),
     FLASH_AUDIO_PATH + (False, 0, False), (2, 4, 4, 300, 80, False, 0, False),
-]
+] + [shape + (True, 0, False) for shape in FLASH_NEW_PATHS.values()]
 # the prefix-LM form, all causal: (B, H, Hkv, S, D, window, prefix, bf16):
 # the VLM path's shape; prefixes off both tiles at ragged S (100, 300); a
 # prefix of S and one past it (the whole square); a prefix with a window;
@@ -875,6 +902,22 @@ FLASH_AUDIO_MESH_PATH = (2, 8, 8, 2048, 80)
 # K_L2 rounds at tau L2_TAU, round_spec_for's microbatches of 8): 16 rows
 # of 33 positions a client (2 microbatches), one world for the three
 FRONT_TRAIN_PER_CLIENT, FRONT_TRAIN_SEQ = 16, 33
+# phase 4h: the three archs whose one-H100 configs came last, served as
+# phase 4 serves (batch 4 x prompt 2048, gen 32): arch -> (flash launches a
+# prefill, one an attention layer; the peak allocated GB the serve may
+# reach, set before its first run from the weights, the caches at 2080
+# positions and a prefill's activations). minicpm-2b is whole (10.90 GB of
+# weights, about 6.1 GB of caches: 18-20 GB expected), nemotron-4-15b at 16
+# of 32 layers (37.55 GB: 41-44 GB expected), kimi-k2 at 2 layers and 192
+# of 384 experts (44.50 GB and the MoE's dispatch buffers: 50-56 GB)
+NEW_SERVES = {"minicpm-2b": (40, 24.0), "nemotron-4-15b": (16, 50.0),
+              "kimi-k2-1t-a32b": (2, 62.0)}
+# phase 14, the dry-run held to the card: one fp32 prefill of DRY_ARCH's
+# ONE_H100 (minicpm-2b whole) at DRY_BATCH x DRY_PROMPT on a one-rank
+# DryMesh, on meta tensors and on the card
+DRY_ARCH, DRY_BATCH, DRY_PROMPT = "minicpm-2b", 4, 2048
+DRY_AXES = ("data", "model")
+
 # the decode state of a mesh serve against one process, each leaf and
 # layer held at its scale: max |diff| <= CARD_CPU_ATOL + CARD_CPU_RTOL
 # max |value|. The kv caches past the first layer come from activations
@@ -2416,13 +2459,17 @@ def phase_lm_kernels(torch, dev):
     audio_mesh, audio_mesh_work = flash_times(
         FLASH_AUDIO_MESH_PATH, " (audio mesh path, a 13c rank at (2, 2))",
         causal=False)
+    new_paths = {arch: flash_times(shape, f" ({arch} path)")
+                 for arch, shape in FLASH_NEW_PATHS.items()}
     mla, mla_work = flash_times(FLASH_MLA_PATH, "")
     flash_work = {"mla path": mla_work, "gqa path": gqa_work,
                   "vlm path": vlm_work, "audio path": audio_work,
                   "mesh path (a rank)": mesh_work,
                   "mla mesh path (a 12a rank)": family_work,
                   "vlm mesh path (a 13b rank)": vlm_mesh_work,
-                  "audio mesh path (a 13c rank)": audio_mesh_work}
+                  "audio mesh path (a 13c rank)": audio_mesh_work,
+                  **{f"{arch} path": work
+                     for arch, (_, work) in new_paths.items()}}
     report["flash_attention"] = dict(
         max_abs_err=flash_err, max_abs_err_bf16=flash_bf16_err,
         max_abs_err_prefix=prefix_err, **mla,
@@ -2435,7 +2482,9 @@ def phase_lm_kernels(torch, dev):
         at_vlm_mesh_path={"shape": FLASH_VLM_MESH_PATH,
                           "prefix": FLASH_VLM_PREFIX, **vlm_mesh},
         at_audio_mesh_path={"shape": FLASH_AUDIO_MESH_PATH,
-                            "causal": False, **audio_mesh})
+                            "causal": False, **audio_mesh},
+        at_new_paths={arch: {"shape": FLASH_NEW_PATHS[arch], **times}
+                      for arch, (times, _) in new_paths.items()})
 
     ssm_err, ssm_ratio = 0.0, 0.0
     ssm_cases = ([(case, False) for case in SSM_CASES
@@ -2531,6 +2580,8 @@ def phase_lm_kernels(torch, dev):
                               ("flash_attention (mesh path)", mesh),
                               ("flash_attention (mla mesh path, a 12a "
                                "rank)", family),
+                              *((f"flash_attention ({arch} path)", times)
+                                for arch, (times, _) in new_paths.items()),
                               ("ssm_scan", report["ssm_scan"]),
                               ("ssm_scan (ssm mesh path, a 12b rank)",
                                report["ssm_scan"]["at_family_ssm_path"]))}),
@@ -2777,22 +2828,26 @@ def _sync_s(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def _decode_agreement(torch, params, cfg, batch, n_prefill, n, first_pos):
+def _decode_agreement(torch, params, cfg, batch, n_prefill, n, first_pos,
+                      moe_drops=None):
     """Prefill of ``batch`` cut to its first ``n_prefill`` positions, then
     teacher-forced decode steps up to ``n``, against one forward over all
     ``n`` positions: max |logit diff| and the largest |logit|. ``first_pos``
     is the position of the first token of ``batch["tokens"]`` (the
-    patches come first in a VLM's)."""
+    patches come first in a VLM's). ``moe_drops`` collects the forward's
+    and the prefill's MoE drop counts."""
     from repro_torch.models import transformer
 
     toks = batch["tokens"]
     h, _, _ = transformer.forward(
-        params, cfg, transformer._embed_inputs(params, cfg, batch)[0])
+        params, cfg, transformer._embed_inputs(params, cfg, batch)[0],
+        moe_drops=moe_drops)
     want = transformer._lm_head(params, cfg, h[:, n_prefill - 1:n])
     del h
     cut = {**batch, "tokens": toks[:, :n_prefill - first_pos]}
     logits, state = transformer.prefill(params, cfg, cut,
-                                        max_len=n + 2 * SYNC_CHECK_STEPS)
+                                        max_len=n + 2 * SYNC_CHECK_STEPS,
+                                        moe_drops=moe_drops)
     got = [logits]
     for t in range(n_prefill, n):
         logits, state = transformer.decode_step(params, cfg, state,
@@ -2942,6 +2997,81 @@ def phase_vlm(torch, dev, profile_dir):
             profile_dir, "paligemma")
     print("phase 4f ok", flush=True)
     return launches
+
+
+def phase_new_serves(torch, dev):
+    """Phase 4h: the three one-H100 configs that came last, each served as
+    phase 4 serves (``launch.serve`` at batch 4 x prompt 2048, gen 32; the
+    launch counts set to 0 just before): minicpm-2b whole (its tied head
+    at vocab 122 753 in every decode step), nemotron-4-15b at 16 of 32
+    layers, kimi-k2 at 2 layers and 192 of 384 experts. Each: flash once an
+    attention layer a prefill and no other kernel, finite logits, the
+    peak allocated memory under its NEW_SERVES limit, kimi's dropped share
+    of its top-8 choices printed; then on the same params (the serve's
+    seed) prefill + AGREE_STEPS teacher-forced decode steps against one
+    forward within AGREE_LIMIT (the dense two at AGREE_PREFILL; kimi, as
+    phase 4d holds DeepSeek, at MLA_AGREE_PREFILL with the capacity out of
+    the way and no choice dropped) and no host sync in SYNC_CHECK_STEPS
+    greedy decode steps. Returns {path: launches}."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    by_path, lines = {}, {}
+    for arch, (n_flash, peak_gb) in NEW_SERVES.items():
+        _free(torch)
+        flags = ["--arch", arch, "--size", "one-h100", "--batch", "4",
+                 "--prompt-len", "2048", "--gen", "32"]
+        result, launches = phase_serve(
+            torch, dev, flags, {"flash_attention": n_flash, "ssm_scan": 0},
+            f"4h ({arch})")
+        require(result["peak_mem_gb"] <= peak_gb,
+                f"{arch}: the serve's peak {result['peak_mem_gb']:.2f} GB "
+                f"past its limit of {peak_gb} GB")
+        by_path[f"{arch} serve"] = launches
+        _free(torch)
+        args = serve.build_parser().parse_args(flags + ["--device", str(dev)])
+        cfg = serve.config_of(args)
+        params = registry.init_model(
+            torch.Generator(device=dev).manual_seed(args.seed), cfg)
+        check, n_prefill = cfg, AGREE_PREFILL
+        if cfg.moe is not None:
+            check = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=UNCAPPED_FACTOR))
+            n_prefill = MLA_AGREE_PREFILL
+        n = n_prefill + AGREE_STEPS
+        batch = registry.make_prefill_batch(
+            torch.Generator(device=dev).manual_seed(args.seed + 1), cfg,
+            ShapeConfig("agree", n, args.batch, "prefill"))
+        drops = []
+        err, scale, state, logits = _decode_agreement(
+            torch, params, check, batch, n_prefill, n, 0, moe_drops=drops)
+        dropped = sum(int(c) for _, c in drops)
+        syncs = host_syncs(torch, lambda: serve.decode_loop(
+            params, check, state, torch.argmax(logits, -1), n,
+            SYNC_CHECK_STEPS))
+        lines[arch] = {
+            "parameters": cfg.param_count(), "peak_mem_gb":
+            result["peak_mem_gb"], "peak_limit_gb": peak_gb,
+            "prefill_s": result["prefill_s"],
+            "decode_ms_a_step": 1e3 * result["decode_s"] / (args.gen - 1),
+            "prefill_dropped_share": result["prefill_dropped_share"],
+            "agreement": {"prefill": n_prefill, "steps": AGREE_STEPS,
+                          "max_abs_logit_diff": err, "max_abs_logit": scale,
+                          "choices_dropped": dropped},
+            "decode_host_syncs": len(syncs)}
+        del params, state, logits, batch
+        require(err <= AGREE_LIMIT, f"{arch} serve path disagrees with the "
+                                    f"forward: {err:.3g} > {AGREE_LIMIT}")
+        require(dropped == 0, f"{arch}: {dropped} choices dropped at "
+                              f"capacity factor {UNCAPPED_FACTOR}")
+        require(not syncs, f"{arch}: {len(syncs)} host syncs in the decode "
+                           f"loop: {syncs[:3]}")
+    _free(torch)
+    print("phase 4h ok: " + json.dumps(lines), flush=True)
+    return by_path
 
 
 def phase_audio(torch, dev, profile_dir):
@@ -4667,8 +4797,8 @@ def phase_mesh_serve(torch, dev):
     over (data, model), decode crossing a block edge), in the same world;
     9c jamba smoke at (2, 1) with FSDP over data. Each held to a
     one-process serve (``held_mesh_serve``), flash launched twice a
-    prefill on each phi4 rank at 12 query and 4 kv heads. Returns {path:
-    rank 0's launches}."""
+    prefill on each phi4 rank at 12 query and 4 kv heads. Returns ({path:
+    rank 0's launches}, each 9a rank's bytes received by phase and op)."""
     from repro_torch.configs import get_one_h100_arch
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.sharding.specs import ShardingPlan
@@ -4702,6 +4832,7 @@ def phase_mesh_serve(torch, dev):
     lines["transport"] = ranks[0]["9a"]["transport"]
     lines["world_s_with_spawn"] = world_s
     print("phase 9a-9b ok: " + json.dumps(lines), flush=True)
+    received = [r["9a"]["received"] for r in ranks]
     del ranks
 
     fsdp = ShardingPlan(1, (), ("data",), fsdp_axes=("data",))
@@ -4721,7 +4852,7 @@ def phase_mesh_serve(torch, dev):
     by_path["mesh serve 9c (rank 0)"] = ranks[0]["9c"]["launches"]
     print("phase 9c ok: " + json.dumps(line), flush=True)
     _free(torch)
-    return by_path
+    return by_path, received
 
 
 def phase_family_serve(torch, dev):
@@ -6073,6 +6204,120 @@ def held_l2_train(torch, dev, arch, ranks, label, path, extra,
     print(f"{label} ok: {len(gates)} gates", flush=True)
 
 
+def _meta_like(torch, tree):
+    """``tree``'s tensors as meta tensors of the same shapes and dtypes."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), tree)
+
+
+def phase_dryrun(torch, dev, mesh_received):
+    """Phase 14: the dry-run (``launch.dryrun``, meta tensors) held to the
+    card. (a) One fp32 prefill of DRY_ARCH's ONE_H100 at DRY_BATCH x
+    DRY_PROMPT, built by ``steps.build_prefill_step`` on a one-rank
+    ``DryMesh`` and run under ``cost_analysis.CostCounter``, on meta
+    tensors and then on the card (the params drawn there, flash launched
+    once a layer): the flops and the HBM bytes must be equal, exactly (the
+    meta path dispatches the ops the card runs; each op whose bytes
+    differ is printed). (b) ``serve.serve_on_mesh`` of phase 9a's job
+    (phi4-mini ONE_H100 at (2, 2), its plans and shapes) on rank 0 of a
+    meta ``DryMesh``: the bytes it counts by phase and op must equal what
+    phase 9a's gloo rank 0 received (``mesh_received``). (c) The card's
+    warm prefill of (a), timed on the host clock between synchronizes,
+    must take no less than the roofline bound of (a)'s costs at the
+    card's fp32 peak (``analysis.roofline(..., peak_flops=
+    PEAK_FLOPS_FP32)``); the ratio is printed. Returns {path: launches}."""
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig, get_one_h100_arch
+    from repro_torch.launch import analysis, dryrun, serve
+    from repro_torch.models import registry
+    from repro_torch.sharding.specs import ShardingPlan
+
+    _free(torch)
+    cfg = get_one_h100_arch(DRY_ARCH)
+    shape = ShapeConfig("dry-run", DRY_PROMPT, DRY_BATCH, "prefill")
+    params = registry.init_model(torch.Generator(device=dev).manual_seed(0),
+                                 cfg)
+    batch = registry.make_prefill_batch(
+        torch.Generator(device=dev).manual_seed(1), cfg, shape)
+    t0 = time.perf_counter()
+    meta = dryrun.trace("prefill", cfg, shape,
+                        dryrun.DryMesh.make((1, 1), DRY_AXES),
+                        dtype=torch.float32,
+                        inputs=(_meta_like(torch, params),
+                                _meta_like(torch, batch)))
+    meta_s = time.perf_counter() - t0
+    card_mesh = dryrun.DryMesh.make((1, 1), DRY_AXES, device=dev)
+    kernels.reset_launch_counts()
+    card = dryrun.trace("prefill", cfg, shape, card_mesh,
+                        dtype=torch.float32, inputs=(params, batch))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    logits = card.out[0]
+    finite = bool(torch.isfinite(logits).all())
+    want = {**{name: 0 for name in kernels.WRAPPERS},
+            "flash_attention": cfg.layer_kinds().count("attn")}
+    mc, cc = meta.costs, card.costs
+    differ = {op: (mc.bytes_by_op.get(op, 0), cc.bytes_by_op.get(op, 0))
+              for op in set(mc.bytes_by_op) | set(cc.bytes_by_op)
+              if mc.bytes_by_op.get(op, 0) != cc.bytes_by_op.get(op, 0)}
+    step = card.step
+    del card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del out, params, batch, logits
+    _free(torch)
+    bound = analysis.roofline(mc.flops, mc.hbm_bytes, mc.collective_bytes,
+                              1, peak_flops=analysis.PEAK_FLOPS_FP32)
+
+    phi4 = get_one_h100_arch(MESH_ARCH)
+    t0 = time.perf_counter()
+    tokens = torch.empty((MESH_BATCH, MESH_STEPS), dtype=torch.int64,
+                         device="meta")
+    dry_serve = serve.serve_on_mesh(
+        phi4, registry.params_specs(phi4, torch.float32),
+        {"tokens": torch.empty((MESH_BATCH, MESH_PROMPT), dtype=torch.int64,
+                               device="meta")},
+        tokens, dryrun.DryMesh.make(MESH_SHAPE, DRY_AXES),
+        ShardingPlan(1, (), ("data",)),
+        ShardingPlan(1, (), ("data",), seq_axes=("model",)),
+        MESH_PROMPT + MESH_STEPS)
+    serve_s = time.perf_counter() - t0
+    line = {
+        "a": {"arch": cfg.name, "batch": DRY_BATCH, "prompt": DRY_PROMPT,
+              "flops": mc.flops, "flops_card": cc.flops,
+              "hbm_bytes": mc.hbm_bytes, "hbm_bytes_card": cc.hbm_bytes,
+              "attention_masked_flops": mc.attention_masked_flops,
+              "ops_meta": sum(mc.count_by_op.values()),
+              "ops_card": sum(cc.count_by_op.values()),
+              "bytes_differ_by_op": differ, "launches": launches,
+              "meta_trace_s": meta_s, "logits_finite": finite},
+        "b": {"dry_run": dry_serve["received"],
+              "phase_9a_rank_0": mesh_received[0], "meta_s": serve_s},
+        "c": {"warm_prefill_s": warm_s, "roofline_fp32": bound,
+              "measured_over_bound": warm_s / bound["bound_s"]}}
+    print("phase 14: " + json.dumps(line), flush=True)
+    require(launches == want, f"phase 14 card prefill launches {launches}, "
+                              f"expected {want}")
+    require(finite, "phase 14: non-finite logits from the card's prefill")
+    require(mc.flops == cc.flops and mc.hbm_bytes == cc.hbm_bytes,
+            f"phase 14a: the dry-run counts {mc.flops} flops and "
+            f"{mc.hbm_bytes} bytes, the card's prefill {cc.flops} and "
+            f"{cc.hbm_bytes}; ops whose bytes differ: {differ}")
+    require(dry_serve["received"] == mesh_received[0],
+            f"phase 14b: the dry-run's bytes {dry_serve['received']} are "
+            f"not phase 9a rank 0's {mesh_received[0]}")
+    require(warm_s >= bound["bound_s"],
+            f"phase 14c: a warm prefill of {warm_s:.4f} s beats its bound "
+            f"of {bound['bound_s']:.4f} s")
+    print("phase 14 ok", flush=True)
+    return {"dry-run card prefill": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6293,6 +6538,8 @@ def main(argv=None) -> int:
     alaunches = phase_audio(torch, dev, opts.profile)
     _free(torch)
     lap("phase 4g")
+    new_serves = phase_new_serves(torch, dev)
+    lap("phase 4h")
     phase_sweep(torch, dev)
     lap("phase 5")
     clau, dclau = phase_cohort(torch, dev, report, opts.profile)
@@ -6315,7 +6562,7 @@ def main(argv=None) -> int:
     lap("phase 7f")
     sharded = phase_sharded(torch, dev)
     lap("phase 8")
-    mesh_serve = phase_mesh_serve(torch, dev)
+    mesh_serve, mesh_received = phase_mesh_serve(torch, dev)
     lap("phase 9")
     mesh_train = phase_mesh_train(torch, dev, report)
     lap("phase 10")
@@ -6329,6 +6576,8 @@ def main(argv=None) -> int:
     lap("phase 13a-13c")
     front_train = phase_front_train(torch, dev)
     lap("phase 13d")
+    dry = phase_dryrun(torch, dev, mesh_received)
+    lap("phase 14")
 
     by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
                "mla serve": mlaunches, "xlstm serve": xlaunches,
@@ -6340,7 +6589,7 @@ def main(argv=None) -> int:
                "qwen3 serve": qlaunches,
                **sharded, **mesh_serve, **mesh_train, **l2_train,
                **family_serve, **family_train, **front_serve,
-               **front_train}
+               **front_train, **new_serves, **dry}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(

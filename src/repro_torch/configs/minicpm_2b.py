@@ -34,3 +34,13 @@ SMOKE = dataclasses.replace(
     d_ff=288,
     vocab=512,
 )
+
+ONE_H100 = CONFIG
+"""MiniCPM-2B (arXiv:2404.06395) as published, not cut: 40 layers of
+d_model 2304, 36 heads of dimension 64 (MHA: 36 kv heads), a SwiGLU MLP
+of d_ff 5760, vocab 122 753 and the head tied to the embedding. No key
+changes, so the whole model serves on one 80 GB H100.
+
+That is 2.725 G parameters (``ONE_H100.param_count()``: 2 724 880 896;
+the tied embedding 0.283 G, each layer 0.0610 G), 10.90 GB in fp32.
+"""

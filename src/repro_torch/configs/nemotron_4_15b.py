@@ -32,3 +32,25 @@ SMOKE = dataclasses.replace(
     d_ff=512,
     vocab=512,
 )
+
+ONE_H100 = dataclasses.replace(
+    CONFIG,
+    name="nemotron-4-15b-1xh100",
+    n_layers=16,
+)
+"""Nemotron-4-15B (arXiv:2402.16819) cut to fit one 80 GB H100 for
+serving.
+
+Every width is the published one: d_model 6144, 48 query and 8 kv heads
+of dimension 128, a squared-ReLU MLP of d_ff 24 576, vocab 256 000 and an
+untied head. One key changes:
+
+- ``n_layers`` 32 -> 16. The published model is 15.628 G parameters,
+  62.51 GB in fp32: that would leave under 17 GB of the card for the
+  stacked leaves' draw, the caches and the activations. The attention's
+  shapes (and so the flash kernel's) do not depend on the depth.
+
+That leaves 9.387 G parameters (``ONE_H100.param_count()``: 9 387 055 104;
+the embedding and the head 3.146 G, each layer 0.390 G), 37.55 GB in
+fp32.
+"""

@@ -37,5 +37,5 @@ SMOKE = dataclasses.replace(
 ONE_H100 = CONFIG
 """xLSTM-125M (arXiv:2405.04517) as published, not cut: 12 layers of d_model
 768 (three periods of 3 mLSTM + 1 sLSTM block, 4 heads of 384 after the
-2x up-projection), vocab 50304, about 0.22 G parameters (0.86 GB in fp32),
+2x up-projection), vocab 50304, 0.205 G parameters (0.82 GB in fp32),
 so the whole model fits one 80 GB H100 and ``reduced`` lists nothing."""

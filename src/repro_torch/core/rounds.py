@@ -139,7 +139,7 @@ from repro_torch import kernels
 from repro_torch.core import aggregation, attacks as attacks_lib, chain, \
     detection, dp as dp_lib, lazy as lazy_lib, mining, \
     topology as topology_lib
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, resolve_traced
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.pow_hash import ops as pow_ops
 from repro_torch.sharding import plans as plans_lib
@@ -422,7 +422,9 @@ def draw_noise(spec: RoundSpec, params: Tree, n_rounds: int,
     stage, O(K·C·N) floats for a model of N parameters, held pinned on the
     host and again on the device for the whole run (about 230 MB each for
     Fig. 10's DP sweep at K = 14, C = 20 and the 203 530-parameter MLP),
-    growing linearly in K, where drawing round by round held one slice."""
+    growing linearly in K, where drawing round by round held one slice.
+    On the ``meta`` device (the dry-run) nothing is drawn: the table is
+    meta tensors of its shapes."""
     c = spec.n_clients
     rows = {}
     if spec.n_lazy > 0 and spec.sigma2 > 0.0:
@@ -433,7 +435,13 @@ def draw_noise(spec: RoundSpec, params: Tree, n_rounds: int,
     if atk is not None and atk.active and atk.draws_noise:
         rows["attack"] = c
     keys = sorted(params)
-    dev = resolve_device(device)
+    dev = resolve_traced(device)
+    if dev.type == "meta":
+        return {stage: {k: torch.empty((int(n_rounds), r)
+                                       + tuple(params[k].shape[1:]),
+                                       device=dev)
+                        for k in keys}
+                for stage, r in rows.items()}
     # drawn straight into the table, made pinned for an upload: at a
     # billion parameters a copy of it takes seconds
     table = {stage: {k: torch.empty((int(n_rounds), r)
@@ -492,7 +500,7 @@ def make_communicate(spec: RoundSpec, device: DeviceLike = "cuda",
     is built (:func:`refuse_model_split`)."""
     plan = topology_lib.resolve_mix_plan(spec, _mesh_axes(mesh))
     mode = plan.mode
-    dev = resolve_device(device)
+    dev = resolve_traced(device)
 
     def on_device(a, dtype=None):
         return None if a is None else torch.from_numpy(a).to(dev, dtype)

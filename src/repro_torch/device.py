@@ -4,6 +4,11 @@ Every entry point of the port takes ``device`` and defaults to ``"cuda"``.
 Asking for the GPU on a machine without one raises: a run that was meant
 for the card never quietly falls back to the CPU. Pass ``device="cpu"`` to
 run on the CPU on purpose (the tests do).
+
+The functions a step calls on its own tensors' device (a kv cache's
+allocation, the communicate stage's constants) take :func:`resolve_traced`
+instead, which also passes the ``meta`` device through: the dry-run
+(``launch/dryrun.py``) runs the steps on meta tensors.
 """
 from __future__ import annotations
 
@@ -33,3 +38,10 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def resolve_traced(device: DeviceLike) -> torch.device:
+    """:func:`resolve_device`, with the ``meta`` device passed through as
+    it is (shapes alone: the dry-run)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)

@@ -7,6 +7,14 @@ tensor they run the plain version in ``ref.py``. ``fedavg_tree``,
 ``mix_rows_tree`` and ``digest_divergence_tree`` flatten every ``[C, ...]``
 leaf to ``[C, N]`` and call them once per leaf, in sorted key order (the
 JAX package's ``jax.tree.leaves`` order for dict params).
+
+On meta tensors (the dry-run) each kernel's wrapper returns its outputs
+as meta tensors of their shapes, computes nothing and never runs the plain
+version. Every call reports the kernel's cost to the active
+``launch.cost_analysis`` counters: ``fedavg_flat`` 2·C·N flops (and C·N
+more for the noise), ``mix_rows_flat`` 2·R·K·N, ``digest_div_flat``
+4·C·N (the sum, the column mean, the difference and its square), each
+operand read and each output written once.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fedavg.ref import (digest_div_flat_ref,
                                             fedavg_flat_ref,
                                             mix_rows_flat_ref)
+from repro_torch.launch import cost_analysis
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -56,8 +65,8 @@ def _check_flat(x: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what}: x must be a contiguous float32 [C, N] tensor")
     if x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"{what}: empty x of shape {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{what} runs on cuda, cpu or meta, not {x.device}")
 
 
 def fedavg_flat(x: torch.Tensor, weights: torch.Tensor,
@@ -78,10 +87,19 @@ def fedavg_flat(x: torch.Tensor, weights: torch.Tensor,
                               or noise.device != x.device):
         raise TypeError("fedavg_flat: noise must be a contiguous float32 "
                         f"{list(x.shape)} tensor on {x.device}")
+    noisy = noise is not None
+
+    def cost():   # x (and the noise) and the weights read, the rows written
+        return (2 + noisy) * c * n, 4.0 * ((2 + noisy) * c * n + c)
+
     if x.device.type == "cpu":
-        return fedavg_flat_ref(x, weights, noise)
-    lib = _lib()
+        with cost_analysis.kernel("fedavg_flat", cost):
+            return fedavg_flat_ref(x, weights, noise)
     out = torch.empty_like(x)
+    cost_analysis.report_kernel("fedavg_flat", cost)
+    if x.device.type == "meta":
+        return out
+    lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.repro_fedavg_flat(x.data_ptr(), weights.data_ptr(),
                                 None if noise is None else noise.data_ptr(),
@@ -110,10 +128,18 @@ def mix_rows_flat(w_rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mix_rows_flat: R={r}; the kernel's grid takes "
                          f"1 <= R <= {MIX_MAX_ROWS} (65 535 row blocks of "
                          "4 rows)")
+
+    def cost():
+        return 2.0 * r * k * n, 4.0 * (r * k + k * n + r * n)
+
     if x.device.type == "cpu":
-        return mix_rows_flat_ref(w_rows, x)
-    lib = _lib()
+        with cost_analysis.kernel("mix_rows_flat", cost):
+            return mix_rows_flat_ref(w_rows, x)
     out = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    cost_analysis.report_kernel("mix_rows_flat", cost)
+    if x.device.type == "meta":
+        return out
+    lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.repro_mix_rows(w_rows.data_ptr(), x.data_ptr(), out.data_ptr(),
                              r, k, n, stream)
@@ -132,9 +158,18 @@ def digest_div_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     it gives the same bits on every run at the same shape on the same
     card."""
     _check_flat(x, "digest_div_flat")
-    if x.device.type == "cpu":
-        return digest_div_flat_ref(x)
     c, n = x.shape
+
+    def cost():   # x read; the sum and the C residuals written
+        return 4.0 * c * n, 4.0 * (c * n + c + 1)
+
+    if x.device.type == "cpu":
+        with cost_analysis.kernel("digest_div_flat", cost):
+            return digest_div_flat_ref(x)
+    if x.device.type == "meta":
+        cost_analysis.report_kernel("digest_div_flat", cost)
+        return (torch.empty((), dtype=torch.float32, device=x.device),
+                torch.empty(c, dtype=torch.float32, device=x.device))
     lib = _lib()
     blocks = lib.repro_digest_div_blocks(x.data_ptr(), c, n)
     if blocks < 1:
@@ -143,6 +178,7 @@ def digest_div_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     part = torch.empty((blocks, c + 1), dtype=torch.float32, device=x.device)
     out_sum = torch.empty((), dtype=torch.float32, device=x.device)
     out_res = torch.empty(c, dtype=torch.float32, device=x.device)
+    cost_analysis.report_kernel("digest_div_flat", cost)
     err = lib.repro_digest_div(x.data_ptr(), c, n, part.data_ptr(),
                                ticket.data_ptr(), out_sum.data_ptr(),
                                out_res.data_ptr(), stream)

@@ -20,17 +20,28 @@ fp32 tolerance; ``ref.attention_tf32`` emulates that arithmetic on the CPU
 for the tests. The backward runs its five products the same way
 (``ref.attention_bwd_ref`` is its algorithm in plain torch,
 ``ref.attention_bwd_tf32`` its 3xTF32 arithmetic).
+
+On meta tensors (the dry-run, ``launch/dryrun.py``) every entry point
+returns the kernel's outputs (the lse too, and under grad the gradients)
+as meta tensors of their shapes and dtypes, computes nothing and never
+runs the plain twin. Every call reports the kernel's cost to the active
+``launch.cost_analysis`` counters (:func:`cost`): 4·D flops a kept (row,
+key) pair forward, 10·D backward, the pairs the masks skip at the same
+rate as ``attention_masked_flops``, its operands read and its outputs
+written once.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref, mha_ref
+from repro_torch.launch import cost_analysis
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # repro_flash_attention_lse (the serving entry takes the same less lse)
@@ -78,8 +89,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"q/k/v must share one dtype of {_DTYPES}: "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device) \
-            or q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"q/k/v must lie on one cpu or cuda device: "
+            or q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"q/k/v must lie on one cpu, cuda or meta device: "
                          f"{q.device}, {k.device}, {v.device}")
 
 
@@ -88,6 +99,40 @@ def _prefix(prefix_len: int, seq: int) -> int:
     that covers the sequence is the whole square, and one of 0 or less
     none, on both devices."""
     return max(0, min(int(prefix_len), seq))
+
+
+def kept_pairs(s: int, *, causal: bool, window: int, prefix_len: int
+               ) -> int:
+    """The (row, key) pairs of one [S, S] head that ``ref.keep_mask``
+    keeps."""
+    i = np.arange(s, dtype=np.int64)
+    prefix = _prefix(prefix_len, s)
+    if causal:
+        hi = np.where(i < prefix, prefix, i + 1)
+    else:
+        hi = np.full(s, s, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def cost(b: int, s: int, h: int, hkv: int, d: int, itemsize: int, *,
+         causal: bool, window: int, prefix_len: int, backward: bool = False,
+         lse: bool = False) -> Tuple[float, float, float]:
+    """(flops, bytes, masked flops) of one call: 4·D flops a kept pair
+    forward (QK^T and PV), 10·D backward (S, dP, dV, dK, dQ), the skipped
+    pairs at the same rate; q, k, v read and o written once forward (and
+    the fp32 lse with ``lse``), and backward q, k, v, o, dO and the lse
+    read and dq, dk, dv (fp32) written once."""
+    kept = kept_pairs(s, causal=causal, window=window, prefix_len=prefix_len)
+    rate = (10 if backward else 4) * d * b * h
+    q_bytes, kv_bytes = b * s * h * d * itemsize, b * s * hkv * d * itemsize
+    if backward:
+        nbytes = (3 * q_bytes + 2 * kv_bytes + 4 * b * h * s
+                  + 4 * b * s * (h + 2 * hkv) * d)
+    else:
+        nbytes = 2 * q_bytes + 2 * kv_bytes + (4 * b * h * s if lse else 0)
+    return (float(rate * kept), float(nbytes),
+            float(rate * (s * s - kept)))
 
 
 def _d_contiguous(x: torch.Tensor) -> torch.Tensor:
@@ -107,6 +152,11 @@ def _launch(q, k, v, out, *, seq_axis: int, head_axis: int, causal: bool,
     if b * h > 65535:
         raise ValueError(f"batch * heads = {b * h}: the kernel's grid "
                          "takes at most 65535")
+    cost_analysis.report_kernel("flash_attention", lambda: cost(
+        b, s, h, hkv, d, q.element_size(), causal=causal, window=window,
+        prefix_len=prefix_len, lse=lse is not None))
+    if q.device.type == "meta":
+        return out
 
     def strides(x):
         return x.stride(0), x.stride(seq_axis), x.stride(head_axis)
@@ -154,6 +204,11 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, seq_axis: int,
                        k.shape[head_axis], q.shape[-1])
     dq, dk, dv = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
                   for x in (q, k, v))
+    cost_analysis.report_kernel("flash_attention_bwd", lambda: cost(
+        b, s, h, hkv, d, q.element_size(), causal=causal, window=window,
+        prefix_len=prefix_len, backward=True))
+    if q.device.type == "meta":
+        return dq, dk, dv
     lib = _lib_bwd()
     # the rows' D and, under GQA, each query head's dK and dV
     work = torch.empty(lib.repro_flash_attention_bwd_workspace(b, h, hkv, s,
@@ -235,8 +290,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale, prefix_len=prefix_len)
+        b, h, s, d = q.shape
+        with cost_analysis.kernel("flash_attention", lambda: cost(
+                b, s, h, h, d, q.element_size(), causal=causal,
+                window=window, prefix_len=prefix_len)):
+            return attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale, prefix_len=prefix_len)
     if _under_grad("flash_attention", q, k, v):
         return _FlashFn.apply(_d_contiguous(q), _d_contiguous(k),
                               _d_contiguous(v), 2, 1, causal, window, scale,
@@ -263,8 +322,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)} need equal B, S, D and H a "
                          "multiple of Hkv")
     if q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=causal, window=window,
-                       prefix_len=prefix_len)
+        with cost_analysis.kernel("flash_attention", lambda: cost(
+                b, s, hq, hkv, d, q.element_size(), causal=causal,
+                window=window, prefix_len=prefix_len)):
+            return mha_ref(q, k, v, causal=causal, window=window,
+                           prefix_len=prefix_len)
     if _under_grad("flash_attention (mha)", q, k, v):
         return _FlashFn.apply(_d_contiguous(q), _d_contiguous(k),
                               _d_contiguous(v), 1, 2, causal, window,

@@ -7,6 +7,13 @@ tensor each runs its plain version in ``ref.py``. ``pow_race`` and
 ``mine`` salt the payloads with ``mining.client_salt`` first, like the
 JAX package's ``ops.pow_race`` and ``ops.mine``. Words are uint32 values
 held in int64 tensors.
+
+On meta tensors (the dry-run) both modes return their outputs as meta
+tensors of their shapes, compute nothing and never run the plain version.
+Every call reports the kernel's cost to the active ``launch.cost_analysis``
+counters: OPS_PER_HASH integer ops a hash of the C x n_attempts budget
+(counted as flops), the payloads and words read and the outputs written
+once.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from repro_torch.core import mining
 from repro_torch.kernels import _build
 from repro_torch.kernels.pow_hash.ref import mine_seal_ref, pow_race_ref
+from repro_torch.launch import cost_analysis
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +43,8 @@ _MAX_CHUNK = 1 << 24
 # most MAX_BLOCKS in all unless C alone needs more
 BLOCK_ATTEMPTS = 16384
 MAX_BLOCKS = 2048
+# 32-bit integer ops of one hash (the kernel table's rate, PERF.md §6)
+OPS_PER_HASH = 12
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pow_race")
@@ -63,8 +73,9 @@ def _check_race(device: torch.device, c: int, n_attempts: int,
         raise ValueError(f"n_attempts must lie in [1, 2**31), got {n_attempts}")
     if chunk is not None and not 1 <= chunk <= _MAX_CHUNK:
         raise ValueError(f"chunk must lie in [1, 2**24], got {chunk}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the mine kernel runs on cuda or cpu, not {device}")
+    if device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"the mine kernel runs on cuda, cpu or meta, not "
+                         f"{device}")
 
 
 def race_tile(n_attempts: int, n_clients: int,
@@ -111,13 +122,22 @@ def pow_race_flat(prev_hash: torch.Tensor, payloads: torch.Tensor,
     c, n_attempts = payloads.shape[0], int(n_attempts)
     chunk = None if chunk is None else int(chunk)
     _check_race(dev, c, n_attempts, chunk)
+
+    def cost():   # the payloads and two words read; C hashes, C nonces out
+        return OPS_PER_HASH * c * n_attempts, 8.0 * (3 * c + 2)
+
     if dev.type == "cpu":
-        return pow_race_ref(prev_hash, nonce_offset, payloads, n_attempts)
+        with cost_analysis.kernel("pow_race", cost):
+            return pow_race_ref(prev_hash, nonce_offset, payloads,
+                                n_attempts)
+    best_h = torch.empty(c, dtype=torch.int64, device=dev)
+    best_n = torch.empty(c, dtype=torch.int64, device=dev)
+    cost_analysis.report_kernel("pow_race", cost)
+    if dev.type == "meta":
+        return best_h, best_n
     lib = _lib()
     tile = race_tile(n_attempts, c, chunk)
     part, ticket, stream = _launch_buffers(dev, c, n_attempts, tile)
-    best_h = torch.empty(c, dtype=torch.int64, device=dev)
-    best_n = torch.empty(c, dtype=torch.int64, device=dev)
     err = lib.repro_pow_race(prev_hash.data_ptr(), nonce_offset.data_ptr(),
                              payloads.data_ptr(), c, n_attempts, tile,
                              part.data_ptr(), ticket.data_ptr(),
@@ -163,14 +183,25 @@ def mine_seal(prev_hash: torch.Tensor, digest: torch.Tensor, n_clients: int,
             or not payloads.is_contiguous() or payloads.device != dev):
         raise TypeError(f"payloads must be a contiguous int64 [{c}] tensor "
                         f"on {dev}")
+
+    def cost():   # three words (and the payloads) read; four words and a
+        # flag written
+        return (OPS_PER_HASH * c * n_attempts,
+                8.0 * (3 + (c if payloads is not None else 0) + 4) + 1)
+
     if dev.type == "cpu":
-        return mine_seal_ref(prev_hash, digest, nonce_offset, c, n_attempts,
-                             bits, payloads)
+        with cost_analysis.kernel("mine_seal", cost):
+            return mine_seal_ref(prev_hash, digest, nonce_offset, c,
+                                 n_attempts, bits, payloads)
+    out = torch.empty(4, dtype=torch.int64, device=dev)
+    solved = torch.empty((), dtype=torch.bool, device=dev)
+    cost_analysis.report_kernel("mine_seal", cost)
+    if dev.type == "meta":
+        return ({"winner": out[0], "pow_hash": out[1], "nonce": out[2],
+                 "solved": solved}, out[3])
     lib = _lib()
     tile = race_tile(n_attempts, c, chunk)
     part, ticket, stream = _launch_buffers(dev, c, n_attempts, tile)
-    out = torch.empty(4, dtype=torch.int64, device=dev)
-    solved = torch.empty((), dtype=torch.bool, device=dev)
     err = lib.repro_mine_seal(
         prev_hash.data_ptr(), nonce_offset.data_ptr(),
         None if payloads is None else payloads.data_ptr(), digest.data_ptr(),

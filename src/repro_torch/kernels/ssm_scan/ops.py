@@ -12,6 +12,12 @@ wrapper does, it hands the kernels fp32 copies of its inputs (and
 contiguous ones: B_t and C_t arrive as slices of one projection), so the
 inputs may be any float dtype, and autograd takes the copies back to
 them; y comes back in u's dtype. Any T, d_in and d_state <= 64.
+
+On meta tensors (the dry-run) ``ssm_scan`` returns y, the final h and,
+under grad, the gradients as meta tensors of the kernels' shapes,
+computes nothing and never runs the plain twin. Every call reports the
+kernel's cost to the active ``launch.cost_analysis`` counters
+(:func:`cost`).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan.ref import CHUNK, ssm_scan_ref
+from repro_torch.launch import cost_analysis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P] * 8 + [_I] * 4 + [_P]
@@ -51,6 +58,27 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
+def cost(bsz: int, t: int, d_in: int, ds: int, *, chunks: bool = False,
+         backward: bool = False, dh: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of one call on fp32 inputs, n = B·T·d_in. Forward:
+    5·ds + 3 flops a (row, step, channel) (dt·a, the state's and the
+    output's multiply-adds; dt·u, u·d_skip, the add); u, dt, B_t, C_t, a
+    and d_skip read, y and the final h written once, and with ``chunks``
+    the state entering each chunk of ``ref.CHUNK`` steps. Backward: twice
+    the forward's flops (each chunk's states recomputed, then the reverse
+    sweep); the forward's inputs, its chunk states, dy (and with ``dh``
+    the final h's cotangent) read, the six gradients written once."""
+    n, states = bsz * t * d_in, bsz * d_in * ds
+    inputs = 2 * n + 2 * bsz * t * ds + d_in * ds + d_in
+    chunk_states = bsz * -(-t // CHUNK) * d_in * ds
+    flops = 5 * n * ds + 3 * n
+    if backward:
+        words = 2 * inputs + chunk_states + n + (states if dh else 0)
+        return float(2 * flops), float(4 * words)
+    words = inputs + n + states + (chunk_states if chunks else 0)
+    return float(flops), float(4 * words)
+
+
 def _launch(u, dt, bmat, cmat, a, d_skip, chunks: bool):
     """The forward kernel on fp32 contiguous CUDA inputs: (y, final h,
     the states entering each chunk or None)."""
@@ -58,16 +86,20 @@ def _launch(u, dt, bmat, cmat, a, d_skip, chunks: bool):
     ds = a.shape[1]
     y = torch.empty((bsz, t, d_in), dtype=torch.float32, device=u.device)
     h = torch.empty((bsz, d_in, ds), dtype=torch.float32, device=u.device)
+    h_chunks = (torch.empty((bsz, -(-t // CHUNK), d_in, ds),
+                            dtype=torch.float32, device=u.device)
+                if chunks else None)
+    cost_analysis.report_kernel("ssm_scan", lambda: cost(
+        bsz, t, d_in, ds, chunks=chunks))
+    if u.device.type == "meta":
+        return y, h, h_chunks
     lib = _lib()
     stream = torch.cuda.current_stream(u.device).cuda_stream
     ptrs = [x.data_ptr() for x in (u, dt, bmat, cmat, a, d_skip, y, h)]
     if chunks:
-        h_chunks = torch.empty((bsz, -(-t // CHUNK), d_in, ds),
-                               dtype=torch.float32, device=u.device)
         err = lib.repro_ssm_scan_chunks(*ptrs, h_chunks.data_ptr(), CHUNK,
                                         bsz, t, d_in, ds, stream)
     else:
-        h_chunks = None
         err = lib.repro_ssm_scan(*ptrs, bsz, t, d_in, ds, stream)
     _build.check(lib, err, "ssm_scan")
     ssm_scan.launches += 1
@@ -82,13 +114,17 @@ def ssm_scan_bwd(u, dt, bmat, cmat, a, d_skip, h_chunks, dy, dh=None):
     launch a call (``ssm_scan_bwd.launches``)."""
     bsz, t, d_in = u.shape
     ds = a.shape[1]
-    lib = _lib_bwd()
     grads = [torch.empty(x.shape, dtype=torch.float32, device=u.device)
              for x in (u, dt, bmat, cmat, a, d_skip)]
-    work = torch.empty(lib.repro_ssm_scan_bwd_workspace(bsz, t, d_in, ds),
-                       dtype=torch.float32, device=u.device)
     dy = dy.to(torch.float32).contiguous()
     dh = None if dh is None else dh.to(torch.float32).contiguous()
+    cost_analysis.report_kernel("ssm_scan_bwd", lambda: cost(
+        bsz, t, d_in, ds, backward=True, dh=dh is not None))
+    if u.device.type == "meta":
+        return tuple(grads)
+    lib = _lib_bwd()
+    work = torch.empty(lib.repro_ssm_scan_bwd_workspace(bsz, t, d_in, ds),
+                       dtype=torch.float32, device=u.device)
     err = lib.repro_ssm_scan_bwd(
         *(x.data_ptr() for x in (u, dt, bmat, cmat, a, d_skip, h_chunks,
                                  dy)),
@@ -145,11 +181,13 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
         raise ValueError(f"ssm_scan: T={t}, ds={ds}, B={bsz}: the kernel "
                          f"takes T >= 1, ds <= {MAX_D_STATE}, B <= 65535")
     devices = {x.device for x in (u, dt, bmat, cmat, a, d_skip)}
-    if len(devices) != 1 or u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssm_scan: inputs must lie on one cpu or cuda "
-                         f"device, not {devices}")
+    if len(devices) != 1 or u.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"ssm_scan: inputs must lie on one cpu, cuda or "
+                         f"meta device, not {devices}")
     if u.device.type == "cpu":
-        return ssm_scan_ref(u, dt, bmat, cmat, a, d_skip)
+        with cost_analysis.kernel("ssm_scan",
+                                  lambda: cost(bsz, t, d_in, ds)):
+            return ssm_scan_ref(u, dt, bmat, cmat, a, d_skip)
     f32 = [x.to(torch.float32).contiguous()
            for x in (u, dt, bmat, cmat, a, d_skip)]
     if torch.is_grad_enabled() and any(

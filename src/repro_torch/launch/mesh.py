@@ -33,8 +33,11 @@ on CUDA tensors is staged through pinned host buffers here, by name
 op's transport; the arithmetic stays on the card. gloo ranks sharing one
 card measure no multi-GPU communication.
 
-The JAX package's ``make_production_mesh`` and its TPU constants have no
-counterpart: the port's meshes are the ranks a caller starts.
+The JAX package's ``make_production_mesh`` has its counterpart in
+``launch.dryrun.DryMesh``: one rank of a mesh of any extents with no
+process group, whose collectives give outputs of their shapes and count
+their bytes as a rank's do; the H100's constants are in
+``launch/analysis.py``.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import cost_analysis
 
 BACKENDS = ("gloo", "nccl")
 
@@ -159,9 +163,12 @@ class ClientMesh:
 
     def _count(self, op: str, nbytes: float, axes: Tuple[str, ...]
                ) -> None:
+        """Count ``nbytes`` received by ``op`` over ``axes``, here and in
+        the active ``cost_analysis`` counters."""
         key = f"{op} over {'+'.join(axes)}"
         self.received_by_axes[key] = self.received_by_axes.get(key, 0) \
             + int(nbytes)
+        cost_analysis.report_collective(key, nbytes)
 
     def view(self, axes: Axes) -> "ClientMesh":
         """The mesh of ``axes`` (a name or a tuple of names; kept in this

@@ -11,11 +11,18 @@ greedy decode through the cache (the JAX package's ``launch/serve.py``).
       --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch paligemma-3b --size one-h100 --batch 4 \\
-      --prompt-len 2048 --gen 32      # also xlstm-125m
+      --prompt-len 2048 --gen 32      # also xlstm-125m, minicpm-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch kimi-k2-1t-a32b --size one-h100 --batch 4 \\
+      --prompt-len 2048 --gen 32      # also nemotron-4-15b, qwen3-32b
 
 ``--size smoke`` runs the architecture's CPU-test config, ``--size
-one-h100`` its published widths on one 80 GB H100: cut to fit for Jamba
-and DeepSeek-V2, whole for xLSTM-125M and PaliGemma-3B. Weights are
+one-h100`` its published widths on one 80 GB H100 (``configs/<arch>.py``'s
+``ONE_H100``): cut in depth to fit for Jamba (8 layers, dense MLPs),
+DeepSeek-V2 (4), Qwen3-32B (2), Nemotron-4-15B (16) and phi4-mini (2),
+in depth and in its routed experts (192 of 384) for Kimi K2 (2 layers),
+whole for xLSTM-125M, PaliGemma-3B and MiniCPM-2B (HuBERT X-Large is
+whole too, and encoder-only). Weights are
 random, drawn on the device from ``--seed``; the prompts from ``--seed +
 1`` (for PaliGemma the prompt is its 256 image-patch embeddings, drawn
 N(0, 1), then ``--prompt-len`` - 256 text tokens). The prefill runs the

@@ -367,10 +367,12 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     def train(state: rounds.RoundState, batch, matrix=None, noise=None):
         if not engine:
             build()
-        if noise is None:
+        if noise is None:   # on a meta mesh shapes alone: nothing drawn
             noise = {stage: {k: v[0] for k, v in leaves.items()}
                      for stage, leaves in rounds.draw_noise(
-                         rspec, flat_abs, 1, state.generator, "cpu").items()}
+                         rspec, flat_abs, 1, state.generator,
+                         "meta" if mesh.device.type == "meta" else "cpu"
+                     ).items()}
         noise = {stage: {k: specs_lib.shard_leaf(
                      v, (None,) + mspecs[k], mesh).to(mesh.device)
                      for k, v in leaves.items()}

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_traced
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models import layers
@@ -79,7 +79,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device: DeviceLike = "cuda") -> Params:
     """A zeroed kv cache on ``device`` (the card unless asked for the
     CPU; raises without a GPU)."""
-    device = resolve_device(device)
+    device = resolve_traced(device)
     s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     if cfg.mla is not None:
         m = cfg.mla
@@ -509,21 +509,25 @@ def mla_decode(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
                ) -> Tuple[torch.Tensor, Params]:
     """Single-token MLA decode in the absorbed form. x_t: [B, d]; pos: the
     current position (a Python int). Writes the step's latent and rope key
-    into ``cache`` in place and returns it; a ``pos`` past the cache's
-    capacity raises ``ValueError`` before any write (the reference clamps
-    the write onto the last slot). Under ``par`` see
-    :func:`_mla_decode_par`."""
+    into ``cache`` in place and returns it. Under a sliding window the
+    latent cache is a ring buffer of ``window`` slots, as GQA's
+    (:func:`gqa_decode`; the reference writes MLA's cache at ``pos``,
+    clamped onto its last slot); an unwindowed cache holds positions below
+    its capacity, and a later ``pos`` raises ``ValueError`` before any
+    write. Under ``par`` see :func:`_mla_decode_par`."""
     if par is not None and (_mla_tp(params, cfg, par) or par.seq_axes):
         return _mla_decode_par(params, cfg, x_t, pos, cache, par)
     b = x_t.shape[0]
     t = cache["ckv"].shape[1]
-    _check_position(pos, t)
+    if not cfg.sliding_window:
+        _check_position(pos, t)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
     q_nope, q_rope, _ = _mla_q(params, cfg, x_t[:, None, :], posv, par)
     ckv_t, k_rope_t = _mla_kv(params, cfg, x_t[:, None, :], posv)
-    cache["ckv"][:, pos] = ckv_t[:, 0]
-    cache["k_rope"][:, pos] = k_rope_t[:, 0]
-    valid = torch.arange(t, device=x_t.device) <= pos
+    slot = pos % t if cfg.sliding_window else pos
+    cache["ckv"][:, slot] = ckv_t[:, 0]
+    cache["k_rope"][:, slot] = k_rope_t[:, 0]
+    valid = _valid_slots(cfg, pos, torch.arange(t, device=x_t.device), t)
     mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, :]
     out = _mla_attend(params, cfg, q_nope, q_rope, cache["ckv"],
                       cache["k_rope"], mask, par)
@@ -537,27 +541,30 @@ def _mla_decode_par(params: Params, cfg: ModelConfig, x_t: torch.Tensor,
     latent and rope key whole. With the cache's positions split over
     ``par.seq_axes`` (each rank one block of slots) every head's absorbed
     query (``q_nope W_uk``) and rope query are gathered over the model
-    axes, only the rank holding slot ``pos`` writes it, each rank attends
-    over its block in the latent space and the blocks' partials combine
-    exactly (:func:`_softmax_blocks`); the latent output is then cut back
-    to this rank's heads for ``w_uv`` and ``w_o``'s row block. With every
-    position on every rank each rank attends for its own heads."""
+    axes, only the rank holding slot ``pos`` (``pos % S_cache`` under a
+    window) writes it, each rank attends over its block in the latent
+    space and the blocks' partials combine exactly
+    (:func:`_softmax_blocks`); the latent output is then cut back to this
+    rank's heads for ``w_uv`` and ``w_o``'s row block. With every position
+    on every rank each rank attends for its own heads."""
     b = x_t.shape[0]
     hd, m = cfg.resolved_head_dim, cfg.mla
     tp = _mla_tp(params, cfg, par)
     s_block = cache["ckv"].shape[1]
     s_cache = s_block * par.seq_extent
-    _check_position(pos, s_cache)
+    if not cfg.sliding_window:
+        _check_position(pos, s_cache)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
     q_nope, q_rope, q_lo = _mla_q(params, cfg, x_t[:, None, :], posv, par,
                                   tp)
     ckv_t, k_rope_t = _mla_kv(params, cfg, x_t[:, None, :], posv)
-    owner, slot = divmod(pos, s_block)
+    owner, slot = divmod(pos % s_cache if cfg.sliding_window else pos,
+                         s_block)
     if owner == par.seq_index:
         cache["ckv"][:, slot] = ckv_t[:, 0]
         cache["k_rope"][:, slot] = k_rope_t[:, 0]
     idx = par.seq_index * s_block + torch.arange(s_block, device=x_t.device)
-    valid = idx <= pos
+    valid = _valid_slots(cfg, pos, idx, s_cache)
     if not par.seq_axes:
         mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, :]
         out = _mla_attend(params, cfg, q_nope, q_rope, cache["ckv"],

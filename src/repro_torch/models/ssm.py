@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_traced
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import layers, parallel
 
@@ -134,7 +134,7 @@ def init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     """A zeroed conv and scan state on ``device`` (the card unless asked
     for the CPU; raises without a GPU)."""
     s, d_in, _ = _dims(cfg)
-    device = resolve_device(device)
+    device = resolve_traced(device)
     return {
         "conv": torch.zeros((batch, s.d_conv - 1, d_in), dtype=dtype,
                             device=device),

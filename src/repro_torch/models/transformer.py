@@ -68,7 +68,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_traced
 from repro_torch.models import attention, layers, moe as moe_lib, \
     ssm as ssm_lib, xlstm as xlstm_lib
 from repro_torch.tree import tree_map
@@ -527,7 +527,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: DeviceLike = "cuda") -> Params:
     """Zeroed caches for decode, on ``device`` (the card unless asked
     for the CPU; raises without a GPU)."""
-    device = resolve_device(device)
+    device = resolve_traced(device)
     n_per = _n_periods(cfg)
     state: Params = {}
     if cfg.n_dense_prefix:

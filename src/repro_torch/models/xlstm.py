@@ -31,6 +31,14 @@ takes no gradient, so that reason does not bind here.
 Decode writes the states in place (``copy_``), as ``ssm_decode`` does, and
 returns them.
 
+On meta tensors (the dry-run, ``launch/dryrun.py``) the sLSTM's T steps,
+identical in shape, run as one step that the cost counters count T times
+(``launch.cost_analysis.repeated``; under grad :class:`_SLSTMSteps`, its
+backward likewise, with the engine's sum of each step's slice of the
+projections' gradient), as the reference's HLO count multiplies its
+scan's body by its trips: a trace of T = 32 768 steps op by op would take
+hours on meta tensors.
+
 Under ``par`` (``models/parallel.py``, a step on a mesh) a block runs on
 this rank's channels of d_in when its channel leaves are blocks over the
 model axes (``w_down``'s rows shorter than d_in); d_in = H hd, so a block
@@ -67,7 +75,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_traced
+from repro_torch.launch import cost_analysis
 from repro_torch.models import attention, layers, parallel
 
 Params = Dict[str, object]
@@ -308,7 +317,7 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     """A zeroed mLSTM state on ``device`` (the card unless asked for the
     CPU; raises without a GPU)."""
     x, d_in, hd = _dims(cfg)
-    device = resolve_device(device)
+    device = resolve_traced(device)
     h = cfg.n_heads
     return {"C": torch.zeros((batch, h, hd, hd), device=device),
             "n": torch.zeros((batch, h, hd), device=device),
@@ -412,6 +421,77 @@ def _slstm_step_rec(r_cat: torch.Tensor, f_bias: torch.Tensor, carry,
     return (c, n, m_new, h_new), h_new
 
 
+class _SLSTMSteps(torch.autograd.Function):
+    """The sLSTM's T steps on meta tensors under grad: ``forward(r_cat,
+    f_bias, proj, c, n, m, h) -> (hs [B, T, H, hd], c, n, m, h)`` runs one
+    step counted T times, and its stack; ``backward`` runs that step's
+    backward (its carry requiring grad, as after the first step) counted
+    T times, each with the engine's gradient of the step's slice of the
+    projections (``select_backward``) and the sums of the steps'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, r_cat, f_bias, proj, *carry):
+        t = proj.shape[1]
+        ins = [x.detach().requires_grad_(x.requires_grad)
+               for x in (r_cat, f_bias, proj[:, 0])]
+        ins += [x.detach().requires_grad_(True) for x in carry]
+        # the step's graph keeps its own saved tensors: under a checkpoint
+        # (``rounds._microbatched_grad``) they would be recomputed, the
+        # whole checkpointed region with them, inside :meth:`backward`'s
+        # count of T trips
+        with torch.enable_grad(), cost_analysis.repeated(t), \
+                torch.autograd.graph.saved_tensors_hooks(lambda x: x,
+                                                         lambda x: x):
+            out, h = _slstm_step_rec(ins[0], ins[1], tuple(ins[3:]), ins[2])
+        ctx.step = (ins, out)
+        ctx.shape = tuple(proj.shape)
+        ctx.carry_grad = [x.requires_grad for x in carry]
+        return (torch.stack([h.detach()] * t, dim=1),
+                *(x.detach() for x in out))
+
+    @staticmethod
+    def backward(ctx, d_hs, *d_carry):
+        ins, out = ctx.step
+        shape, t = ctx.shape, ctx.shape[1]
+        want = [i for i, x in enumerate(ins) if x.requires_grad]
+        sums = {i: torch.zeros_like(ins[i]) for i in want if i != 2}
+        d_proj = torch.zeros(shape, dtype=ins[2].dtype, device=d_hs.device)
+        d_out = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(d_carry, out)]
+        with cost_analysis.repeated(t):
+            d_out[3] = d_out[3] + d_hs[:, 0]
+            grads = torch.autograd.grad(out, [ins[i] for i in want], d_out,
+                                        allow_unused=True)
+            for i, g in zip(want, grads):
+                if g is None:
+                    continue
+                if i == 2:   # the step's slice of the projections
+                    d_proj = d_proj + torch.ops.aten.select_backward(
+                        g, shape, 1, 0)
+                else:
+                    sums[i] = sums[i] + g
+        res = [sums.get(i) for i in range(len(ins))]
+        res[2] = d_proj if ins[2].requires_grad else None
+        for k, needed in enumerate(ctx.carry_grad):
+            if not needed:
+                res[3 + k] = None
+        return tuple(res)
+
+
+def _slstm_steps_meta(r_cat, f_bias, proj, carry):
+    """The sLSTM's T steps on meta tensors: (hs [B, T, H, hd], the final
+    carry), one step counted T times (:class:`_SLSTMSteps` under grad)."""
+    t = proj.shape[1]
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r_cat, f_bias, proj, *carry)):
+        hs, *carry = _SLSTMSteps.apply(r_cat, f_bias, proj, *carry)
+        return hs, tuple(carry)
+    with cost_analysis.repeated(t):
+        carry, h = _slstm_step_rec(r_cat, f_bias, carry, proj[:, 0])
+    return torch.stack([h] * t, dim=1), carry
+
+
 def _slstm_heads(params: Params, cfg: ModelConfig, u: torch.Tensor, par,
                  tp: bool):
     """(the input projections [..., 4, h hd] of u at the heads the rank
@@ -460,13 +540,16 @@ def slstm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
              torch.zeros(shape, device=x.device),
              torch.full(shape, _NEG_M, device=x.device),
              torch.zeros(shape, device=x.device))
-    hs = []
-    for step in range(t):
-        carry, h = _slstm_step_rec(r_cat, f_bias, carry, proj[:, step])
-        hs.append(h)
+    if x.device.type == "meta":   # the dry-run: one step, counted t times
+        hs, carry = _slstm_steps_meta(r_cat, f_bias, proj, carry)
+    else:
+        steps = []
+        for step in range(t):
+            carry, h = _slstm_step_rec(r_cat, f_bias, carry, proj[:, step])
+            steps.append(h)
+        hs = torch.stack(steps, dim=1)
     del proj
-    h = _channels(torch.stack(hs, dim=1).reshape(b, t, -1), par, tp, c,
-                  head0, hd)
+    h = _channels(hs.reshape(b, t, -1), par, tp, c, head0, hd)
     h = _out_norm(params, cfg, h.to(x.dtype), par, tp)
     return _down(params, h, par, tp), {
         "c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3],
@@ -478,7 +561,7 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     """A zeroed sLSTM state on ``device`` (the card unless asked for the
     CPU; raises without a GPU)."""
     x, d_in, hd = _dims(cfg)
-    device = resolve_device(device)
+    device = resolve_traced(device)
     shape = (batch, cfg.n_heads, hd)
     return {"c": torch.zeros(shape, device=device),
             "n": torch.zeros(shape, device=device),

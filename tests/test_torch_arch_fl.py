@@ -17,7 +17,9 @@ import importlib.util
 import io
 import json
 import os
+import types
 from contextlib import redirect_stdout
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from repro.data import pipeline as jpipeline
 from repro.launch import steps as jsteps
 from repro.models import registry as jregistry
 from repro_torch import configs, kernels, tree
+from repro_torch.configs import base as configs_base
 from repro_torch.core import rounds
 from repro_torch.launch import steps, train
 from repro_torch.models import registry
@@ -156,7 +159,13 @@ def test_trainer_refuses_an_unknown_arch_and_cohorts_of_an_lm():
                  ["--arch", "xlstm-125m", "--enrolled", "10"]):
         with pytest.raises(SystemExit):
             train.main(argv + ["--device", "cpu"])
-    with pytest.raises(ValueError, match="one-H100"):
+    # an arch module with no one-H100 config (every arch of the zoo has
+    # one): the trainer raises before it draws a param
+    full = configs.get_arch("nemotron-4-15b")
+    bare = types.SimpleNamespace(CONFIG=full, SMOKE=full)
+    with mock.patch.object(configs_base, "_arch_module",
+                           lambda arch_id: bare), \
+            pytest.raises(ValueError, match="one-H100"):
         _train(["--arch", "nemotron-4-15b", "--size", "one-h100"])
 
 

@@ -191,8 +191,19 @@ def test_wrappers_validate_inputs():
         fedavg_ops.fedavg_flat(x, w, torch.zeros((3, 5)))
     with pytest.raises(TypeError):
         fedavg_ops.digest_div_flat(x.t())          # not contiguous
+    # meta tensors take the dry-run's branch (the outputs' shapes, no
+    # launch); a device that is neither cpu, cuda nor meta raises
+    total, res = fedavg_ops.digest_div_flat(x.to("meta"))
+    assert (total.shape, res.shape) == ((), (3,))
+    assert total.device.type == res.device.type == "meta"
+
+    class Elsewhere(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("xpu")
+
     with pytest.raises(ValueError):
-        fedavg_ops.digest_div_flat(x.to("meta"))   # neither cuda nor cpu
+        fedavg_ops.digest_div_flat(x.as_subclass(Elsewhere))
     with pytest.raises(TypeError):
         fedavg_ops.digest_divergence_tree({"n": torch.zeros((3, 2),
                                                             dtype=torch.int64)})

@@ -17,7 +17,9 @@ import io
 import json
 import os
 import sys
+import types
 from contextlib import redirect_stdout
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from repro.models import attention as jattention
 from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
 from repro_torch import configs
+from repro_torch.configs import base as configs_base
 from repro_torch.launch import serve
 from repro_torch.core import detection
 from repro_torch.models import (attention, layers, registry, ssm,
@@ -112,8 +115,13 @@ def test_one_h100_config_is_jamba_cut_to_one_period_without_moe():
                                        "moe": None}
     assert cfg.layer_kinds() == ("ssm",) * 3 + ("attn",) + ("ssm",) * 4
     assert 8.99e9 < cfg.param_count() < 9.01e9     # 36.0 GB in fp32
-    with pytest.raises(ValueError):   # an arch with no one-H100 config
-        configs.get_one_h100_arch("nemotron-4-15b")
+    # an arch module with no one-H100 config raises (every arch of the
+    # zoo has one)
+    bare = types.SimpleNamespace(CONFIG=full, SMOKE=full)
+    with mock.patch.object(configs_base, "_arch_module",
+                           lambda arch_id: bare), \
+            pytest.raises(ValueError):
+        configs.get_one_h100_arch("jamba-1.5-large-398b")
 
 
 def test_one_h100_deepseek_is_four_layers_at_the_published_widths():

@@ -185,11 +185,18 @@ def test_pow_wrapper_validates_inputs():
         pow_ops.pow_race_flat(good, torch.zeros(3, dtype=torch.int32), good, 8)
     with pytest.raises(ValueError):
         pow_ops.pow_race_flat(good, torch.zeros(3, dtype=torch.int64), good, 0)
+    # meta tensors take the dry-run's branch: outputs of the kernel's
+    # shapes, no launch; a device that is neither cpu, cuda nor meta raises
+    before = pow_ops.pow_race_flat.launches
+    h, n = pow_ops.pow_race_flat(good.to("meta"),
+                                 torch.zeros(3, dtype=torch.int64,
+                                             device="meta"),
+                                 good.to("meta"), 8)
+    assert all(x.device.type == "meta" and x.shape == (3,)
+               and x.dtype == torch.int64 for x in (h, n))
+    assert pow_ops.pow_race_flat.launches == before
     with pytest.raises(ValueError):
-        pow_ops.pow_race_flat(good.to("meta"),
-                              torch.zeros(3, dtype=torch.int64,
-                                          device="meta"),
-                              good.to("meta"), 8)
+        pow_ops._check_race(torch.device("xpu"), 3, 8, None)
 
 
 def _jax_seal(prev, digest, payloads, off, n, chunk, bits):
@@ -330,16 +337,27 @@ _W = mining.as_word
     (dict(payloads=torch.zeros(4, dtype=torch.int32)), TypeError),
     (dict(nonce_offset=_W(0).to("meta")), ValueError),
     (dict(prev_hash=_W(0).to("meta"), digest=_W(0).to("meta"),
-          nonce_offset=_W(0).to("meta")), ValueError),
+          nonce_offset=_W(0).to("meta")), None),
 ], ids=["c0", "c65536", "n0", "n2^31", "chunk0", "chunk2^24+1", "bits-1",
         "bits33", "digest-shape", "prev-dtype", "payloads-shape",
         "payloads-dtype", "offset-device", "meta-device"])
 def test_mine_seal_validates_inputs(kwargs, error):
+    """Each bad input raises; words all on the meta device take the
+    dry-run's branch (``error`` None): the stage's outputs as meta
+    tensors, no launch."""
     args = dict(prev_hash=_W(1), digest=_W(2), n_clients=4, n_attempts=8,
                 nonce_offset=_W(0), difficulty_bits=4)
     args.update(kwargs)
     prev, digest = args.pop("prev_hash"), args.pop("digest")
     c, n = args.pop("n_clients"), args.pop("n_attempts")
+    if error is None:
+        before = pow_ops.pow_race_flat.launches
+        metrics, new_hash = pow_ops.mine_seal(prev, digest, c, n, **args)
+        assert all(v.device.type == "meta" and v.shape == ()
+                   for v in [new_hash, *metrics.values()])
+        assert metrics["solved"].dtype == torch.bool
+        assert pow_ops.pow_race_flat.launches == before
+        return
     with pytest.raises(error):
         pow_ops.mine_seal(prev, digest, c, n, **args)
 

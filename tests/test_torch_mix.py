@@ -129,8 +129,18 @@ def test_mix_rows_flat_validates_inputs():
     with pytest.raises(ValueError, match="row blocks"):   # past the grid
         fedavg_ops.mix_rows_flat(
             torch.zeros((fedavg_ops.MIX_MAX_ROWS + 1, 1)), torch.zeros((1, 3)))
+    # meta tensors take the dry-run's branch (the output's shape, no
+    # launch); a device that is neither cpu, cuda nor meta raises
+    out = fedavg_ops.mix_rows_flat(w.to("meta"), x.to("meta"))
+    assert out.device.type == "meta" and out.shape == (4, 5)
+
+    class Elsewhere(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("xpu")
+
     with pytest.raises(ValueError):
-        fedavg_ops.mix_rows_flat(w.to("meta"), x.to("meta"))
+        fedavg_ops.mix_rows_flat(w, x.as_subclass(Elsewhere))
     assert "mix_rows_flat" in kernels.WRAPPERS
 
 
