@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 chip_smoke.py                  # build, check, run, compare
     python3 chip_smoke.py --profile DIR    # also profile rounds and a prefill
+    python3 chip_smoke.py --phases 1,5,15  # the build and these phases
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 (one ``nvcc`` per source, all at once), sets fp32 matmuls to full
@@ -170,7 +171,9 @@ prints its seconds:
    backward and each launch's share by name, and ``fedavg_flat`` and
    ``digest_div_flat`` (tolerance) and
    the seal (bitwise) at C = 4 on every xLSTM-125M leaf and on phi4-mini's
-   615 M-float embedding, with their times; 7c xLSTM-125M at its
+   615 M-float embedding, with their times (``fedavg_flat``'s beside
+   ``torch.mm`` of the [C, C] broadcast weights, its function, and of the
+   one [1, C] row); 7c xLSTM-125M at its
    published widths cut to one period of its pattern (3 mLSTM + 1 sLSTM,
    XLSTM_TRAIN_LAYERS), 4 clients of 2 x 256 tokens, K = 3, one lazy
    client, by both drivers: bitwise equal, launch counts exact (the seal
@@ -313,7 +316,22 @@ prints its seconds:
    meta ``DryMesh`` counts the bytes phase 9a's rank 0 received, by phase
    and op; (c) the card's warm prefill no faster than the roofline bound
    of (a)'s costs at the fp32 peak (``analysis.roofline(..., peak_flops=
-   PEAK_FLOPS_FP32)``), the ratio printed.
+   PEAK_FLOPS_FP32)``), the ratio printed;
+15. the one-command harness (``benchmarks/run.py``, ``phase_harness``) on
+   the card: one real dry-run record (phi4-mini x decode_32k at
+   pod16x16, ``dryrun.run_pair``), then ``run.main`` over fig3, table6,
+   rounds and roofline on mnist: exit 0, no section failed, both
+   kernel-path tiers' chains valid and their launches exactly what their
+   resolved plans run (``topology.resolve_mix_plan``), their byte
+   estimates ``roofline.round_hot_block_bytes`` of the MLP, the
+   pod16x16 roofline row the record's terms, and the card named in the
+   JSON's ``device``.
+
+``--phases 1,5,15`` runs the build and the listed phases alone (and the
+phases whose outputs they read: 3 reads 2, 14 reads 9); the kernel
+table then has a row for each kernel a phase that ran reported on, its
+launches None where its main path did not run. With no option every
+phase runs.
 
 The last three lines of its output are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": ...}``. It
@@ -322,6 +340,7 @@ exits non-zero, and prints no result, without a GPU or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -917,6 +936,14 @@ NEW_SERVES = {"minicpm-2b": (40, 24.0), "nemotron-4-15b": (16, 50.0),
 # DryMesh, on meta tensors and on the card
 DRY_ARCH, DRY_BATCH, DRY_PROMPT = "minicpm-2b", 4, 2048
 DRY_AXES = ("data", "model")
+# phase 15, the one-command harness (benchmarks/run.py) on the card: its
+# sections, and the one dry-run record its roofline sections read (the
+# pair tests/test_torch_dryrun.py traces)
+HARNESS_ONLY = ("fig3", "table6", "rounds", "roofline")
+HARNESS_DRY_PAIR = ("phi4-mini-3.8b", "decode_32k")
+# bench_rounds.bench_kernel_path's defaults, the reference's kernel path:
+# rounds, clients, tau, mining attempts
+HARNESS_PATH = dict(k=8, clients=20, tau=4, attempts=1024)
 
 # the decode state of a mesh serve against one process, each leaf and
 # layer held at its scale: max |diff| <= CARD_CPU_ATOL + CARD_CPU_RTOL
@@ -3512,9 +3539,16 @@ def phase_train_kernels(torch, dev, report):
     timed["fedavg_flat"][f"leaf_{big}"]["plain_ms"] = timing.kernel_ms(
         lambda: fedavg_ref.fedavg_flat_ref(x_big, uniform),
         f"fedavg_flat plain C={c} leaf_{big}")
+    # the library call of the kernel's function: the [C, C] broadcast
+    # weights times x, C rows out; beside it the one-row [1, C] product,
+    # which writes one row where the kernel writes C
+    w_rows = uniform.expand(c, c).contiguous()
     timed["fedavg_flat"][f"leaf_{big}"]["library_ms"] = timing.kernel_ms(
-        lambda: torch.mm(uniform[None], x_big),
+        lambda: torch.mm(w_rows, x_big),
         f"fedavg_flat library (torch.mm) C={c} leaf_{big}")
+    timed["fedavg_flat"][f"leaf_{big}"]["library_one_row_ms"] = \
+        timing.kernel_ms(lambda: torch.mm(uniform[None], x_big),
+                         f"fedavg_flat one-row torch.mm C={c} leaf_{big}")
     timed["digest_div_flat"][f"leaf_{big}"]["plain_ms"] = timing.kernel_ms(
         lambda: fedavg_ref.digest_div_flat_ref(x_big),
         f"digest_div_flat plain C={c} leaf_{big}")
@@ -3545,9 +3579,12 @@ def phase_train_kernels(torch, dev, report):
                             f"fedavg_flat C={c} {tag}", reps=5),
         bound_ms=1e3 * max((8 * c * n + 16 * c) / PEAK_BYTES_S,
                            2 * c * n / PEAK_ALU_OPS_S),
-        library_ms=timing.kernel_ms(lambda: torch.mm(uniform[None], x),
+        library_ms=timing.kernel_ms(lambda: torch.mm(w_rows, x),
                                     f"fedavg_flat library (torch.mm) C={c} "
-                                    f"{tag}", reps=5))
+                                    f"{tag}", reps=5),
+        library_one_row_ms=timing.kernel_ms(
+            lambda: torch.mm(uniform[None], x),
+            f"fedavg_flat one-row torch.mm C={c} {tag}", reps=5))
     timed["digest_div_flat"][tag] = dict(
         ms=timing.kernel_ms(lambda: fedavg_ops.digest_div_flat(x),
                             f"digest_div_flat C={c} {tag}", reps=5),
@@ -5532,8 +5569,9 @@ def mesh_train_flash_times(torch, dev, report, path=MESH_TRAIN_FLASH_PATH,
         times["over_bound"] = times["ms"] / bound
         times.update(checks[name])
         report[name][key] = out[name] = times
-        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
-                                          checks[name]["max_abs_err"])
+        report[name]["max_abs_err"] = max(
+            report[name].get("max_abs_err", 0.0),
+            checks[name]["max_abs_err"])
     del q, k, v, do, o, lse, plain, qt, kt, vt, lib_out, dot
     _free(torch)
     return out
@@ -6318,6 +6356,119 @@ def phase_dryrun(torch, dev, mesh_received):
     return {"dry-run card prefill": launches}
 
 
+def harness_want(fused_mix):
+    """(the kernel path's round spec under ``fused_mix``, the mode of its
+    plan, ``topology.resolve_mix_plan``, and the launches of one run of it
+    by that plan: the seal once a round, the digest sweep once a leaf a
+    round, and the FedAvg kernel or, for a dense mix under ``fused_mix``,
+    the mix kernel once a leaf a round)."""
+    from repro_torch import kernels
+    from repro_torch.core import rounds, topology
+
+    p = HARNESS_PATH
+    spec = rounds.RoundSpec(n_clients=p["clients"], tau=p["tau"], eta=0.05,
+                            n_lazy=2, sigma2=0.01,
+                            mine_attempts=p["attempts"], difficulty_bits=2,
+                            fused_mix=fused_mix)
+    mode = topology.resolve_mix_plan(spec).mode
+    per_leaf = len(LEAF_WIDTHS) * p["k"]
+    return spec, mode, {
+        **{name: 0 for name in kernels.WRAPPERS}, "pow_race": p["k"],
+        "digest_div_flat": per_leaf,
+        "fedavg_flat": per_leaf if mode == topology.EXEC_FEDAVG else 0,
+        "mix_rows_flat": (per_leaf if mode == topology.EXEC_GATHER
+                          and fused_mix else 0)}
+
+
+def phase_harness(torch, dev):
+    """Phase 15: the one-command harness (``benchmarks/run.py``) on the
+    card. Writes one real dry-run record (``dryrun.run_pair`` of
+    HARNESS_DRY_PAIR at pod16x16) into a directory of its own under
+    ``build/``, then runs ``run.main`` with ``--fast --only HARNESS_ONLY``
+    over it, and holds its JSON: exit 0 and no section failed; each
+    kernel-path tier (``bench_rounds.bench_kernel_path``) with a valid
+    chain, the launches its resolved plan runs (``harness_want``) and the
+    plan's mode as its dispatch, and its byte estimate
+    ``roofline.round_hot_block_bytes`` of the MLP with its ``fused_mix``;
+    the pod16x16 roofline row the record's terms; the card named in
+    ``device``. Prints each section's seconds and the tiers' rounds/s.
+    Returns {path: launches} of the two tiers."""
+    import shutil
+
+    from repro_torch.benchmarks import roofline, run
+    from repro_torch.launch import dryrun
+
+    _free(torch)
+    dry_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    out = os.path.join(ROOT, "build", "chip_smoke_bench_results.json")
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    os.makedirs(dry_dir)
+    if os.path.exists(out):   # no merge over an earlier run's sections
+        os.remove(out)
+    arch, shape = HARNESS_DRY_PAIR
+    t0 = time.perf_counter()
+    rec = dryrun.run_pair(arch, shape, False)
+    with open(os.path.join(dry_dir, f"{arch}__{shape}__pod16x16.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    record_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    code = run.main(["--fast", "--only", ",".join(HARNESS_ONLY), "--out",
+                     out, "--dryrun-dir", dry_dir])
+    run_s = time.perf_counter() - t0
+    with open(out) as f:
+        res = json.load(f)
+    _free(torch)
+    keys = ["fig3_mnist", "table6_mnist", "rounds_scan_vs_loop",
+            "rounds_kernel_path", "roofline_pod16x16", "roofline_pod2x16x16"]
+    path = res.get("rounds_kernel_path", {})
+    tiers = {name: path.get(name, {}) for name in ("default", "fused_mix")}
+    print("phase 15: " + json.dumps(
+        {"exit": code, "record_s": record_s, "run_s": run_s,
+         "section_s": res.get("section_s"),
+         "rounds_per_s": {n: t.get("rounds_per_s") for n, t in tiers.items()},
+         "fused_over_default": tiers["fused_mix"].get("vs_default"),
+         "dispatch": {n: t.get("dispatch") for n, t in tiers.items()},
+         "launches": {n: t.get("launches") for n, t in tiers.items()},
+         "device": res.get("device")}), flush=True)
+    require(code == 0, f"phase 15: the harness exited {code}")
+    for key in keys:
+        require(key in res and not (isinstance(res[key], dict)
+                                    and "error" in res[key]),
+                f"phase 15: section {key} missing or failed: "
+                f"{res.get(key)}")
+    mlp_bytes = 4 * sum(LEAF_WIDTHS.values())
+    p = HARNESS_PATH
+    for name, tier in tiers.items():
+        spec, mode, want = harness_want(name == "fused_mix")
+        require(tier["chain_valid"], f"phase 15: {name} tier's chain is "
+                                     "invalid")
+        require(tier["launches"] == want,
+                f"phase 15: {name} tier launched {tier['launches']}, its "
+                f"plan runs {want}")
+        require(tier["dispatch"]["mix_mode"] == mode,
+                f"phase 15: {name} tier's dispatch {tier['dispatch']}, its "
+                f"plan's mode {mode}")
+        est = roofline.round_hot_block_bytes(
+            mlp_bytes, p["clients"], p["attempts"],
+            fused_mix=spec.fused_mix)["total_bytes"]
+        require(tier["est_hot_block_bytes_per_round"] == est,
+                f"phase 15: {name} tier's byte estimate "
+                f"{tier['est_hot_block_bytes_per_round']}, want {est}")
+    rows = [r for r in res["roofline_pod16x16"]
+            if (r["arch"], r["shape"]) == HARNESS_DRY_PAIR]
+    terms = ("compute_s", "memory_s", "collective_s", "dominant", "bound_s")
+    require(len(rows) == 1 and all(rows[0][t] == rec["roofline"][t]
+                                   for t in terms),
+            f"phase 15: roofline rows {rows}, the record's terms "
+            f"{rec['roofline']}")
+    require(torch.cuda.get_device_name(0) in res["device"]["card"],
+            f"phase 15: device {res['device']} does not name the card")
+    print("phase 15 ok", flush=True)
+    return {f"harness kernel path ({name})": tier["launches"]
+            for name, tier in tiers.items()}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6412,25 +6563,56 @@ def profile_breakdown(torch, run, profile_dir, tag):
 
 
 def kernel_table(report, by_path):
-    """The rows of the kernel table: each kernel's report, its source, the
-    TPU kernel it replaces, its launches on its main path (and on every
-    path), and its CUDA-event time where the report has none."""
+    """The rows of the kernel table: each kernel a phase reported on, its
+    source, the TPU kernel it replaces, its launches on its main path (None
+    when that path did not run) and on every path that ran, and its
+    CUDA-event time where the report has none."""
     from repro_torch.benchmarks import timing
     from repro_torch.kernels import _build
 
     table = []
     for name in REPLACES:
+        if name not in report:
+            continue
+        main_path = MAIN_PATH_OF[name]
         row = {"name": name, "route": "cuda",
                "source": os.path.relpath(_build.SOURCES[LIBRARY[name]], ROOT),
                "replaces": REPLACES[name],
-               "launches": by_path[MAIN_PATH_OF[name]][name],
-               "launched_by": LAUNCHED_BY[MAIN_PATH_OF[name]],
+               "launches": by_path.get(main_path, {}).get(name),
+               "launched_by": LAUNCHED_BY[main_path],
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                **report[name]}
-        if "events_ms" not in row:
+        if "events_ms" not in row and name in timing.READINGS:
             row["events_ms"] = timing.READINGS[name]["events_ms"]
         table.append(row)
     return table
+
+
+# the phases ``--phases`` names, in the order they run
+PHASES = ("1", "1b", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
+          "5", "6", "7a", "7b", "7c", "7d", "7e", "7f", "8", "9", "10", "11",
+          "12", "13", "14", "15")
+# phase -> the phases whose outputs it reads (3 holds 2's runs to the CPU;
+# 14 holds the dry-run to 9a's received bytes)
+NEEDS = {"3": ("2",), "14": ("9",)}
+
+
+def select_phases(ap, spec):
+    """The phases ``--phases spec`` runs: those listed and those they
+    read; every phase when ``spec`` is None."""
+    if spec is None:
+        return set(PHASES)
+    asked = [p.strip() for p in spec.split(",") if p.strip()]
+    unknown = [p for p in asked if p not in PHASES]
+    if unknown or not asked:
+        ap.error(f"--phases {spec!r}: name phases among {', '.join(PHASES)}")
+    chosen = set()
+    while asked:
+        p = asked.pop()
+        if p not in chosen:
+            chosen.add(p)
+            asked.extend(NEEDS.get(p, ()))
+    return chosen
 
 
 def main(argv=None) -> int:
@@ -6439,7 +6621,12 @@ def main(argv=None) -> int:
                     help="also profile one warm run of the rounds of the "
                          "paper's and the topology path and one prefill of "
                          "each serve path, and write the tables into DIR")
+    ap.add_argument("--phases", metavar="LIST", default=None,
+                    help="comma list of the phases to run after the build "
+                         f"({', '.join(PHASES)}; 3 also runs 2, 14 also "
+                         "runs 9); default every phase")
     opts = ap.parse_args(argv)
+    ran = select_phases(ap, opts.phases)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6473,123 +6660,154 @@ def main(argv=None) -> int:
         print(f"[{label}: {now - clock[0]:.1f} s]", flush=True)
         clock[0] = now
 
-    report = phase_kernels(torch, dev)
-    lap("phase 1")
-    report.update(phase_lm_kernels(torch, dev))
-    torch.cuda.empty_cache()
-    lap("phase 1b")
-    paper = {"pow_race": K, "fedavg_flat": 4 * K, "mix_rows_flat": 0,
-             "digest_div_flat": 4 * K}
-    args, result, state, hist, launches = phase_main_path(
-        torch, dev, MAIN_ARGS, paper, "paper's path", "2")
-    phase_stacked(torch, args, paper)
-    topo = {"pow_race": K, "fedavg_flat": 0, "mix_rows_flat": 4 * K,
-            "digest_div_flat": 4 * K}
-    targs, tresult, tstate, thist, tlaunches = phase_main_path(
-        torch, dev, TOPOLOGY_ARGS, topo, "topology path", "2b")
-    require(tresult["dispatch"]["mix_mode"] == "exec_gather"
-            and tresult["dispatch"]["pow"] == "kernel",
-            f"topology path dispatch {tresult['dispatch']}")
-    phase_adversarial(torch, dev)
-    phase_graph_variants(torch, dev)
-    for tag, a in (("paper", args), ("topology", targs)):
-        print(f"round_ms, {tag} path (ms per round, host clock, warm runs "
-              f"of K = {K} at C = {N_CLIENTS}, by driver): " + json.dumps(
-                  round_ms(torch, a, opts.profile, tag)), flush=True)
-    phase_card_vs_cpu(torch, args, result, state, hist, "3", consensus=True)
-    phase_card_vs_cpu(torch, targs, tresult, tstate, thist, "3b",
-                      consensus=False)
-    # the same comparison for a mix with no custom kernel (bitwise equal
-    # rolls on both devices): its per-client spread is the GEMMs' alone
-    rargs, rresult, rstate, rhist, _ = drive_path(
-        torch, dev, RING_ARGS, {"pow_race": K, "fedavg_flat": 0,
-                                "mix_rows_flat": 0, "digest_div_flat": 4 * K},
-        "ring path")
-    phase_card_vs_cpu(torch, rargs, rresult, rstate, rhist, "3c",
-                      consensus=False)
-    del state, tstate, rstate
-    torch.cuda.empty_cache()
-    lap("phases 2-3c")
+    # each kernel's readings, by the phases that time it; a later phase
+    # adds to the row of a kernel an earlier one reported on
+    report = collections.defaultdict(dict)
+    by_path = {}
+    if "1" in ran:
+        report.update(phase_kernels(torch, dev))
+        lap("phase 1")
+    if "1b" in ran:
+        report.update(phase_lm_kernels(torch, dev))
+        torch.cuda.empty_cache()
+        lap("phase 1b")
+    if "2" in ran:
+        paper = {"pow_race": K, "fedavg_flat": 4 * K, "mix_rows_flat": 0,
+                 "digest_div_flat": 4 * K}
+        args, result, state, hist, by_path["paper"] = phase_main_path(
+            torch, dev, MAIN_ARGS, paper, "paper's path", "2")
+        phase_stacked(torch, args, paper)
+        topo = {"pow_race": K, "fedavg_flat": 0, "mix_rows_flat": 4 * K,
+                "digest_div_flat": 4 * K}
+        targs, tresult, tstate, thist, by_path["topology"] = phase_main_path(
+            torch, dev, TOPOLOGY_ARGS, topo, "topology path", "2b")
+        require(tresult["dispatch"]["mix_mode"] == "exec_gather"
+                and tresult["dispatch"]["pow"] == "kernel",
+                f"topology path dispatch {tresult['dispatch']}")
+        phase_adversarial(torch, dev)
+        phase_graph_variants(torch, dev)
+        for tag, a in (("paper", args), ("topology", targs)):
+            print(f"round_ms, {tag} path (ms per round, host clock, warm "
+                  f"runs of K = {K} at C = {N_CLIENTS}, by driver): "
+                  + json.dumps(round_ms(torch, a, opts.profile, tag)),
+                  flush=True)
+        lap("phase 2")
+    if "3" in ran:
+        phase_card_vs_cpu(torch, args, result, state, hist, "3",
+                          consensus=True)
+        phase_card_vs_cpu(torch, targs, tresult, tstate, thist, "3b",
+                          consensus=False)
+        # the same comparison for a mix with no custom kernel (bitwise
+        # equal rolls on both devices): its per-client spread is the
+        # GEMMs' alone
+        rargs, rresult, rstate, rhist, _ = drive_path(
+            torch, dev, RING_ARGS, {"pow_race": K, "fedavg_flat": 0,
+                                    "mix_rows_flat": 0,
+                                    "digest_div_flat": 4 * K}, "ring path")
+        phase_card_vs_cpu(torch, rargs, rresult, rstate, rhist, "3c",
+                          consensus=False)
+        del state, tstate, rstate
+        torch.cuda.empty_cache()
+        lap("phase 3")
+    if "4" in ran:
+        _, by_path["serve"] = phase_serve(torch, dev, SERVE_ARGS,
+                                          SERVE_LAUNCHES, "4")
+        lap("phase 4")
+        _, by_path["qwen3 serve"] = phase_serve(
+            torch, dev, QWEN_SERVE_ARGS, QWEN_SERVE_LAUNCHES, "4 (qwen3)")
+        torch.cuda.empty_cache()
+        lap("phase 4 (qwen3)")
+        phase_serve(torch, dev, SERVE_SMOKE_ARGS, SERVE_SMOKE_LAUNCHES,
+                    "4 (smoke)")
+        lap("phase 4 (smoke)")
+    if "4b" in ran:
+        phase_serve_agreement(torch, dev, opts.profile)
+        torch.cuda.empty_cache()
+        lap("phase 4b")
+    if "4c" in ran:
+        _, by_path["mla serve"] = phase_serve(torch, dev, MLA_SERVE_ARGS,
+                                              MLA_SERVE_LAUNCHES, "4c")
+        torch.cuda.empty_cache()
+        lap("phase 4c")
+    if "4d" in ran:
+        phase_mla_agreement(torch, dev, opts.profile)
+        torch.cuda.empty_cache()
+        lap("phase 4d")
+    if "4e" in ran:
+        by_path["xlstm serve"] = phase_xlstm(torch, dev, opts.profile)
+        _free(torch)
+        lap("phase 4e")
+    if "4f" in ran:
+        by_path["vlm serve"] = phase_vlm(torch, dev, opts.profile)
+        _free(torch)
+        lap("phase 4f")
+    if "4g" in ran:
+        by_path["audio encoder"] = phase_audio(torch, dev, opts.profile)
+        _free(torch)
+        lap("phase 4g")
+    if "4h" in ran:
+        by_path.update(phase_new_serves(torch, dev))
+        lap("phase 4h")
+    if "5" in ran:
+        phase_sweep(torch, dev)
+        lap("phase 5")
+    if "6" in ran:
+        by_path["cohort"], by_path["dense cohort"] = phase_cohort(
+            torch, dev, report, opts.profile)
+        lap("phase 6")
+    if "7a" in ran:
+        phase_train_grads(torch, dev, report)
+        lap("phase 7a")
+    if "7b" in ran:
+        phase_bwd_times(torch, dev, report)
+        phase_train_kernels(torch, dev, report)
+        lap("phase 7b")
+    if "7c" in ran:
+        by_path["xlstm train"] = phase_lm_train(torch, dev, opts.profile)
+        _free(torch)
+        lap("phase 7c")
+    if "7d" in ran:
+        phase_lm_microbatches(torch, dev)
+        _free(torch)
+        lap("phase 7d")
+    if "7e" in ran:
+        by_path["phi4 train"] = phase_phi4_train(torch, dev, opts.profile)
+        _free(torch)
+        lap("phase 7e")
+    if "7f" in ran:
+        by_path.update({f"{arch} smoke train": counts for arch, counts
+                        in phase_smoke_archs_train(torch, dev).items()})
+        lap("phase 7f")
+    if "8" in ran:
+        by_path.update(phase_sharded(torch, dev))
+        lap("phase 8")
+    if "9" in ran:
+        mesh_serve, mesh_received = phase_mesh_serve(torch, dev)
+        by_path.update(mesh_serve)
+        lap("phase 9")
+    if "10" in ran:
+        by_path.update(phase_mesh_train(torch, dev, report))
+        lap("phase 10")
+    if "11" in ran:
+        by_path.update(phase_l2_train(torch, dev, report))
+        lap("phase 11")
+    if "12" in ran:
+        by_path.update(phase_family_serve(torch, dev))
+        lap("phase 12a-12b")
+        by_path.update(phase_family_train(torch, dev))
+        lap("phase 12c")
+    if "13" in ran:
+        by_path.update(phase_front_serve(torch, dev))
+        lap("phase 13a-13c")
+        by_path.update(phase_front_train(torch, dev))
+        lap("phase 13d")
+    if "14" in ran:
+        by_path.update(phase_dryrun(torch, dev, mesh_received))
+        lap("phase 14")
+    if "15" in ran:
+        by_path.update(phase_harness(torch, dev))
+        lap("phase 15")
 
-    _, slaunches = phase_serve(torch, dev, SERVE_ARGS, SERVE_LAUNCHES, "4")
-    lap("phase 4")
-    _, qlaunches = phase_serve(torch, dev, QWEN_SERVE_ARGS,
-                               QWEN_SERVE_LAUNCHES, "4 (qwen3)")
-    torch.cuda.empty_cache()
-    lap("phase 4 (qwen3)")
-    phase_serve(torch, dev, SERVE_SMOKE_ARGS, SERVE_SMOKE_LAUNCHES,
-                "4 (smoke)")
-    phase_serve_agreement(torch, dev, opts.profile)
-    torch.cuda.empty_cache()
-    lap("phase 4b")
-    _, mlaunches = phase_serve(torch, dev, MLA_SERVE_ARGS,
-                               MLA_SERVE_LAUNCHES, "4c")
-    torch.cuda.empty_cache()
-    lap("phase 4c")
-    phase_mla_agreement(torch, dev, opts.profile)
-    torch.cuda.empty_cache()
-    lap("phase 4d")
-    xlaunches = phase_xlstm(torch, dev, opts.profile)
-    _free(torch)
-    lap("phase 4e")
-    vlaunches = phase_vlm(torch, dev, opts.profile)
-    _free(torch)
-    lap("phase 4f")
-    alaunches = phase_audio(torch, dev, opts.profile)
-    _free(torch)
-    lap("phase 4g")
-    new_serves = phase_new_serves(torch, dev)
-    lap("phase 4h")
-    phase_sweep(torch, dev)
-    lap("phase 5")
-    clau, dclau = phase_cohort(torch, dev, report, opts.profile)
-    lap("phase 6")
-    phase_train_grads(torch, dev, report)
-    lap("phase 7a")
-    phase_bwd_times(torch, dev, report)
-    phase_train_kernels(torch, dev, report)
-    lap("phase 7b")
-    tlaunches7 = phase_lm_train(torch, dev, opts.profile)
-    _free(torch)
-    lap("phase 7c")
-    phase_lm_microbatches(torch, dev)
-    _free(torch)
-    lap("phase 7d")
-    plaunches = phase_phi4_train(torch, dev, opts.profile)
-    _free(torch)
-    lap("phase 7e")
-    smoke_trains = phase_smoke_archs_train(torch, dev)
-    lap("phase 7f")
-    sharded = phase_sharded(torch, dev)
-    lap("phase 8")
-    mesh_serve, mesh_received = phase_mesh_serve(torch, dev)
-    lap("phase 9")
-    mesh_train = phase_mesh_train(torch, dev, report)
-    lap("phase 10")
-    l2_train = phase_l2_train(torch, dev, report)
-    lap("phase 11")
-    family_serve = phase_family_serve(torch, dev)
-    lap("phase 12a-12b")
-    family_train = phase_family_train(torch, dev)
-    lap("phase 12c")
-    front_serve = phase_front_serve(torch, dev)
-    lap("phase 13a-13c")
-    front_train = phase_front_train(torch, dev)
-    lap("phase 13d")
-    dry = phase_dryrun(torch, dev, mesh_received)
-    lap("phase 14")
-
-    by_path = {"paper": launches, "topology": tlaunches, "serve": slaunches,
-               "mla serve": mlaunches, "xlstm serve": xlaunches,
-               "vlm serve": vlaunches, "audio encoder": alaunches,
-               "cohort": clau, "dense cohort": dclau,
-               "xlstm train": tlaunches7, "phi4 train": plaunches,
-               **{f"{arch} smoke train": counts
-                  for arch, counts in smoke_trains.items()},
-               "qwen3 serve": qlaunches,
-               **sharded, **mesh_serve, **mesh_train, **l2_train,
-               **family_serve, **family_train, **front_serve,
-               **front_train, **new_serves, **dry}
     flag_readings()
     table = kernel_table(report, by_path)
     smi = subprocess.run(
